@@ -1,0 +1,303 @@
+"""Smoke run of the PyTorch/CUDA port on one GPU: `python3 chip_smoke.py`.
+
+Phases, each printing one JSON line; any failure propagates and the script
+exits non-zero:
+
+1. device  — requires CUDA; prints the card's name and, on a line of its own,
+             `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`.
+2. build   — builds the GRU kernels from `codebase_tpu_torch/csrc/` with nvcc.
+3. kernels — holds each kernel against its plain PyTorch version at the
+             rollout shape (a) G=2 T=1 B=65536, the update shape (b) G=2 T=26
+             B=1024 and a ragged shape (c) G=3 T=7 B=1000 (H=128), and times
+             the kernel, the plain version and the `torch.nn.GRU` (cuDNN)
+             yardstick with CUDA events (median of 25 runs after warm-up).
+4. train   — recurrent IDQN on lbforaging:Foraging-8x8-2p-3f-v3 (T=25,
+             layers [128,128], 65536 envs, batch 1024, 8 updates per
+             collect) through `codebase_tpu_torch.run.main`, with the launch
+             counters set to 0 just before and read just after.
+Then the kernel summary line and, last, the device line.
+
+Imports nothing of JAX or of the JAX package.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+import torch
+
+if not torch.cuda.is_available():
+    sys.exit("chip_smoke: torch.cuda.is_available() is false; this smoke run needs a CUDA GPU")
+
+from codebase_tpu_torch import run as port_run  # noqa: E402
+from codebase_tpu_torch.ops import fused_gru as fg  # noqa: E402
+from codebase_tpu_torch.utils.device import resolve_device  # noqa: E402
+
+H = 128
+SHAPES = {
+    "a": dict(G=2, T=1, B=65536, role="rollout: policy step, T=1 over all envs"),
+    "b": dict(G=2, T=26, B=1024, role="update: online/target nets over T+1=26 steps"),
+    "c": dict(G=3, T=7, B=1000, role="ragged: B not a multiple of any tile"),
+}
+# published peaks, dense, no sparsity (NVIDIA data sheets): HBM bytes/s and
+# FP32 (non-tensor-core) flop/s, keyed by the name the card reports
+PEAKS = {
+    "H100 80GB HBM3": (3.35e12, 67e12),  # SXM
+    "H100 PCIe": (2.0e12, 51e12),
+}
+TOL = {
+    # forward outputs are O(1) (tanh-bounded); only rounding order differs
+    "y": (1e-5, 1e-5),
+    "hT": (1e-5, 1e-5),
+    # per-row gradients: one matmul reduction order differs per step
+    "dgi": (1e-5, 1e-5),
+    "dh0": (1e-5, 1e-5),
+    # sums over T*B terms in another order: 1e-4 relative to the largest entry
+    "dW_hh": (1e-4, "1e-4*max|ref|"),
+    "db_hh": (1e-4, "1e-4*max|ref|"),
+    "partials_sum": (1e-5, "1e-5*max|ref|"),
+}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def compare(name, got, ref) -> float:
+    rtol, atol = TOL[name]
+    if isinstance(atol, str):
+        atol = float(atol.split("*")[0]) * ref.abs().max().item()
+    err = (got - ref).abs()
+    bad = err > atol + rtol * ref.abs()
+    if not torch.isfinite(got).all() or bad.any():
+        raise AssertionError(
+            f"{name}: max_abs_err {err.max().item():.3e} over tolerance rtol={rtol} atol={atol:.3e}"
+        )
+    return err.max().item()
+
+
+def time_ms(fn, reps=25, warmup=3) -> float:
+    """Median over `reps` single calls, each between two CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e))
+    return statistics.median(times)
+
+
+def bounds(kernel, G, T, B, P, bw, fp32):
+    """Least time (ms) for the kernel's work: max(bytes / HBM rate, flops /
+    FP32 peak), each input read once and each output written once."""
+    H3 = 3 * H
+    if kernel == "gru_fwd":
+        nbytes = 4 * G * (T * B * H3 + H * H3 + H3 + B * H + T * B * H + B * H)
+        flops = 2 * G * T * B * H * H3
+    elif kernel == "gru_bwd":
+        ins = T * B * H3 + H * H3 + H3 + B * H + 2 * T * B * H + B * H
+        outs = T * B * H3 + B * H + P * (H * H3 + H3)
+        nbytes = 4 * G * (ins + outs)
+        flops = 3 * 2 * G * T * B * H * H3
+    else:  # gru_reduce
+        nbytes = 4 * G * (P + 1) * (H * H3 + H3)
+        flops = G * (P - 1) * (H * H3 + H3)
+    t_bytes, t_ops = nbytes / bw * 1e3, flops / fp32 * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_shape(key, G, T, B, gen, peaks):
+    dev = torch.device("cuda")
+    gi = torch.randn((G, T, B, 3 * H), device=dev, generator=gen)
+    w = torch.randn((G, H, 3 * H), device=dev, generator=gen) * 0.1
+    b = torch.randn((G, 3 * H), device=dev, generator=gen) * 0.1
+    h0 = torch.randn((G, B, H), device=dev, generator=gen)
+    ky = torch.randn((G, T, B, H), device=dev, generator=gen)
+    kh = torch.randn((G, B, H), device=dev, generator=gen)
+    leaves = [t.clone().requires_grad_() for t in (gi, w, b, h0)]
+    plain_leaves = [t.clone().requires_grad_() for t in (gi, w, b, h0)]
+
+    y, hT = fg.FusedGRUSequence.apply(*leaves)
+    yr, hTr = fg.gru_sequence_plain(*plain_leaves)
+    grads = torch.autograd.grad((y * ky).sum() + (hT * kh).sum(), leaves)
+    plain_out = (yr * ky).sum() + (hTr * kh).sum()
+    rgrads = torch.autograd.grad(plain_out, plain_leaves, retain_graph=True)
+    torch.cuda.synchronize()
+    errs = {"y": compare("y", y, yr), "hT": compare("hT", hT, hTr)}
+    for n, g_, r_ in zip(("dgi", "dW_hh", "db_hh", "dh0"), grads, rgrads):
+        errs[n] = compare(n, g_, r_)
+
+    with torch.no_grad():
+        yd = y.detach()
+        dgi, dh0, partials = fg.gru_bwd_cuda(gi, w, b, h0, yd, ky, kh)
+        errs["partials_sum"] = compare(
+            "partials_sum", fg.reduce_partials_cuda(partials), fg.reduce_partials_plain(partials)
+        )
+        P = partials.shape[1]
+        t = {
+            "gru_fwd": time_ms(lambda: fg.gru_fwd_cuda(gi, w, b, h0)),
+            "gru_fwd_plain": time_ms(lambda: fg.gru_sequence_plain(gi, w, b, h0)),
+            "gru_bwd": time_ms(lambda: fg.gru_bwd_cuda(gi, w, b, h0, yd, ky, kh)),
+            "gru_reduce": time_ms(lambda: fg.reduce_partials_cuda(partials)),
+            "gru_reduce_plain": time_ms(lambda: fg.reduce_partials_plain(partials)),
+            "gru_reduce_library": time_ms(lambda: torch.sum(partials, 1)),
+        }
+    # plain backward alone: autograd through the plain forward's graph
+    t["gru_bwd_plain"] = time_ms(
+        lambda: torch.autograd.grad(plain_out, plain_leaves, retain_graph=True)
+    )
+    # yardstick: cuDNN GRU (input projection included), one call per group
+    cudnn = [torch.nn.GRU(H, H).to(dev) for _ in range(G)]
+    x = torch.randn((T, B, H), device=dev, generator=gen)
+    h0c = h0[:, None]  # (G, 1, B, H)
+    with torch.no_grad():
+        t["gru_fwd_library"] = time_ms(lambda: [m(x, h0c[g]) for g, m in enumerate(cudnn)])
+    xg = x.clone().requires_grad_()
+
+    def lib_fwd_bwd():
+        outs = [m(xg, h0c[g]) for g, m in enumerate(cudnn)]
+        torch.autograd.backward([o[0].sum() for o in outs])
+
+    t["gru_bwd_library"] = time_ms(lib_fwd_bwd)
+    del cudnn
+    bw, fp32 = peaks
+    out = {}
+    for k in ("gru_fwd", "gru_bwd", "gru_reduce"):
+        bound_ms, bound_by = bounds(k, G, T, B, P, bw, fp32)
+        names = {"gru_fwd": ("y", "hT"), "gru_bwd": ("dgi", "dW_hh", "db_hh", "dh0"),
+                 "gru_reduce": ("partials_sum",)}[k]
+        out[k] = {
+            "max_abs_err": max(errs[n] for n in names),
+            "errors": {n: errs[n] for n in names},
+            "tolerance": {n: list(TOL[n]) for n in names},
+            "ms": t[k],
+            "plain_ms": t[k + "_plain"],
+            "library_ms": t[k + "_library"],
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+        }
+    return out
+
+
+def main() -> None:
+    # --- 1. device
+    dev = resolve_device("cuda")  # also pins f32 matmuls (allow_tf32 = False)
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    peaks = next((v for k, v in PEAKS.items() if k in name), PEAKS["H100 80GB HBM3"])
+    emit({"phase": "device", "name": name, "nvidia_smi": smi, "count": torch.cuda.device_count(),
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "peaks": {"hbm_bytes_per_s": peaks[0], "fp32_flops": peaks[1]},
+          "peaks_for": next((k for k in PEAKS if k in name), "H100 80GB HBM3 (assumed)")})
+
+    # --- 2. build
+    t0 = time.perf_counter()
+    lib_path = fg.build_library()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "library": lib_path.name,
+          "nvcc_flags": fg.NVCC_FLAGS})
+
+    # --- 3. kernels
+    gen = torch.Generator(device=dev).manual_seed(0)
+    results = {}
+    for key, s in SHAPES.items():
+        results[key] = check_shape(key, s["G"], s["T"], s["B"], gen, peaks)
+        torch.cuda.empty_cache()
+    emit({"phase": "kernels", "card": smi,
+          "shapes": {k: {**SHAPES[k], "H": H} for k in SHAPES}, "results": results})
+
+    # --- 4. train
+    E, T = 65536, 25
+    with tempfile.TemporaryDirectory() as run_dir:
+        argv = [
+            "+algorithm=idqn",
+            "env.name=lbforaging:Foraging-8x8-2p-3f-v3",
+            "env.time_limit=25",
+            "algorithm.model.use_rnn=true",
+            "algorithm.model.layers=[128,128]",
+            f"env.parallel_envs={E}",
+            "algorithm.batch_size=1024",
+            "algorithm.updates_per_collect=8",
+            "algorithm.buffer_size=131072",
+            "algorithm.training_start=0",
+            "algorithm.replay_slot_reuse=clear",
+            # the loop stops once env steps exceed total_steps: three
+            # iterations of (at most) E*T steps each, then one eval + log row
+            f"algorithm.total_steps={2 * E * T}",
+            f"algorithm.eval_interval={2 * E * T}",
+            f"algorithm.log_interval={2 * E * T}",
+            "seed=0",
+            "device=cuda",
+            f"run_dir={run_dir}",
+        ]
+        fg.reset_launch_counts()
+        rows, state = port_run.main(argv)
+        counts = fg.launch_counts()
+        torch.cuda.synchronize()
+    iters = len(state.timings)
+    if iters < 3:
+        raise AssertionError(f"expected at least 3 train iterations, ran {iters}")
+    if not rows:
+        raise AssertionError("results.csv was not written")
+    losses = [float(r["loss"]) for r in rows if r.get("loss")]
+    if not losses or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"losses not finite: {losses}")
+    if counts["fwd"] < 25 * iters or counts["bwd"] < 8 * iters or counts["reduce"] < 8 * iters:
+        raise AssertionError(f"kernels not launched on the main path: {counts} over {iters} iterations")
+    steady = state.timings[1:]
+    emit({
+        "phase": "train", "card": smi, "env": "lbforaging:Foraging-8x8-2p-3f-v3",
+        "parallel_envs": E, "batch_size": 1024, "updates_per_collect": 8, "layers": [128, 128],
+        "iterations": iters, "env_steps": state.env_steps, "updates": state.updates,
+        "launches": counts,
+        "launches_per_iteration_with_eval": {k: v / iters for k, v in counts.items()},
+        "iteration_seconds": [s for _, s in state.timings],
+        "env_steps_per_s_each": [n / s for n, s in state.timings],
+        "env_steps_per_s_after_first": sum(n for n, _ in steady) / sum(s for _, s in steady),
+        "loss": losses,
+        "results_columns": list(rows[0].keys()),
+    })
+
+    b = results["b"]
+    sources = {
+        "gru_fwd": "codebase_tpu/ops/fused_gru.py:80 (_fwd_kernel, pallas_call at :238)",
+        "gru_bwd": "codebase_tpu/ops/fused_gru.py:105 (_bwd_kernel, pallas_call at :299)",
+        "gru_reduce": "codebase_tpu/ops/fused_gru.py:160 (_bwd_kernel's in-order dW_hh/db_hh sum, :160-167)",
+    }
+    summary = []
+    for k, counter in (("gru_fwd", "fwd"), ("gru_bwd", "bwd"), ("gru_reduce", "reduce")):
+        summary.append({
+            "name": k,
+            "route": "cuda",
+            "source": "codebase_tpu_torch/csrc/fused_gru.cu",
+            "replaces": sources[k],
+            "launches": counts[counter],
+            "max_abs_err": max(results[s][k]["max_abs_err"] for s in SHAPES),
+            "ms": b[k]["ms"],
+            "plain_ms": b[k]["plain_ms"],
+            "bound_ms": b[k]["bound_ms"],
+            "bound_by": b[k]["bound_by"],
+            "library_ms": b[k]["library_ms"],
+            "timed_at": "shape b (G=2 T=26 B=1024 H=128)",
+            "rollout_shape_a": {f: results["a"][k][f] for f in ("ms", "plain_ms", "library_ms", "bound_ms")},
+        })
+    emit({"kernels": summary})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})
+
+
+if __name__ == "__main__":
+    main()

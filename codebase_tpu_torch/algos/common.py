@@ -1,0 +1,66 @@
+"""Shared training utilities: the optimizer and target-network updates."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+class Adam:
+    """Adam after a global-norm clip, with the JAX package's exact rules
+    (`optax.chain(optax.clip_by_global_norm(c), optax.adam(lr))`):
+
+    - clip: with `n = sqrt(sum_i |g_i|^2)` over all leaves, every gradient
+      becomes `g` when `n < c`, else `(g / n) * c`. This is not
+      `torch.nn.utils.clip_grad_norm_`, which scales by `c / (n + 1e-6)`;
+    - Adam (torch-default hyperparameters b1=0.9, b2=0.999, eps=1e-8):
+      `mu = (1-b1) g + b1 mu`, `nu = (1-b2) g^2 + b2 nu`, and the update
+      `-lr * (mu / (1-b1^k)) / (sqrt(nu / (1-b2^k)) + eps)` at step k.
+
+    The clip decision stays on the device (`torch.where`), so a step never
+    waits for the host. Parameters are updated in place.
+    """
+
+    def __init__(self, params, lr: float, grad_clip=None, b1=0.9, b2=0.999, eps=1e-8):
+        self.params = list(params)
+        self.lr, self.b1, self.b2, self.eps = float(lr), b1, b2, eps
+        self.grad_clip = float(grad_clip) if grad_clip else None
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.count = 0
+
+    @torch.no_grad()
+    def step(self, grads) -> None:
+        grads = list(grads)
+        if self.grad_clip is not None:
+            g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+            keep = g_norm < self.grad_clip
+            grads = [torch.where(keep, g, (g / g_norm) * self.grad_clip) for g in grads]
+        self.count += 1
+        # optax forms the bias corrections in float32: 1 - f32(b)**count
+        bc1 = float(np.float32(1.0) - np.float32(self.b1) ** np.float32(self.count))
+        bc2 = float(np.float32(1.0) - np.float32(self.b2) ** np.float32(self.count))
+        for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
+            mu.copy_((1.0 - self.b1) * g + self.b1 * mu)
+            nu.copy_((1.0 - self.b2) * (g * g) + self.b2 * nu)
+            p.add_((mu / bc1) / (torch.sqrt(nu / bc2) + self.eps), alpha=-self.lr)
+
+
+def make_optimizer(name: str, params, lr: float, grad_clip=False) -> Adam:
+    """Only Adam (the presets' optimizer) is ported in this slice."""
+    if str(name).lower() != "adam":
+        raise NotImplementedError(f"optimizer {name!r} is not ported yet; use adam")
+    return Adam(params, lr, grad_clip)
+
+
+@torch.no_grad()
+def hard_update(target_params, source_params) -> None:
+    for t, s in zip(target_params, source_params):
+        t.copy_(s)
+
+
+@torch.no_grad()
+def soft_update(target_params, source_params, tau: float) -> None:
+    """Polyak update: target <- (1 - tau) * target + tau * source."""
+    for t, s in zip(target_params, source_params):
+        t.copy_((1.0 - tau) * t + tau * s)

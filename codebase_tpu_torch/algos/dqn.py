@@ -1,0 +1,255 @@
+"""Off-policy value-based family on one device: IDQN in this slice.
+
+One `train_iteration` performs an epsilon-greedy rollout of E parallel
+episodes, the replay insert, U double-Q updates on one pre-gathered batch
+and target maintenance, like the JAX package's jitted iteration. Here the
+host drives it eagerly; all tensors stay on the device and the host reads
+one counter per iteration.
+
+Loss semantics match the JAX package: per-agent double-Q TD loss over whole
+episodes, summed across agents, `filled`-masked mean; joint epsilon
+exploration (one coin per env flips all agents to random actions); hard
+target copy every `target_update_interval_or_tau` updates when that is > 1,
+else a Polyak update. VDN, QMIX, return standardisation and action masks
+wait for later slices and raise.
+"""
+
+from __future__ import annotations
+
+import copy
+import math
+from dataclasses import dataclass, field
+
+import torch
+from torch import nn
+from torch.profiler import record_function
+
+from codebase_tpu_torch.algos.common import hard_update, make_optimizer, soft_update
+from codebase_tpu_torch.envs.api import Environment
+from codebase_tpu_torch.envs.vector import collect_episodes
+from codebase_tpu_torch.models.multi_agent import MultiAgentNetwork
+from codebase_tpu_torch.ops.replay import (
+    ReplayState,
+    batch_to_reference_layout,
+    replay_add,
+    replay_init,
+    replay_sample_many,
+)
+from codebase_tpu_torch.ops.schedules import epsilon_schedule
+from codebase_tpu_torch.utils.params import tree_leaves
+
+
+class DQNModel(nn.Module):
+    """The value-based model: one multi-agent critic (IDQN)."""
+
+    def __init__(self, critic: MultiAgentNetwork, gamma: float, double_q: bool):
+        super().__init__()
+        self.critic = critic
+        self.gamma = float(gamma)
+        self.double_q = bool(double_q)
+
+    @staticmethod
+    def create(env: Environment, model_cfg, algo_cfg, generator=None, device="cpu") -> "DQNModel":
+        name = model_cfg.get("name", "qnetwork")
+        if name != "qnetwork":
+            raise NotImplementedError(
+                f"model {name!r} is not ported yet (ROADMAP.md Queue 1: VDN/QMIX)"
+            )
+        if bool(algo_cfg.get("standardise_returns", False)):
+            raise NotImplementedError(
+                "standardise_returns is not ported yet (ROADMAP.md Queue 1: standardisation)"
+            )
+        if env.has_action_mask:
+            raise NotImplementedError("action masks are not ported yet (ROADMAP.md Queue 1)")
+        critic = MultiAgentNetwork(
+            input_sizes=env.obs_dims,
+            hidden_dims=tuple(model_cfg.layers),
+            output_sizes=env.action_dims,
+            parameter_sharing=model_cfg.parameter_sharing,
+            use_rnn=model_cfg.use_rnn,
+            use_orthogonal_init=model_cfg.use_orthogonal_init,
+            fused_rnn=str(model_cfg.get("fused_rnn", "auto")),
+            generator=generator,
+            device=device,
+        )
+        if str(model_cfg.get("dtype", "float32")) != "float32":
+            raise NotImplementedError("model.dtype other than float32 is not ported yet")
+        return DQNModel(critic, float(algo_cfg.gamma), bool(algo_cfg.double_q))
+
+    def param_leaves(self):
+        """Parameters in the fixed `tree_leaves` order of `critic.param_tree()`."""
+        return tree_leaves(self.critic.param_tree())
+
+    # ---------------------------------------------------------------- acting
+
+    def policy(self, epsilon: float):
+        """Epsilon-greedy rollout policy for `collect_episodes`.
+
+        carry = RNN hiddens (N, L, E, H) or None; obs (E, N, D). Joint
+        exploration: one coin per env flips every agent to a uniform random
+        action."""
+
+        @torch.no_grad()
+        def act(carry, obs, mask, generator):
+            del mask  # maskless envs only in this slice
+            x = obs.transpose(0, 1).unsqueeze(1)  # (N, 1, E, D)
+            q, carry = self.critic(x, carry)
+            q = q[:, 0]  # (N, E, A)
+            greedy = q.argmax(-1)  # (N, E)
+            E = obs.shape[0]
+            explore = torch.rand((E,), generator=generator, device=obs.device) < epsilon
+            rand = torch.randint(
+                0, q.shape[-1], greedy.shape, generator=generator, device=obs.device
+            )
+            actions = torch.where(explore[None, :], rand, greedy)
+            return carry, actions.T.contiguous()  # (E, N)
+
+        return act
+
+    # ------------------------------------------------------------------ loss
+
+    def loss(self, target: "DQNModel", batch: dict):
+        """Episode double-Q TD loss on a reference-layout batch:
+        obss (N, T+1, B, D), actions (N, T, B), rewards (N, T, B),
+        dones (T+1, B), filled (T, B)."""
+        obss = batch["obss"]
+        actions = batch["actions"]
+        q_all, _ = self.critic(obss)  # (N, T+1, B, A)
+        chosen = q_all[:, :-1].gather(-1, actions.unsqueeze(-1)).squeeze(-1)  # (N, T, B)
+        with torch.no_grad():
+            tq_all, _ = target.critic(obss)
+            tq = tq_all[:, 1:]
+            if self.double_q:
+                a_prime = q_all.detach()[:, 1:].argmax(-1, keepdim=True)
+                target_qs = tq.gather(-1, a_prime).squeeze(-1)
+            else:
+                target_qs = tq.amax(-1)  # (N, T, B)
+            dones = batch["dones"][1:][None]  # (1, T, B)
+            returns = batch["rewards"] + self.gamma * target_qs * (1.0 - dones)
+        loss_tb = ((chosen - returns) ** 2).sum(0)  # sum over agents
+        filled = batch["filled"]
+        return (loss_tb * filled).sum() / filled.sum().clamp(min=1.0)
+
+
+@dataclass
+class DQNTrainState:
+    model: DQNModel
+    target: DQNModel
+    opt: object
+    buffer: ReplayState
+    generator: torch.Generator  # rollouts, exploration and replay sampling
+    env_steps: int = 0
+    updates: int = 0
+    last_target_update: int = 0
+    # (env steps, seconds) of each train iteration, host clock around work
+    # that ends in a device sync
+    timings: list = field(default_factory=list)
+
+
+def build_train_functions(env: Environment, eval_env: Environment, cfg, time_limit: int, device):
+    """Construct (init_state(seed), train_iteration(state), evaluate(state,
+    generator)). cfg is the `algorithm` config node."""
+    acfg = cfg
+    n_envs = int(acfg.get("parallel_envs", 1))
+    batch_size = int(acfg.batch_size)
+    # round the episode capacity up to a multiple of the insert width, as
+    # the JAX package does
+    buffer_size = -(-int(acfg.buffer_size) // n_envs) * n_envs
+    updates_per_collect = acfg.get("updates_per_collect", "auto")
+    n_updates = n_envs if updates_per_collect == "auto" else int(updates_per_collect)
+    tau = float(acfg.target_update_interval_or_tau)
+    slot_reuse = str(acfg.get("replay_slot_reuse", "reference"))
+    eps_sched = epsilon_schedule(
+        acfg.eps_decay_style,
+        float(acfg.eps_decay_over),
+        float(acfg.eps_start),
+        float(acfg.eps_end),
+        float(acfg.eps_exp_decay_rate),
+        int(acfg.total_steps),
+    )
+    obs_dtype = getattr(
+        torch, str(acfg.get("replay_obs_dtype", "bfloat16" if env.integer_valued_obs else "float32"))
+    )
+
+    def init_state(seed: int) -> DQNTrainState:
+        init_gen = torch.Generator().manual_seed(int(seed))  # weights, made on the host
+        model = DQNModel.create(env, acfg.model, acfg, generator=init_gen, device=device)
+        target = copy.deepcopy(model).requires_grad_(False)
+        return DQNTrainState(
+            model=model,
+            target=target,
+            opt=make_optimizer(acfg.optimizer, model.param_leaves(), float(acfg.lr), acfg.grad_clip),
+            buffer=replay_init(
+                buffer_size, time_limit, env.n_agents, env.obs_dim, env.n_actions,
+                with_mask=env.has_action_mask, obs_dtype=obs_dtype, device=device,
+            ),
+            generator=torch.Generator(device=device).manual_seed(int(seed)),
+        )
+
+    def update(state: DQNTrainState, batch: dict):
+        """One gradient update, then target maintenance."""
+        model = state.model
+        params = model.param_leaves()
+        loss = model.loss(state.target, batch)
+        grads = torch.autograd.grad(loss, params)
+        state.opt.step(grads)
+        state.updates += 1
+        if tau > 1.0:
+            if state.updates - state.last_target_update >= tau:
+                hard_update(state.target.param_leaves(), params)
+                state.last_target_update = state.updates
+        elif tau < 1.0:
+            soft_update(state.target.param_leaves(), params, tau)
+        return loss.detach()
+
+    def train_iteration(state: DQNTrainState) -> dict:
+        # the named ranges below are what `codebase_tpu_torch.profile` reads
+        epsilon = eps_sched(state.env_steps)
+        with record_function("dqn/rollout"):
+            rollout, _ = collect_episodes(
+                env,
+                state.model.policy(epsilon),
+                state.model.critic.init_hiddens(n_envs),
+                state.generator,
+                n_envs,
+                time_limit,
+                bool(acfg.use_proper_termination),
+            )
+        with record_function("dqn/replay_add"):
+            replay_add(state.buffer, rollout, slot_reuse)
+            state.env_steps += int(rollout.env_steps.item())
+
+        if state.env_steps > int(acfg.training_start) and state.buffer.can_sample(batch_size):
+            with record_function("dqn/updates"):
+                # ONE gather for all updates of this iteration
+                batches = replay_sample_many(state.buffer, state.generator, batch_size, n_updates)
+                losses = [
+                    update(state, batch_to_reference_layout(
+                        {k: (v[u] if v is not None else None) for k, v in batches.items()}
+                    ))
+                    for u in range(n_updates)
+                ]
+                loss = torch.stack(losses).mean()
+        else:
+            loss = torch.tensor(math.nan)  # "no update happened" for the logger's nanmean
+        return {
+            "loss": loss,
+            "epsilon": epsilon,
+            "episode_returns": rollout.episode_returns,  # (E, N)
+            "episode_lengths": rollout.episode_lengths,  # (E,)
+        }
+
+    def evaluate(state: DQNTrainState, generator: torch.Generator) -> dict:
+        """Rollouts on the eval env at `eps_evaluation`."""
+        n = int(acfg.eval_episodes)
+        rollout, _ = collect_episodes(
+            eval_env,
+            state.model.policy(float(acfg.eps_evaluation)),
+            state.model.critic.init_hiddens(n),
+            generator,
+            n,
+            time_limit,
+        )
+        return {"episode_returns": rollout.episode_returns, "episode_lengths": rollout.episode_lengths}
+
+    return init_state, train_iteration, evaluate

@@ -1,0 +1,225 @@
+"""Network specs: MLP and GRU stacks as init/apply pairs over stacked params.
+
+Each spec has `init(generator) -> params` (one network, weights `(in, out)`)
+and `apply(params, x, h)`, where every parameter and input carries a leading
+group axis G: the multi-agent container (`models/multi_agent.py`) runs all
+agents' networks at once with batched matmuls, and the GRU recurrence runs
+all of them in one kernel launch.
+
+Initialisation matches the JAX package (and the reference):
+- MLP: orthogonal init, gain sqrt(2), zero bias on every Linear when
+  `use_orthogonal_init`, else torch's Linear default U(+-sqrt(1/fan_in)).
+- RNN: first Linear and GRU use torch defaults; only the final Linear is
+  orthogonally initialised. GRU weights use U(+-1/sqrt(hidden)).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Tuple
+
+import torch
+
+from codebase_tpu_torch.ops.fused_gru import gru_layer_sequence
+
+# ---------------------------------------------------------------------------
+# Initialisers (one network; CPU tensors from a CPU generator)
+# ---------------------------------------------------------------------------
+
+
+def orthogonal(shape, gain: float, generator: torch.Generator):
+    """Orthogonal init with torch.nn.init.orthogonal_ semantics."""
+    n_rows, n_cols = shape[0], math.prod(shape[1:])
+    a = torch.randn((max(n_rows, n_cols), min(n_rows, n_cols)), generator=generator)
+    q, r = torch.linalg.qr(a)
+    q = q * torch.sign(torch.diagonal(r))
+    if n_rows < n_cols:
+        q = q.T
+    return (gain * q[:n_rows, :n_cols]).reshape(shape).contiguous()
+
+
+def _uniform(shape, bound: float, generator: torch.Generator):
+    return torch.empty(shape).uniform_(-bound, bound, generator=generator)
+
+
+def linear_init(in_dim: int, out_dim: int, use_orthogonal: bool, generator: torch.Generator):
+    """One Linear layer: {"w": (in, out), "b": (out,)}."""
+    if use_orthogonal:
+        # torch orthogonal_ works on (out, in); store (in, out)
+        w = orthogonal((out_dim, in_dim), math.sqrt(2), generator).T.contiguous()
+        return {"w": w, "b": torch.zeros(out_dim)}
+    bound = math.sqrt(1.0 / in_dim)
+    return {"w": _uniform((in_dim, out_dim), bound, generator), "b": _uniform((out_dim,), bound, generator)}
+
+
+def gru_layer_init(in_dim: int, hidden: int, generator: torch.Generator):
+    """One GRU layer, torch gate order [r, z, n] along the 3H axis:
+    w_ih (in, 3H), w_hh (H, 3H), b_ih (3H,), b_hh (3H,)."""
+    bound = math.sqrt(1.0 / hidden)
+    return {
+        "w_ih": _uniform((in_dim, 3 * hidden), bound, generator),
+        "w_hh": _uniform((hidden, 3 * hidden), bound, generator),
+        "b_ih": _uniform((3 * hidden,), bound, generator),
+        "b_hh": _uniform((3 * hidden,), bound, generator),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Grouped tensor ops (leading group axis G on params and inputs)
+# ---------------------------------------------------------------------------
+
+
+def linear(x, w, b):
+    """x (G, ..., in), w (G, in, out), b (G, out) -> (G, ..., out)."""
+    G = x.shape[0]
+    y = torch.bmm(x.reshape(G, -1, x.shape[-1]), w).view(*x.shape[:-1], w.shape[-1])
+    return y + b.view((G,) + (1,) * (x.ndim - 2) + (w.shape[-1],))
+
+
+def gru_cell(params, x, h):
+    """One GRU step, torch gate convention. x (G, B, in), h (G, B, H)."""
+    H = h.shape[-1]
+    gi = linear(x, params["w_ih"], params["b_ih"])
+    gh = linear(h, params["w_hh"], params["b_hh"])
+    r = torch.sigmoid(gi[..., :H] + gh[..., :H])
+    z = torch.sigmoid(gi[..., H : 2 * H] + gh[..., H : 2 * H])
+    n = torch.tanh(gi[..., 2 * H :] + r * gh[..., 2 * H :])
+    return (1.0 - z) * n + z * h
+
+
+# ---------------------------------------------------------------------------
+# Network specs
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class MLPSpec:
+    """Fully-connected network: Linear(+ReLU) stack."""
+
+    dims: Tuple[int, ...]  # (in, h1, ..., out)
+    use_orthogonal_init: bool = True
+
+    def init(self, generator):
+        return {
+            "layers": [
+                linear_init(self.dims[i], self.dims[i + 1], self.use_orthogonal_init, generator)
+                for i in range(len(self.dims) - 1)
+            ]
+        }
+
+    def apply(self, params, x, h=None):
+        """x (G, ..., in) -> (G, ..., out); ReLU between layers."""
+        n = len(params["layers"])
+        for i, layer in enumerate(params["layers"]):
+            x = linear(x, layer["w"], layer["b"])
+            if i < n - 1:
+                x = torch.relu(x)
+        return x, h
+
+    @property
+    def num_rnn_layers(self):
+        return 0
+
+
+@dataclass(frozen=True)
+class RNNSpec:
+    """Linear -> ReLU -> GRU stack -> Linear over (T, B, feat).
+
+    dims = (in, hidden, ..., hidden, out) with `len(dims) - 3` GRU layers,
+    all hidden sizes equal. Hidden state (G, L, B, H).
+
+    `fused_rnn`: on a CUDA tensor "auto" and "on" run every GRU layer
+    through the CUDA kernels (`ops/fused_gru.py`); "off" is the explicit
+    request for the plain per-step recurrence and is never chosen
+    automatically. On a CPU tensor every mode computes the plain recurrence.
+    """
+
+    dims: Tuple[int, ...]
+    use_orthogonal_init: bool = True
+    fused_rnn: str = "auto"
+
+    def __post_init__(self):
+        hiddens = self.dims[1:-1]
+        if len(self.dims) < 4 or any(h != hiddens[0] for h in hiddens):
+            raise ValueError(
+                "RNN dims must be (in, H, ..., H, out) with at least two equal hidden sizes"
+            )
+
+    @property
+    def hidden_size(self):
+        return self.dims[1]
+
+    @property
+    def num_rnn_layers(self):
+        return len(self.dims[1:-1]) - 1
+
+    def init(self, generator):
+        H = self.hidden_size
+        first = linear_init(self.dims[0], H, False, generator)
+        rnn = [gru_layer_init(H, H, generator) for _ in range(self.num_rnn_layers)]
+        final = linear_init(H, self.dims[-1], self.use_orthogonal_init, generator)
+        return {"first": first, "rnn": rnn, "final": final}
+
+    def apply(self, params, x, h=None):
+        """x (G, T, B, in), h (G, L, B, H) or None -> (y (G, T, B, out),
+        h (G, L, B, H))."""
+        G, T, B, _ = x.shape
+        if h is None:
+            h = self.init_hiddens(G, B, x.device)
+        x = torch.relu(linear(x, params["first"]["w"], params["first"]["b"]))
+        new_h = []
+        for i, layer in enumerate(params["rnn"]):
+            h0 = h[:, i].contiguous()
+            if self.fused_rnn == "off":
+                ys = []
+                hl = h0
+                for t in range(T):
+                    hl = gru_cell(layer, x[:, t], hl)
+                    ys.append(hl)
+                x = torch.stack(ys, dim=1)
+            else:
+                x, hl = gru_layer_sequence(layer, x, h0)
+            new_h.append(hl)
+        y = linear(x, params["final"]["w"], params["final"]["b"])
+        return y, torch.stack(new_h, dim=1)
+
+    def init_hiddens(self, G: int, batch_size: int, device):
+        return torch.zeros((G, self.num_rnn_layers, batch_size, self.hidden_size), device=device)
+
+
+def normalize_rnn_cell(use_rnn):
+    """`use_rnn` config value -> "gru" or None. The LSTM cell waits for a
+    later slice (ROADMAP.md Queue 1)."""
+    if use_rnn is True:
+        return "gru"
+    if not use_rnn:
+        return None
+    cell = str(use_rnn).lower()
+    if cell == "lstm":
+        raise NotImplementedError("the LSTM cell is not ported yet (ROADMAP.md Queue 1)")
+    if cell != "gru":
+        raise ValueError(f"use_rnn must be bool, 'gru' or 'lstm'; got {use_rnn!r}")
+    return cell
+
+
+def normalize_fused_rnn(fused_rnn) -> str:
+    """Accept the JAX package's values: "interpret" has no meaning here and
+    behaves as "auto"; booleans map to on/off."""
+    mode = str(fused_rnn).lower()
+    mode = {"true": "on", "false": "off", "none": "off", "interpret": "auto"}.get(mode, mode)
+    if mode not in ("auto", "on", "off"):
+        raise ValueError(f"fused_rnn must be auto/on/off/interpret; got {fused_rnn!r}")
+    return mode
+
+
+def make_network_spec(dims, use_rnn=False, use_orthogonal_init=True, compute_dtype="float32", fused_rnn="auto"):
+    """`make_network` switch: an RNNSpec when `use_rnn`, else an MLPSpec."""
+    if compute_dtype != "float32":
+        raise NotImplementedError(
+            f"model dtype {compute_dtype!r} is not ported yet; the port computes in float32"
+        )
+    dims = tuple(int(d) for d in dims)
+    if normalize_rnn_cell(use_rnn):
+        return RNNSpec(dims, bool(use_orthogonal_init), normalize_fused_rnn(fused_rnn))
+    return MLPSpec(dims, bool(use_orthogonal_init))

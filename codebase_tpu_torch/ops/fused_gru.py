@@ -1,0 +1,326 @@
+"""GRU recurrence over a whole sequence: hand-written CUDA kernels + plain version.
+
+Replaces the Pallas TPU kernels of the JAX package's `ops/fused_gru.py`
+(`_fwd_kernel`, `_bwd_kernel`) with three kernels in `csrc/fused_gru.cu`:
+
+- `gru_fwd`: the recurrence over all T steps in one launch, grid
+  (batch tiles, G). It is bound by FP32 FMA issue at H=128; the carry stays
+  on chip for the whole sequence and W_hh is read through the L2.
+- `gru_bwd`: BPTT in reverse time, rematerialising the gates from
+  `h_prev = h0 || y[:-1]` and `gi` instead of saving activations. It emits
+  `dgi`, `dh0` and per-block partial sums of `dW_hh` / `db_hh`.
+- `gru_reduce`: sums those partials in a fixed order. On the TPU the
+  accumulation into one output block is race-free because grid steps run
+  in order; GPU blocks run in parallel, so each writes its own partial and
+  a second kernel reduces them (deterministic, no atomics).
+
+The header of `csrc/fused_gru.cu` says what bounds each kernel and what the
+design does about it. The library is built with nvcc for sm_90a at first
+use, into `codebase_tpu_torch/_build/`, and loaded with ctypes.
+
+Dispatch: a CPU tensor goes through the plain PyTorch version
+(`gru_sequence_plain`, a loop of GRU-cell tensor ops with autograd through
+it); a CUDA tensor launches the kernels or raises. There is no fallback.
+Every tensor carries a leading group axis G (agents or sharing groups): one
+launch covers all groups.
+
+Launch counters (`FWD_LAUNCHES`, `BWD_LAUNCHES`, `REDUCE_LAUNCHES`) rise by
+one where a kernel is launched and nowhere else, so a run can show that its
+path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+FWD_LAUNCHES = 0
+BWD_LAUNCHES = 0
+REDUCE_LAUNCHES = 0
+
+KERNEL_HIDDEN = 128  # the hidden size the kernels are built for
+
+_PKG = Path(__file__).resolve().parent.parent
+SOURCE = _PKG / "csrc" / "fused_gru.cu"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def reset_launch_counts() -> None:
+    global FWD_LAUNCHES, BWD_LAUNCHES, REDUCE_LAUNCHES
+    FWD_LAUNCHES = BWD_LAUNCHES = REDUCE_LAUNCHES = 0
+
+
+def launch_counts() -> dict:
+    return {"fwd": FWD_LAUNCHES, "bwd": BWD_LAUNCHES, "reduce": REDUCE_LAUNCHES}
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version (CPU path; the reference the kernels are held to)
+# ---------------------------------------------------------------------------
+
+
+def gru_sequence_plain(gi, w_hh, b_hh, h0):
+    """gi (G, T, B, 3H), w_hh (G, H, 3H), b_hh (G, 3H), h0 (G, B, H) ->
+    (y (G, T, B, H), hT (G, B, H)); torch gate order [r, z, n]."""
+    H = h0.shape[-1]
+    h = h0
+    ys = []
+    for t in range(gi.shape[1]):
+        gh = torch.bmm(h, w_hh) + b_hh[:, None, :]
+        gi_t = gi[:, t]
+        r = torch.sigmoid(gi_t[..., :H] + gh[..., :H])
+        z = torch.sigmoid(gi_t[..., H : 2 * H] + gh[..., H : 2 * H])
+        n = torch.tanh(gi_t[..., 2 * H :] + r * gh[..., 2 * H :])
+        h = (1.0 - z) * n + z * h
+        ys.append(h)
+    return torch.stack(ys, dim=1), h
+
+
+def reduce_partials_plain(partials):
+    """partials (G, P, E) -> (G, E): the plain version of `gru_reduce`."""
+    return partials.sum(1)
+
+
+# ---------------------------------------------------------------------------
+# Build and load
+# ---------------------------------------------------------------------------
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = Path(cuda_home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
+    return str(path)
+
+
+def build_library() -> Path:
+    """Compile `csrc/fused_gru.cu` into `_build/` unless a library built
+    from the same source is already there; returns its path. The build log
+    (including ptxas register and shared-memory use) sits beside it."""
+    src = SOURCE.read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = BUILD_DIR / f"fused_gru_{tag}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f"fused_gru_{tag}.{os.getpid()}.tmp.so"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    (BUILD_DIR / f"fused_gru_{tag}.log").write_text(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed (exit {res.returncode}):\n{res.stderr[-4000:]}")
+    os.replace(tmp, out)
+    return out
+
+
+def _library():
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build_library()))
+            p, i = ctypes.c_void_p, ctypes.c_int
+            lib.gru_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+            lib.gru_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
+            lib.gru_reduce.argtypes = [p, p, i, i, i, p]
+            for fn in (lib.gru_fwd, lib.gru_bwd, lib.gru_reduce, lib.gru_kernel_hidden, lib.gru_bwd_tile):
+                fn.restype = i
+            lib.gru_kernel_hidden.argtypes = []
+            lib.gru_bwd_tile.argtypes = []
+            if lib.gru_kernel_hidden() != KERNEL_HIDDEN:
+                raise RuntimeError("fused GRU library was built for another hidden size")
+            _lib = lib
+        return _lib
+
+
+def _raise_on(code: int, what: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{what} failed: CUDA error {code}")
+
+
+def _check(shapes: dict, device) -> None:
+    for name, (t, shape) in shapes.items():
+        if t.device != device or t.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor on {device}; got {t.device}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32; got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}; expected {tuple(shape)}")
+
+
+def _dims(gi):
+    if gi.ndim != 4:
+        raise ValueError(f"gi must be (G, T, B, 3H); got shape {tuple(gi.shape)}")
+    G, T, B, H3 = gi.shape
+    H = H3 // 3
+    if H3 != 3 * H or H != KERNEL_HIDDEN:
+        raise ValueError(f"the GRU kernels take H={KERNEL_HIDDEN}; got 3H={H3}")
+    if min(G, T, B) < 1:
+        raise ValueError(f"empty GRU input of shape {tuple(gi.shape)}")
+    return G, T, B, H
+
+
+def _stream(device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers (CUDA tensors only)
+# ---------------------------------------------------------------------------
+
+
+def forward_tile(G: int, B: int) -> int:
+    """Batch rows per forward block: 32 when that still gives two blocks per
+    SM, else 8, so the update shape (G=2, B=1024) fills the card."""
+    sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+    return 32 if G * -(-B // 32) >= 2 * sms else 8
+
+
+def gru_fwd_cuda(gi, w_hh, b_hh, h0):
+    """Kernel 1: (y (G, T, B, H), hT (G, B, H))."""
+    global FWD_LAUNCHES
+    G, T, B, H = _dims(gi)
+    dev = gi.device
+    _check(
+        {"gi": (gi, (G, T, B, 3 * H)), "w_hh": (w_hh, (G, H, 3 * H)),
+         "b_hh": (b_hh, (G, 3 * H)), "h0": (h0, (G, B, H))},
+        dev,
+    )
+    lib = _library()
+    y = torch.empty((G, T, B, H), device=dev)
+    hT = torch.empty((G, B, H), device=dev)
+    with torch.cuda.device(dev):
+        tile = forward_tile(G, B)
+        code = lib.gru_fwd(
+            _ptr(gi), _ptr(w_hh), _ptr(b_hh), _ptr(h0), _ptr(y), _ptr(hT),
+            G, T, B, H, tile, _stream(dev),
+        )
+    _raise_on(code, "gru_fwd launch")
+    FWD_LAUNCHES += 1
+    return y, hT
+
+
+def backward_blocks_per_group(G: int, B: int, tile: int) -> int:
+    """One backward block per SM over all groups (each holds a 192 KB dW
+    accumulator in shared memory); a block walks several batch tiles when
+    there are more tiles than blocks."""
+    sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+    return max(1, min(-(-B // tile), -(-sms // G)))
+
+
+def gru_bwd_cuda(gi, w_hh, b_hh, h0, y, dy, dhT):
+    """Kernel 2: (dgi (G, T, B, 3H), dh0 (G, B, H), partials (G, P, H*3H + 3H))
+    where partials[g, p] holds block p's share of [dW_hh[g] | db_hh[g]]."""
+    global BWD_LAUNCHES
+    G, T, B, H = _dims(gi)
+    dev = gi.device
+    _check(
+        {"gi": (gi, (G, T, B, 3 * H)), "w_hh": (w_hh, (G, H, 3 * H)),
+         "b_hh": (b_hh, (G, 3 * H)), "h0": (h0, (G, B, H)), "y": (y, (G, T, B, H)),
+         "dy": (dy, (G, T, B, H)), "dhT": (dhT, (G, B, H))},
+        dev,
+    )
+    lib = _library()
+    w_hh_t = w_hh.transpose(1, 2).contiguous()  # (G, 3H, H): coalesced dgh @ W^T
+    dgi = torch.empty_like(gi)
+    dh0 = torch.empty_like(h0)
+    with torch.cuda.device(dev):
+        P = backward_blocks_per_group(G, B, lib.gru_bwd_tile())
+        partials = torch.empty((G, P, H * 3 * H + 3 * H), device=dev)
+        code = lib.gru_bwd(
+            _ptr(gi), _ptr(w_hh), _ptr(w_hh_t), _ptr(b_hh), _ptr(h0), _ptr(y), _ptr(dy),
+            _ptr(dhT), _ptr(dgi), _ptr(dh0), _ptr(partials), G, T, B, H, P, _stream(dev),
+        )
+    _raise_on(code, "gru_bwd launch")
+    BWD_LAUNCHES += 1
+    return dgi, dh0, partials
+
+
+def reduce_partials_cuda(partials):
+    """Kernel 3: partials (G, P, E) -> (G, E), summed over P in order."""
+    global REDUCE_LAUNCHES
+    if partials.ndim != 3:
+        raise ValueError(f"partials must be (G, P, E); got {tuple(partials.shape)}")
+    G, P, E = partials.shape
+    dev = partials.device
+    _check({"partials": (partials, (G, P, E))}, dev)
+    lib = _library()
+    out = torch.empty((G, E), device=dev)
+    with torch.cuda.device(dev):
+        code = lib.gru_reduce(_ptr(partials), _ptr(out), G, P, E, _stream(dev))
+    _raise_on(code, "gru_reduce launch")
+    REDUCE_LAUNCHES += 1
+    return out
+
+
+def gru_backward_cuda(gi, w_hh, b_hh, h0, y, dy, dhT):
+    """Kernels 2 and 3: (dgi, dW_hh, db_hh, dh0)."""
+    H = h0.shape[-1]
+    dgi, dh0, partials = gru_bwd_cuda(gi, w_hh, b_hh, h0, y, dy, dhT)
+    sums = reduce_partials_cuda(partials)
+    dw = sums[:, : H * 3 * H].reshape(w_hh.shape)
+    db = sums[:, H * 3 * H :]
+    return dgi, dw, db, dh0
+
+
+class FusedGRUSequence(torch.autograd.Function):
+    """The recurrence on CUDA tensors: forward is kernel 1; backward is
+    kernel 2 then the reduction. Saves (gi, w_hh, b_hh, h0, y)."""
+
+    @staticmethod
+    def forward(ctx, gi, w_hh, b_hh, h0):
+        y, hT = gru_fwd_cuda(gi, w_hh, b_hh, h0)
+        ctx.save_for_backward(gi, w_hh, b_hh, h0, y)
+        return y, hT
+
+    @staticmethod
+    def backward(ctx, dy, dhT):
+        gi, w_hh, b_hh, h0, y = ctx.saved_tensors
+        return gru_backward_cuda(gi, w_hh, b_hh, h0, y, dy.contiguous(), dhT.contiguous())
+
+
+def fused_gru_sequence(gi, w_hh, b_hh, h0):
+    """GRU recurrence over a whole sequence with a leading group axis.
+
+    gi (G, T, B, 3H) = x @ w_ih + b_ih, w_hh (G, H, 3H), b_hh (G, 3H),
+    h0 (G, B, H) -> (y (G, T, B, H), hT (G, B, H)). Differentiable. CPU
+    tensors take the plain version; CUDA tensors the kernels."""
+    if gi.device.type == "cpu":
+        return gru_sequence_plain(gi, w_hh, b_hh, h0)
+    if gi.device.type == "cuda":
+        return FusedGRUSequence.apply(gi, w_hh, b_hh, h0)
+    raise ValueError(f"fused_gru_sequence runs on cpu or cuda tensors; got {gi.device}")
+
+
+def gru_layer_sequence(params, x, h0):
+    """Full GRU layer: the input projection as one matmul, then the fused
+    recurrence. params {w_ih (G, in, 3H), w_hh, b_ih (G, 3H), b_hh},
+    x (G, T, B, in), h0 (G, B, H) -> (y (G, T, B, H), hT (G, B, H))."""
+    G, T, B, D = x.shape
+    w_ih = params["w_ih"]
+    gi = torch.bmm(x.reshape(G, T * B, D), w_ih).view(G, T, B, w_ih.shape[-1])
+    gi = gi + params["b_ih"][:, None, None, :]
+    return fused_gru_sequence(gi, params["w_hh"], params["b_hh"], h0.contiguous())

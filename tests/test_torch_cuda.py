@@ -1,0 +1,133 @@
+"""The port on the card: the GRU kernels against their plain version, the
+IDQN loss through the kernels against the plain CPU path, and a tiny train
+run. Every test needs a CUDA GPU and skips without one.
+
+This file imports no JAX, so it runs where only PyTorch is installed:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+"""
+
+import copy
+
+import numpy as np
+import pytest
+import torch
+
+from codebase_tpu_torch import run
+from codebase_tpu_torch.algos.dqn import DQNModel
+from codebase_tpu_torch.config import Config
+from codebase_tpu_torch.envs.lbforaging import parse_lbf_name
+from codebase_tpu_torch.ops import fused_gru as fg
+from codebase_tpu_torch.utils.device import resolve_device
+
+pytestmark = pytest.mark.cuda
+H = 128
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    return resolve_device("cuda")  # full-f32 matmuls, as the entry points set
+
+
+def _gru_inputs(G, T, B, seed):
+    rng = np.random.default_rng(seed)
+    return [
+        rng.standard_normal((G, T, B, 3 * H)).astype(np.float32),
+        (rng.standard_normal((G, H, 3 * H)) * 0.1).astype(np.float32),
+        (rng.standard_normal((G, 3 * H)) * 0.1).astype(np.float32),
+        rng.standard_normal((G, B, H)).astype(np.float32),
+        rng.standard_normal((G, T, B, H)).astype(np.float32),
+        rng.standard_normal((G, B, H)).astype(np.float32),
+    ]
+
+
+@pytest.mark.parametrize("G,T,B", [(3, 7, 1000), (2, 1, 4100), (1, 26, 5)])
+def test_kernels_match_plain_version_on_the_card(cuda_device, G, T, B):
+    """Kernels 1-3 against the plain version: ragged batch edges, T=1 and
+    a batch smaller than one tile. Forward at 1e-5; gradients at 1e-4 of
+    each one's largest entry (dW_hh and db_hh sum T*B terms in another
+    order)."""
+    arrays = _gru_inputs(G, T, B, seed=6)
+    ky, kh = (torch.tensor(a, device=cuda_device) for a in arrays[4:])
+    t = [torch.tensor(a, device=cuda_device, requires_grad=True) for a in arrays[:4]]
+    p = [torch.tensor(a, device=cuda_device, requires_grad=True) for a in arrays[:4]]
+    counts = fg.launch_counts()
+    y, hT = fg.fused_gru_sequence(*t)
+    yr, hTr = fg.gru_sequence_plain(*p)
+    torch.testing.assert_close(y, yr, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(hT, hTr, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(hT, y[:, -1], rtol=0, atol=0)
+    grads = torch.autograd.grad((y * ky).sum() + (hT * kh).sum(), t)
+    ref = torch.autograd.grad((yr * ky).sum() + (hTr * kh).sum(), p)
+    torch.cuda.synchronize()
+    for g, r in zip(grads, ref):
+        torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4 * r.abs().max().item())
+    after = fg.launch_counts()
+    assert [after[k] - counts[k] for k in ("fwd", "bwd", "reduce")] == [1, 1, 1]
+
+
+def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    gi, w, b, h0 = (torch.tensor(a, device=cuda_device) for a in _gru_inputs(1, 2, 8, 0)[:4])
+    with pytest.raises(ValueError, match="float32"):
+        fg.gru_fwd_cuda(gi.double(), w, b, h0)
+    with pytest.raises(ValueError, match="contiguous"):
+        fg.gru_fwd_cuda(gi, w, b, h0.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="shape"):
+        fg.gru_fwd_cuda(gi, w, b, h0[:, :4])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fg.gru_fwd_cuda(gi, w.cpu(), b, h0)
+
+
+def test_idqn_loss_through_the_kernels_matches_the_plain_cpu_path(cuda_device):
+    """The GRU critic's loss and gradients on the card (kernel path) against
+    the same model on the CPU (plain recurrence), same params and batch."""
+    env = parse_lbf_name("lbforaging:Foraging-8x8-2p-3f-v3")
+    model_cfg = Config(dict(name="qnetwork", layers=[128, 128], parameter_sharing=False,
+                            use_orthogonal_init=True, use_rnn=True))
+    algo_cfg = Config(dict(gamma=0.99, double_q=True))
+    cpu = DQNModel.create(env, model_cfg, algo_cfg, torch.Generator().manual_seed(0))
+    cpu_target = DQNModel.create(env, model_cfg, algo_cfg, torch.Generator().manual_seed(1))
+    gpu, gpu_target = copy.deepcopy(cpu).to(cuda_device), copy.deepcopy(cpu_target).to(cuda_device)
+
+    N, T, B, D = 2, 25, 64, env.obs_dim
+    rng = np.random.default_rng(2)
+    lengths = rng.integers(1, T + 1, size=B)
+    batch = dict(
+        obss=rng.integers(-1, 8, size=(N, T + 1, B, D)).astype(np.float32),
+        actions=rng.integers(0, 6, size=(N, T, B)),
+        rewards=(rng.random((N, T, B)) * (rng.random((N, T, B)) < 0.3)).astype(np.float32),
+        dones=np.concatenate([np.zeros((1, B)), np.arange(T)[:, None] == lengths[None] - 1]).astype(np.float32),
+        filled=(np.arange(T)[:, None] < lengths[None]).astype(np.float32),
+    )
+    counts = fg.launch_counts()
+    losses, grads = [], []
+    for model, target, dev in ((cpu, cpu_target, "cpu"), (gpu, gpu_target, cuda_device)):
+        tb = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        loss = model.loss(target, tb)
+        losses.append(loss)
+        grads.append(torch.autograd.grad(loss, model.param_leaves()))
+    torch.cuda.synchronize()
+    after = fg.launch_counts()
+    assert after["fwd"] - counts["fwd"] == 2 and after["bwd"] - counts["bwd"] == 1
+    torch.testing.assert_close(losses[1].cpu(), losses[0], rtol=1e-4, atol=0)
+    for g, r in zip(grads[1], grads[0]):
+        torch.testing.assert_close(g.cpu(), r, rtol=1e-4, atol=1e-4 * r.abs().max().item())
+
+
+def test_tiny_train_run_on_the_card_goes_through_the_kernels(cuda_device, tmp_path):
+    fg.reset_launch_counts()
+    rows, state = run.main([
+        "+algorithm=idqn", "env.name=lbforaging:Foraging-5x5-2p-1f-v3", "env.time_limit=5",
+        "env.parallel_envs=64", "algorithm.model.use_rnn=true", "algorithm.total_steps=1000",
+        "algorithm.training_start=0", "algorithm.batch_size=16", "algorithm.buffer_size=128",
+        "algorithm.updates_per_collect=2", "algorithm.eval_interval=500", "algorithm.log_interval=500",
+        "algorithm.eval_episodes=8", "seed=0", "device=cuda", f"run_dir={tmp_path}",
+    ])
+    torch.cuda.synchronize()
+    counts = fg.launch_counts()
+    iters = len(state.timings)
+    assert counts["fwd"] >= 5 * iters and counts["bwd"] == counts["reduce"] == 2 * iters
+    assert rows and all(np.isfinite(float(r["loss"])) for r in rows)
+    assert (tmp_path / "results.csv").exists()

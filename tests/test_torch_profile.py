@@ -1,0 +1,70 @@
+"""The profiling CLI's arithmetic (on synthetic trace events) and a tiny CPU
+run of it."""
+
+from types import SimpleNamespace
+
+import pytest
+import torch
+from torch.autograd import DeviceType
+
+from codebase_tpu_torch import profile
+
+torch.set_num_threads(2)
+
+
+class _Span:
+    def __init__(self, start, end):
+        self.start, self.end = start, end
+
+    def elapsed_us(self):
+        return self.end - self.start
+
+
+def _ev(name, device_type, start, end, annotation=False):
+    return SimpleNamespace(name=name, device_type=device_type, time_range=_Span(start, end),
+                           is_user_annotation=annotation)
+
+
+def test_device_breakdown_counts_each_kernel_once_and_by_range():
+    cpu, gpu = DeviceType.CPU, DeviceType.CUDA
+    events = [
+        _ev("dqn/rollout", cpu, 0, 500, True),
+        _ev("dqn/rollout", gpu, 100, 400, True),
+        _ev("dqn/updates", cpu, 500, 900, True),
+        _ev("dqn/updates", gpu, 400, 1000, True),
+        _ev("aten::bmm", cpu, 10, 20),  # an op event: its kernel's time is not its own
+        _ev("gemm", gpu, 100, 160),
+        _ev("void (anonymous namespace)::gru_fwd_kernel<8>(float const*)", gpu, 200, 300),
+        _ev("void (anonymous namespace)::gru_bwd_kernel<16>(float const*)", gpu, 500, 800),
+        _ev("gemm", gpu, 800, 820),
+        _ev("Memcpy DtoD (Device -> Device)", gpu, 1100, 1110),  # outside every range
+    ]
+    out = profile.device_breakdown(events, iters=2, top=2)
+    assert out["kernel_ms_per_iter"] == pytest.approx((60 + 100 + 300 + 20 + 10) / 1e3 / 2)
+    r = out["ranges"]
+    assert r["dqn/rollout"]["kernel_ms_per_iter"] == pytest.approx(160 / 2e3)
+    assert r["dqn/updates"]["kernel_ms_per_iter"] == pytest.approx(320 / 2e3)
+    assert r["dqn/replay_add"]["kernel_ms_per_iter"] == 0
+    assert r["dqn/rollout"]["host_ms_per_iter_traced"] == pytest.approx(500 / 2e3)
+    assert r["dqn/updates"]["device_span_ms_per_iter"] == pytest.approx(600 / 2e3)
+    assert out["gru_kernel_ms_per_iter"]["gru_bwd_kernel"] == pytest.approx(300 / 2e3)
+    assert [k["name"] for k in out["top_kernels"]] == [
+        "void (anonymous namespace)::gru_bwd_kernel<16>(float const*)",
+        "void (anonymous namespace)::gru_fwd_kernel<8>(float const*)",
+    ]
+    assert out["top_kernels"][0]["calls_per_iter"] == 0.5
+
+
+def test_profile_cli_on_cpu_reports_host_ranges_and_no_device_numbers(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    report = profile.main([
+        "+algorithm=idqn", "env.name=lbforaging:Foraging-5x5-2p-1f-v3", "env.time_limit=5",
+        "env.parallel_envs=4", "algorithm.model.use_rnn=true", "algorithm.batch_size=2",
+        "algorithm.buffer_size=8", "algorithm.training_start=0", "algorithm.updates_per_collect=2",
+        "device=cpu", "profile.iters=1", "seed=0",
+    ])
+    assert report["card"]["name"] == "cpu"
+    assert report["env_steps_per_s"] > 0
+    assert report["device_busy_share"] is None and report["top_kernels"] is None
+    assert all(r["host_ms_per_iter_traced"] > 0 for r in report["ranges"].values())
+    assert report["gru_launches_per_iter"] == {"fwd": 0, "bwd": 0, "reduce": 0}
