@@ -8,9 +8,13 @@ exits non-zero:
 2. build   — builds the GRU kernels from `codebase_tpu_torch/csrc/` with nvcc.
 3. kernels — holds each kernel against its plain PyTorch version at the
              rollout shape (a) G=2 T=1 B=65536, the update shape (b) G=2 T=26
-             B=1024 and a ragged shape (c) G=3 T=7 B=1000 (H=128), and times
-             the kernel, the plain version and the `torch.nn.GRU` (cuDNN)
-             yardstick with CUDA events (median of 25 runs after warm-up).
+             B=1024 and a ragged shape (c) G=3 T=7 B=1000 (H=128), checks
+             that the reduction gives bitwise-equal results on two calls,
+             and times the kernel, the plain version and a PyTorch yardstick
+             (`torch.nn.GRUCell` at T=1, `torch.nn.GRU` (cuDNN) otherwise,
+             `torch.sum` for the reduction) on the device (see `time_ms`;
+             the reduction's input fits in the L2, so it is timed on copies
+             that do not, see `cold_copies`).
 4. train   — recurrent IDQN on lbforaging:Foraging-8x8-2p-3f-v3 (T=25,
              layers [128,128], 65536 envs, batch 1024, 8 updates per
              collect) through `codebase_tpu_torch.run.main`, with the launch
@@ -22,6 +26,7 @@ Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import statistics
@@ -45,12 +50,16 @@ SHAPES = {
     "b": dict(G=2, T=26, B=1024, role="update: online/target nets over T+1=26 steps"),
     "c": dict(G=3, T=7, B=1000, role="ragged: B not a multiple of any tile"),
 }
-# published peaks, dense, no sparsity (NVIDIA data sheets): HBM bytes/s and
-# FP32 (non-tensor-core) flop/s, keyed by the name the card reports
+# published peaks, dense, no sparsity (NVIDIA data sheets): HBM bytes/s,
+# FP32 (non-tensor-core) flop/s and TF32 tensor-core flop/s, keyed by the
+# name the card reports
 PEAKS = {
-    "H100 80GB HBM3": (3.35e12, 67e12),  # SXM
-    "H100 PCIe": (2.0e12, 51e12),
+    "H100 80GB HBM3": (3.35e12, 67e12, 495e12),  # SXM
+    "H100 PCIe": (2.0e12, 51e12, 378e12),
 }
+# cycles of the spin kernel that holds the stream while a timed run of calls
+# is enqueued (about 2 ms on an H100)
+SPIN_CYCLES = 4_000_000
 TOL = {
     # forward outputs are O(1) (tanh-bounded); only rounding order differs
     "y": (1e-5, 1e-5),
@@ -82,38 +91,61 @@ def compare(name, got, ref) -> float:
     return err.max().item()
 
 
+def _run_ms(fn, n) -> float:
+    """ms per call of n back-to-back calls between two CUDA events. A spin
+    kernel holds the stream while the host enqueues them, so the device runs
+    them back to back: neither the wrapper's host time nor a launch gap is
+    counted, unless the host takes longer than the spin."""
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    s.record()
+    for _ in range(n):
+        fn()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / n
+
+
+def cold_copies(t, factor=4) -> list:
+    """`t` and copies of it, together at least `factor` times the card's L2.
+    A run of calls that takes them in turn reads each from HBM: between two
+    reads of one copy the others have gone through the L2. A kernel whose
+    input fits in the L2 is timed so, to be held to its HBM bound."""
+    l2 = torch.cuda.get_device_properties(t.device).L2_cache_size
+    return [t] + [t.clone() for _ in range(max(1, -(-factor * l2 // t.nbytes) - 1))]
+
+
 def time_ms(fn, reps=25, warmup=3) -> float:
-    """Median over `reps` single calls, each between two CUDA events."""
+    """Device time of one call (ms): the median over `reps` runs of n calls,
+    n (1 to 20) chosen so that a run fills about 1 ms. A call whose host time
+    outlasts the spin (the plain versions, which launch hundreds of small
+    kernels) is timed with its host gaps."""
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        torch.cuda.synchronize()
-        times.append(s.elapsed_time(e))
-    return statistics.median(times)
+    n = max(1, min(20, int(1.0 / max(_run_ms(fn, 1), 1e-3))))
+    return statistics.median(_run_ms(fn, n) for _ in range(reps))
 
 
-def bounds(kernel, G, T, B, P, bw, fp32):
-    """Least time (ms) for the kernel's work: max(bytes / HBM rate, flops /
-    FP32 peak), each input read once and each output written once."""
+def bounds(kernel, G, T, B, P, peaks):
+    """Least time (ms) for the kernel's work: max(bytes / HBM rate,
+    operations / peak rate), each input read once and each output written
+    once. The forward's product runs on tensor cores in 3xTF32 (three TF32
+    products); the backward's three products and the reduction's adds run
+    on FP32 CUDA cores."""
+    bw, fp32, tf32 = peaks
     H3 = 3 * H
     if kernel == "gru_fwd":
         nbytes = 4 * G * (T * B * H3 + H * H3 + H3 + B * H + T * B * H + B * H)
-        flops = 2 * G * T * B * H * H3
+        t_ops = 3 * 2 * G * T * B * H * H3 / tf32
     elif kernel == "gru_bwd":
         ins = T * B * H3 + H * H3 + H3 + B * H + 2 * T * B * H + B * H
         outs = T * B * H3 + B * H + P * (H * H3 + H3)
         nbytes = 4 * G * (ins + outs)
-        flops = 3 * 2 * G * T * B * H * H3
+        t_ops = 3 * 2 * G * T * B * H * H3 / fp32
     else:  # gru_reduce
         nbytes = 4 * G * (P + 1) * (H * H3 + H3)
-        flops = G * (P - 1) * (H * H3 + H3)
-    t_bytes, t_ops = nbytes / bw * 1e3, flops / fp32 * 1e3
+        t_ops = G * (P - 1) * (H * H3 + H3) / fp32
+    t_bytes, t_ops = nbytes / bw * 1e3, t_ops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -141,28 +173,39 @@ def check_shape(key, G, T, B, gen, peaks):
     with torch.no_grad():
         yd = y.detach()
         dgi, dh0, partials = fg.gru_bwd_cuda(gi, w, b, h0, yd, ky, kh)
-        errs["partials_sum"] = compare(
-            "partials_sum", fg.reduce_partials_cuda(partials), fg.reduce_partials_plain(partials)
-        )
+        sums = fg.reduce_partials_cuda(partials)
+        if not torch.equal(sums, fg.reduce_partials_cuda(partials)):
+            raise AssertionError("gru_reduce: two calls on the same partials differ")
+        errs["partials_sum"] = compare("partials_sum", sums, fg.reduce_partials_plain(partials))
         P = partials.shape[1]
+        ring = itertools.cycle(cold_copies(partials))
         t = {
             "gru_fwd": time_ms(lambda: fg.gru_fwd_cuda(gi, w, b, h0)),
             "gru_fwd_plain": time_ms(lambda: fg.gru_sequence_plain(gi, w, b, h0)),
             "gru_bwd": time_ms(lambda: fg.gru_bwd_cuda(gi, w, b, h0, yd, ky, kh)),
-            "gru_reduce": time_ms(lambda: fg.reduce_partials_cuda(partials)),
-            "gru_reduce_plain": time_ms(lambda: fg.reduce_partials_plain(partials)),
-            "gru_reduce_library": time_ms(lambda: torch.sum(partials, 1)),
+            "gru_reduce": time_ms(lambda: fg.reduce_partials_cuda(next(ring))),
+            "gru_reduce_plain": time_ms(lambda: fg.reduce_partials_plain(next(ring))),
+            "gru_reduce_library": time_ms(lambda: torch.sum(next(ring), 1)),
         }
+        del ring
     # plain backward alone: autograd through the plain forward's graph
     t["gru_bwd_plain"] = time_ms(
         lambda: torch.autograd.grad(plain_out, plain_leaves, retain_graph=True)
     )
-    # yardstick: cuDNN GRU (input projection included), one call per group
+    # yardsticks, one call per group, input projection included (so each is
+    # an upper bound on the recurrence alone): at T=1 torch.nn.GRUCell (two
+    # f32 GEMMs and a fused gate kernel), else cuDNN's GRU
     cudnn = [torch.nn.GRU(H, H).to(dev) for _ in range(G)]
     x = torch.randn((T, B, H), device=dev, generator=gen)
     h0c = h0[:, None]  # (G, 1, B, H)
     with torch.no_grad():
-        t["gru_fwd_library"] = time_ms(lambda: [m(x, h0c[g]) for g, m in enumerate(cudnn)])
+        if T == 1:
+            cells = [torch.nn.GRUCell(H, H).to(dev) for _ in range(G)]
+            t["gru_fwd_library"] = time_ms(lambda: [c(x[0], h0[g]) for g, c in enumerate(cells)])
+            library = "torch.nn.GRUCell, one call per group, input projection included"
+        else:
+            t["gru_fwd_library"] = time_ms(lambda: [m(x, h0c[g]) for g, m in enumerate(cudnn)])
+            library = "torch.nn.GRU (cuDNN), one call per group, input projection included"
     xg = x.clone().requires_grad_()
 
     def lib_fwd_bwd():
@@ -171,10 +214,14 @@ def check_shape(key, G, T, B, gen, peaks):
 
     t["gru_bwd_library"] = time_ms(lib_fwd_bwd)
     del cudnn
-    bw, fp32 = peaks
+    libraries = {
+        "gru_fwd": library,
+        "gru_bwd": "torch.nn.GRU (cuDNN) forward + backward, one call per group",
+        "gru_reduce": "torch.sum(partials, 1)",
+    }
     out = {}
     for k in ("gru_fwd", "gru_bwd", "gru_reduce"):
-        bound_ms, bound_by = bounds(k, G, T, B, P, bw, fp32)
+        bound_ms, bound_by = bounds(k, G, T, B, P, peaks)
         names = {"gru_fwd": ("y", "hT"), "gru_bwd": ("dgi", "dW_hh", "db_hh", "dh0"),
                  "gru_reduce": ("partials_sum",)}[k]
         out[k] = {
@@ -184,6 +231,7 @@ def check_shape(key, G, T, B, gen, peaks):
             "ms": t[k],
             "plain_ms": t[k + "_plain"],
             "library_ms": t[k + "_library"],
+            "library": libraries[k],
             "bound_ms": bound_ms,
             "bound_by": bound_by,
         }
@@ -202,7 +250,7 @@ def main() -> None:
     peaks = next((v for k, v in PEAKS.items() if k in name), PEAKS["H100 80GB HBM3"])
     emit({"phase": "device", "name": name, "nvidia_smi": smi, "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "peaks": {"hbm_bytes_per_s": peaks[0], "fp32_flops": peaks[1]},
+          "peaks": {"hbm_bytes_per_s": peaks[0], "fp32_flops": peaks[1], "tf32_flops": peaks[2]},
           "peaks_for": next((k for k in PEAKS if k in name), "H100 80GB HBM3 (assumed)")})
 
     # --- 2. build
@@ -292,8 +340,10 @@ def main() -> None:
             "bound_ms": b[k]["bound_ms"],
             "bound_by": b[k]["bound_by"],
             "library_ms": b[k]["library_ms"],
+            "library": b[k]["library"],
             "timed_at": "shape b (G=2 T=26 B=1024 H=128)",
-            "rollout_shape_a": {f: results["a"][k][f] for f in ("ms", "plain_ms", "library_ms", "bound_ms")},
+            "rollout_shape_a": {f: results["a"][k][f]
+                                for f in ("ms", "plain_ms", "library_ms", "library", "bound_ms", "bound_by")},
         })
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})

@@ -3,16 +3,23 @@
 Replaces the Pallas TPU kernels of the JAX package's `ops/fused_gru.py`
 (`_fwd_kernel`, `_bwd_kernel`) with three kernels in `csrc/fused_gru.cu`:
 
-- `gru_fwd`: the recurrence over all T steps in one launch, grid
-  (batch tiles, G). It is bound by FP32 FMA issue at H=128; the carry stays
-  on chip for the whole sequence and W_hh is read through the L2.
-- `gru_bwd`: BPTT in reverse time, rematerialising the gates from
-  `h_prev = h0 || y[:-1]` and `gi` instead of saving activations. It emits
-  `dgi`, `dh0` and per-block partial sums of `dW_hh` / `db_hh`.
-- `gru_reduce`: sums those partials in a fixed order. On the TPU the
-  accumulation into one output block is race-free because grid steps run
-  in order; GPU blocks run in parallel, so each writes its own partial and
-  a second kernel reduces them (deterministic, no atomics).
+- `gru_fwd` (replaces `_fwd_kernel`): the recurrence over all T steps in
+  one launch on a persistent grid of about one block per SM. Each block
+  stages W_hh once in shared memory, keeps its 16-row h tile there for all
+  T steps, and forms `h @ W_hh` on tensor cores in 3xTF32 (each operand
+  split into two TF32 parts, three products summed in f32), so results stay
+  at f32 level. Bound by the work of each tile (the three products, the
+  splits, the gates), under which its bytes hide; at the update shape that
+  work is also a serial chain over T.
+- `gru_bwd` (replaces `_bwd_kernel`): BPTT in reverse time on CUDA cores,
+  rematerialising the gates from `h_prev = h0 || y[:-1]` and `gi` instead
+  of saving activations. Bound by FP32 FMA issue. It emits `dgi`, `dh0` and
+  per-block partial sums of `dW_hh` / `db_hh`.
+- `gru_reduce` (replaces the in-order `dW_hh`/`db_hh` accumulation of
+  `_bwd_kernel`): sums those partials. On the TPU the accumulation into one
+  output block is race-free because grid steps run in order; GPU blocks
+  run in parallel, so each writes its own partial and this kernel reduces
+  them, bound by bytes, in a fixed order (deterministic, no atomics).
 
 The header of `csrc/fused_gru.cu` says what bounds each kernel and what the
 design does about it. The library is built with nvcc for sm_90a at first
@@ -140,10 +147,11 @@ def _library():
             lib.gru_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
             lib.gru_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
             lib.gru_reduce.argtypes = [p, p, i, i, i, p]
-            for fn in (lib.gru_fwd, lib.gru_bwd, lib.gru_reduce, lib.gru_kernel_hidden, lib.gru_bwd_tile):
+            sizes = (lib.gru_kernel_hidden, lib.gru_fwd_rows, lib.gru_bwd_tile)
+            for fn in (lib.gru_fwd, lib.gru_bwd, lib.gru_reduce, *sizes):
                 fn.restype = i
-            lib.gru_kernel_hidden.argtypes = []
-            lib.gru_bwd_tile.argtypes = []
+            for fn in sizes:
+                fn.argtypes = []
             if lib.gru_kernel_hidden() != KERNEL_HIDDEN:
                 raise RuntimeError("fused GRU library was built for another hidden size")
             _lib = lib
@@ -165,6 +173,8 @@ def _check(shapes: dict, device) -> None:
             raise ValueError(f"{name} must be contiguous")
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name} has shape {tuple(t.shape)}; expected {tuple(shape)}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the kernels load float4)")
 
 
 def _dims(gi):
@@ -192,11 +202,17 @@ def _ptr(t) -> ctypes.c_void_p:
 # ---------------------------------------------------------------------------
 
 
-def forward_tile(G: int, B: int) -> int:
-    """Batch rows per forward block: 32 when that still gives two blocks per
-    SM, else 8, so the update shape (G=2, B=1024) fills the card."""
-    sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
-    return 32 if G * -(-B // 32) >= 2 * sms else 8
+def _sms() -> int:
+    return torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+
+
+def forward_blocks_per_group(G: int, B: int, rows: int) -> int:
+    """Blocks per group of the persistent forward grid. A block holds W_hh
+    (192 KB) in shared memory, so one fits on an SM: at most `sms // G` per
+    group, each walking tiles of `rows` rows. Small tiles let a short batch
+    (the update shape, G=2 B=1024: 128 tiles of 16) spread its serial chains
+    over the card."""
+    return max(1, min(-(-B // rows), _sms() // G))
 
 
 def gru_fwd_cuda(gi, w_hh, b_hh, h0):
@@ -213,10 +229,9 @@ def gru_fwd_cuda(gi, w_hh, b_hh, h0):
     y = torch.empty((G, T, B, H), device=dev)
     hT = torch.empty((G, B, H), device=dev)
     with torch.cuda.device(dev):
-        tile = forward_tile(G, B)
         code = lib.gru_fwd(
             _ptr(gi), _ptr(w_hh), _ptr(b_hh), _ptr(h0), _ptr(y), _ptr(hT),
-            G, T, B, H, tile, _stream(dev),
+            G, T, B, H, forward_blocks_per_group(G, B, lib.gru_fwd_rows()), _stream(dev),
         )
     _raise_on(code, "gru_fwd launch")
     FWD_LAUNCHES += 1
@@ -227,8 +242,7 @@ def backward_blocks_per_group(G: int, B: int, tile: int) -> int:
     """One backward block per SM over all groups (each holds a 192 KB dW
     accumulator in shared memory); a block walks several batch tiles when
     there are more tiles than blocks."""
-    sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
-    return max(1, min(-(-B // tile), -(-sms // G)))
+    return max(1, min(-(-B // tile), -(-_sms() // G)))
 
 
 def gru_bwd_cuda(gi, w_hh, b_hh, h0, y, dy, dhT):
@@ -260,7 +274,8 @@ def gru_bwd_cuda(gi, w_hh, b_hh, h0, y, dy, dhT):
 
 
 def reduce_partials_cuda(partials):
-    """Kernel 3: partials (G, P, E) -> (G, E), summed over P in order."""
+    """Kernel 3: partials (G, P, E) -> (G, E), summed over P in order (two
+    calls give bitwise-equal results)."""
     global REDUCE_LAUNCHES
     if partials.ndim != 3:
         raise ValueError(f"partials must be (G, P, E); got {tuple(partials.shape)}")

@@ -8,6 +8,9 @@ This file imports no JAX, so it runs where only PyTorch is installed:
 """
 
 import copy
+import shutil
+import subprocess
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -43,12 +46,15 @@ def _gru_inputs(G, T, B, seed):
     ]
 
 
-@pytest.mark.parametrize("G,T,B", [(3, 7, 1000), (2, 1, 4100), (1, 26, 5)])
+@pytest.mark.parametrize(
+    "G,T,B", [(3, 7, 1000), (2, 1, 4100), (1, 26, 5), (2, 1, 65536), (2, 26, 1000), (2, 3, 9)]
+)
 def test_kernels_match_plain_version_on_the_card(cuda_device, G, T, B):
-    """Kernels 1-3 against the plain version: ragged batch edges, T=1 and
-    a batch smaller than one tile. Forward at 1e-5; gradients at 1e-4 of
-    each one's largest entry (dW_hh and db_hh sum T*B terms in another
-    order)."""
+    """Kernels 1-3 against the plain version: ragged batch edges, T=1, a
+    batch smaller than one tile, more row tiles than the persistent forward
+    grid has blocks (2, 1, 65536), and a batch that is not a multiple of the
+    16-row tiles. Forward at 1e-5; gradients at 1e-4 of each one's
+    largest entry (dW_hh and db_hh sum T*B terms in another order)."""
     arrays = _gru_inputs(G, T, B, seed=6)
     ky, kh = (torch.tensor(a, device=cuda_device) for a in arrays[4:])
     t = [torch.tensor(a, device=cuda_device, requires_grad=True) for a in arrays[:4]]
@@ -78,6 +84,38 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         fg.gru_fwd_cuda(gi, w, b, h0[:, :4])
     with pytest.raises(ValueError, match="CUDA tensor"):
         fg.gru_fwd_cuda(gi, w.cpu(), b, h0)
+    shifted = torch.empty(h0.numel() + 1, device=cuda_device)[1:].view(h0.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        fg.gru_fwd_cuda(gi, w, b, shifted)
+
+
+def test_reduce_is_deterministic_and_matches_the_plain_sum(cuda_device):
+    """The reduction adds the partials in a fixed order, with no atomics:
+    two calls give bitwise-equal results, within 1e-5 of the largest entry
+    of the plain sum (which adds in another order)."""
+    rng = np.random.default_rng(3)
+    partials = torch.tensor(rng.standard_normal((2, 64, H * 3 * H + 3 * H)).astype(np.float32),
+                            device=cuda_device)
+    counts = fg.launch_counts()["reduce"]
+    first, second = fg.reduce_partials_cuda(partials), fg.reduce_partials_cuda(partials)
+    ref = fg.reduce_partials_plain(partials)
+    torch.cuda.synchronize()
+    assert fg.launch_counts()["reduce"] - counts == 2
+    assert torch.equal(first, second)
+    torch.testing.assert_close(first, ref, rtol=0, atol=1e-5 * ref.abs().max().item())
+
+
+def test_forward_kernel_runs_on_tensor_cores(cuda_device):
+    """The forward's product is tensor-core MMA in TF32: gru_fwd_kernel in
+    the built library holds HMMA ... TF32 instructions
+    (its 3xTF32 compensation shows in the 1e-5 agreement above, which
+    single-pass TF32 misses, see tests/test_torch_fused_gru.py)."""
+    tool = shutil.which("cuobjdump") or str(Path(fg._nvcc()).parent / "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(fg.build_library())], capture_output=True,
+                          text=True, check=True).stdout
+    functions = [f for f in sass.split("Function : ")[1:] if "gru_fwd_kernel" in f.splitlines()[0]]
+    assert len(functions) == 1
+    assert any("HMMA" in line and "TF32" in line for line in functions[0].splitlines())
 
 
 def test_idqn_loss_through_the_kernels_matches_the_plain_cpu_path(cuda_device):
