@@ -8,13 +8,18 @@ exits non-zero:
 2. build   — builds the GRU kernels from `codebase_tpu_torch/csrc/` with nvcc.
 3. kernels — holds each kernel against its plain PyTorch version at the
              rollout shape (a) G=2 T=1 B=65536, the update shape (b) G=2 T=26
-             B=1024 and a ragged shape (c) G=3 T=7 B=1000 (H=128), checks
-             that the reduction gives bitwise-equal results on two calls,
-             and times the kernel, the plain version and a PyTorch yardstick
-             (`torch.nn.GRUCell` at T=1, `torch.nn.GRU` (cuDNN) otherwise,
-             `torch.sum` for the reduction) on the device (see `time_ms`;
-             the reduction's input fits in the L2, so it is timed on copies
-             that do not, see `cold_copies`).
+             B=1024 and a ragged shape (c) G=3 T=7 B=1000 (H=128): the
+             forward against `gru_sequence_plain`, the whole backward
+             (recurrence, weight gradient, reduction) against
+             `gru_backward_plain`, the weight gradient alone against
+             `gru_dw_plain` on the recurrence kernel's outputs; checks that
+             two backward calls, and two reductions, are bitwise equal; and
+             times each kernel, its plain version and a PyTorch yardstick
+             (`torch.nn.GRUCell` at T=1, else `torch.nn.GRU` (cuDNN) for the
+             forward, cuDNN forward + backward for the backward, `torch.bmm`
+             for the weight gradient, `torch.sum` for the reduction) on the
+             device (see `time_ms`; the reduction's input fits in the L2, so
+             it is timed on copies that do not, see `cold_copies`).
 4. train   — recurrent IDQN on lbforaging:Foraging-8x8-2p-3f-v3 (T=25,
              layers [128,128], 65536 envs, batch 1024, 8 updates per
              collect) through `codebase_tpu_torch.run.main`, with the launch
@@ -127,21 +132,26 @@ def time_ms(fn, reps=25, warmup=3) -> float:
 
 
 def bounds(kernel, G, T, B, P, peaks):
-    """Least time (ms) for the kernel's work: max(bytes / HBM rate,
+    """Least time (ms) for the function's work: max(bytes / HBM rate,
     operations / peak rate), each input read once and each output written
-    once. The forward's product runs on tensor cores in 3xTF32 (three TF32
-    products); the backward's three products and the reduction's adds run
-    on FP32 CUDA cores."""
+    once, no scratch or partials. The forward's product, the backward's
+    three (h_prev @ W_hh, dgh @ W_hh^T, h_prev^T dgh) and the weight
+    gradient's one run on tensor cores in 3xTF32 (three TF32 products each);
+    the reduction's adds on FP32 CUDA cores."""
     bw, fp32, tf32 = peaks
     H3 = 3 * H
+    K = T * B
     if kernel == "gru_fwd":
-        nbytes = 4 * G * (T * B * H3 + H * H3 + H3 + B * H + T * B * H + B * H)
-        t_ops = 3 * 2 * G * T * B * H * H3 / tf32
-    elif kernel == "gru_bwd":
-        ins = T * B * H3 + H * H3 + H3 + B * H + 2 * T * B * H + B * H
-        outs = T * B * H3 + B * H + P * (H * H3 + H3)
+        nbytes = 4 * G * (K * H3 + H * H3 + H3 + B * H + K * H + B * H)
+        t_ops = 3 * 2 * G * K * H * H3 / tf32
+    elif kernel == "gru_bwd":  # the whole backward: gi, W, b, h0, y, dy, dhT -> dgi, dW, db, dh0
+        ins = K * H3 + H * H3 + H3 + B * H + 2 * K * H + B * H
+        outs = K * H3 + H * H3 + H3 + B * H
         nbytes = 4 * G * (ins + outs)
-        t_ops = 3 * 2 * G * T * B * H * H3 / fp32
+        t_ops = 3 * 3 * 2 * G * K * H * H3 / tf32
+    elif kernel == "gru_dw":  # h_prev, dgh -> dW, db
+        nbytes = 4 * G * (K * H + K * H3 + H * H3 + H3)
+        t_ops = 3 * 2 * G * K * H * H3 / tf32
     else:  # gru_reduce
         nbytes = 4 * G * (P + 1) * (H * H3 + H3)
         t_ops = G * (P - 1) * (H * H3 + H3) / fp32
@@ -157,41 +167,52 @@ def check_shape(key, G, T, B, gen, peaks):
     h0 = torch.randn((G, B, H), device=dev, generator=gen)
     ky = torch.randn((G, T, B, H), device=dev, generator=gen)
     kh = torch.randn((G, B, H), device=dev, generator=gen)
-    leaves = [t.clone().requires_grad_() for t in (gi, w, b, h0)]
-    plain_leaves = [t.clone().requires_grad_() for t in (gi, w, b, h0)]
-
-    y, hT = fg.FusedGRUSequence.apply(*leaves)
-    yr, hTr = fg.gru_sequence_plain(*plain_leaves)
-    grads = torch.autograd.grad((y * ky).sum() + (hT * kh).sum(), leaves)
-    plain_out = (yr * ky).sum() + (hTr * kh).sum()
-    rgrads = torch.autograd.grad(plain_out, plain_leaves, retain_graph=True)
-    torch.cuda.synchronize()
-    errs = {"y": compare("y", y, yr), "hT": compare("hT", hT, hTr)}
-    for n, g_, r_ in zip(("dgi", "dW_hh", "db_hh", "dh0"), grads, rgrads):
-        errs[n] = compare(n, g_, r_)
 
     with torch.no_grad():
-        yd = y.detach()
-        dgi, dh0, partials = fg.gru_bwd_cuda(gi, w, b, h0, yd, ky, kh)
+        y, hT = fg.gru_fwd_cuda(gi, w, b, h0)
+        yr, hTr = fg.gru_sequence_plain(gi, w, b, h0)
+        errs = {"y": compare("y", y, yr), "hT": compare("hT", hT, hTr)}
+        # the whole backward (recurrence, weight gradient, reduction) and
+        # its plain version on the same inputs; two calls bitwise equal
+        grads = fg.gru_backward_cuda(gi, w, b, h0, y, ky, kh)
+        again = fg.gru_backward_cuda(gi, w, b, h0, y, ky, kh)
+        rgrads = fg.gru_backward_plain(gi, w, b, h0, y, ky, kh)
+        torch.cuda.synchronize()
+        if not all(torch.equal(u, v) for u, v in zip(grads, again)):
+            raise AssertionError("gru_backward: two calls on the same inputs differ")
+        for n, g_, r_ in zip(("dgi", "dW_hh", "db_hh", "dh0"), grads, rgrads):
+            errs[n] = compare(n, g_, r_)
+        del again, rgrads
+        # the weight gradient alone, on the recurrence kernel's dgi and dgh_n
+        dgi, _, dgh_n = fg.gru_bwd_cuda(gi, w, b, h0, y, ky, kh)
+        partials = fg.gru_dw_cuda(h0, y, dgi, dgh_n)
         sums = fg.reduce_partials_cuda(partials)
+        dw_ref, db_ref = fg.gru_dw_plain(h0, y, dgi, dgh_n)
+        errs["dw_dW_hh"] = compare("dW_hh", sums[:, : H * 3 * H].reshape(w.shape), dw_ref)
+        errs["dw_db_hh"] = compare("db_hh", sums[:, H * 3 * H :], db_ref)
         if not torch.equal(sums, fg.reduce_partials_cuda(partials)):
             raise AssertionError("gru_reduce: two calls on the same partials differ")
         errs["partials_sum"] = compare("partials_sum", sums, fg.reduce_partials_plain(partials))
         P = partials.shape[1]
+        # the library's product: f32 (allow_tf32 False) on h_prev and dgh
+        # assembled beforehand, so it is timed without the concatenations
+        hp_t = torch.cat([h0[:, None], y[:, :-1]], 1).reshape(G, T * B, H).transpose(1, 2)
+        dgh = torch.cat([dgi[..., : 2 * H], dgh_n], -1).reshape(G, T * B, 3 * H)
         ring = itertools.cycle(cold_copies(partials))
         t = {
             "gru_fwd": time_ms(lambda: fg.gru_fwd_cuda(gi, w, b, h0)),
             "gru_fwd_plain": time_ms(lambda: fg.gru_sequence_plain(gi, w, b, h0)),
-            "gru_bwd": time_ms(lambda: fg.gru_bwd_cuda(gi, w, b, h0, yd, ky, kh)),
+            "gru_bwd": time_ms(lambda: fg.gru_backward_cuda(gi, w, b, h0, y, ky, kh)),
+            "gru_bwd_recurrence": time_ms(lambda: fg.gru_bwd_cuda(gi, w, b, h0, y, ky, kh)),
+            "gru_bwd_plain": time_ms(lambda: fg.gru_backward_plain(gi, w, b, h0, y, ky, kh)),
+            "gru_dw": time_ms(lambda: fg.gru_dw_cuda(h0, y, dgi, dgh_n)),
+            "gru_dw_plain": time_ms(lambda: fg.gru_dw_plain(h0, y, dgi, dgh_n)),
+            "gru_dw_library": time_ms(lambda: torch.bmm(hp_t, dgh)),
             "gru_reduce": time_ms(lambda: fg.reduce_partials_cuda(next(ring))),
             "gru_reduce_plain": time_ms(lambda: fg.reduce_partials_plain(next(ring))),
             "gru_reduce_library": time_ms(lambda: torch.sum(next(ring), 1)),
         }
-        del ring
-    # plain backward alone: autograd through the plain forward's graph
-    t["gru_bwd_plain"] = time_ms(
-        lambda: torch.autograd.grad(plain_out, plain_leaves, retain_graph=True)
-    )
+        del ring, hp_t, dgh
     # yardsticks, one call per group, input projection included (so each is
     # an upper bound on the recurrence alone): at T=1 torch.nn.GRUCell (two
     # f32 GEMMs and a fused gate kernel), else cuDNN's GRU
@@ -217,17 +238,18 @@ def check_shape(key, G, T, B, gen, peaks):
     libraries = {
         "gru_fwd": library,
         "gru_bwd": "torch.nn.GRU (cuDNN) forward + backward, one call per group",
+        "gru_dw": "torch.bmm(h_prev^T, dgh), f32 (allow_tf32 False), inputs assembled beforehand",
         "gru_reduce": "torch.sum(partials, 1)",
     }
+    names = {"gru_fwd": ("y", "hT"), "gru_bwd": ("dgi", "dW_hh", "db_hh", "dh0"),
+             "gru_dw": ("dw_dW_hh", "dw_db_hh"), "gru_reduce": ("partials_sum",)}
     out = {}
-    for k in ("gru_fwd", "gru_bwd", "gru_reduce"):
+    for k in ("gru_fwd", "gru_bwd", "gru_dw", "gru_reduce"):
         bound_ms, bound_by = bounds(k, G, T, B, P, peaks)
-        names = {"gru_fwd": ("y", "hT"), "gru_bwd": ("dgi", "dW_hh", "db_hh", "dh0"),
-                 "gru_reduce": ("partials_sum",)}[k]
         out[k] = {
-            "max_abs_err": max(errs[n] for n in names),
-            "errors": {n: errs[n] for n in names},
-            "tolerance": {n: list(TOL[n]) for n in names},
+            "max_abs_err": max(errs[n] for n in names[k]),
+            "errors": {n: errs[n] for n in names[k]},
+            "tolerance": {n: list(TOL[n.removeprefix("dw_")]) for n in names[k]},
             "ms": t[k],
             "plain_ms": t[k + "_plain"],
             "library_ms": t[k + "_library"],
@@ -235,6 +257,8 @@ def check_shape(key, G, T, B, gen, peaks):
             "bound_ms": bound_ms,
             "bound_by": bound_by,
         }
+    out["gru_bwd"]["recurrence_ms"] = t["gru_bwd_recurrence"]
+    out["gru_reduce"]["partials_per_group"] = P
     return out
 
 
@@ -304,7 +328,7 @@ def main() -> None:
     losses = [float(r["loss"]) for r in rows if r.get("loss")]
     if not losses or not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"losses not finite: {losses}")
-    if counts["fwd"] < 25 * iters or counts["bwd"] < 8 * iters or counts["reduce"] < 8 * iters:
+    if counts["fwd"] < 25 * iters or min(counts[k] for k in ("bwd", "dw", "reduce")) < 8 * iters:
         raise AssertionError(f"kernels not launched on the main path: {counts} over {iters} iterations")
     steady = state.timings[1:]
     emit({
@@ -324,10 +348,11 @@ def main() -> None:
     sources = {
         "gru_fwd": "codebase_tpu/ops/fused_gru.py:80 (_fwd_kernel, pallas_call at :238)",
         "gru_bwd": "codebase_tpu/ops/fused_gru.py:105 (_bwd_kernel, pallas_call at :299)",
-        "gru_reduce": "codebase_tpu/ops/fused_gru.py:160 (_bwd_kernel's in-order dW_hh/db_hh sum, :160-167)",
+        "gru_dw": "codebase_tpu/ops/fused_gru.py:160 (_bwd_kernel's dW_hh/db_hh products, :160-165)",
+        "gru_reduce": "codebase_tpu/ops/fused_gru.py:166 (_bwd_kernel's in-order dW_hh/db_hh sum, :166-167)",
     }
     summary = []
-    for k, counter in (("gru_fwd", "fwd"), ("gru_bwd", "bwd"), ("gru_reduce", "reduce")):
+    for k, counter in (("gru_fwd", "fwd"), ("gru_bwd", "bwd"), ("gru_dw", "dw"), ("gru_reduce", "reduce")):
         summary.append({
             "name": k,
             "route": "cuda",
@@ -345,6 +370,8 @@ def main() -> None:
             "rollout_shape_a": {f: results["a"][k][f]
                                 for f in ("ms", "plain_ms", "library_ms", "library", "bound_ms", "bound_by")},
         })
+    summary[1]["ms_is"] = "the whole backward: gru_bwd_kernel, gru_dw_kernel, gru_reduce_kernel"
+    summary[1]["recurrence_ms"] = b["gru_bwd"]["recurrence_ms"]
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})
 

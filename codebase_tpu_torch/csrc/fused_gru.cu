@@ -6,10 +6,12 @@
 //   gru_fwd_kernel    <- _fwd_kernel (body :80-102, launched by
 //                        _fused_gru_fwd_impl :225-264)
 //   gru_bwd_kernel    <- _bwd_kernel (body :105-168, launched by
-//                        _fused_gru_bwd :274-332)
-//   gru_reduce_kernel <- the in-order dW_hh/db_hh accumulation of
-//                        _bwd_kernel (:123-126, :160-167), which on the TPU is
-//                        race-free only because grid steps run in order.
+//                        _fused_gru_bwd :274-332): the reverse-time recurrence
+//   gru_dw_kernel     <- its dW_hh/db_hh products (:160-165), taken out of
+//                        the recurrence as one long-K product
+//   gru_reduce_kernel <- its in-order dW_hh/db_hh accumulation (:123-126,
+//                        :166-167), which on the TPU is race-free only
+//                        because grid steps run in order.
 //
 // Function (torch gate order [r, z, n]), per group g and batch row b:
 //   gh  = h_{t-1} @ W_hh + b_hh
@@ -51,22 +53,52 @@
 //   every SM carries a chain); the next tile's h0 is loaded under the last
 //   step's product.
 //
-// gru_bwd_kernel. Bound by FP32 FMA issue at H = 128 (three products per
-// step on CUDA cores) and, at the update shape, by the serial chain:
-// - one block of H threads per (group, tile of BT batch rows); thread j
-//   owns hidden unit j and reads W_hh through the L2;
-// - it rematerialises the gates from h_prev = h0 || y[:-1] and gi (the TPU
-//   design's trade of flops for bytes) and walks time in reverse;
-// - dW_hh = sum_t h_prev^T dgh and db_hh are summed per block in shared
-//   memory (each thread owns columns j, H+j, 2H+j, so there is no race) and
-//   written as per-block partials into a scratch buffer.
+// gru_bwd_kernel, the reverse-time recurrence. Per group, row and step t
+// (from T - 1 down): rematerialise gh = h_prev @ W_hh + b_hh and the gates
+// from h_prev = h0 || y[:-1] and gi (the TPU design's trade of flops for
+// bytes); dh_total = dy + dh; dgi = [dr, dz, dn] and dgh = [dr, dz, dn * r];
+// dh <- dh_total * z + dgh @ W_hh^T. Bound on an H100 by the work of each
+// 16-row step, on the SM: two 3xTF32 products (288 mma.sync per warp each),
+// the TF32 splits of W_hh's fragments, redone every step, and the gates; at
+// the update shape these form a serial chain of T steps on every SM (0.095
+// ms for the whole backward's products at the TF32 peak, which needs
+// wgmma). Interleaving the next step's gates with this step's dh product,
+// which leaves one product on the chain, was measured slower: the step is
+// bound by the SM's throughput, not by the chain's latency. Design:
+// - the forward's grid, tiles, warp ownership and 3xTF32 product;
+// - W_hh (192 KB) staged once per block, in the forward's B-fragment order
+//   with an XOR swizzle (bwd_slot) under which both of its readings are
+//   conflict-free: float4 fragment pairs for h_prev @ W_hh, and four scalars
+//   from one row of W_hh for dgh @ W_hh^T, whose B operand is W_hh^T;
+// - the h_prev tile (stride 144) and the dgh tile (16 x 3H, stride 400: 16
+//   mod 32, conflict-free A loads) in the remaining 35 KB of shared memory;
+//   gi and dy are loaded into registers at the accumulator positions;
+// - dgh @ W_hh^T has its output fragments on the (row, unit) positions of
+//   the gates, so dh stays in registers across steps;
+// - it writes dgi, dh0 and dgh_n = dn * r (the one part of dgh that dgi
+//   does not hold) for the weight gradient; dW_hh is off the chain.
 //
-// gru_reduce_kernel. Bound by bytes: it reads the P partials once (25.8 MB
-// at the update shape, 0.0077 ms at 3.35 TB/s). One thread per column sums
-// its P values in order p = 0, 1, ...: deterministic, no atomics. Read from
-// HBM on an H100 (80GB HBM3, 700 W) it runs at about two thirds of that
-// rate, as torch.sum does; 16-byte loads with more of them in flight were
-// measured 4% faster there and not kept.
+// gru_dw_kernel, the weight gradient: dW_hh[g] = sum_k h_prev[k]^T dgh[k]
+// and db_hh[g] = sum_k dgh[k] over the K = T * B rows (26,624 at the update
+// shape). Bound on an H100 by bytes and operations alike (h_prev and dgh,
+// 109 MB at the update shape: 0.033 ms at 3.35 TB/s; one 3xTF32 product:
+// 0.032 ms at the TF32 peak); in practice by mma.sync issue and the TF32
+// splits, as the recurrence. Design: each block takes a 64 x 192 tile of
+// dW_hh and one share of K (about one block per SM over groups and tiles);
+// 64-row chunks of h_prev and dgh go global -> shared with cp.async through
+// a ring of three buffers; 8 warps of 32 x 48, 3xTF32, each 16-deep slice of
+// k in a fresh accumulator added to f32 running sums, so the error does not
+// grow with K. Each block writes its partial sums; no atomics. ptxas gives
+// it 255 registers and spills 24 bytes; with the slice loop not unrolled it
+// needs 177 and spills nothing, but measured 7% slower, as did 32-row chunks.
+//
+// gru_reduce_kernel. Bound by bytes: it reads the P partials once (16 per
+// group at the update shape, 6.3 MB, 0.002 ms at 3.35 TB/s). One thread per
+// column sums its P values in order p = 0, 1, ...: deterministic, no
+// atomics. Read from
+// HBM on an H100 (80GB HBM3, 700 W) it runs at two thirds of that rate with
+// 64 partials, as torch.sum does; 16-byte loads with more of them in flight
+// were measured 4% faster there and not kept.
 //
 // Rows past the batch edge are masked inside the kernels; there is no
 // padding of time or batch.
@@ -78,10 +110,6 @@ namespace {
 
 constexpr int kH = 128;       // hidden size the kernels are built for
 constexpr int kH3 = 3 * kH;
-constexpr int kThreads = kH;  // backward: one thread per hidden unit
-constexpr int kBwdTile = 16;  // batch rows per backward tile
-
-__device__ __forceinline__ float sigmoid_f(float x) { return 1.f / (1.f + expf(-x)); }
 
 // the forward's gate: branch-free (division by a 2-ulp reciprocal, no
 // IEEE slow path), so a thread's gates interleave
@@ -129,15 +157,16 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// An h0 tile in registers: float4 i = threadIdx.x + k * kFwdThreads holds
-// row i / 32, columns 4 * (i % 32) .. +3; rows past B are zero.
-__device__ __forceinline__ void load_h0_tile(float4 (&v)[kH0Vecs], const float* __restrict__ h0,
-                                             int g, int B, int r0) {
+// A 16-row tile of a (B, H) matrix m in registers: float4 i = threadIdx.x +
+// k * kFwdThreads holds row r0 + i / 32, columns 4 * (i % 32) .. +3; rows
+// past B are zero.
+__device__ __forceinline__ void load_rows(float4 (&v)[kH0Vecs], const float* __restrict__ m, int B,
+                                          int r0) {
 #pragma unroll
   for (int k = 0; k < kH0Vecs; ++k) {
     const int i = threadIdx.x + k * kFwdThreads;
     const int row = r0 + i / 32;
-    v[k] = row < B ? __ldg(reinterpret_cast<const float4*>(h0 + ((size_t)g * B + row) * kH) + i % 32)
+    v[k] = row < B ? __ldg(reinterpret_cast<const float4*>(m + (size_t)row * kH) + i % 32)
                    : make_float4(0.f, 0.f, 0.f, 0.f);
   }
 }
@@ -150,8 +179,78 @@ __device__ __forceinline__ void store_h0_tile(float* hs, const float4 (&v)[kH0Ve
   }
 }
 
+// A fragments of both k8 steps of a 16-deep slice, split into TF32 parts,
+// from two float4: lo holds row gid, hi row gid + 8, each at k = 4tig + 0..3
+// of the slice (k8 step 0 takes + 0, + 1; step 1 + 2, + 3). The B fragments
+// hold the same k order, so the permutation inside the slice cancels.
+__device__ __forceinline__ void split_a(const float4& lo, const float4& hi, uint32_t (&ab)[2][4],
+                                        uint32_t (&as)[2][4]) {
+  split_tf32(lo.x, ab[0][0], as[0][0]);
+  split_tf32(hi.x, ab[0][1], as[0][1]);
+  split_tf32(lo.y, ab[0][2], as[0][2]);
+  split_tf32(hi.y, ab[0][3], as[0][3]);
+  split_tf32(lo.z, ab[1][0], as[1][0]);
+  split_tf32(hi.z, ab[1][1], as[1][1]);
+  split_tf32(lo.w, ab[1][2], as[1][2]);
+  split_tf32(hi.w, ab[1][3], as[1][3]);
+}
+
+// B fragments of both k8 steps from B[4tig + 0..3, gid] of the slice
+__device__ __forceinline__ void split_b(float x0, float x1, float x2, float x3, uint32_t (&bb)[2][2],
+                                        uint32_t (&bs)[2][2]) {
+  split_tf32(x0, bb[0][0], bs[0][0]);
+  split_tf32(x1, bb[0][1], bs[0][1]);
+  split_tf32(x2, bb[1][0], bs[1][0]);
+  split_tf32(x3, bb[1][1], bs[1][1]);
+}
+
+// part += a * b over one 16-deep slice in 3xTF32: small*big, big*small,
+// big*big of both k8 steps
+__device__ __forceinline__ void mma_3xtf32_slice(float (&part)[4], const uint32_t (&ab)[2][4],
+                                                 const uint32_t (&as)[2][4],
+                                                 const uint32_t (&bb)[2][2],
+                                                 const uint32_t (&bs)[2][2]) {
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks) {
+    mma_tf32(part, as[ks], bb[ks]);
+    mma_tf32(part, ab[ks], bs[ks]);
+    mma_tf32(part, ab[ks], bb[ks]);
+  }
+}
+
+// acc += h @ W_hh at this thread's n-tiles j (gate j % 3 of unit block
+// warp * kUB + j / 3): h a 16-row tile at stride kHS in shared memory, ws
+// W_hh in B-fragment order, where the lane's fragment pair of n-tile nt sits
+// at slot[nt & 1] (nt & 1 == j / 3). Each 16-deep slice of k is summed in a
+// fresh accumulator and added to acc in f32.
+__device__ __forceinline__ void hw_product(float (&acc)[kNJ][4], const float* hs, const float4* ws,
+                                           int warp, int lane, const int (&slot)[2]) {
+  static_assert(kUB == 2 && kUnitBlocks % 2 == 0, "slot[] is indexed by j / 3");
+  const int gid = lane >> 2, tig = lane & 3;
+#pragma unroll 2
+  for (int kp = 0; kp < kKPairs; ++kp) {
+    const float4 lo = *reinterpret_cast<const float4*>(hs + gid * kHS + kp * 16 + 4 * tig);
+    const float4 hi = *reinterpret_cast<const float4*>(hs + (gid + 8) * kHS + kp * 16 + 4 * tig);
+    uint32_t ab[2][4], as[2][4];
+    split_a(lo, hi, ab, as);
+#pragma unroll
+    for (int j = 0; j < kNJ; ++j) {
+      const int nt = (j % 3) * kUnitBlocks + warp * kUB + j / 3;
+      const float4 wv = ws[(kp * kNTiles + nt) * 32 + slot[j / 3]];
+      uint32_t bb[2][2], bs[2][2];
+      split_b(wv.x, wv.y, wv.z, wv.w, bb, bs);
+      float part[4] = {0.f, 0.f, 0.f, 0.f};
+      mma_3xtf32_slice(part, ab, as, bb, bs);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][i] += part[i];
+    }
+  }
+}
+
 // grid (blocks per group, G), kFwdThreads threads, kFwdSmem bytes of dynamic
 // shared memory. Block x of group g walks the row tiles x, x + gridDim.x, ...
+// Its product is written out here rather than through hw_product: the
+// shared version measured 3% slower on an H100.
 __global__ void __launch_bounds__(kFwdThreads, 1)
 gru_fwd_kernel(const float* __restrict__ gi, const float* __restrict__ w_hh,
                const float* __restrict__ b_hh, const float* __restrict__ h0,
@@ -189,7 +288,8 @@ gru_fwd_kernel(const float* __restrict__ gi, const float* __restrict__ w_hh,
   }
 
   float4 h0v[kH0Vecs];
-  load_h0_tile(h0v, h0, g, B, tile * kFwdRows);
+  const float* h0g = h0 + (size_t)g * B * kH;
+  load_rows(h0v, h0g, B, tile * kFwdRows);
   store_h0_tile(hs, h0v);
   __syncthreads();
 
@@ -212,7 +312,7 @@ gru_fwd_kernel(const float* __restrict__ gi, const float* __restrict__ w_hh,
         }
       }
       const bool last = t == T - 1;
-      if (last && next < n_tiles) load_h0_tile(h0v, h0, g, B, next * kFwdRows);
+      if (last && next < n_tiles) load_rows(h0v, h0g, B, next * kFwdRows);
 
       // gh = b_hh + h @ W_hh. Each 16-deep slice of k is summed in a fresh
       // accumulator (small*big, big*small, big*big of both k8 steps) and
@@ -298,193 +398,396 @@ gru_fwd_kernel(const float* __restrict__ gi, const float* __restrict__ w_hh,
 }
 
 // ---------------------------------------------------------------------------
-// Backward (CUDA cores)
+// Backward, kernel 1: the reverse-time recurrence (tensor cores, 3xTF32,
+// W_hh resident in shared memory)
 // ---------------------------------------------------------------------------
 
-// (ar, az, an)[r] = tile[r, :] @ W[:, {j, H+j, 2H+j}] for BT rows
-template <int BT>
-__device__ __forceinline__ void gates_matmul(const float* tile, const float* __restrict__ w,
-                                             int j, float (&ar)[BT], float (&az)[BT],
-                                             float (&an)[BT]) {
+constexpr int kDgS = 400;          // dgh tile row stride in floats (16 mod 32)
+constexpr int kKPairsT = kH3 / 16;  // dgh @ W_hh^T walks k over 3H, 16 at a time
+constexpr size_t kBwdSmem = (size_t)(kWFloats + kFwdRows * (kHS + kDgS)) * sizeof(float);
+
+// The backward's W_hh layout: the forward's B-fragment order with bits 1-2
+// of the slot (the lane whose fragment pair it holds) XORed with bit 4 of
+// the slot and bit 0 of the n-tile. The float4 reads of h_prev @ W_hh stay
+// conflict-free (the XOR permutes the slots inside each group of 8); the
+// scalar reads of dgh @ W_hh^T, which take four consecutive columns of one
+// row of W_hh, become conflict-free (in the forward's order four lanes
+// share a bank). The map is its own inverse.
+__device__ __forceinline__ int bwd_slot(int slot, int nt) {
+  return slot ^ ((((slot >> 4) & 1) | ((nt & 1) << 1)) << 1);
+}
+
+// float index of W_hh[r, c] in that layout
+__device__ __forceinline__ int bwd_w_index(int r, int c) {
+  const int nt = c >> 3;
+  const int slot = (c & 7) * 4 + ((r >> 2) & 3);
+  return (((r >> 4) * kNTiles + nt) * 32 + bwd_slot(slot, nt)) * 4 + (r & 3);
+}
+
+// The gates' backward at one (row, unit), from gi (xr, xz, xn), gh with
+// b_hh (ar, az, an), h_prev and dh_total = dy + dh: the pre-activation
+// gradients dgi = [dr, dz, dn] and dgh = [dr, dz, dgn], and carry =
+// dh_total * z, the direct path to dh_{t-1}. Branch-free, as the forward.
+__device__ __forceinline__ void gru_gate_bwd(float xr, float xz, float xn, float ar, float az,
+                                             float an, float hp, float dht, float& dr, float& dz,
+                                             float& dn, float& dgn, float& carry) {
+  const float r = __fdividef(1.f, 1.f + expf(-(xr + ar)));
+  const float z = __fdividef(1.f, 1.f + expf(-(xz + az)));
+  const float n = tanhf(xn + r * an);
+  dn = dht * (1.f - z) * (1.f - n * n);
+  dgn = dn * r;
+  dr = dn * an * r * (1.f - r);
+  dz = dht * (hp - n) * z * (1.f - z);
+  carry = dht * z;
+}
+
+// this thread's (row, unit) positions of a (B, H) matrix m: rows r0 + gid
+// (half 0) and r0 + gid + 8 (half 1), units (warp * kUB + u) * 8 + 2tig, +1;
+// rows past B read as zero
+__device__ __forceinline__ void load_positions(float2 (&v)[2][kUB], const float* __restrict__ m,
+                                               int B, int r0, int warp, int gid, int tig) {
 #pragma unroll
-  for (int r = 0; r < BT; ++r) {
-    ar[r] = 0.f;
-    az[r] = 0.f;
-    an[r] = 0.f;
-  }
-#pragma unroll 1
-  for (int k = 0; k < kH; k += 4) {
-    float wr[4], wz[4], wn[4];
+  for (int half = 0; half < 2; ++half) {
+    const int row = r0 + gid + 8 * half;
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const float* wk = w + (k + kk) * kH3;
-      wr[kk] = __ldg(wk + j);
-      wz[kk] = __ldg(wk + kH + j);
-      wn[kk] = __ldg(wk + 2 * kH + j);
-    }
-#pragma unroll
-    for (int r = 0; r < BT; ++r) {
-      const float4 v = *reinterpret_cast<const float4*>(tile + r * kH + k);
-      ar[r] = fmaf(v.x, wr[0], ar[r]);
-      ar[r] = fmaf(v.y, wr[1], ar[r]);
-      ar[r] = fmaf(v.z, wr[2], ar[r]);
-      ar[r] = fmaf(v.w, wr[3], ar[r]);
-      az[r] = fmaf(v.x, wz[0], az[r]);
-      az[r] = fmaf(v.y, wz[1], az[r]);
-      az[r] = fmaf(v.z, wz[2], az[r]);
-      az[r] = fmaf(v.w, wz[3], az[r]);
-      an[r] = fmaf(v.x, wn[0], an[r]);
-      an[r] = fmaf(v.y, wn[1], an[r]);
-      an[r] = fmaf(v.z, wn[2], an[r]);
-      an[r] = fmaf(v.w, wn[3], an[r]);
+    for (int u = 0; u < kUB; ++u) {
+      const int unit = (warp * kUB + u) * 8 + 2 * tig;
+      v[half][u] = row < B ? __ldg(reinterpret_cast<const float2*>(m + (size_t)row * kH + unit))
+                           : make_float2(0.f, 0.f);
     }
   }
 }
 
-// grid (P, G) with P blocks per group; each block walks tiles
-// blockIdx.x, blockIdx.x + P, ... and writes one partial row
-// [dW_hh (H*3H) | db_hh (3H)] into partials[g, blockIdx.x].
-// Dynamic shared memory: dW (H*3H) + h_prev tile (BT*H) + dgh tile (BT*3H).
-template <int BT>
-__global__ void __launch_bounds__(kThreads)
+// h_prev at step t of group g as a (B, H) matrix: h0[g] at t == 0, else y[g, t - 1]
+__device__ __forceinline__ const float* h_prev_at(const float* __restrict__ h0,
+                                                  const float* __restrict__ y, int g, int T, int B,
+                                                  int t) {
+  return t == 0 ? h0 + (size_t)g * B * kH : y + ((size_t)g * T + t - 1) * B * kH;
+}
+
+// grid (blocks per group, G), kFwdThreads threads, kBwdSmem bytes of dynamic
+// shared memory. Block x of group g walks the row tiles x, x + gridDim.x, ...
+// in reverse time. Writes dgi (G, T, B, 3H), dh0 (G, B, H) and dgh_n =
+// dn * r (G, T, B, H), the one part of dgh that dgi does not hold, for
+// gru_dw_kernel.
+__global__ void __launch_bounds__(kFwdThreads, 1)
 gru_bwd_kernel(const float* __restrict__ gi, const float* __restrict__ w_hh,
-               const float* __restrict__ w_hh_t, const float* __restrict__ b_hh,
-               const float* __restrict__ h0, const float* __restrict__ y,
-               const float* __restrict__ dy, const float* __restrict__ dhT,
-               float* __restrict__ dgi, float* __restrict__ dh0,
-               float* __restrict__ partials, int T, int B) {
+               const float* __restrict__ b_hh, const float* __restrict__ h0,
+               const float* __restrict__ y, const float* __restrict__ dy,
+               const float* __restrict__ dhT, float* __restrict__ dgi,
+               float* __restrict__ dh0, float* __restrict__ dgh_n, int T, int B) {
   extern __shared__ __align__(16) float smem[];
-  float* dw_s = smem;                 // (H, 3H)
-  float* hp_s = dw_s + kH * kH3;      // (BT, H)
-  float* dg_s = hp_s + BT * kH;       // (BT, 3H)
-  const int j = threadIdx.x;
+  float4* ws = reinterpret_cast<float4*>(smem);  // W_hh, see bwd_slot
+  float* hs = smem + kWFloats;                   // (kFwdRows, kHS) h_prev tile
+  float* ds = hs + kFwdRows * kHS;               // (kFwdRows, kDgS) dgh tile
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
   const int g = blockIdx.y;
-  const int P = gridDim.x;
-  const int n_tiles = (B + BT - 1) / BT;
-  const float* w = w_hh + (size_t)g * kH * kH3;
-  const float* wt = w_hh_t + (size_t)g * kH3 * kH;
-  const float br = b_hh[g * kH3 + j];
-  const float bz = b_hh[g * kH3 + kH + j];
-  const float bn = b_hh[g * kH3 + 2 * kH + j];
+  const int n_tiles = (B + kFwdRows - 1) / kFwdRows;
+  int tile = blockIdx.x;
+  if (tile >= n_tiles) return;
 
-  // thread j touches only dW columns j, H+j, 2H+j (kThreads * 3 == 3H)
-  for (int i = j; i < kH * kH3; i += kThreads) dw_s[i] = 0.f;
-  float db_r = 0.f, db_z = 0.f, db_n = 0.f;
-
-  for (int tile = blockIdx.x; tile < n_tiles; tile += P) {
-    const int r0 = tile * BT;
-    float dh[BT];
+  const float* w = w_hh + (size_t)g * kWFloats;
+  for (int s = tid; s < kKPairs * kNTiles * 32; s += kFwdThreads) {
+    const int nt = (s >> 5) % kNTiles, kp = s / (32 * kNTiles);
+    const int l = bwd_slot(s & 31, nt);
+    const float* src = w + (size_t)(kp * 16 + (l & 3) * 4) * kH3 + nt * 8 + (l >> 2);
+    ws[s] = make_float4(__ldg(src), __ldg(src + kH3), __ldg(src + 2 * kH3), __ldg(src + 3 * kH3));
+  }
+  const int slot[2] = {bwd_slot(lane, 0), bwd_slot(lane, 1)};
+  // dgh @ W_hh^T: the B fragments of output n-tile warp * kUB + u are rows
+  // 8 * (warp * kUB + u) + gid of W_hh, columns 4tig + i of k slice 0; slice
+  // kp adds 16 columns, 256 floats in the layout
+  int wt[kUB][4];
 #pragma unroll
-    for (int r = 0; r < BT; ++r) {
-      const int row = r0 + r;
-      dh[r] = row < B ? dhT[((size_t)g * B + row) * kH + j] : 0.f;
-    }
+  for (int u = 0; u < kUB; ++u)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) wt[u][i] = bwd_w_index(8 * (warp * kUB + u) + gid, 4 * tig + i);
+  float bias[kNJ][2];
+#pragma unroll
+  for (int j = 0; j < kNJ; ++j) {
+    const int col = (j % 3) * kH + (warp * kUB + j / 3) * 8 + 2 * tig;
+    bias[j][0] = __ldg(b_hh + g * kH3 + col);
+    bias[j][1] = __ldg(b_hh + g * kH3 + col + 1);
+  }
+
+  float4 hv[kH0Vecs];
+  load_rows(hv, h_prev_at(h0, y, g, T, B, T - 1), B, tile * kFwdRows);
+  store_h0_tile(hs, hv);
+  float2 dh[2][kUB], dh_next[2][kUB] = {};
+  load_positions(dh, dhT + (size_t)g * B * kH, B, tile * kFwdRows, warp, gid, tig);
+  __syncthreads();
+
+  for (; tile < n_tiles; tile += gridDim.x) {
+    const int r0 = tile * kFwdRows;
+    const int next = tile + gridDim.x;
     for (int t = T - 1; t >= 0; --t) {
       const size_t base = ((size_t)g * T + t) * B;
-      // h_prev tile: h0 at t == 0, else y[t-1]
+      // this step's gi and dy at the accumulator positions, then the next
+      // (tile, step)'s h_prev and, at a tile's last step, the next tile's
+      // dhT: issued before the product to hide their latency
+      float2 gv[2][kNJ];
 #pragma unroll
-      for (int r = 0; r < BT; ++r) {
-        const int row = r0 + r;
-        float v = 0.f;
-        if (row < B)
-          v = t == 0 ? h0[((size_t)g * B + row) * kH + j]
-                     : y[(((size_t)g * T + t - 1) * B + row) * kH + j];
-        hp_s[r * kH + j] = v;
-      }
-      __syncthreads();
-
-      float ar[BT], az[BT], an[BT];
-      gates_matmul<BT>(hp_s, w, j, ar, az, an);
-
-      float carry[BT];  // dh_total * z, the direct path to dh_{t-1}
+      for (int half = 0; half < 2; ++half) {
+        const int row = r0 + gid + 8 * half;
 #pragma unroll
-      for (int r = 0; r < BT; ++r) {
-        const int row = r0 + r;
-        float d_r = 0.f, d_z = 0.f, d_gn = 0.f, c = 0.f;
-        if (row < B) {
-          const float* gir = gi + (base + row) * kH3;
-          const float ghn = an[r] + bn;
-          const float rg = sigmoid_f(gir[j] + (ar[r] + br));
-          const float zg = sigmoid_f(gir[kH + j] + (az[r] + bz));
-          const float ng = tanhf(gir[2 * kH + j] + rg * ghn);
-          const float hp = hp_s[r * kH + j];
-          const float dht = dy[(base + row) * kH + j] + dh[r];
-          const float dn = dht * (1.f - zg);
-          const float dz = dht * (hp - ng);
-          const float dpre_n = dn * (1.f - ng * ng);
-          const float drr = dpre_n * ghn;
-          d_r = drr * rg * (1.f - rg);
-          d_z = dz * zg * (1.f - zg);
-          d_gn = dpre_n * rg;
-          c = dht * zg;
-          float* dgir = dgi + (base + row) * kH3;
-          dgir[j] = d_r;
-          dgir[kH + j] = d_z;
-          dgir[2 * kH + j] = dpre_n;
+        for (int j = 0; j < kNJ; ++j) {
+          const int col = (j % 3) * kH + (warp * kUB + j / 3) * 8 + 2 * tig;
+          gv[half][j] = row < B ? __ldg(reinterpret_cast<const float2*>(gi + (base + row) * kH3 + col))
+                                : make_float2(0.f, 0.f);
         }
-        ar[r] = d_r;  // reuse the registers for dgh
-        az[r] = d_z;
-        an[r] = d_gn;
-        carry[r] = c;
-        dg_s[r * kH3 + j] = d_r;
-        dg_s[r * kH3 + kH + j] = d_z;
-        dg_s[r * kH3 + 2 * kH + j] = d_gn;
-        db_r += d_r;
-        db_z += d_z;
-        db_n += d_gn;
+      }
+      float2 dyv[2][kUB];
+      load_positions(dyv, dy + base * kH, B, r0, warp, gid, tig);
+      const bool more = t > 0 || next < n_tiles;
+      if (t > 0) {
+        load_rows(hv, h_prev_at(h0, y, g, T, B, t - 1), B, r0);
+      } else if (next < n_tiles) {
+        load_rows(hv, h_prev_at(h0, y, g, T, B, T - 1), B, next * kFwdRows);
+        load_positions(dh_next, dhT + (size_t)g * B * kH, B, next * kFwdRows, warp, gid, tig);
       }
 
-      // dW[k, {j, H+j, 2H+j}] += sum_r h_prev[r, k] * dgh[r, {...}]
+      // gh = b_hh + h_prev @ W_hh (the forward's product)
+      float acc[kNJ][4];
+#pragma unroll
+      for (int j = 0; j < kNJ; ++j) {
+        acc[j][0] = acc[j][2] = bias[j][0];
+        acc[j][1] = acc[j][3] = bias[j][1];
+      }
+      hw_product(acc, hs, ws, warp, lane, slot);
+
+      // the gates' backward at this thread's positions, all computed before
+      // any store so that they interleave
+      float2 d_r[2][kUB], d_z[2][kUB], d_n[2][kUB], d_gn[2][kUB], carry[2][kUB];
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+#pragma unroll
+        for (int u = 0; u < kUB; ++u) {
+          const float2 hp = *reinterpret_cast<const float2*>(
+              hs + (gid + 8 * half) * kHS + (warp * kUB + u) * 8 + 2 * tig);
+          const float2 xr = gv[half][3 * u], xz = gv[half][3 * u + 1], xn = gv[half][3 * u + 2];
+          const float2 dht = make_float2(dyv[half][u].x + dh[half][u].x, dyv[half][u].y + dh[half][u].y);
+          const int c = 2 * half;
+          gru_gate_bwd(xr.x, xz.x, xn.x, acc[3 * u][c], acc[3 * u + 1][c], acc[3 * u + 2][c], hp.x,
+                       dht.x, d_r[half][u].x, d_z[half][u].x, d_n[half][u].x, d_gn[half][u].x,
+                       carry[half][u].x);
+          gru_gate_bwd(xr.y, xz.y, xn.y, acc[3 * u][c + 1], acc[3 * u + 1][c + 1],
+                       acc[3 * u + 2][c + 1], hp.y, dht.y, d_r[half][u].y, d_z[half][u].y,
+                       d_n[half][u].y, d_gn[half][u].y, carry[half][u].y);
+        }
+      // rows past B hold zeros throughout (their gi, dy, dh and h_prev are
+      // zero), so their dgh adds nothing to dh; only their stores are masked
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int lr = gid + 8 * half;
+        const int row = r0 + lr;
+#pragma unroll
+        for (int u = 0; u < kUB; ++u) {
+          const int unit = (warp * kUB + u) * 8 + 2 * tig;
+          if (row < B) {
+            float* dgir = dgi + (base + row) * kH3 + unit;
+            *reinterpret_cast<float2*>(dgir) = d_r[half][u];
+            *reinterpret_cast<float2*>(dgir + kH) = d_z[half][u];
+            *reinterpret_cast<float2*>(dgir + 2 * kH) = d_n[half][u];
+            *reinterpret_cast<float2*>(dgh_n + (base + row) * kH + unit) = d_gn[half][u];
+          }
+          *reinterpret_cast<float2*>(ds + lr * kDgS + unit) = d_r[half][u];
+          *reinterpret_cast<float2*>(ds + lr * kDgS + kH + unit) = d_z[half][u];
+          *reinterpret_cast<float2*>(ds + lr * kDgS + 2 * kH + unit) = d_gn[half][u];
+        }
+      }
+      __syncthreads();  // the dgh tile is complete; every read of the h_prev tile is done
+      if (more) store_h0_tile(hs, hv);
+
+      // dh_{t-1} = dh_total * z + dgh @ W_hh^T. Its output fragments fall on
+      // the same (row, unit) positions, so dh stays in registers.
+      float dacc[kUB][4] = {};
 #pragma unroll 2
-      for (int k = 0; k < kH; ++k) {
-        float s0 = 0.f, s1 = 0.f, s2 = 0.f;
+      for (int kp = 0; kp < kKPairsT; ++kp) {
+        const float4 lo = *reinterpret_cast<const float4*>(ds + gid * kDgS + kp * 16 + 4 * tig);
+        const float4 hi = *reinterpret_cast<const float4*>(ds + (gid + 8) * kDgS + kp * 16 + 4 * tig);
+        uint32_t ab[2][4], as[2][4];
+        split_a(lo, hi, ab, as);
+        const float* wk = smem + kp * 256;
 #pragma unroll
-        for (int r = 0; r < BT; ++r) {
-          const float hk = hp_s[r * kH + k];
-          s0 = fmaf(hk, ar[r], s0);
-          s1 = fmaf(hk, az[r], s1);
-          s2 = fmaf(hk, an[r], s2);
-        }
-        dw_s[k * kH3 + j] += s0;
-        dw_s[k * kH3 + kH + j] += s1;
-        dw_s[k * kH3 + 2 * kH + j] += s2;
-      }
-      __syncthreads();  // the dgh tile is complete
-
-      // dh_{t-1}[r, j] = dh_total * z + dgh[r, :] @ W_hh[j, :]^T
-      float acc[BT];
+        for (int u = 0; u < kUB; ++u) {
+          uint32_t bb[2][2], bs[2][2];
+          split_b(wk[wt[u][0]], wk[wt[u][1]], wk[wt[u][2]], wk[wt[u][3]], bb, bs);
+          float part[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_3xtf32_slice(part, ab, as, bb, bs);
 #pragma unroll
-      for (int r = 0; r < BT; ++r) acc[r] = 0.f;
-#pragma unroll 1
-      for (int c = 0; c < kH3; c += 4) {
-        float wv[4];
-#pragma unroll
-        for (int cc = 0; cc < 4; ++cc) wv[cc] = __ldg(wt + (c + cc) * kH + j);
-#pragma unroll
-        for (int r = 0; r < BT; ++r) {
-          const float4 v = *reinterpret_cast<const float4*>(dg_s + r * kH3 + c);
-          acc[r] = fmaf(v.x, wv[0], acc[r]);
-          acc[r] = fmaf(v.y, wv[1], acc[r]);
-          acc[r] = fmaf(v.z, wv[2], acc[r]);
-          acc[r] = fmaf(v.w, wv[3], acc[r]);
+          for (int i = 0; i < 4; ++i) dacc[u][i] += part[i];
         }
       }
 #pragma unroll
-      for (int r = 0; r < BT; ++r) dh[r] = carry[r] + acc[r];
-      __syncthreads();  // before the next step overwrites the tiles
+      for (int half = 0; half < 2; ++half)
+#pragma unroll
+        for (int u = 0; u < kUB; ++u)
+          dh[half][u] = make_float2(carry[half][u].x + dacc[u][2 * half],
+                                    carry[half][u].y + dacc[u][2 * half + 1]);
+      if (t == 0) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int row = r0 + gid + 8 * half;
+#pragma unroll
+          for (int u = 0; u < kUB; ++u) {
+            const int unit = (warp * kUB + u) * 8 + 2 * tig;
+            if (row < B) *reinterpret_cast<float2*>(dh0 + ((size_t)g * B + row) * kH + unit) = dh[half][u];
+            dh[half][u] = dh_next[half][u];
+          }
+        }
+      }
+      __syncthreads();  // before the next step writes the tiles
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Backward, kernel 2: dW_hh = sum_k h_prev[k]^T dgh[k], a long-K product
+// (tensor cores, 3xTF32)
+// ---------------------------------------------------------------------------
+
+constexpr int kDwK = 64;              // rows of k per staged chunk
+constexpr int kDwM = 64, kDwN = 192;  // a block's tile of dW_hh (H x 3H)
+constexpr int kDwTilesN = kH3 / kDwN;
+constexpr int kDwTiles = (kH / kDwM) * kDwTilesN;
+constexpr int kDwHS = kDwM + 8;       // staged row strides, 8 mod 32: the
+constexpr int kDwGS = kDwN + 8;       // scalar fragment loads are conflict-free
+constexpr int kDwStage = kDwK * (kDwHS + kDwGS);
+constexpr int kDwStages = 3;          // chunks in flight: a ring of staged buffers
+constexpr size_t kDwSmem = kDwStages * kDwStage * sizeof(float);
+
+// 16 bytes global -> shared, asynchronous; zero-filled when !valid
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+// wait until at most N groups of this thread's copies are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// grid (P, kDwTiles, G), kFwdThreads threads, kDwSmem bytes of dynamic
+// shared memory. Block (p, tile, g) sums rows [p * rows, (p + 1) * rows) of
+// k over T * B for its kDwM x kDwN tile of dW_hh[g], and writes them into
+// partials[g, p] (laid out [dW_hh (H x 3H) | db_hh (3H)]); the blocks of the
+// first row of tiles also sum db_hh over their columns. Row k of h_prev is
+// h0[g, k] for k < B, else row k - B of y[g] (time-major over (T, B)); row k
+// of dgh is [dgi[g, k, :2H] | dgh_n[g, k]].
+__global__ void __launch_bounds__(kFwdThreads, 1)
+gru_dw_kernel(const float* __restrict__ h0, const float* __restrict__ y,
+              const float* __restrict__ dgi, const float* __restrict__ dgh_n,
+              float* __restrict__ partials, int T, int B, int rows) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int p = blockIdx.x, g = blockIdx.z;
+  const int m0 = (blockIdx.y / kDwTilesN) * kDwM, n0 = (blockIdx.y % kDwTilesN) * kDwN;
+  const int K = T * B;
+  const int k0 = p * rows, k1 = min(K, k0 + rows);
+  const int n_chunks = k1 > k0 ? (k1 - k0 + kDwK - 1) / kDwK : 0;
+  const float* h0g = h0 + (size_t)g * B * kH;
+  const float* yg = y + (size_t)g * T * B * kH;
+  const float* dgig = dgi + (size_t)g * K * kH3;
+  const float* dgng = dgh_n + (size_t)g * K * kH;
+
+  // chunk c (rows k0 + c * kDwK, ...) into buf: h_prev rows at stride kDwHS, then dgh rows
+  auto stage = [&](int c, float* buf) {
+    const int kc = k0 + c * kDwK;
+    for (int i = tid; i < kDwK * kDwM / 4; i += kFwdThreads) {
+      const int rr = i / (kDwM / 4), q = i % (kDwM / 4), k = kc + rr;
+      const bool ok = k < k1;
+      const float* row = k < B ? h0g + (size_t)k * kH : yg + (size_t)(k - B) * kH;
+      cp_async16(buf + rr * kDwHS + 4 * q, ok ? row + m0 + 4 * q : h0g, ok);
+    }
+    float* gs = buf + kDwK * kDwHS;
+    for (int i = tid; i < kDwK * kDwN / 4; i += kFwdThreads) {
+      const int rr = i / (kDwN / 4), q = i % (kDwN / 4), k = kc + rr, col = n0 + 4 * q;
+      const bool ok = k < k1;
+      const float* src = col < 2 * kH ? dgig + (size_t)k * kH3 + col : dgng + (size_t)k * kH + col - 2 * kH;
+      cp_async16(gs + rr * kDwGS + 4 * q, ok ? src : dgig, ok);
+    }
+  };
+
+  const int wm = warp / 4, wn = warp % 4;  // warp tile: 32 rows of m x 48 columns of n
+  const bool do_db = m0 == 0 && tid < kDwN;
+  float acc[2][6][4] = {};
+  float db = 0.f;  // column n0 + tid of db_hh
+  // a ring of kDwStages buffers: chunks c + 1 .. c + kDwStages - 1 load
+  // while chunk c is summed
 #pragma unroll
-    for (int r = 0; r < BT; ++r) {
-      const int row = r0 + r;
-      if (row < B) dh0[((size_t)g * B + row) * kH + j] = dh[r];
+  for (int c = 0; c < kDwStages - 1; ++c) {
+    if (c < n_chunks) stage(c, smem + c * kDwStage);
+    cp_async_commit();
+  }
+  for (int c = 0; c < n_chunks; ++c) {
+    cp_async_wait<kDwStages - 2>();
+    __syncthreads();  // chunk c has landed; every warp is done with chunk c - 1
+    const int cn = c + kDwStages - 1;
+    if (cn < n_chunks) stage(cn, smem + (cn % kDwStages) * kDwStage);
+    cp_async_commit();
+    const float* hsb = smem + (c % kDwStages) * kDwStage;
+    const float* gsb = hsb + kDwK * kDwHS;
+    // each 16-deep slice of k in a fresh accumulator, added to acc in f32
+#pragma unroll
+    for (int sl = 0; sl < kDwK / 16; ++sl) {
+      float part[2][6][4] = {};
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        const int kk = sl * 16 + ks * 8;
+        // A = h_prev^T: a0 (m gid, k tig), a1 (m gid + 8, k tig), a2/a3 at k tig + 4
+        uint32_t ab[2][4], as[2][4];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          const float* a = hsb + (kk + tig) * kDwHS + wm * 32 + mi * 16 + gid;
+          split_tf32(a[0], ab[mi][0], as[mi][0]);
+          split_tf32(a[8], ab[mi][1], as[mi][1]);
+          split_tf32(a[4 * kDwHS], ab[mi][2], as[mi][2]);
+          split_tf32(a[4 * kDwHS + 8], ab[mi][3], as[mi][3]);
+        }
+        // B = dgh: b0 (k tig, n gid), b1 (k tig + 4, n gid)
+        uint32_t bb[6][2], bs[6][2];
+#pragma unroll
+        for (int ni = 0; ni < 6; ++ni) {
+          const float* b = gsb + (kk + tig) * kDwGS + wn * 48 + ni * 8 + gid;
+          split_tf32(b[0], bb[ni][0], bs[ni][0]);
+          split_tf32(b[4 * kDwGS], bb[ni][1], bs[ni][1]);
+        }
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < 6; ++ni) {
+            mma_tf32(part[mi][ni], as[mi], bb[ni]);
+            mma_tf32(part[mi][ni], ab[mi], bs[ni]);
+            mma_tf32(part[mi][ni], ab[mi], bb[ni]);
+          }
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 6; ++ni)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[mi][ni][i] += part[mi][ni][i];
+    }
+    if (do_db) {
+#pragma unroll 8
+      for (int rr = 0; rr < kDwK; ++rr) db += gsb[rr * kDwGS + tid];
     }
   }
 
-  float* out = partials + ((size_t)g * P + blockIdx.x) * (kH * kH3 + kH3);
-  for (int i = j; i < kH * kH3; i += kThreads) out[i] = dw_s[i];
-  out[kH * kH3 + j] = db_r;
-  out[kH * kH3 + kH + j] = db_z;
-  out[kH * kH3 + 2 * kH + j] = db_n;
+  float* out = partials + ((size_t)g * gridDim.x + p) * (kH * kH3 + kH3);
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 6; ++ni) {
+      const int m = m0 + wm * 32 + mi * 16 + gid, n = n0 + wn * 48 + ni * 8 + 2 * tig;
+      *reinterpret_cast<float2*>(out + (size_t)m * kH3 + n) = make_float2(acc[mi][ni][0], acc[mi][ni][1]);
+      *reinterpret_cast<float2*>(out + (size_t)(m + 8) * kH3 + n) = make_float2(acc[mi][ni][2], acc[mi][ni][3]);
+    }
+  if (do_db) out[kH * kH3 + n0 + tid] = db;
 }
 
 // ---------------------------------------------------------------------------
@@ -509,7 +812,8 @@ extern "C" {
 
 int gru_kernel_hidden() { return kH; }
 int gru_fwd_rows() { return kFwdRows; }
-int gru_bwd_tile() { return kBwdTile; }
+int gru_dw_chunk() { return kDwK; }
+int gru_dw_tiles() { return kDwTiles; }
 
 // Each launcher returns cudaGetLastError() after its launch (0 = success).
 // blocks_per_group: the persistent grid's blocks for each group. Pointers
@@ -526,18 +830,32 @@ int gru_fwd(const float* gi, const float* w_hh, const float* b_hh, const float* 
   return (int)cudaGetLastError();
 }
 
-int gru_bwd(const float* gi, const float* w_hh, const float* w_hh_t, const float* b_hh,
-            const float* h0, const float* y, const float* dy, const float* dhT, float* dgi,
-            float* dh0, float* partials, int G, int T, int B, int H, int blocks_per_group,
-            void* stream) {
+int gru_bwd(const float* gi, const float* w_hh, const float* b_hh, const float* h0,
+            const float* y, const float* dy, const float* dhT, float* dgi, float* dh0,
+            float* dgh_n, int G, int T, int B, int H, int blocks_per_group, void* stream) {
   if (H != kH || G < 1 || T < 1 || B < 1 || blocks_per_group < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(kH * kH3 + kBwdTile * kH + kBwdTile * kH3) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(gru_bwd_kernel<kBwdTile>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t e = cudaFuncSetAttribute(gru_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)kBwdSmem);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  gru_bwd_kernel<kBwdTile><<<dim3(blocks_per_group, G), kThreads, smem, s>>>(
-      gi, w_hh, w_hh_t, b_hh, h0, y, dy, dhT, dgi, dh0, partials, T, B);
+  gru_bwd_kernel<<<dim3(blocks_per_group, G), kFwdThreads, kBwdSmem, s>>>(
+      gi, w_hh, b_hh, h0, y, dy, dhT, dgi, dh0, dgh_n, T, B);
+  return (int)cudaGetLastError();
+}
+
+// P blocks per tile of dW_hh, each summing `rows` rows of k (a multiple of
+// gru_dw_chunk()); partials (G, P, H * 3H + 3H)
+int gru_dw(const float* h0, const float* y, const float* dgi, const float* dgh_n, float* partials,
+           int G, int T, int B, int H, int P, int rows, void* stream) {
+  if (H != kH || G < 1 || T < 1 || B < 1 || P < 1 || rows < 1 || rows % kDwK ||
+      (long long)P * rows < (long long)T * B)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(gru_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)kDwSmem);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  gru_dw_kernel<<<dim3(P, kDwTiles, G), kFwdThreads, kDwSmem, s>>>(h0, y, dgi, dgh_n, partials, T,
+                                                                   B, rows);
   return (int)cudaGetLastError();
 }
 

@@ -1,20 +1,28 @@
 """GRU recurrence over a whole sequence: hand-written CUDA kernels + plain version.
 
 Replaces the Pallas TPU kernels of the JAX package's `ops/fused_gru.py`
-(`_fwd_kernel`, `_bwd_kernel`) with three kernels in `csrc/fused_gru.cu`:
+(`_fwd_kernel`, `_bwd_kernel`) with four kernels in `csrc/fused_gru.cu`,
+each forming its products on tensor cores in 3xTF32 (each operand split
+into two TF32 parts, three products summed in f32), so results stay at f32
+level:
 
 - `gru_fwd` (replaces `_fwd_kernel`): the recurrence over all T steps in
   one launch on a persistent grid of about one block per SM. Each block
   stages W_hh once in shared memory, keeps its 16-row h tile there for all
-  T steps, and forms `h @ W_hh` on tensor cores in 3xTF32 (each operand
-  split into two TF32 parts, three products summed in f32), so results stay
-  at f32 level. Bound by the work of each tile (the three products, the
-  splits, the gates), under which its bytes hide; at the update shape that
-  work is also a serial chain over T.
-- `gru_bwd` (replaces `_bwd_kernel`): BPTT in reverse time on CUDA cores,
-  rematerialising the gates from `h_prev = h0 || y[:-1]` and `gi` instead
-  of saving activations. Bound by FP32 FMA issue. It emits `dgi`, `dh0` and
-  per-block partial sums of `dW_hh` / `db_hh`.
+  T steps, and forms `h @ W_hh`. Bound by the work of each tile (the three
+  products, the splits, the gates), under which its bytes hide; at the
+  update shape that work is also a serial chain over T.
+- `gru_bwd` (replaces `_bwd_kernel`'s recurrence): BPTT in reverse time on
+  the forward's grid, with W_hh in shared memory, rematerialising the gates
+  from `h_prev = h0 || y[:-1]` and `gi` instead of saving activations. Per
+  step it forms `h_prev @ W_hh` and `dgh @ W_hh^T`, and keeps dh in
+  registers. It emits `dgi`, `dh0` and `dgh_n = dgi_n * r`, the one part of
+  `dgh` that `dgi` does not hold. Bound, like the forward, by the work of
+  each step, here on a chain of T steps.
+- `gru_dw` (replaces `_bwd_kernel`'s `dW_hh`/`db_hh` products): the weight
+  gradient, off the recurrence's chain, as one long-K product over the
+  T*B rows of `h_prev` and `dgh = [dgi_r, dgi_z, dgh_n]`, split over K into
+  per-block partial sums.
 - `gru_reduce` (replaces the in-order `dW_hh`/`db_hh` accumulation of
   `_bwd_kernel`): sums those partials. On the TPU the accumulation into one
   output block is race-free because grid steps run in order; GPU blocks
@@ -28,12 +36,15 @@ use, into `codebase_tpu_torch/_build/`, and loaded with ctypes.
 Dispatch: a CPU tensor goes through the plain PyTorch version
 (`gru_sequence_plain`, a loop of GRU-cell tensor ops with autograd through
 it); a CUDA tensor launches the kernels or raises. There is no fallback.
+The backward's plain versions (`gru_bwd_plain`, `gru_dw_plain` and their
+composition `gru_backward_plain`) are the references the kernels are held
+to; no path runs them on a CUDA tensor.
 Every tensor carries a leading group axis G (agents or sharing groups): one
 launch covers all groups.
 
-Launch counters (`FWD_LAUNCHES`, `BWD_LAUNCHES`, `REDUCE_LAUNCHES`) rise by
-one where a kernel is launched and nowhere else, so a run can show that its
-path went through the kernels.
+Launch counters (`FWD_LAUNCHES`, `BWD_LAUNCHES`, `DW_LAUNCHES`,
+`REDUCE_LAUNCHES`) rise by one where a kernel is launched and nowhere else,
+so a run can show that its path went through the kernels.
 """
 
 from __future__ import annotations
@@ -50,6 +61,7 @@ import torch
 
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
+DW_LAUNCHES = 0
 REDUCE_LAUNCHES = 0
 
 KERNEL_HIDDEN = 128  # the hidden size the kernels are built for
@@ -67,12 +79,12 @@ _lib_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    global FWD_LAUNCHES, BWD_LAUNCHES, REDUCE_LAUNCHES
-    FWD_LAUNCHES = BWD_LAUNCHES = REDUCE_LAUNCHES = 0
+    global FWD_LAUNCHES, BWD_LAUNCHES, DW_LAUNCHES, REDUCE_LAUNCHES
+    FWD_LAUNCHES = BWD_LAUNCHES = DW_LAUNCHES = REDUCE_LAUNCHES = 0
 
 
 def launch_counts() -> dict:
-    return {"fwd": FWD_LAUNCHES, "bwd": BWD_LAUNCHES, "reduce": REDUCE_LAUNCHES}
+    return {"fwd": FWD_LAUNCHES, "bwd": BWD_LAUNCHES, "dw": DW_LAUNCHES, "reduce": REDUCE_LAUNCHES}
 
 
 # ---------------------------------------------------------------------------
@@ -95,6 +107,54 @@ def gru_sequence_plain(gi, w_hh, b_hh, h0):
         h = (1.0 - z) * n + z * h
         ys.append(h)
     return torch.stack(ys, dim=1), h
+
+
+def _h_prev(h0, y):
+    """h_prev = h0 || y[:-1], (G, T, B, H)."""
+    return torch.cat([h0[:, None], y[:, :-1]], dim=1)
+
+
+def gru_bwd_plain(gi, w_hh, b_hh, h0, y, dy, dhT):
+    """The plain version of `gru_bwd`, the reverse-time recurrence: gates
+    rematerialised from h_prev = h0 || y[:-1] and gi. Returns (dgi (G, T, B,
+    3H), dh0 (G, B, H), dgh_n (G, T, B, H)) with dgh = [dgi_r, dgi_z, dgh_n]."""
+    H = h0.shape[-1]
+    h_prev = _h_prev(h0, y)
+    dh = dhT
+    dgi, dgh_n = torch.empty_like(gi), torch.empty_like(y)
+    for t in reversed(range(gi.shape[1])):
+        hp, gi_t = h_prev[:, t], gi[:, t]
+        gh = torch.bmm(hp, w_hh) + b_hh[:, None, :]
+        r = torch.sigmoid(gi_t[..., :H] + gh[..., :H])
+        z = torch.sigmoid(gi_t[..., H : 2 * H] + gh[..., H : 2 * H])
+        n = torch.tanh(gi_t[..., 2 * H :] + r * gh[..., 2 * H :])
+        dht = dy[:, t] + dh
+        dn = dht * (1.0 - z) * (1.0 - n * n)
+        dr = dn * gh[..., 2 * H :] * r * (1.0 - r)
+        dz = dht * (hp - n) * z * (1.0 - z)
+        dgi[:, t] = torch.cat([dr, dz, dn], dim=-1)
+        dgh_n[:, t] = dn * r
+        dgh = torch.cat([dr, dz, dn * r], dim=-1)
+        dh = dht * z + torch.bmm(dgh, w_hh.transpose(1, 2))
+    return dgi, dh, dgh_n
+
+
+def gru_dw_plain(h0, y, dgi, dgh_n):
+    """The plain version of `gru_dw` and the reduction:
+    dW_hh = sum over (t, b) of h_prev^T dgh, db_hh = sum of dgh, with
+    dgh = [dgi_r, dgi_z, dgh_n]. Returns (dW_hh (G, H, 3H), db_hh (G, 3H))."""
+    G, T, B, H = y.shape
+    h_prev = _h_prev(h0, y).reshape(G, T * B, H)
+    dgh = torch.cat([dgi[..., : 2 * H], dgh_n], dim=-1).reshape(G, T * B, 3 * H)
+    return torch.bmm(h_prev.transpose(1, 2), dgh), dgh.sum(1)
+
+
+def gru_backward_plain(gi, w_hh, b_hh, h0, y, dy, dhT):
+    """The backward's plain version, the same function as
+    `gru_backward_cuda`: (dgi, dW_hh, db_hh, dh0)."""
+    dgi, dh0, dgh_n = gru_bwd_plain(gi, w_hh, b_hh, h0, y, dy, dhT)
+    dw, db = gru_dw_plain(h0, y, dgi, dgh_n)
+    return dgi, dw, db, dh0
 
 
 def reduce_partials_plain(partials):
@@ -145,10 +205,11 @@ def _library():
             lib = ctypes.CDLL(str(build_library()))
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.gru_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
-            lib.gru_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
+            lib.gru_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
+            lib.gru_dw.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
             lib.gru_reduce.argtypes = [p, p, i, i, i, p]
-            sizes = (lib.gru_kernel_hidden, lib.gru_fwd_rows, lib.gru_bwd_tile)
-            for fn in (lib.gru_fwd, lib.gru_bwd, lib.gru_reduce, *sizes):
+            sizes = (lib.gru_kernel_hidden, lib.gru_fwd_rows, lib.gru_dw_chunk, lib.gru_dw_tiles)
+            for fn in (lib.gru_fwd, lib.gru_bwd, lib.gru_dw, lib.gru_reduce, *sizes):
                 fn.restype = i
             for fn in sizes:
                 fn.argtypes = []
@@ -238,16 +299,9 @@ def gru_fwd_cuda(gi, w_hh, b_hh, h0):
     return y, hT
 
 
-def backward_blocks_per_group(G: int, B: int, tile: int) -> int:
-    """One backward block per SM over all groups (each holds a 192 KB dW
-    accumulator in shared memory); a block walks several batch tiles when
-    there are more tiles than blocks."""
-    return max(1, min(-(-B // tile), -(-_sms() // G)))
-
-
 def gru_bwd_cuda(gi, w_hh, b_hh, h0, y, dy, dhT):
-    """Kernel 2: (dgi (G, T, B, 3H), dh0 (G, B, H), partials (G, P, H*3H + 3H))
-    where partials[g, p] holds block p's share of [dW_hh[g] | db_hh[g]]."""
+    """Kernel 2, the reverse-time recurrence, on the forward's persistent
+    grid: (dgi (G, T, B, 3H), dh0 (G, B, H), dgh_n (G, T, B, H))."""
     global BWD_LAUNCHES
     G, T, B, H = _dims(gi)
     dev = gi.device
@@ -258,23 +312,56 @@ def gru_bwd_cuda(gi, w_hh, b_hh, h0, y, dy, dhT):
         dev,
     )
     lib = _library()
-    w_hh_t = w_hh.transpose(1, 2).contiguous()  # (G, 3H, H): coalesced dgh @ W^T
     dgi = torch.empty_like(gi)
     dh0 = torch.empty_like(h0)
+    dgh_n = torch.empty_like(y)
     with torch.cuda.device(dev):
-        P = backward_blocks_per_group(G, B, lib.gru_bwd_tile())
-        partials = torch.empty((G, P, H * 3 * H + 3 * H), device=dev)
         code = lib.gru_bwd(
-            _ptr(gi), _ptr(w_hh), _ptr(w_hh_t), _ptr(b_hh), _ptr(h0), _ptr(y), _ptr(dy),
-            _ptr(dhT), _ptr(dgi), _ptr(dh0), _ptr(partials), G, T, B, H, P, _stream(dev),
+            _ptr(gi), _ptr(w_hh), _ptr(b_hh), _ptr(h0), _ptr(y), _ptr(dy), _ptr(dhT), _ptr(dgi),
+            _ptr(dh0), _ptr(dgh_n), G, T, B, H, forward_blocks_per_group(G, B, lib.gru_fwd_rows()),
+            _stream(dev),
         )
     _raise_on(code, "gru_bwd launch")
     BWD_LAUNCHES += 1
-    return dgi, dh0, partials
+    return dgi, dh0, dgh_n
+
+
+def dw_blocks_per_group(G: int, K: int, tiles: int, chunk: int) -> tuple:
+    """Split of the dW_hh product's K = T*B rows: (P, rows), P blocks per
+    tile of dW_hh, each summing `rows` rows (a multiple of `chunk`), about
+    one block per SM over all groups and tiles."""
+    rows = -(-K // max(1, _sms() // (G * tiles)))
+    rows = -(-rows // chunk) * chunk
+    return -(-K // rows), rows
+
+
+def gru_dw_cuda(h0, y, dgi, dgh_n):
+    """Kernel 3, dW_hh and db_hh over K = T*B rows: partials (G, P, H*3H + 3H),
+    where partials[g, p] holds the share of rows block p summed of
+    [dW_hh[g] | db_hh[g]]."""
+    global DW_LAUNCHES
+    G, T, B, H = _dims(dgi)
+    dev = dgi.device
+    _check(
+        {"h0": (h0, (G, B, H)), "y": (y, (G, T, B, H)), "dgi": (dgi, (G, T, B, 3 * H)),
+         "dgh_n": (dgh_n, (G, T, B, H))},
+        dev,
+    )
+    lib = _library()
+    P, rows = dw_blocks_per_group(G, T * B, lib.gru_dw_tiles(), lib.gru_dw_chunk())
+    partials = torch.empty((G, P, H * 3 * H + 3 * H), device=dev)
+    with torch.cuda.device(dev):
+        code = lib.gru_dw(
+            _ptr(h0), _ptr(y), _ptr(dgi), _ptr(dgh_n), _ptr(partials), G, T, B, H, P, rows,
+            _stream(dev),
+        )
+    _raise_on(code, "gru_dw launch")
+    DW_LAUNCHES += 1
+    return partials
 
 
 def reduce_partials_cuda(partials):
-    """Kernel 3: partials (G, P, E) -> (G, E), summed over P in order (two
+    """Kernel 4: partials (G, P, E) -> (G, E), summed over P in order (two
     calls give bitwise-equal results)."""
     global REDUCE_LAUNCHES
     if partials.ndim != 3:
@@ -292,10 +379,11 @@ def reduce_partials_cuda(partials):
 
 
 def gru_backward_cuda(gi, w_hh, b_hh, h0, y, dy, dhT):
-    """Kernels 2 and 3: (dgi, dW_hh, db_hh, dh0)."""
+    """Kernels 2-4, the recurrence, the weight gradient and the reduction:
+    (dgi, dW_hh, db_hh, dh0)."""
     H = h0.shape[-1]
-    dgi, dh0, partials = gru_bwd_cuda(gi, w_hh, b_hh, h0, y, dy, dhT)
-    sums = reduce_partials_cuda(partials)
+    dgi, dh0, dgh_n = gru_bwd_cuda(gi, w_hh, b_hh, h0, y, dy, dhT)
+    sums = reduce_partials_cuda(gru_dw_cuda(h0, y, dgi, dgh_n))
     dw = sums[:, : H * 3 * H].reshape(w_hh.shape)
     db = sums[:, H * 3 * H :]
     return dgi, dw, db, dh0
@@ -303,7 +391,7 @@ def gru_backward_cuda(gi, w_hh, b_hh, h0, y, dy, dhT):
 
 class FusedGRUSequence(torch.autograd.Function):
     """The recurrence on CUDA tensors: forward is kernel 1; backward is
-    kernel 2 then the reduction. Saves (gi, w_hh, b_hh, h0, y)."""
+    kernels 2-4 (`gru_backward_cuda`). Saves (gi, w_hh, b_hh, h0, y)."""
 
     @staticmethod
     def forward(ctx, gi, w_hh, b_hh, h0):

@@ -34,7 +34,7 @@ from codebase_tpu_torch.run import build_envs
 from codebase_tpu_torch.utils.device import resolve_device
 
 RANGES = ("dqn/rollout", "dqn/replay_add", "dqn/updates")
-GRU_KERNELS = ("gru_fwd_kernel", "gru_bwd_kernel", "gru_reduce_kernel")
+GRU_KERNELS = ("gru_fwd_kernel", "gru_bwd_kernel", "gru_dw_kernel", "gru_reduce_kernel")
 
 
 def device_breakdown(events, iters: int, top: int) -> dict:

@@ -50,7 +50,7 @@ def _gru_inputs(G, T, B, seed):
     "G,T,B", [(3, 7, 1000), (2, 1, 4100), (1, 26, 5), (2, 1, 65536), (2, 26, 1000), (2, 3, 9)]
 )
 def test_kernels_match_plain_version_on_the_card(cuda_device, G, T, B):
-    """Kernels 1-3 against the plain version: ragged batch edges, T=1, a
+    """Kernels 1-4 against the plain version: ragged batch edges, T=1, a
     batch smaller than one tile, more row tiles than the persistent forward
     grid has blocks (2, 1, 65536), and a batch that is not a multiple of the
     16-row tiles. Forward at 1e-5; gradients at 1e-4 of each one's
@@ -71,7 +71,7 @@ def test_kernels_match_plain_version_on_the_card(cuda_device, G, T, B):
     for g, r in zip(grads, ref):
         torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4 * r.abs().max().item())
     after = fg.launch_counts()
-    assert [after[k] - counts[k] for k in ("fwd", "bwd", "reduce")] == [1, 1, 1]
+    assert [after[k] - counts[k] for k in ("fwd", "bwd", "dw", "reduce")] == [1, 1, 1, 1]
 
 
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
@@ -105,15 +105,47 @@ def test_reduce_is_deterministic_and_matches_the_plain_sum(cuda_device):
     torch.testing.assert_close(first, ref, rtol=0, atol=1e-5 * ref.abs().max().item())
 
 
+@pytest.mark.parametrize("G,T,B", [(2, 26, 1024), (3, 7, 1000), (2, 1, 65536)])
+def test_backward_is_deterministic_and_matches_its_plain_version(cuda_device, G, T, B):
+    """The whole backward (recurrence, weight gradient, reduction) has no
+    atomics: two calls on the same inputs are bitwise equal. Against
+    `gru_backward_plain` on the same inputs: dgi and dh0 at 1e-5, dW_hh and
+    db_hh at 1e-4 of the largest entry (sums of T*B terms in another order)."""
+    gi, w, b, h0, dy, dhT = (torch.tensor(a, device=cuda_device) for a in _gru_inputs(G, T, B, seed=9))
+    y, _ = fg.gru_fwd_cuda(gi, w, b, h0)
+    first = fg.gru_backward_cuda(gi, w, b, h0, y, dy, dhT)
+    second = fg.gru_backward_cuda(gi, w, b, h0, y, dy, dhT)
+    ref = fg.gru_backward_plain(gi, w, b, h0, y, dy, dhT)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(first, second))
+    for got, r, name in zip(first, ref, ("dgi", "dW_hh", "db_hh", "dh0")):
+        atol = 1e-5 if name in ("dgi", "dh0") else 1e-4 * r.abs().max().item()
+        torch.testing.assert_close(got, r, rtol=1e-5, atol=atol, msg=name)
+
+
+def _sass_functions(name):
+    tool = shutil.which("cuobjdump") or str(Path(fg._nvcc()).parent / "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(fg.build_library())], capture_output=True,
+                          text=True, check=True).stdout
+    return [f for f in sass.split("Function : ")[1:] if name in f.splitlines()[0]]
+
+
+@pytest.mark.parametrize("kernel", ["gru_bwd_kernel", "gru_dw_kernel"])
+def test_backward_kernels_run_on_tensor_cores(cuda_device, kernel):
+    """The backward's three products (h_prev @ W_hh and dgh @ W_hh^T in the
+    recurrence, h_prev^T dgh in the weight gradient) are tensor-core MMA in
+    TF32, in kernels of this library (no cuBLAS)."""
+    functions = _sass_functions(kernel)
+    assert len(functions) == 1
+    assert any("HMMA" in line and "TF32" in line for line in functions[0].splitlines())
+
+
 def test_forward_kernel_runs_on_tensor_cores(cuda_device):
     """The forward's product is tensor-core MMA in TF32: gru_fwd_kernel in
     the built library holds HMMA ... TF32 instructions
     (its 3xTF32 compensation shows in the 1e-5 agreement above, which
     single-pass TF32 misses, see tests/test_torch_fused_gru.py)."""
-    tool = shutil.which("cuobjdump") or str(Path(fg._nvcc()).parent / "cuobjdump")
-    sass = subprocess.run([tool, "-sass", str(fg.build_library())], capture_output=True,
-                          text=True, check=True).stdout
-    functions = [f for f in sass.split("Function : ")[1:] if "gru_fwd_kernel" in f.splitlines()[0]]
+    functions = _sass_functions("gru_fwd_kernel")
     assert len(functions) == 1
     assert any("HMMA" in line and "TF32" in line for line in functions[0].splitlines())
 
@@ -148,7 +180,8 @@ def test_idqn_loss_through_the_kernels_matches_the_plain_cpu_path(cuda_device):
         grads.append(torch.autograd.grad(loss, model.param_leaves()))
     torch.cuda.synchronize()
     after = fg.launch_counts()
-    assert after["fwd"] - counts["fwd"] == 2 and after["bwd"] - counts["bwd"] == 1
+    assert after["fwd"] - counts["fwd"] == 2
+    assert [after[k] - counts[k] for k in ("bwd", "dw", "reduce")] == [1, 1, 1]
     torch.testing.assert_close(losses[1].cpu(), losses[0], rtol=1e-4, atol=0)
     for g, r in zip(grads[1], grads[0]):
         torch.testing.assert_close(g.cpu(), r, rtol=1e-4, atol=1e-4 * r.abs().max().item())
@@ -166,6 +199,7 @@ def test_tiny_train_run_on_the_card_goes_through_the_kernels(cuda_device, tmp_pa
     torch.cuda.synchronize()
     counts = fg.launch_counts()
     iters = len(state.timings)
-    assert counts["fwd"] >= 5 * iters and counts["bwd"] == counts["reduce"] == 2 * iters
+    assert counts["fwd"] >= 5 * iters
+    assert counts["bwd"] == counts["dw"] == counts["reduce"] == 2 * iters
     assert rows and all(np.isfinite(float(r["loss"])) for r in rows)
     assert (tmp_path / "results.csv").exists()

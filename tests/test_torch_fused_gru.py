@@ -4,11 +4,13 @@ Pallas kernel run in interpret mode, as `tests/test_fused_gru.py` runs it.
 Inputs come from a numpy seed and are handed to both sides; GRU layer
 weights come from the JAX `gru_layer_init` and cross with `params_from_numpy`.
 Tolerances are the JAX tests' own: 1e-5 for values, 2e-4 for gradients.
-The CUDA forward kernel forms `h @ W_hh` in 3xTF32 on tensor cores; its
-rounding is emulated here with integer bit ops, so the precision scheme is
-held to the JAX kernel before any card run.
+The CUDA kernels form every product (`h @ W_hh` in the forward;
+`h_prev @ W_hh`, `dgh @ W_hh^T` and `h_prev^T dgh` in the backward) in
+3xTF32 on tensor cores; that rounding is emulated here with integer bit
+ops, so the precision scheme is held to the JAX kernel before any card run.
 """
 
+import contextlib
 import functools
 
 import jax
@@ -125,7 +127,7 @@ def _tf32_truncated(x):
 
 
 def _bmm_3xtf32(a, b):
-    """`torch.bmm` as the forward kernel forms it: each operand split into
+    """`torch.bmm` as the kernels form it: each operand split into
     big = tf32(x) and small = x - big (read as TF32 by truncation), then
     small*big + big*small + big*big summed in f32 (each product of two TF32
     values is exact in f32)."""
@@ -193,3 +195,122 @@ def test_reduce_wrapper_refuses_what_the_kernel_does_not_take():
 def test_reduce_partials_plain_is_the_sum_over_blocks():
     p = torch.tensor(np.random.default_rng(5).standard_normal((2, 5, 7)).astype(np.float32))
     np.testing.assert_allclose(fg.reduce_partials_plain(p).numpy(), p.numpy().sum(1), rtol=1e-6)
+
+
+@functools.lru_cache(maxsize=4)
+def _backward_case(G, T, B, seed):
+    """Inputs of the backward (y from the JAX forward) and the JAX backward
+    kernel's outputs (dgi, dW_hh, db_hh, dh0) on them, in interpret mode."""
+    rng = np.random.default_rng(seed)
+    gi, w_hh, b_hh, h0, _ = _inputs(G, T, B, seed)
+    dy = rng.standard_normal((G, T, B, H)).astype(np.float32)
+    dhT = rng.standard_normal((G, B, H)).astype(np.float32)
+    y, _ = _jax_fused(*map(jnp.asarray, (gi, w_hh, b_hh, h0)))
+    y = np.asarray(y)
+
+    def bwd(gi_, w_, b_, h0_, y_, dy_, dhT_):
+        return jfg._fused_gru_bwd(True, (gi_, w_, b_, h0_, y_), (dy_, dhT_))
+
+    ref = jax.vmap(bwd)(*map(jnp.asarray, (gi, w_hh, b_hh, h0, y, dy, dhT)))
+    return (gi, w_hh, b_hh, h0, y, dy, dhT), [np.asarray(r) for r in ref]
+
+
+@pytest.mark.parametrize("G,B", [(1, 24), (1, 40), (3, 24), (3, 40)])
+def test_backward_plain_matches_pallas_interpret_backward(G, B):
+    """`gru_backward_plain` (the backward's plain version, the reference the
+    kernels are held to on the card) against the JAX backward kernel,
+    `jax.vmap`ped over groups, at the JAX tests' gradient tolerance."""
+    arrays, ref = _backward_case(G, 7, B, 11)
+    got = fg.gru_backward_plain(*(torch.tensor(a) for a in arrays))
+    for g, r, name in zip(got, ref, ["dgi", "dw_hh", "db_hh", "dh0"]):
+        np.testing.assert_allclose(g.numpy(), r, rtol=2e-4, atol=2e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("G,T,B", [(1, 7, 40), (3, 7, 24)])
+def test_dw_plain_on_the_recurrence_outputs_matches_pallas_interpret(G, T, B):
+    """The weight gradient as its own long-K product: `gru_dw_plain` fed the
+    plain recurrence's dgi and dgh_n gives the JAX kernel's in-order dW_hh
+    and db_hh within 1e-5 of their largest entry."""
+    arrays, ref = _backward_case(G, T, B, 11)
+    t = [torch.tensor(a) for a in arrays]
+    dgi, _, dgh_n = fg.gru_bwd_plain(*t)
+    dw, db = fg.gru_dw_plain(t[3], t[4], dgi, dgh_n)
+    for g, r, name in ((dw, ref[1], "dw_hh"), (db, ref[2], "db_hh")):
+        np.testing.assert_allclose(g.numpy(), r, rtol=0, atol=1e-5 * np.abs(r).max(), err_msg=name)
+
+
+def test_backward_in_3xtf32_against_pallas_interpret(monkeypatch):
+    """The backward with all three products formed as the kernels form them
+    (3xTF32), over 26 steps at B=64, against the JAX backward kernel: dgi and
+    dh0 within 2e-4, dW_hh and db_hh within 1e-4 of their largest entry."""
+    arrays, ref = _backward_case(2, 26, 64, 7)
+    monkeypatch.setattr(torch, "bmm", _bmm_3xtf32)
+    got = fg.gru_backward_plain(*(torch.tensor(a) for a in arrays))
+    for g, r, name in zip(got, ref, ["dgi", "dw_hh", "db_hh", "dh0"]):
+        if name in ("dgi", "dh0"):
+            np.testing.assert_allclose(g.numpy(), r, rtol=2e-4, atol=2e-4, err_msg=name)
+        else:
+            np.testing.assert_allclose(g.numpy(), r, rtol=0, atol=1e-4 * np.abs(r).max(), err_msg=name)
+
+
+def test_backward_wrappers_refuse_cpu_tensors():
+    gi, w_hh, b_hh, h0, _ = (torch.tensor(a) for a in _inputs(1, 2, 4))
+    y, dy = torch.zeros((1, 2, 4, H)), torch.zeros((1, 2, 4, H))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fg.gru_bwd_cuda(gi, w_hh, b_hh, h0, y, dy, h0)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fg.gru_dw_cuda(h0, y, gi, y)
+    with pytest.raises(ValueError, match="H=128"):
+        fg.gru_dw_cuda(h0[..., :32], y[..., :32], gi[..., :96], y[..., :32])
+
+
+class _FakeLibrary:
+    """Records the grid each launcher is given; launches nothing."""
+
+    def __init__(self):
+        self.calls = {}
+
+    def gru_fwd_rows(self):
+        return 16
+
+    def gru_dw_chunk(self):
+        return 64
+
+    def gru_dw_tiles(self):
+        return 4
+
+    def gru_bwd(self, *args):
+        self.calls["bwd"] = args[-2]
+        return 0
+
+    def gru_dw(self, *args):
+        self.calls["dw"] = args[-3:-1]
+        return 0
+
+
+@pytest.mark.parametrize("G,T,B", [(2, 26, 1024), (2, 1, 65536), (3, 7, 1000), (1, 3, 5), (200, 2, 64)])
+def test_backward_grids_fill_the_card(monkeypatch, G, T, B):
+    """The recurrence runs on the forward's persistent grid (one block per SM
+    holds W_hh: 64 blocks of one 16-row tile per group at the update shape);
+    the weight gradient splits K = T*B into P blocks of `rows` rows (a
+    multiple of the 64-row chunk) per tile of dW_hh, about one block per SM
+    over groups and tiles, with no block left empty."""
+    lib = _FakeLibrary()
+    monkeypatch.setattr(fg, "_sms", lambda: 132)
+    monkeypatch.setattr(fg, "_library", lambda: lib)
+    monkeypatch.setattr(fg, "_check", lambda shapes, device: None)
+    monkeypatch.setattr(fg, "_stream", lambda device: None)
+    monkeypatch.setattr(fg, "_ptr", lambda t: None)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    gi = torch.empty((G, T, B, 3 * H), device="meta")
+    y, h0 = torch.empty((G, T, B, H), device="meta"), torch.empty((G, B, H), device="meta")
+    w, b = torch.empty((G, H, 3 * H), device="meta"), torch.empty((G, 3 * H), device="meta")
+    fg.gru_bwd_cuda(gi, w, b, h0, y, y, h0)
+    partials = fg.gru_dw_cuda(h0, y, gi, y)
+    assert lib.calls["bwd"] == fg.forward_blocks_per_group(G, B, 16)
+    P, rows = lib.calls["dw"]
+    assert partials.shape == (G, P, H * 3 * H + 3 * H)
+    assert rows % 64 == 0 and (P - 1) * rows < T * B <= P * rows
+    assert P * G * 4 <= max(132, G * 4)
+    if (G, T, B) == (2, 26, 1024):
+        assert (lib.calls["bwd"], P, rows) == (64, 16, 1664)

@@ -67,4 +67,4 @@ def test_profile_cli_on_cpu_reports_host_ranges_and_no_device_numbers(tmp_path, 
     assert report["env_steps_per_s"] > 0
     assert report["device_busy_share"] is None and report["top_kernels"] is None
     assert all(r["host_ms_per_iter_traced"] > 0 for r in report["ranges"].values())
-    assert report["gru_launches_per_iter"] == {"fwd": 0, "bwd": 0, "reduce": 0}
+    assert report["gru_launches_per_iter"] == {"fwd": 0, "bwd": 0, "dw": 0, "reduce": 0}
