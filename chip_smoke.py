@@ -8,22 +8,35 @@ exits non-zero:
 2. build   — builds the GRU kernels from `codebase_tpu_torch/csrc/` with nvcc.
 3. kernels — holds each kernel against its plain PyTorch version at the
              rollout shape (a) G=2 T=1 B=65536, the update shape (b) G=2 T=26
-             B=1024 and a ragged shape (c) G=3 T=7 B=1000 (H=128): the
-             forward against `gru_sequence_plain`, the whole backward
-             (recurrence, weight gradient, reduction) against
-             `gru_backward_plain`, the weight gradient alone against
-             `gru_dw_plain` on the recurrence kernel's outputs; checks that
-             two backward calls, and two reductions, are bitwise equal; and
-             times each kernel, its plain version and a PyTorch yardstick
-             (`torch.nn.GRUCell` at T=1, else `torch.nn.GRU` (cuDNN) for the
-             forward, cuDNN forward + backward for the backward, `torch.bmm`
-             for the weight gradient, `torch.sum` for the reduction) on the
-             device (see `time_ms`; the reduction's input fits in the L2, so
-             it is timed on copies that do not, see `cold_copies`).
-4. train   — recurrent IDQN on lbforaging:Foraging-8x8-2p-3f-v3 (T=25,
-             layers [128,128], 65536 envs, batch 1024, 8 updates per
-             collect) through `codebase_tpu_torch.run.main`, with the launch
-             counters set to 0 just before and read just after.
+             B=1024, a ragged shape (c) G=3 T=7 B=1000, and the QMIX update
+             and rollout shapes (d) G=3 T=26 B=512 and (e) G=3 T=1 B=32768
+             (H=128): the forward against
+             `gru_sequence_plain`, the whole backward (recurrence, weight
+             gradient, reduction) against `gru_backward_plain`, the weight
+             gradient alone against `gru_dw_plain` on the recurrence
+             kernel's outputs; checks that two backward calls, and two
+             reductions, are bitwise equal; and times each kernel, its plain
+             version and a PyTorch yardstick (`torch.nn.GRUCell` at T=1,
+             else `torch.nn.GRU` (cuDNN) for the forward, cuDNN forward +
+             backward for the backward, `torch.bmm` for the weight gradient,
+             `torch.sum` for the reduction) on the device (see `time_ms`; the
+             reduction's input fits in the L2, so it is timed on copies that
+             do not, see `cold_copies`).
+Then four train phases through `codebase_tpu_torch.run.main`, each with the
+launch counters set to 0 just before and read just after:
+4. train       — recurrent IDQN on lbforaging:Foraging-8x8-2p-3f-v3 (T=25,
+                 layers [128,128], 65536 envs, batch 1024, 8 updates per
+                 collect), 3 iterations.
+5. train_qmix  — the QMIX preset (CooperativeReward) with reward
+                 standardisation, the recurrent critic shared by the 3 agents
+                 of lbforaging:Foraging-10x10-3p-3f-v3 (the kernels at G=3),
+                 32768 envs, batch 512, 3 iterations and one eval.
+6. train_vdn   — the VDN preset at the JAX package's `vdn_shared_lbf10`
+                 sizes (MLP, shared, 32768 envs, batch 512), 2 iterations,
+                 no GRU launch.
+7. train_lstm  — recurrent IDQN with the LSTM cell and return
+                 standardisation on Foraging-8x8-2p-3f-v3 (16384 envs, batch
+                 1024), 2 iterations, no GRU launch.
 Then the kernel summary line and, last, the device line.
 
 Imports nothing of JAX or of the JAX package.
@@ -54,6 +67,8 @@ SHAPES = {
     "a": dict(G=2, T=1, B=65536, role="rollout: policy step, T=1 over all envs"),
     "b": dict(G=2, T=26, B=1024, role="update: online/target nets over T+1=26 steps"),
     "c": dict(G=3, T=7, B=1000, role="ragged: B not a multiple of any tile"),
+    "d": dict(G=3, T=26, B=512, role="QMIX update: the critic shared by N=3 agents over T+1=26 steps"),
+    "e": dict(G=3, T=1, B=32768, role="QMIX rollout: policy step of the shared critic, T=1 over all envs"),
 }
 # published peaks, dense, no sparsity (NVIDIA data sheets): HBM bytes/s,
 # FP32 (non-tensor-core) flop/s and TF32 tensor-core flop/s, keyed by the
@@ -135,9 +150,10 @@ def bounds(kernel, G, T, B, P, peaks):
     """Least time (ms) for the function's work: max(bytes / HBM rate,
     operations / peak rate), each input read once and each output written
     once, no scratch or partials. The forward's product, the backward's
-    three (h_prev @ W_hh, dgh @ W_hh^T, h_prev^T dgh) and the weight
-    gradient's one run on tensor cores in 3xTF32 (three TF32 products each);
-    the reduction's adds on FP32 CUDA cores."""
+    three (h_prev @ W_hh, dgh @ W_hh^T, h_prev^T dgh), of which the
+    recurrence alone runs the first two, and the weight gradient's one run
+    on tensor cores in 3xTF32 (three TF32 products each); the reduction's
+    adds on FP32 CUDA cores."""
     bw, fp32, tf32 = peaks
     H3 = 3 * H
     K = T * B
@@ -149,6 +165,11 @@ def bounds(kernel, G, T, B, P, peaks):
         outs = K * H3 + H * H3 + H3 + B * H
         nbytes = 4 * G * (ins + outs)
         t_ops = 3 * 3 * 2 * G * K * H * H3 / tf32
+    elif kernel == "gru_bwd_recurrence":  # gi, W, b, h0, y, dy, dhT -> dgi, dh0, dgh_n
+        ins = K * H3 + H * H3 + H3 + B * H + 2 * K * H + B * H
+        outs = K * H3 + B * H + K * H
+        nbytes = 4 * G * (ins + outs)
+        t_ops = 3 * 2 * 2 * G * K * H * H3 / tf32
     elif kernel == "gru_dw":  # h_prev, dgh -> dW, db
         nbytes = 4 * G * (K * H + K * H3 + H * H3 + H3)
         t_ops = 3 * 2 * G * K * H * H3 / tf32
@@ -204,6 +225,7 @@ def check_shape(key, G, T, B, gen, peaks):
             "gru_fwd_plain": time_ms(lambda: fg.gru_sequence_plain(gi, w, b, h0)),
             "gru_bwd": time_ms(lambda: fg.gru_backward_cuda(gi, w, b, h0, y, ky, kh)),
             "gru_bwd_recurrence": time_ms(lambda: fg.gru_bwd_cuda(gi, w, b, h0, y, ky, kh)),
+            "gru_bwd_recurrence_plain": time_ms(lambda: fg.gru_bwd_plain(gi, w, b, h0, y, ky, kh)),
             "gru_bwd_plain": time_ms(lambda: fg.gru_backward_plain(gi, w, b, h0, y, ky, kh)),
             "gru_dw": time_ms(lambda: fg.gru_dw_cuda(h0, y, dgi, dgh_n)),
             "gru_dw_plain": time_ms(lambda: fg.gru_dw_plain(h0, y, dgi, dgh_n)),
@@ -258,8 +280,66 @@ def check_shape(key, G, T, B, gen, peaks):
             "bound_by": bound_by,
         }
     out["gru_bwd"]["recurrence_ms"] = t["gru_bwd_recurrence"]
+    out["gru_bwd"]["recurrence_plain_ms"] = t["gru_bwd_recurrence_plain"]
+    out["gru_bwd"]["recurrence_bound_ms"], out["gru_bwd"]["recurrence_bound_by"] = bounds(
+        "gru_bwd_recurrence", G, T, B, P, peaks)
     out["gru_reduce"]["partials_per_group"] = P
     return out
+
+
+def train_phase(phase, smi, argv, E, iters, per_iteration, T=25):
+    """Train through `codebase_tpu_torch.run.main` on the card for at least
+    `iters` iterations of E envs, then one eval and log row, with the launch
+    counters set to 0 just before and read just after. Fails unless every
+    logged loss and every parameter is finite and each GRU kernel named in
+    `per_iteration` launched at least that often per iteration (and the
+    others never). Returns (launch counts, final state)."""
+    with tempfile.TemporaryDirectory() as run_dir:
+        argv = argv + [
+            f"env.time_limit={T}",
+            f"env.parallel_envs={E}",
+            "algorithm.updates_per_collect=8",
+            "algorithm.training_start=0",
+            "algorithm.replay_slot_reuse=clear",
+            # the loop stops once env steps exceed total_steps: `iters`
+            # iterations of (at most) E*T steps each, then one eval + log row
+            f"algorithm.total_steps={(iters - 1) * E * T}",
+            f"algorithm.eval_interval={(iters - 1) * E * T}",
+            f"algorithm.log_interval={(iters - 1) * E * T}",
+            "seed=0",
+            "device=cuda",
+            f"run_dir={run_dir}",
+        ]
+        fg.reset_launch_counts()
+        rows, state = port_run.main(argv)
+        counts = fg.launch_counts()
+        torch.cuda.synchronize()
+    ran = len(state.timings)
+    if ran < iters:
+        raise AssertionError(f"{phase}: expected at least {iters} train iterations, ran {ran}")
+    if not rows:
+        raise AssertionError(f"{phase}: results.csv was not written")
+    losses = [float(r["loss"]) for r in rows if r.get("loss")]
+    if not losses or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{phase}: losses not finite: {losses}")
+    if not all(torch.isfinite(p).all() for p in state.model.param_leaves()):
+        raise AssertionError(f"{phase}: parameters not finite after training")
+    for k, v in counts.items():
+        if v < per_iteration.get(k, 0) * ran or (k not in per_iteration and v):
+            raise AssertionError(f"{phase}: launches {counts} over {ran} iterations; expected {per_iteration}")
+    steady = state.timings[1:]
+    emit({
+        "phase": phase, "card": smi, "argv": argv[:-1],
+        "iterations": ran, "env_steps": state.env_steps, "updates": state.updates,
+        "launches": counts,
+        "launches_per_iteration_with_eval": {k: v / ran for k, v in counts.items()},
+        "iteration_seconds": [s for _, s in state.timings],
+        "env_steps_per_s_each": [n / s for n, s in state.timings],
+        "env_steps_per_s_after_first": sum(n for n, _ in steady) / sum(s for _, s in steady),
+        "loss": losses,
+        "results_columns": list(rows[0].keys()),
+    })
+    return counts, state
 
 
 def main() -> None:
@@ -292,57 +372,45 @@ def main() -> None:
     emit({"phase": "kernels", "card": smi,
           "shapes": {k: {**SHAPES[k], "H": H} for k in SHAPES}, "results": results})
 
-    # --- 4. train
-    E, T = 65536, 25
-    with tempfile.TemporaryDirectory() as run_dir:
-        argv = [
-            "+algorithm=idqn",
-            "env.name=lbforaging:Foraging-8x8-2p-3f-v3",
-            "env.time_limit=25",
-            "algorithm.model.use_rnn=true",
-            "algorithm.model.layers=[128,128]",
-            f"env.parallel_envs={E}",
-            "algorithm.batch_size=1024",
-            "algorithm.updates_per_collect=8",
-            "algorithm.buffer_size=131072",
-            "algorithm.training_start=0",
-            "algorithm.replay_slot_reuse=clear",
-            # the loop stops once env steps exceed total_steps: three
-            # iterations of (at most) E*T steps each, then one eval + log row
-            f"algorithm.total_steps={2 * E * T}",
-            f"algorithm.eval_interval={2 * E * T}",
-            f"algorithm.log_interval={2 * E * T}",
-            "seed=0",
-            "device=cuda",
-            f"run_dir={run_dir}",
-        ]
-        fg.reset_launch_counts()
-        rows, state = port_run.main(argv)
-        counts = fg.launch_counts()
-        torch.cuda.synchronize()
-    iters = len(state.timings)
-    if iters < 3:
-        raise AssertionError(f"expected at least 3 train iterations, ran {iters}")
-    if not rows:
-        raise AssertionError("results.csv was not written")
-    losses = [float(r["loss"]) for r in rows if r.get("loss")]
-    if not losses or not all(math.isfinite(v) for v in losses):
-        raise AssertionError(f"losses not finite: {losses}")
-    if counts["fwd"] < 25 * iters or min(counts[k] for k in ("bwd", "dw", "reduce")) < 8 * iters:
-        raise AssertionError(f"kernels not launched on the main path: {counts} over {iters} iterations")
-    steady = state.timings[1:]
-    emit({
-        "phase": "train", "card": smi, "env": "lbforaging:Foraging-8x8-2p-3f-v3",
-        "parallel_envs": E, "batch_size": 1024, "updates_per_collect": 8, "layers": [128, 128],
-        "iterations": iters, "env_steps": state.env_steps, "updates": state.updates,
-        "launches": counts,
-        "launches_per_iteration_with_eval": {k: v / iters for k, v in counts.items()},
-        "iteration_seconds": [s for _, s in state.timings],
-        "env_steps_per_s_each": [n / s for n, s in state.timings],
-        "env_steps_per_s_after_first": sum(n for n, _ in steady) / sum(s for _, s in steady),
-        "loss": losses,
-        "results_columns": list(rows[0].keys()),
-    })
+    # --- 4. train: recurrent IDQN
+    counts, _ = train_phase("train", smi, [
+        "+algorithm=idqn", "env.name=lbforaging:Foraging-8x8-2p-3f-v3", "algorithm.model.use_rnn=true",
+        "algorithm.model.layers=[128,128]", "algorithm.batch_size=1024", "algorithm.buffer_size=131072",
+    ], E=65536, iters=3, per_iteration={"fwd": 25, "bwd": 8, "dw": 8, "reduce": 8})
+
+    # --- 5. train_qmix: the QMIX preset, shared recurrent critic (G=3),
+    # reward standardisation on the card
+    qmix_counts, state = train_phase("train_qmix", smi, [
+        "+algorithm=qmix", "env.name=lbforaging:Foraging-10x10-3p-3f-v3", "algorithm.model.use_rnn=true",
+        "algorithm.model.layers=[128,128]", "algorithm.model.parameter_sharing=true",
+        "algorithm.batch_size=512", "algorithm.buffer_size=65536", "env.standardise_rewards=true",
+    ], E=32768, iters=3, per_iteration={"fwd": 41, "bwd": 8, "dw": 8, "reduce": 8})
+    stream_n = state.reward_stream.n
+    if not float(stream_n.min()) > 0 or state.reward_stream.wmean.device.type != "cuda":
+        raise AssertionError("train_qmix: the reward stream did not advance on the card")
+    emit({"phase": "train_qmix_reward_stream", "n_min": float(stream_n.min()), "n_mean": float(stream_n.mean()),
+          "wmean_mean": float(state.reward_stream.wmean.mean())})
+    del state
+
+    # --- 6. train_vdn: the vdn_shared_lbf10 lane (MLP): no GRU launch
+    train_phase("train_vdn", smi, [
+        "+algorithm=vdn", "env.name=lbforaging:Foraging-10x10-3p-3f-v3", "algorithm.model.parameter_sharing=true",
+        "algorithm.batch_size=512", "algorithm.buffer_size=65536",
+    ], E=32768, iters=2, per_iteration={})
+
+    # --- 7. train_lstm: the LSTM never reaches the GRU kernels; return
+    # standardisation (per agent) on the card
+    _, state = train_phase("train_lstm", smi, [
+        "+algorithm=idqn", "env.name=lbforaging:Foraging-8x8-2p-3f-v3", "algorithm.model.use_rnn=lstm",
+        "algorithm.model.layers=[128,128]", "algorithm.batch_size=1024", "algorithm.buffer_size=32768",
+        "algorithm.standardise_returns=true",
+    ], E=16384, iters=2, per_iteration={})
+    rms = state.ret_rms
+    if not (float(rms.count) > 1e-4 and torch.isfinite(rms.mean).all() and torch.isfinite(rms.var).all()):
+        raise AssertionError(f"train_lstm: return moments did not advance or are not finite: {rms}")
+    emit({"phase": "train_lstm_return_moments", "count": float(rms.count), "mean": rms.mean.tolist(),
+          "var": rms.var.tolist()})
+    del state
 
     b = results["b"]
     sources = {
@@ -359,6 +427,7 @@ def main() -> None:
             "source": "codebase_tpu_torch/csrc/fused_gru.cu",
             "replaces": sources[k],
             "launches": counts[counter],
+            "launches_train_qmix": qmix_counts[counter],
             "max_abs_err": max(results[s][k]["max_abs_err"] for s in SHAPES),
             "ms": b[k]["ms"],
             "plain_ms": b[k]["plain_ms"],
@@ -367,11 +436,16 @@ def main() -> None:
             "library_ms": b[k]["library_ms"],
             "library": b[k]["library"],
             "timed_at": "shape b (G=2 T=26 B=1024 H=128)",
-            "rollout_shape_a": {f: results["a"][k][f]
-                                for f in ("ms", "plain_ms", "library_ms", "library", "bound_ms", "bound_by")},
+            **{f"{role}_shape_{key}": {f: results[key][k][f] for f in (
+                "ms", "plain_ms", "library_ms", "library", "bound_ms", "bound_by")}
+               for role, key in (("rollout", "a"), ("qmix_update", "d"), ("qmix_rollout", "e"))},
         })
     summary[1]["ms_is"] = "the whole backward: gru_bwd_kernel, gru_dw_kernel, gru_reduce_kernel"
-    summary[1]["recurrence_ms"] = b["gru_bwd"]["recurrence_ms"]
+    for f in ("recurrence_ms", "recurrence_plain_ms", "recurrence_bound_ms", "recurrence_bound_by"):
+        summary[1][f] = b["gru_bwd"][f]
+    summary[1]["recurrence_library"] = (
+        "none: no single PyTorch call computes the recurrence without the weight "
+        "gradient (cuDNN's GRU backward forms dW too)")
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})
 

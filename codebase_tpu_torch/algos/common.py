@@ -17,14 +17,23 @@ class Adam:
       `mu = (1-b1) g + b1 mu`, `nu = (1-b2) g^2 + b2 nu`, and the update
       `-lr * (mu / (1-b1^k)) / (sqrt(nu / (1-b2^k)) + eps)` at step k.
 
+    `clip_mask` (one bool per parameter, or None for all) restricts both the
+    norm and the scaling to the masked leaves; the others pass to Adam
+    unclipped (`optax.masked(clip_by_global_norm(c), mask)`). QMIX clips the
+    critic only, as the reference's `clip_grad_norm_(critic.parameters())`
+    does: whole-tree clipping changed QMIX's learning in the JAX package.
+
     The clip decision stays on the device (`torch.where`), so a step never
     waits for the host. Parameters are updated in place.
     """
 
-    def __init__(self, params, lr: float, grad_clip=None, b1=0.9, b2=0.999, eps=1e-8):
+    def __init__(self, params, lr: float, grad_clip=None, b1=0.9, b2=0.999, eps=1e-8, clip_mask=None):
         self.params = list(params)
         self.lr, self.b1, self.b2, self.eps = float(lr), b1, b2, eps
         self.grad_clip = float(grad_clip) if grad_clip else None
+        self.clip_mask = [True] * len(self.params) if clip_mask is None else [bool(m) for m in clip_mask]
+        if len(self.clip_mask) != len(self.params):
+            raise ValueError(f"clip_mask has {len(self.clip_mask)} entries for {len(self.params)} parameters")
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = 0
@@ -33,9 +42,12 @@ class Adam:
     def step(self, grads) -> None:
         grads = list(grads)
         if self.grad_clip is not None:
-            g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+            g_norm = torch.sqrt(sum(torch.sum(g * g) for g, m in zip(grads, self.clip_mask) if m))
             keep = g_norm < self.grad_clip
-            grads = [torch.where(keep, g, (g / g_norm) * self.grad_clip) for g in grads]
+            grads = [
+                torch.where(keep, g, (g / g_norm) * self.grad_clip) if m else g
+                for g, m in zip(grads, self.clip_mask)
+            ]
         self.count += 1
         # optax forms the bias corrections in float32: 1 - f32(b)**count
         bc1 = float(np.float32(1.0) - np.float32(self.b1) ** np.float32(self.count))
@@ -46,11 +58,11 @@ class Adam:
             p.add_((mu / bc1) / (torch.sqrt(nu / bc2) + self.eps), alpha=-self.lr)
 
 
-def make_optimizer(name: str, params, lr: float, grad_clip=False) -> Adam:
-    """Only Adam (the presets' optimizer) is ported in this slice."""
+def make_optimizer(name: str, params, lr: float, grad_clip=False, clip_mask=None) -> Adam:
+    """Only Adam (the presets' optimizer) is ported so far."""
     if str(name).lower() != "adam":
         raise NotImplementedError(f"optimizer {name!r} is not ported yet; use adam")
-    return Adam(params, lr, grad_clip)
+    return Adam(params, lr, grad_clip, clip_mask=clip_mask)
 
 
 @torch.no_grad()

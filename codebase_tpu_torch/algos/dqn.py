@@ -1,24 +1,29 @@
-"""Off-policy value-based family on one device: IDQN in this slice.
+"""Off-policy value-based family on one device: IDQN, VDN and QMIX.
 
 One `train_iteration` performs an epsilon-greedy rollout of E parallel
-episodes, the replay insert, U double-Q updates on one pre-gathered batch
-and target maintenance, like the JAX package's jitted iteration. Here the
-host drives it eagerly; all tensors stay on the device and the host reads
-one counter per iteration.
+episodes, the reward standardisation when the env stack asks for it, the
+replay insert, U double-Q updates on one pre-gathered batch and target
+maintenance, like the JAX package's jitted iteration. Here the host drives
+it eagerly; all tensors stay on the device and the host reads one counter
+per iteration.
 
-Loss semantics match the JAX package: per-agent double-Q TD loss over whole
-episodes, summed across agents, `filled`-masked mean; joint epsilon
+Loss semantics match the JAX package: IDQN's per-agent double-Q TD loss
+over whole episodes, summed across agents; VDN's and QMIX's team TD loss on
+agent 0's (cooperative) reward, with the agents' chosen values summed (VDN)
+or mixed by the QMIX hypernetwork over the concatenated observations; a
+`filled`-masked mean; optional return standardisation; joint epsilon
 exploration (one coin per env flips all agents to random actions); hard
 target copy every `target_update_interval_or_tau` updates when that is > 1,
-else a Polyak update. VDN, QMIX, return standardisation and action masks
-wait for later slices and raise.
+else a Polyak update. Action masks wait for a later slice and raise.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import math
 from dataclasses import dataclass, field
+from typing import Optional
 
 import torch
 from torch import nn
@@ -27,6 +32,8 @@ from torch.profiler import record_function
 from codebase_tpu_torch.algos.common import hard_update, make_optimizer, soft_update
 from codebase_tpu_torch.envs.api import Environment
 from codebase_tpu_torch.envs.vector import collect_episodes
+from codebase_tpu_torch.envs.wrappers import standardisation_plan
+from codebase_tpu_torch.models.mixers import QMixer
 from codebase_tpu_torch.models.multi_agent import MultiAgentNetwork
 from codebase_tpu_torch.ops.replay import (
     ReplayState,
@@ -35,32 +42,38 @@ from codebase_tpu_torch.ops.replay import (
     replay_init,
     replay_sample_many,
 )
+from codebase_tpu_torch.ops.reward_stream import RewardStream, apply_plan
+from codebase_tpu_torch.ops.running_stats import RunningMeanStd
 from codebase_tpu_torch.ops.schedules import epsilon_schedule
-from codebase_tpu_torch.utils.params import tree_leaves
+from codebase_tpu_torch.utils.params import load_tree, params_from_numpy, tree_leaves, tree_map
+
+MIXER_TYPES = {"qnetwork": "none", "vdn": "vdn", "qmix": "qmix"}
 
 
 class DQNModel(nn.Module):
-    """The value-based model: one multi-agent critic (IDQN)."""
+    """The value-based model: a multi-agent critic and, for QMIX, a mixer."""
 
-    def __init__(self, critic: MultiAgentNetwork, gamma: float, double_q: bool):
+    def __init__(self, critic: MultiAgentNetwork, mixer: Optional[QMixer], mixer_type: str,
+                 gamma: float, double_q: bool, standardise_returns: bool):
         super().__init__()
         self.critic = critic
+        self.mixer = mixer
+        self.mixer_type = mixer_type
         self.gamma = float(gamma)
         self.double_q = bool(double_q)
+        self.standardise_returns = bool(standardise_returns)
 
     @staticmethod
     def create(env: Environment, model_cfg, algo_cfg, generator=None, device="cpu") -> "DQNModel":
         name = model_cfg.get("name", "qnetwork")
-        if name != "qnetwork":
-            raise NotImplementedError(
-                f"model {name!r} is not ported yet (ROADMAP.md Queue 1: VDN/QMIX)"
-            )
-        if bool(algo_cfg.get("standardise_returns", False)):
-            raise NotImplementedError(
-                "standardise_returns is not ported yet (ROADMAP.md Queue 1: standardisation)"
-            )
+        if name not in MIXER_TYPES:
+            raise ValueError(f"model.name must be one of {sorted(MIXER_TYPES)}; got {name!r}")
         if env.has_action_mask:
             raise NotImplementedError("action masks are not ported yet (ROADMAP.md Queue 1)")
+        if str(model_cfg.get("dtype", "float32")) != "float32":
+            raise NotImplementedError("model.dtype other than float32 is not ported yet")
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
         critic = MultiAgentNetwork(
             input_sizes=env.obs_dims,
             hidden_dims=tuple(model_cfg.layers),
@@ -72,20 +85,63 @@ class DQNModel(nn.Module):
             generator=generator,
             device=device,
         )
-        if str(model_cfg.get("dtype", "float32")) != "float32":
-            raise NotImplementedError("model.dtype other than float32 is not ported yet")
-        return DQNModel(critic, float(algo_cfg.gamma), bool(algo_cfg.double_q))
+        mixer = None
+        if MIXER_TYPES[name] == "qmix":
+            mixing = model_cfg.mixing
+            # the state is the concatenation of all agents' observations
+            mixer = QMixer(
+                n_agents=env.n_agents,
+                state_dim=sum(env.obs_dims),
+                embed_dim=int(mixing.embed_dim),
+                hypernet_layers=int(mixing.hypernet_layers),
+                hypernet_embed=int(mixing.hypernet_embed),
+                generator=generator,
+                device=device,
+            )
+        return DQNModel(critic, mixer, MIXER_TYPES[name], float(algo_cfg.gamma), bool(algo_cfg.double_q),
+                        bool(algo_cfg.get("standardise_returns", False)))
+
+    def param_tree(self):
+        """{"critic": ..., "mixer": ...} (the mixer only for QMIX), the JAX
+        package's `init_params` tree."""
+        tree = {"critic": self.critic.param_tree()}
+        if self.mixer is not None:
+            tree["mixer"] = self.mixer.param_tree()
+        return tree
 
     def param_leaves(self):
-        """Parameters in the fixed `tree_leaves` order of `critic.param_tree()`."""
-        return tree_leaves(self.critic.param_tree())
+        """Parameters in the fixed `tree_leaves` order of `param_tree()`
+        (sorted keys: the critic's, then the mixer's), the JAX order."""
+        return tree_leaves(self.param_tree())
+
+    def clip_mask(self):
+        """One bool per `param_leaves()` entry: True for the critic's. Only
+        the critic is clipped when there is a mixer; None clips all."""
+        if self.mixer is None:
+            return None
+        tree = self.param_tree()
+        return tree_leaves({k: tree_map(lambda _, k=k: k == "critic", v) for k, v in tree.items()})
+
+    def load_params(self, tree) -> None:
+        """Copy the JAX package's whole `init_params` tree, as numpy arrays
+        (`{"critic", "mixer"}`), into this model."""
+        dst = self.param_tree()
+        if set(tree) != set(dst):
+            raise ValueError(f"param tree has keys {sorted(tree)}; expected {sorted(dst)}")
+        device = self.critic.agent_to_group.device
+        load_tree(dst, {k: params_from_numpy(tree[k], device) for k in dst})
+
+    def init_rms(self, device="cpu") -> RunningMeanStd:
+        """Return moments: per agent for IDQN, one for the team otherwise."""
+        shape = (self.critic.n_agents,) if self.mixer_type == "none" else (1,)
+        return RunningMeanStd.init(shape, device=device)
 
     # ---------------------------------------------------------------- acting
 
     def policy(self, epsilon: float):
         """Epsilon-greedy rollout policy for `collect_episodes`.
 
-        carry = RNN hiddens (N, L, E, H) or None; obs (E, N, D). Joint
+        carry = RNN hiddens (N, L, E, C) or None; obs (E, N, D). Joint
         exploration: one coin per env flips every agent to a uniform random
         action."""
 
@@ -108,14 +164,20 @@ class DQNModel(nn.Module):
 
     # ------------------------------------------------------------------ loss
 
-    def loss(self, target: "DQNModel", batch: dict):
+    def loss(self, target: "DQNModel", batch: dict, ret_rms: RunningMeanStd):
         """Episode double-Q TD loss on a reference-layout batch:
         obss (N, T+1, B, D), actions (N, T, B), rewards (N, T, B),
-        dones (T+1, B), filled (T, B)."""
+        dones (T+1, B), filled (T, B). Returns (loss, new ret_rms).
+
+        With `standardise_returns` the target is denormalised with the
+        moments as they were, the moments are updated with the returns
+        (every (t, b) cell, filled or not, as the JAX package does), and the
+        returns are normalised with the updated moments."""
         obss = batch["obss"]
         actions = batch["actions"]
         q_all, _ = self.critic(obss)  # (N, T+1, B, A)
         chosen = q_all[:, :-1].gather(-1, actions.unsqueeze(-1)).squeeze(-1)  # (N, T, B)
+        filled = batch["filled"]
         with torch.no_grad():
             tq_all, _ = target.critic(obss)
             tq = tq_all[:, 1:]
@@ -124,11 +186,41 @@ class DQNModel(nn.Module):
                 target_qs = tq.gather(-1, a_prime).squeeze(-1)
             else:
                 target_qs = tq.amax(-1)  # (N, T, B)
-            dones = batch["dones"][1:][None]  # (1, T, B)
-            returns = batch["rewards"] + self.gamma * target_qs * (1.0 - dones)
-        loss_tb = ((chosen - returns) ** 2).sum(0)  # sum over agents
-        filled = batch["filled"]
-        return (loss_tb * filled).sum() / filled.sum().clamp(min=1.0)
+
+        if self.mixer_type == "none":
+            with torch.no_grad():
+                dones = batch["dones"][1:][None]  # (1, T, B)
+                if self.standardise_returns:
+                    # moments over the trailing agent axis
+                    target_qs = ret_rms.denormalise(target_qs.permute(1, 2, 0)).permute(2, 0, 1)
+                returns = batch["rewards"] + self.gamma * target_qs * (1.0 - dones)
+                if self.standardise_returns:
+                    ret_rms = ret_rms.update(returns.permute(1, 2, 0))
+                    returns = ret_rms.normalise(returns.permute(1, 2, 0)).permute(2, 0, 1)
+            loss_tb = ((chosen - returns) ** 2).sum(0)  # sum over agents
+        else:
+            # cooperative: the team reward of agent 0
+            rewards = batch["rewards"][0]  # (T, B)
+            dones = batch["dones"][1:]  # (T, B)
+            if self.mixer_type == "vdn":
+                chosen_tot = chosen.sum(0)  # (T, B)
+                target_tot = target_qs.sum(0)
+            else:
+                # states: the agents' obs concatenated -> (T+1, B, N*D)
+                states = torch.cat(list(obss), dim=-1)
+                chosen_tot = self.mixer(chosen, states[:-1])
+                with torch.no_grad():
+                    target_tot = target.mixer(target_qs, states[1:])
+            with torch.no_grad():
+                if self.standardise_returns:
+                    target_tot = target_tot * torch.sqrt(ret_rms.var[0]) + ret_rms.mean[0]
+                returns = rewards + self.gamma * target_tot * (1.0 - dones)
+                if self.standardise_returns:
+                    ret_rms = ret_rms.update(returns.reshape(-1, 1))
+                    returns = (returns - ret_rms.mean[0]) / torch.sqrt(ret_rms.var[0])
+            loss_tb = (chosen_tot - returns) ** 2
+        loss = (loss_tb * filled).sum() / filled.sum().clamp(min=1.0)
+        return loss, ret_rms
 
 
 @dataclass
@@ -138,6 +230,10 @@ class DQNTrainState:
     opt: object
     buffer: ReplayState
     generator: torch.Generator  # rollouts, exploration and replay sampling
+    ret_rms: RunningMeanStd  # return moments (used with standardise_returns)
+    # persistent per-env reward moments; None unless the env stack holds a
+    # StandardiseReward marker (`ops/reward_stream.py`)
+    reward_stream: Optional[RewardStream] = None
     env_steps: int = 0
     updates: int = 0
     last_target_update: int = 0
@@ -170,6 +266,7 @@ def build_train_functions(env: Environment, eval_env: Environment, cfg, time_lim
     obs_dtype = getattr(
         torch, str(acfg.get("replay_obs_dtype", "bfloat16" if env.integer_valued_obs else "float32"))
     )
+    reward_plan = standardisation_plan(env)
 
     def init_state(seed: int) -> DQNTrainState:
         init_gen = torch.Generator().manual_seed(int(seed))  # weights, made on the host
@@ -178,19 +275,22 @@ def build_train_functions(env: Environment, eval_env: Environment, cfg, time_lim
         return DQNTrainState(
             model=model,
             target=target,
-            opt=make_optimizer(acfg.optimizer, model.param_leaves(), float(acfg.lr), acfg.grad_clip),
+            opt=make_optimizer(acfg.optimizer, model.param_leaves(), float(acfg.lr), acfg.grad_clip,
+                               clip_mask=model.clip_mask()),
             buffer=replay_init(
                 buffer_size, time_limit, env.n_agents, env.obs_dim, env.n_actions,
                 with_mask=env.has_action_mask, obs_dtype=obs_dtype, device=device,
             ),
             generator=torch.Generator(device=device).manual_seed(int(seed)),
+            ret_rms=model.init_rms(device),
+            reward_stream=RewardStream.init(n_envs, env.n_agents, device) if reward_plan else None,
         )
 
     def update(state: DQNTrainState, batch: dict):
         """One gradient update, then target maintenance."""
         model = state.model
         params = model.param_leaves()
-        loss = model.loss(state.target, batch)
+        loss, state.ret_rms = model.loss(state.target, batch, state.ret_rms)
         grads = torch.autograd.grad(loss, params)
         state.opt.step(grads)
         state.updates += 1
@@ -215,6 +315,13 @@ def build_train_functions(env: Environment, eval_env: Environment, cfg, time_lim
                 time_limit,
                 bool(acfg.use_proper_termination),
             )
+        if reward_plan is not None:
+            with record_function("dqn/reward_stream"):
+                # persistent streaming standardisation of the raw rewards
+                state.reward_stream, rewards = apply_plan(
+                    reward_plan, state.reward_stream, rollout.stat_rewards, rollout.filled
+                )
+                rollout = dataclasses.replace(rollout, rewards=rewards)
         with record_function("dqn/replay_add"):
             replay_add(state.buffer, rollout, slot_reuse)
             state.env_steps += int(rollout.env_steps.item())

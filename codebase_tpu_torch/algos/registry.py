@@ -1,7 +1,8 @@
 """Algorithm registry: name -> train entry point
 `main(env, eval_env, logger, time_limit, cfg, device) -> final state`.
 
-Only IDQN is ported in this slice."""
+The value-based family (IDQN, VDN, QMIX) is ported; the actor-critic
+family waits (ROADMAP.md Queue 1)."""
 
 from __future__ import annotations
 
@@ -12,11 +13,9 @@ def _dqn(env, eval_env, logger, time_limit, cfg, device):
     return main(env, eval_env, logger, time_limit, cfg, device)
 
 
-ALGORITHMS = {"idqn": _dqn}
+ALGORITHMS = {"idqn": _dqn, "vdn": _dqn, "qmix": _dqn}
 
 NOT_PORTED = {
-    "vdn": "VDN/QMIX and standardisation",
-    "qmix": "VDN/QMIX and standardisation",
     "ia2c": "the actor-critic family",
     "maa2c": "the actor-critic family",
     "ippo": "the actor-critic family",

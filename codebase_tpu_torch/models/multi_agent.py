@@ -21,7 +21,7 @@ import torch
 from torch import nn
 
 from codebase_tpu_torch.models.networks import make_network_spec
-from codebase_tpu_torch.utils.params import tree_leaves, tree_map
+from codebase_tpu_torch.utils.params import load_tree, module_to_tree, tree_map, tree_to_module
 
 
 def resolve_sharing(sharing: Union[bool, Sequence[int]], n_agents: int) -> Tuple[int, ...]:
@@ -47,28 +47,12 @@ def resolve_sharing(sharing: Union[bool, Sequence[int]], n_agents: int) -> Tuple
     return tuple(groups)
 
 
-def _to_module(tree):
-    if isinstance(tree, dict):
-        if all(isinstance(v, torch.Tensor) for v in tree.values()):
-            return nn.ParameterDict({k: nn.Parameter(v) for k, v in tree.items()})
-        return nn.ModuleDict({k: _to_module(v) for k, v in tree.items()})
-    return nn.ModuleList([_to_module(v) for v in tree])
-
-
-def _to_tree(module):
-    if isinstance(module, nn.ParameterDict):
-        return {k: v for k, v in module.items()}
-    if isinstance(module, nn.ModuleDict):
-        return {k: _to_tree(v) for k, v in module.items()}
-    return [_to_tree(v) for v in module]
-
-
 class MultiAgentNetwork(nn.Module):
     """N agents' networks with parameter-sharing groups.
 
     Parameters live in `self.params` with the JAX package's tree layout and
     a leading group axis on every leaf (`param_tree()` returns the plain
-    nested dict). `forward(inputs (N, T, B, D), hiddens (N, L, B, H))` ->
+    nested dict). `forward(inputs (N, T, B, D), hiddens (N, L, B, C))` ->
     (outputs (N, T, B, A), new hiddens or None)."""
 
     def __init__(
@@ -99,7 +83,7 @@ class MultiAgentNetwork(nn.Module):
         self.spec = make_network_spec(dims, use_rnn, use_orthogonal_init, "float32", fused_rnn)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        self.params = _to_module(_stack([self.spec.init(generator) for _ in range(self.n_groups)]))
+        self.params = tree_to_module(_stack([self.spec.init(generator) for _ in range(self.n_groups)]))
         self.register_buffer(
             "agent_to_group", torch.tensor(self.sharing, dtype=torch.long), persistent=False
         )
@@ -107,18 +91,11 @@ class MultiAgentNetwork(nn.Module):
 
     def param_tree(self):
         """The parameters as a plain nested dict/list (leading axis G)."""
-        return _to_tree(self.params)
+        return module_to_tree(self.params)
 
-    @torch.no_grad()
     def load_params(self, tree) -> None:
         """Copy a tree of tensors with this network's layout into it."""
-        dst, src = tree_leaves(self.param_tree()), tree_leaves(tree)
-        if len(dst) != len(src):
-            raise ValueError(f"param tree has {len(src)} leaves; expected {len(dst)}")
-        for d, s in zip(dst, src):
-            if d.shape != s.shape:
-                raise ValueError(f"param shape {tuple(s.shape)}; expected {tuple(d.shape)}")
-            d.copy_(s)
+        load_tree(self.param_tree(), tree)
 
     def per_agent_params(self):
         """Gather (G, ...) -> (N, ...); the gradient scatter-adds back."""
@@ -135,7 +112,8 @@ class MultiAgentNetwork(nn.Module):
         return outs, None
 
     def init_hiddens(self, batch_size: int):
-        """Zero hidden state (N, L, B, H), or None for MLP networks."""
+        """Zero hidden state (N, L, B, C), or None for MLP networks (C = H for
+        the GRU, 2H for the LSTM)."""
         if not self.use_rnn:
             return None
         return self.spec.init_hiddens(self.n_agents, batch_size, self.agent_to_group.device)

@@ -1,4 +1,4 @@
-"""Network specs: MLP and GRU stacks as init/apply pairs over stacked params.
+"""Network specs: MLP and GRU/LSTM stacks as init/apply pairs over stacked params.
 
 Each spec has `init(generator) -> params` (one network, weights `(in, out)`)
 and `apply(params, x, h)`, where every parameter and input carries a leading
@@ -9,8 +9,8 @@ all of them in one kernel launch.
 Initialisation matches the JAX package (and the reference):
 - MLP: orthogonal init, gain sqrt(2), zero bias on every Linear when
   `use_orthogonal_init`, else torch's Linear default U(+-sqrt(1/fan_in)).
-- RNN: first Linear and GRU use torch defaults; only the final Linear is
-  orthogonally initialised. GRU weights use U(+-1/sqrt(hidden)).
+- RNN: first Linear and GRU/LSTM use torch defaults; only the final Linear
+  is orthogonally initialised. GRU and LSTM weights use U(+-1/sqrt(hidden)).
 """
 
 from __future__ import annotations
@@ -53,6 +53,18 @@ def linear_init(in_dim: int, out_dim: int, use_orthogonal: bool, generator: torc
     return {"w": _uniform((in_dim, out_dim), bound, generator), "b": _uniform((out_dim,), bound, generator)}
 
 
+def lstm_layer_init(in_dim: int, hidden: int, generator: torch.Generator):
+    """One LSTM layer, torch gate order [i, f, g, o] along the 4H axis:
+    w_ih (in, 4H), w_hh (H, 4H), b_ih (4H,), b_hh (4H,)."""
+    bound = math.sqrt(1.0 / hidden)
+    return {
+        "w_ih": _uniform((in_dim, 4 * hidden), bound, generator),
+        "w_hh": _uniform((hidden, 4 * hidden), bound, generator),
+        "b_ih": _uniform((4 * hidden,), bound, generator),
+        "b_hh": _uniform((4 * hidden,), bound, generator),
+    }
+
+
 def gru_layer_init(in_dim: int, hidden: int, generator: torch.Generator):
     """One GRU layer, torch gate order [r, z, n] along the 3H axis:
     w_ih (in, 3H), w_hh (H, 3H), b_ih (3H,), b_hh (3H,)."""
@@ -86,6 +98,20 @@ def gru_cell(params, x, h):
     z = torch.sigmoid(gi[..., H : 2 * H] + gh[..., H : 2 * H])
     n = torch.tanh(gi[..., 2 * H :] + r * gh[..., 2 * H :])
     return (1.0 - z) * n + z * h
+
+
+def lstm_cell(params, x, hc):
+    """One LSTM step, torch gate convention. x (G, B, in); hc (G, B, 2H) is
+    h and c concatenated, so the carry is one tensor like the GRU's."""
+    H = hc.shape[-1] // 2
+    h, c = hc[..., :H], hc[..., H:]
+    gates = linear(x, params["w_ih"], params["b_ih"]) + linear(h, params["w_hh"], params["b_hh"])
+    i = torch.sigmoid(gates[..., :H])
+    f = torch.sigmoid(gates[..., H : 2 * H])
+    g = torch.tanh(gates[..., 2 * H : 3 * H])
+    o = torch.sigmoid(gates[..., 3 * H :])
+    c_new = f * c + i * g
+    return torch.cat([o * torch.tanh(c_new), c_new], dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -124,20 +150,24 @@ class MLPSpec:
 
 @dataclass(frozen=True)
 class RNNSpec:
-    """Linear -> ReLU -> GRU stack -> Linear over (T, B, feat).
+    """Linear -> ReLU -> {GRU|LSTM} stack -> Linear over (T, B, feat).
 
-    dims = (in, hidden, ..., hidden, out) with `len(dims) - 3` GRU layers,
-    all hidden sizes equal. Hidden state (G, L, B, H).
+    dims = (in, hidden, ..., hidden, out) with `len(dims) - 3` recurrent
+    layers, all hidden sizes equal. Hidden state (G, L, B, C): C = H for the
+    GRU, 2H (h and c concatenated) for the LSTM.
 
     `fused_rnn`: on a CUDA tensor "auto" and "on" run every GRU layer
     through the CUDA kernels (`ops/fused_gru.py`); "off" is the explicit
     request for the plain per-step recurrence and is never chosen
     automatically. On a CPU tensor every mode computes the plain recurrence.
+    The LSTM has no kernel in either package: it always runs the plain
+    per-step cell, and "on" with the LSTM raises.
     """
 
     dims: Tuple[int, ...]
     use_orthogonal_init: bool = True
     fused_rnn: str = "auto"
+    cell: str = "gru"  # "gru" | "lstm"
 
     def __post_init__(self):
         hiddens = self.dims[1:-1]
@@ -145,6 +175,8 @@ class RNNSpec:
             raise ValueError(
                 "RNN dims must be (in, H, ..., H, out) with at least two equal hidden sizes"
             )
+        if self.cell == "lstm" and self.fused_rnn == "on":
+            raise ValueError("fused_rnn=on requires the GRU cell")
 
     @property
     def hidden_size(self):
@@ -154,29 +186,36 @@ class RNNSpec:
     def num_rnn_layers(self):
         return len(self.dims[1:-1]) - 1
 
+    @property
+    def carry_size(self):
+        return self.hidden_size * (2 if self.cell == "lstm" else 1)
+
     def init(self, generator):
         H = self.hidden_size
+        layer_init = lstm_layer_init if self.cell == "lstm" else gru_layer_init
         first = linear_init(self.dims[0], H, False, generator)
-        rnn = [gru_layer_init(H, H, generator) for _ in range(self.num_rnn_layers)]
+        rnn = [layer_init(H, H, generator) for _ in range(self.num_rnn_layers)]
         final = linear_init(H, self.dims[-1], self.use_orthogonal_init, generator)
         return {"first": first, "rnn": rnn, "final": final}
 
     def apply(self, params, x, h=None):
-        """x (G, T, B, in), h (G, L, B, H) or None -> (y (G, T, B, out),
-        h (G, L, B, H))."""
+        """x (G, T, B, in), h (G, L, B, C) or None -> (y (G, T, B, out),
+        h (G, L, B, C))."""
         G, T, B, _ = x.shape
         if h is None:
             h = self.init_hiddens(G, B, x.device)
         x = torch.relu(linear(x, params["first"]["w"], params["first"]["b"]))
+        H = self.hidden_size
+        cell = lstm_cell if self.cell == "lstm" else gru_cell
         new_h = []
         for i, layer in enumerate(params["rnn"]):
             h0 = h[:, i].contiguous()
-            if self.fused_rnn == "off":
+            if self.cell == "lstm" or self.fused_rnn == "off":
                 ys = []
                 hl = h0
                 for t in range(T):
-                    hl = gru_cell(layer, x[:, t], hl)
-                    ys.append(hl)
+                    hl = cell(layer, x[:, t], hl)
+                    ys.append(hl[..., :H])  # the layer's output is h only
                 x = torch.stack(ys, dim=1)
             else:
                 x, hl = gru_layer_sequence(layer, x, h0)
@@ -185,20 +224,17 @@ class RNNSpec:
         return y, torch.stack(new_h, dim=1)
 
     def init_hiddens(self, G: int, batch_size: int, device):
-        return torch.zeros((G, self.num_rnn_layers, batch_size, self.hidden_size), device=device)
+        return torch.zeros((G, self.num_rnn_layers, batch_size, self.carry_size), device=device)
 
 
 def normalize_rnn_cell(use_rnn):
-    """`use_rnn` config value -> "gru" or None. The LSTM cell waits for a
-    later slice (ROADMAP.md Queue 1)."""
+    """`use_rnn` config value -> "gru", "lstm" or None (MLP)."""
     if use_rnn is True:
         return "gru"
     if not use_rnn:
         return None
     cell = str(use_rnn).lower()
-    if cell == "lstm":
-        raise NotImplementedError("the LSTM cell is not ported yet (ROADMAP.md Queue 1)")
-    if cell != "gru":
+    if cell not in ("gru", "lstm"):
         raise ValueError(f"use_rnn must be bool, 'gru' or 'lstm'; got {use_rnn!r}")
     return cell
 
@@ -220,6 +256,7 @@ def make_network_spec(dims, use_rnn=False, use_orthogonal_init=True, compute_dty
             f"model dtype {compute_dtype!r} is not ported yet; the port computes in float32"
         )
     dims = tuple(int(d) for d in dims)
-    if normalize_rnn_cell(use_rnn):
-        return RNNSpec(dims, bool(use_orthogonal_init), normalize_fused_rnn(fused_rnn))
+    cell = normalize_rnn_cell(use_rnn)
+    if cell:
+        return RNNSpec(dims, bool(use_orthogonal_init), normalize_fused_rnn(fused_rnn), cell)
     return MLPSpec(dims, bool(use_orthogonal_init))

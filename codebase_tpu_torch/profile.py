@@ -1,6 +1,6 @@
 """Profiling CLI — where one training iteration's time goes, on the GPU.
 
-    python -m codebase_tpu_torch.profile +algorithm=idqn env.name=... env.time_limit=25 \
+    python -m codebase_tpu_torch.profile +algorithm=idqn|vdn|qmix env.name=... env.time_limit=25 \
         [profile.warmup=1] [profile.iters=3] [profile.top=15] [any run override]
 
 Builds the train iteration for the config, runs `warmup` iterations, times
@@ -8,8 +8,9 @@ Builds the train iteration for the config, runs `warmup` iterations, times
 `iters` more under `torch.profiler` and prints one JSON line: the card and its
 power limit, env-steps/s and iteration time untraced, the device time of
 every kernel (kernels, copies and fills, each counted once) per iteration,
-split over the iteration's named ranges (`dqn/rollout`, `dqn/replay_add`,
-`dqn/updates`), the device's busy share, the GRU kernels' launches and time,
+split over the iteration's named ranges (`dqn/rollout`, `dqn/reward_stream`
+when the env stack standardises rewards, `dqn/replay_add`, `dqn/updates`),
+the device's busy share, the GRU kernels' launches and time,
 the kernels with the most device time, and the peak device memory.
 
 The busy share is kernel time over the untraced iteration time: tracing
@@ -33,7 +34,8 @@ from codebase_tpu_torch.ops import fused_gru
 from codebase_tpu_torch.run import build_envs
 from codebase_tpu_torch.utils.device import resolve_device
 
-RANGES = ("dqn/rollout", "dqn/replay_add", "dqn/updates")
+RANGES = ("dqn/rollout", "dqn/reward_stream", "dqn/replay_add", "dqn/updates")
+ALGORITHMS = ("idqn", "vdn", "qmix")
 GRU_KERNELS = ("gru_fwd_kernel", "gru_bwd_kernel", "gru_dw_kernel", "gru_reduce_kernel")
 
 
@@ -103,8 +105,8 @@ def main(argv=None):
     cfg = load_config(argv if argv is not None else sys.argv[1:])
     if not cfg.env.get("name") or not cfg.env.get("time_limit"):
         raise ValueError("env.name and env.time_limit must be set")
-    if cfg.get("algorithm", {}).get("name") != "idqn":
-        raise NotImplementedError("only idqn is ported; select it with +algorithm=idqn")
+    if cfg.get("algorithm", {}).get("name") not in ALGORITHMS:
+        raise NotImplementedError(f"profiles the value-based family only; select one of {ALGORITHMS} with +algorithm=")
     pcfg = cfg.get("profile") or {}
     warmup, iters, top = (int(pcfg.get(k, d)) for k, d in (("warmup", 1), ("iters", 3), ("top", 15)))
     device = resolve_device(cfg.get("device", "cuda"))
@@ -150,9 +152,11 @@ def main(argv=None):
         breakdown.update(kernel_ms_per_iter=None, gru_kernel_ms_per_iter=None, top_kernels=None)
     report = {
         "card": _card(device),
-        "config": {"env": cfg.env.name, "time_limit": T, "parallel_envs": int(cfg.algorithm.get("parallel_envs", 1)),
+        "config": {"algorithm": cfg.algorithm.name, "env": cfg.env.name, "time_limit": T, "parallel_envs": int(cfg.algorithm.get("parallel_envs", 1)),
                    "batch_size": int(cfg.algorithm.batch_size), "layers": list(cfg.algorithm.model.layers),
-                   "use_rnn": bool(cfg.algorithm.model.use_rnn),
+                   "use_rnn": cfg.algorithm.model.use_rnn,
+                   "standardise_rewards": bool(cfg.env.get("standardise_rewards")),
+                   "standardise_returns": bool(cfg.algorithm.get("standardise_returns")),
                    "fused_rnn": str(cfg.algorithm.model.get("fused_rnn", "auto"))},
         "iters": iters,
         "env_steps_per_s": steps / seconds,

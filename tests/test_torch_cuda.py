@@ -1,6 +1,7 @@
 """The port on the card: the GRU kernels against their plain version, the
-IDQN loss through the kernels against the plain CPU path, and a tiny train
-run. Every test needs a CUDA GPU and skips without one.
+IDQN and QMIX losses through the kernels against the plain CPU path, a tiny
+IDQN train run and one QMIX train iteration. Every test needs a CUDA GPU and
+skips without one.
 
 This file imports no JAX, so it runs where only PyTorch is installed:
 
@@ -17,10 +18,11 @@ import pytest
 import torch
 
 from codebase_tpu_torch import run
-from codebase_tpu_torch.algos.dqn import DQNModel
-from codebase_tpu_torch.config import Config
+from codebase_tpu_torch.algos.dqn import DQNModel, build_train_functions
+from codebase_tpu_torch.config import Config, load_config
 from codebase_tpu_torch.envs.lbforaging import parse_lbf_name
 from codebase_tpu_torch.ops import fused_gru as fg
+from codebase_tpu_torch.ops.running_stats import RunningMeanStd
 from codebase_tpu_torch.utils.device import resolve_device
 
 pytestmark = pytest.mark.cuda
@@ -150,18 +152,16 @@ def test_forward_kernel_runs_on_tensor_cores(cuda_device):
     assert any("HMMA" in line and "TF32" in line for line in functions[0].splitlines())
 
 
-def test_idqn_loss_through_the_kernels_matches_the_plain_cpu_path(cuda_device):
-    """The GRU critic's loss and gradients on the card (kernel path) against
-    the same model on the CPU (plain recurrence), same params and batch."""
-    env = parse_lbf_name("lbforaging:Foraging-8x8-2p-3f-v3")
-    model_cfg = Config(dict(name="qnetwork", layers=[128, 128], parameter_sharing=False,
-                            use_orthogonal_init=True, use_rnn=True))
-    algo_cfg = Config(dict(gamma=0.99, double_q=True))
-    cpu = DQNModel.create(env, model_cfg, algo_cfg, torch.Generator().manual_seed(0))
-    cpu_target = DQNModel.create(env, model_cfg, algo_cfg, torch.Generator().manual_seed(1))
+def _loss_on_card_and_cpu(cuda_device, env_name, model_cfg, algo_cfg, rms_shape=None):
+    """The loss and gradients of one model on the card (kernel path) and on
+    the CPU (plain recurrence), same params, batch and return moments.
+    Returns the launches it made, both (loss, grads) and both moments."""
+    env = parse_lbf_name(env_name)
+    cpu = DQNModel.create(env, Config(model_cfg), Config(algo_cfg), torch.Generator().manual_seed(0))
+    cpu_target = DQNModel.create(env, Config(model_cfg), Config(algo_cfg), torch.Generator().manual_seed(1))
     gpu, gpu_target = copy.deepcopy(cpu).to(cuda_device), copy.deepcopy(cpu_target).to(cuda_device)
 
-    N, T, B, D = 2, 25, 64, env.obs_dim
+    N, T, B, D = env.n_agents, 25, 64, env.obs_dim
     rng = np.random.default_rng(2)
     lengths = rng.integers(1, T + 1, size=B)
     batch = dict(
@@ -172,19 +172,53 @@ def test_idqn_loss_through_the_kernels_matches_the_plain_cpu_path(cuda_device):
         filled=(np.arange(T)[:, None] < lengths[None]).astype(np.float32),
     )
     counts = fg.launch_counts()
-    losses, grads = [], []
+    losses, grads, moments = [], [], []
     for model, target, dev in ((cpu, cpu_target, "cpu"), (gpu, gpu_target, cuda_device)):
         tb = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-        loss = model.loss(target, tb)
+        rms = model.init_rms(dev)
+        if rms_shape is not None:  # moments that have seen data
+            rms = RunningMeanStd(torch.full(rms_shape, 0.5, device=dev), torch.full(rms_shape, 2.0, device=dev),
+                                 torch.tensor(37.0, device=dev))
+        loss, new_rms = model.loss(target, tb, rms)
         losses.append(loss)
         grads.append(torch.autograd.grad(loss, model.param_leaves()))
+        moments.append(new_rms)
     torch.cuda.synchronize()
     after = fg.launch_counts()
-    assert after["fwd"] - counts["fwd"] == 2
-    assert [after[k] - counts[k] for k in ("bwd", "dw", "reduce")] == [1, 1, 1]
+    launches = {k: after[k] - counts[k] for k in counts}
     torch.testing.assert_close(losses[1].cpu(), losses[0], rtol=1e-4, atol=0)
     for g, r in zip(grads[1], grads[0]):
         torch.testing.assert_close(g.cpu(), r, rtol=1e-4, atol=1e-4 * r.abs().max().item())
+    return launches, moments
+
+
+def test_idqn_loss_through_the_kernels_matches_the_plain_cpu_path(cuda_device):
+    """The GRU critic's loss and gradients on the card (kernel path) against
+    the same model on the CPU (plain recurrence), same params and batch."""
+    launches, _ = _loss_on_card_and_cpu(
+        cuda_device, "lbforaging:Foraging-8x8-2p-3f-v3",
+        dict(name="qnetwork", layers=[128, 128], parameter_sharing=False, use_orthogonal_init=True, use_rnn=True),
+        dict(gamma=0.99, double_q=True),
+    )
+    assert launches["fwd"] == 2
+    assert [launches[k] for k in ("bwd", "dw", "reduce")] == [1, 1, 1]
+
+
+def test_qmix_loss_with_return_standardisation_matches_the_plain_cpu_path(cuda_device):
+    """QMIX with the shared GRU critic (the kernels at G=3) and return
+    standardisation: loss, gradients (critic and mixer) and the updated
+    return moments on the card against the CPU path."""
+    launches, (cpu_rms, gpu_rms) = _loss_on_card_and_cpu(
+        cuda_device, "lbforaging:Foraging-10x10-3p-3f-v3",
+        dict(name="qmix", layers=[128, 128], parameter_sharing=True, use_orthogonal_init=True, use_rnn=True,
+             mixing=dict(embed_dim=64, hypernet_layers=2, hypernet_embed=32)),
+        dict(gamma=0.99, double_q=True, standardise_returns=True),
+        rms_shape=(1,),
+    )
+    assert launches["fwd"] == 2 and launches["bwd"] == 1
+    assert float(gpu_rms.count) == float(cpu_rms.count) == 37.0 + 25 * 64
+    for f in ("mean", "var"):
+        torch.testing.assert_close(getattr(gpu_rms, f).cpu(), getattr(cpu_rms, f), rtol=1e-4, atol=0)
 
 
 def test_tiny_train_run_on_the_card_goes_through_the_kernels(cuda_device, tmp_path):
@@ -203,3 +237,26 @@ def test_tiny_train_run_on_the_card_goes_through_the_kernels(cuda_device, tmp_pa
     assert counts["bwd"] == counts["dw"] == counts["reduce"] == 2 * iters
     assert rows and all(np.isfinite(float(r["loss"])) for r in rows)
     assert (tmp_path / "results.csv").exists()
+
+
+def test_one_qmix_train_iteration_on_the_card_goes_through_the_kernels(cuda_device):
+    """One iteration of the QMIX preset (CooperativeReward, reward
+    standardisation) with the shared GRU critic: 5 rollout steps and 2
+    updates of the online and target nets through the kernels at G=3."""
+    cfg = load_config([
+        "+algorithm=qmix", "env.name=lbforaging:Foraging-10x10-3p-3f-v3", "env.time_limit=5",
+        "env.standardise_rewards=true", "algorithm.model.use_rnn=true", "algorithm.model.parameter_sharing=true",
+        "algorithm.parallel_envs=256", "algorithm.batch_size=32", "algorithm.buffer_size=256",
+        "algorithm.updates_per_collect=2", "algorithm.training_start=0",
+    ])
+    env, eval_env = run.build_envs(cfg)
+    init_state, train_iteration, _ = build_train_functions(env, eval_env, cfg.algorithm, 5, cuda_device)
+    state = init_state(0)
+    counts = fg.launch_counts()
+    loss = float(train_iteration(state)["loss"])
+    torch.cuda.synchronize()
+    after = fg.launch_counts()
+    assert np.isfinite(loss) and state.updates == 2
+    assert after["fwd"] - counts["fwd"] == 5 + 2 * 2
+    assert [after[k] - counts[k] for k in ("bwd", "dw", "reduce")] == [2, 2, 2]
+    assert float(state.reward_stream.n.min()) > 0 and state.reward_stream.n.device.type == "cuda"

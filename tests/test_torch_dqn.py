@@ -1,7 +1,9 @@
-"""The port's IDQN loss, gradients and optimizer steps against the JAX
-package's, with the GRU critic, on the same params (JAX `init`, carried
-across) and the same numpy batch. f32 on both sides; the JAX GRU runs its
-Pallas kernel in interpret mode."""
+"""The port's value-based losses, gradients and optimizer steps against the
+JAX package's, on the same params (JAX `init_params`, carried across with
+`DQNModel.load_params`) and the same numpy batch: IDQN, VDN and QMIX with
+the GRU critic, with and without return standardisation, QMIX's critic-only
+gradient clip, and IDQN with the LSTM critic. f32 on both sides; the JAX GRU
+runs its Pallas kernel in interpret mode."""
 
 import jax
 import jax.numpy as jnp
@@ -14,11 +16,13 @@ from codebase_tpu.algos.common import make_optimizer as jax_make_optimizer
 from codebase_tpu.algos.dqn import DQNModel as JaxDQNModel
 from codebase_tpu.config import Config as JaxConfig
 from codebase_tpu.envs.lbforaging import parse_lbf_name as jax_parse_lbf_name
+from codebase_tpu.ops.running_stats import RunningMeanStd as JaxRunningMeanStd
 from codebase_tpu_torch.algos.common import Adam, hard_update
 from codebase_tpu_torch.algos.dqn import DQNModel
 from codebase_tpu_torch.config import Config
 from codebase_tpu_torch.envs.lbforaging import parse_lbf_name
-from codebase_tpu_torch.utils.params import params_from_numpy, tree_leaves
+from codebase_tpu_torch.ops.running_stats import RunningMeanStd
+from codebase_tpu_torch.utils.params import tree_leaves
 
 torch.set_num_threads(2)
 ENV = "lbforaging:Foraging-8x8-2p-3f-v3"
@@ -36,7 +40,7 @@ def _models():
     return jmodel, model
 
 
-def _batch(seed, D=15, A=6):
+def _batch(seed, D=15, A=6, N=N):
     rng = np.random.default_rng(seed)
     lengths = rng.integers(1, T + 1, size=B)
     filled = (np.arange(T)[:, None] < lengths[None]).astype(np.float32)
@@ -61,7 +65,7 @@ def _jax_batch(b):
 
 
 def _to_torch_model(model, jparams):
-    model.critic.load_params(params_from_numpy(jax.device_get(jparams["critic"])))
+    model.load_params(jax.device_get(jparams))
 
 
 def test_loss_and_grads_match_jax():
@@ -75,7 +79,7 @@ def test_loss_and_grads_match_jax():
 
     loss_fn = lambda p: jmodel.loss(p, tparams, _jax_batch(batch), jmodel.init_rms())[0]  # noqa: E731
     jloss, jgrads = jax.jit(jax.value_and_grad(loss_fn))(params)
-    loss = model.loss(target, _torch_batch(batch))
+    loss, _ = model.loss(target, _torch_batch(batch), model.init_rms())
     grads = torch.autograd.grad(loss, model.param_leaves())
     np.testing.assert_allclose(loss.item(), float(jloss), rtol=2e-4)
     for g, r in zip(grads, tree_leaves(jax.device_get(jgrads["critic"]))):
@@ -107,7 +111,7 @@ def test_three_optimizer_steps_match_optax(grad_clip):
     for u in range(1, 4):
         batch = _batch(10 + u)
         params, opt_state, jloss = jstep(params, tparams, opt_state, _jax_batch(batch))
-        loss = model.loss(target, _torch_batch(batch))
+        loss, _ = model.loss(target, _torch_batch(batch), model.init_rms())
         topt.step(torch.autograd.grad(loss, model.param_leaves()))
         if u % interval == 0:
             tparams = jax.tree.map(jnp.copy, params)
@@ -136,3 +140,158 @@ def test_adam_clip_is_optax_rule_not_clip_grad_norm():
     upd, _ = jopt.update([jnp.full((4,), 5e-4)], jopt.init(jp), jp)
     np.testing.assert_allclose(p[0].numpy(), np.asarray(upd[0]), rtol=1e-6)
     np.testing.assert_allclose(opt.mu[0].numpy(), 0.1 * 2.5e-4, rtol=1e-6)
+
+
+# VDN and QMIX: three agents sharing one GRU critic (the kernels' G=3 case
+# on the card), the team reward of agent 0
+ENV3 = "lbforaging:Foraging-8x8-3p-2f-v3"
+MIXING = dict(embed_dim=16, hypernet_layers=2, hypernet_embed=8)
+
+
+def _family(name, standardise_returns=False, use_rnn=True):
+    model_cfg = {**MODEL, "name": name, "parameter_sharing": True, "use_rnn": use_rnn, "mixing": MIXING}
+    algo = {**ALGO, "standardise_returns": standardise_returns}
+    jmodel = JaxDQNModel.create(
+        jax_parse_lbf_name(ENV3), JaxConfig({**model_cfg, "fused_rnn": "interpret"}), JaxConfig(algo)
+    )
+    return jmodel, lambda: DQNModel.create(parse_lbf_name(ENV3), Config(model_cfg), Config(algo))
+
+
+def _rms_pair(shape, seed):
+    """Moments that have seen data, so that denormalising the target matters."""
+    rng = np.random.default_rng(seed)
+    mean = rng.standard_normal(shape).astype(np.float32)
+    var = (rng.random(shape) + 0.5).astype(np.float32)
+    count = np.float32(37.0)
+    return (JaxRunningMeanStd(jnp.asarray(mean), jnp.asarray(var), jnp.asarray(count)),
+            RunningMeanStd(torch.tensor(mean), torch.tensor(var), torch.tensor(count)))
+
+
+@pytest.mark.parametrize("standardise_returns", [False, True])
+@pytest.mark.parametrize("name", ["vdn", "qmix", "qnetwork"])
+def test_value_decomposition_loss_grads_and_return_moments_match_jax(name, standardise_returns):
+    jmodel, make = _family(name, standardise_returns)
+    params = jax.jit(jmodel.init_params)(jax.random.PRNGKey(0))
+    tparams = jax.jit(jmodel.init_params)(jax.random.PRNGKey(1))
+    model, target = make(), make()
+    _to_torch_model(model, params)
+    _to_torch_model(target, tparams)
+    assert set(model.param_tree()) == set(params)
+    batch = _batch(4, N=3)
+    jrms, rms = _rms_pair(jmodel.init_rms().mean.shape, seed=5)
+    assert tuple(model.init_rms().mean.shape) == jmodel.init_rms().mean.shape
+
+    loss_fn = lambda p: jmodel.loss(p, tparams, _jax_batch(batch), jrms)  # noqa: E731
+    (jloss, jnew), jgrads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params)
+    loss, new = model.loss(target, _torch_batch(batch), rms)
+    grads = torch.autograd.grad(loss, model.param_leaves())
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=2e-4)
+    ref = tree_leaves(jax.device_get(jgrads))
+    assert len(grads) == len(ref)
+    for g, r in zip(grads, ref):
+        # atol 1e-6 of the leaf's largest entry: an entry that cancels to
+        # ~1e-3 of its leaf's scale keeps only its leading digits in f32
+        np.testing.assert_allclose(g.numpy(), r, rtol=2e-4, atol=1e-6 * max(1.0, np.abs(r).max()))
+    for f in ("mean", "var", "count"):
+        np.testing.assert_allclose(getattr(new, f).numpy(), np.asarray(getattr(jnew, f)), rtol=2e-4, err_msg=f)
+    # the moments count every (t, b) cell, filled or not
+    expected_count = 37.0 + (batch["filled"].size if standardise_returns else 0)
+    assert float(new.count) == pytest.approx(expected_count)
+
+
+def test_qmix_three_adam_steps_clip_the_critic_only_like_optax():
+    """Adam behind a global-norm clip that fires, masked to the critic as
+    `optax.masked(clip_by_global_norm)` is: the mixer's leaves are neither
+    counted in the norm nor scaled. Critic, mixer and the target's mixer
+    (hard copy every 2 updates) held to optax; the same steps with the
+    whole tree clipped end elsewhere."""
+    jmodel, make = _family("qmix")
+    params = jax.jit(jmodel.init_params)(jax.random.PRNGKey(3))
+    tparams = jax.tree.map(jnp.copy, params)
+    model, target, whole = make(), make(), make()
+    for m in (model, target, whole):
+        _to_torch_model(m, params)
+    lr, grad_clip, interval = 1e-3, 0.05, 2
+    opt = jax_make_optimizer("adam", lr, grad_clip, clip_mask={"critic": True, "mixer": False})
+    opt_state = opt.init(params)
+    mask = model.clip_mask()
+    assert mask == [True] * len(tree_leaves(model.critic.param_tree())) + [False] * 14
+    topt = Adam(model.param_leaves(), lr, grad_clip, clip_mask=mask)
+    wopt = Adam(whole.param_leaves(), lr, grad_clip)
+
+    @jax.jit
+    def jstep(params, tparams, opt_state, batch):
+        (loss, _), grads = jax.value_and_grad(jmodel.loss, has_aux=True)(
+            params, tparams, batch, jmodel.init_rms()
+        )
+        upd, opt_state = opt.update(grads, opt_state, params)
+        return optax.apply_updates(params, upd), opt_state, loss
+
+    for u in range(1, 4):
+        batch = _batch(20 + u, N=3)
+        params, opt_state, jloss = jstep(params, tparams, opt_state, _jax_batch(batch))
+        loss, _ = model.loss(target, _torch_batch(batch), model.init_rms())
+        grads = torch.autograd.grad(loss, model.param_leaves())
+        critic_norm = torch.sqrt(sum((g * g).sum() for g, m in zip(grads, mask) if m))
+        assert float(critic_norm) > grad_clip, "the clip must fire for this test to see its scope"
+        topt.step(grads)
+        wloss, _ = whole.loss(target, _torch_batch(batch), whole.init_rms())
+        wopt.step(torch.autograd.grad(wloss, whole.param_leaves()))
+        if u % interval == 0:
+            tparams = jax.tree.map(jnp.copy, params)
+            hard_update(target.param_leaves(), model.param_leaves())
+        np.testing.assert_allclose(loss.item(), float(jloss), rtol=2e-4, err_msg=f"loss {u}")
+        # atol 5e-2 * lr as in test_three_optimizer_steps_match_optax
+        for part, p_tree, r_tree in (("online", model.param_tree(), params), ("target", target.param_tree(), tparams)):
+            for p, r in zip(tree_leaves(p_tree), tree_leaves(jax.device_get(r_tree))):
+                np.testing.assert_allclose(p.detach().numpy(), r, rtol=2e-4, atol=5e-2 * lr, err_msg=f"{part} {u}")
+    # whole-tree clipping moves the mixer differently (its first Adam step
+    # is scale-free, the later ones are not)
+    gaps = [float((p - q).detach().abs().max()) for p, q in
+            zip(tree_leaves(whole.mixer.param_tree()), tree_leaves(model.mixer.param_tree()))]
+    assert max(gaps) > 0.2 * lr
+
+
+def test_idqn_loss_with_the_lstm_critic_matches_jax():
+    """Recurrent IDQN with `use_rnn=lstm`: the plain per-step cell on both
+    sides (the JAX package has no LSTM kernel). Loss at 1e-5, grads 2e-4."""
+    jmodel, make = _family("qnetwork", use_rnn="lstm")
+    params = jax.jit(jmodel.init_params)(jax.random.PRNGKey(6))
+    tparams = jax.jit(jmodel.init_params)(jax.random.PRNGKey(7))
+    model, target = make(), make()
+    _to_torch_model(model, params)
+    _to_torch_model(target, tparams)
+    assert model.critic.param_tree()["rnn"][0]["w_hh"].shape == (1, 128, 4 * 128)
+    batch = _batch(8, N=3)
+    loss_fn = lambda p: jmodel.loss(p, tparams, _jax_batch(batch), jmodel.init_rms())[0]  # noqa: E731
+    jloss, jgrads = jax.jit(jax.value_and_grad(loss_fn))(params)
+    loss, _ = model.loss(target, _torch_batch(batch), model.init_rms())
+    grads = torch.autograd.grad(loss, model.param_leaves())
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5)
+    for g, r in zip(grads, tree_leaves(jax.device_get(jgrads))):
+        np.testing.assert_allclose(g.numpy(), r, rtol=2e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["vdn", "qmix"])
+def test_mixed_return_standardisation_diverges_from_init_in_both_packages(name):
+    """A trap of the reference semantics, not of the port: with a fixed
+    target net (its first `target_update_interval_or_tau` updates), the
+    team target is denormalised with the running std, so the returns' std
+    is the target's spread times the previous std. Where the fresh target's
+    spread over states exceeds 1, the moments grow geometrically. Both
+    packages follow the same path, call after call."""
+    jmodel, make = _family(name, standardise_returns=True, use_rnn=False)
+    params = jax.jit(jmodel.init_params)(jax.random.PRNGKey(9))
+    model = make()
+    _to_torch_model(model, params)
+    jrms, rms = jmodel.init_rms(), model.init_rms()
+    jloss = jax.jit(lambda r, b: jmodel.loss(params, params, b, r))
+    variances = []
+    for k in range(4):
+        batch = _batch(30 + k, N=3)
+        (_, jrms), (_, rms) = jloss(jrms, _jax_batch(batch)), model.loss(model, _torch_batch(batch), rms)
+        for f in ("mean", "var"):
+            np.testing.assert_allclose(getattr(rms, f).detach().numpy(), np.asarray(getattr(jrms, f)),
+                                       rtol=2e-4, err_msg=f"{f} after call {k}")
+        variances.append(float(rms.var[0]))
+    assert all(b > 2 * a for a, b in zip(variances[1:], variances[2:])), variances

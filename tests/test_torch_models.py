@@ -80,8 +80,10 @@ def test_own_init_and_options():
     assert float(tree["rnn"][0]["w_hh"].detach().abs().max()) <= 1 / np.sqrt(128)
     assert make_network_spec((D, 128, 128, A), use_rnn=True, fused_rnn="interpret").fused_rnn == "auto"
     assert make_network_spec((D, 128, 128, A), use_rnn=True, fused_rnn=False).fused_rnn == "off"
-    with pytest.raises(NotImplementedError):
-        make_network_spec((D, 128, 128, A), use_rnn="lstm")
+    lstm = make_network_spec((D, 128, 128, A), use_rnn="lstm")
+    assert (lstm.cell, lstm.carry_size) == ("lstm", 256)
+    with pytest.raises(ValueError, match="GRU"):
+        make_network_spec((D, 128, 128, A), use_rnn="lstm", fused_rnn="on")
 
 
 def test_fused_off_is_the_same_recurrence():
@@ -95,3 +97,37 @@ def test_fused_off_is_the_same_recurrence():
         (y1, h1), (y2, h2) = on(x), off(x)
     torch.testing.assert_close(y1, y2, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(h1, h2, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("sharing", ["independent", "shared"])
+def test_lstm_forward_and_gradients_match_jax(sharing):
+    """The LSTM (torch gate order i, f, g, o; carry h and c concatenated,
+    C = 2H) runs the plain per-step cell on both sides. Values at 1e-5,
+    gradients at 2e-4."""
+    kw = dict(input_sizes=[D] * N, hidden_dims=[128, 128, 128], output_sizes=[A] * N,
+              parameter_sharing=SHARING[sharing], use_rnn="lstm")
+    jnet = JaxMultiAgentNetwork.create(fused_rnn="auto", **kw)
+    jparams = jax.jit(jnet.init)(jax.random.PRNGKey(4))
+    net = MultiAgentNetwork(fused_rnn="auto", **kw)
+    net.load_params(params_from_numpy(jax.device_get(jparams)))
+    assert net.init_hiddens(B).shape == (N, 2, B, 256)
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((N, T, B, D)).astype(np.float32)
+    h = (rng.standard_normal((N, 2, B, 256)) * 0.5).astype(np.float32)
+    w = rng.standard_normal((N, T, B, A)).astype(np.float32)
+
+    def jloss(p, h):
+        y, hT = jnet.apply(p, jnp.asarray(x), h)
+        return jnp.sum(y * w) + jnp.sum(hT ** 2), (y, hT)
+
+    (_, (y_ref, h_ref)), (gp_ref, gh_ref) = jax.jit(
+        jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True))(jparams, jnp.asarray(h))
+    th = torch.tensor(h, requires_grad=True)
+    y, hT = net(torch.tensor(x), th)
+    np.testing.assert_allclose(y.detach().numpy(), y_ref, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(hT.detach().numpy(), h_ref, rtol=1e-5, atol=1e-5)
+    leaves = tree_leaves(net.param_tree())
+    grads = torch.autograd.grad((y * torch.tensor(w)).sum() + (hT ** 2).sum(), leaves + [th])
+    np.testing.assert_allclose(grads[-1].numpy(), gh_ref, rtol=2e-4, atol=1e-5)
+    for g, r in zip(grads[:-1], tree_leaves(jax.device_get(gp_ref))):
+        np.testing.assert_allclose(g.numpy(), r, rtol=2e-4, atol=1e-5)

@@ -30,21 +30,26 @@ def test_device_breakdown_counts_each_kernel_once_and_by_range():
     events = [
         _ev("dqn/rollout", cpu, 0, 500, True),
         _ev("dqn/rollout", gpu, 100, 400, True),
+        _ev("dqn/reward_stream", cpu, 480, 495, True),
+        _ev("dqn/reward_stream", gpu, 400, 404, True),
         _ev("dqn/updates", cpu, 500, 900, True),
         _ev("dqn/updates", gpu, 400, 1000, True),
         _ev("aten::bmm", cpu, 10, 20),  # an op event: its kernel's time is not its own
         _ev("gemm", gpu, 100, 160),
+        _ev("elementwise", gpu, 401, 403),
         _ev("void (anonymous namespace)::gru_fwd_kernel<8>(float const*)", gpu, 200, 300),
         _ev("void (anonymous namespace)::gru_bwd_kernel<16>(float const*)", gpu, 500, 800),
         _ev("gemm", gpu, 800, 820),
         _ev("Memcpy DtoD (Device -> Device)", gpu, 1100, 1110),  # outside every range
     ]
     out = profile.device_breakdown(events, iters=2, top=2)
-    assert out["kernel_ms_per_iter"] == pytest.approx((60 + 100 + 300 + 20 + 10) / 1e3 / 2)
+    assert out["kernel_ms_per_iter"] == pytest.approx((60 + 2 + 100 + 300 + 20 + 10) / 1e3 / 2)
     r = out["ranges"]
     assert r["dqn/rollout"]["kernel_ms_per_iter"] == pytest.approx(160 / 2e3)
     assert r["dqn/updates"]["kernel_ms_per_iter"] == pytest.approx(320 / 2e3)
     assert r["dqn/replay_add"]["kernel_ms_per_iter"] == 0
+    assert r["dqn/reward_stream"]["kernel_ms_per_iter"] == pytest.approx(2 / 2e3)
+    assert r["dqn/reward_stream"]["host_ms_per_iter_traced"] == pytest.approx(15 / 2e3)
     assert r["dqn/rollout"]["host_ms_per_iter_traced"] == pytest.approx(500 / 2e3)
     assert r["dqn/updates"]["device_span_ms_per_iter"] == pytest.approx(600 / 2e3)
     assert out["gru_kernel_ms_per_iter"]["gru_bwd_kernel"] == pytest.approx(300 / 2e3)
@@ -66,5 +71,22 @@ def test_profile_cli_on_cpu_reports_host_ranges_and_no_device_numbers(tmp_path, 
     assert report["card"]["name"] == "cpu"
     assert report["env_steps_per_s"] > 0
     assert report["device_busy_share"] is None and report["top_kernels"] is None
-    assert all(r["host_ms_per_iter_traced"] > 0 for r in report["ranges"].values())
+    ranges = report["ranges"]
+    assert ranges.pop("dqn/reward_stream")["host_ms_per_iter_traced"] == 0  # no standardiser in the stack
+    assert all(r["host_ms_per_iter_traced"] > 0 for r in ranges.values())
     assert report["gru_launches_per_iter"] == {"fwd": 0, "bwd": 0, "dw": 0, "reduce": 0}
+
+
+def test_profile_cli_takes_qmix_and_reads_the_reward_stream_range(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    report = profile.main([
+        "+algorithm=qmix", "env.name=lbforaging:Foraging-5x5-2p-1f-v3", "env.time_limit=5",
+        "env.parallel_envs=4", "env.standardise_rewards=true", "algorithm.model.use_rnn=true",
+        "algorithm.batch_size=2", "algorithm.buffer_size=8", "algorithm.training_start=0",
+        "algorithm.updates_per_collect=2", "device=cpu", "profile.iters=1", "seed=0",
+    ])
+    assert report["config"]["algorithm"] == "qmix" and report["config"]["standardise_rewards"]
+    assert all(r["host_ms_per_iter_traced"] > 0 for r in report["ranges"].values())
+    with pytest.raises(NotImplementedError, match="value-based"):
+        profile.main(["+algorithm=idqn", "algorithm.name=ia2c", "env.name=lbforaging:Foraging-5x5-2p-1f-v3",
+                      "env.time_limit=5", "device=cpu"])
