@@ -8,9 +8,10 @@ exits non-zero:
 2. build   — builds the GRU kernels from `codebase_tpu_torch/csrc/` with nvcc.
 3. kernels — holds each kernel against its plain PyTorch version at the
              rollout shape (a) G=2 T=1 B=65536, the update shape (b) G=2 T=26
-             B=1024, a ragged shape (c) G=3 T=7 B=1000, and the QMIX update
-             and rollout shapes (d) G=3 T=26 B=512 and (e) G=3 T=1 B=32768
-             (H=128): the forward against
+             B=1024, a ragged shape (c) G=3 T=7 B=1000, the QMIX update
+             and rollout shapes (d) G=3 T=26 B=512 and (e) G=3 T=1 B=32768,
+             and the actor-critic update and rollout shapes (f) G=2 T=25
+             B=8192 and (g) G=2 T=1 B=8192 (H=128): the forward against
              `gru_sequence_plain`, the whole backward (recurrence, weight
              gradient, reduction) against `gru_backward_plain`, the weight
              gradient alone against `gru_dw_plain` on the recurrence
@@ -22,8 +23,8 @@ exits non-zero:
              `torch.sum` for the reduction) on the device (see `time_ms`; the
              reduction's input fits in the L2, so it is timed on copies that
              do not, see `cold_copies`).
-Then four train phases through `codebase_tpu_torch.run.main`, each with the
-launch counters set to 0 just before and read just after:
+Then seven train phases through `codebase_tpu_torch.run.main`, each with
+the launch counters set to 0 just before and read just after:
 4. train       — recurrent IDQN on lbforaging:Foraging-8x8-2p-3f-v3 (T=25,
                  layers [128,128], 65536 envs, batch 1024, 8 updates per
                  collect), 3 iterations.
@@ -37,6 +38,17 @@ launch counters set to 0 just before and read just after:
 7. train_lstm  — recurrent IDQN with the LSTM cell and return
                  standardisation on Foraging-8x8-2p-3f-v3 (16384 envs, batch
                  1024), 2 iterations, no GRU launch.
+8. train_mappo — the MAPPO preset with a recurrent actor and a recurrent
+                 centralised critic on Foraging-8x8-2p-3f-v3, 8192 envs (the
+                 JAX package's `ia2c_lbf` lane width), 3 iterations: the GRU
+                 kernels at (g) in the rollout and (f) in the update (35
+                 forward and 8 of each backward kernel per iteration); the
+                 target critic follows the refresh rule.
+9. train_ia2c  — the `ia2c_lbf` lane as the JAX package defines it (MLP,
+                 8192 envs), 2 iterations, no GRU launch.
+10. train_ippo_std — IPPO (MLP, 8192 envs) with reward and return
+                 standardisation, 2 iterations: the reward streams and the
+                 return moments advance on the card.
 Then the kernel summary line and, last, the device line.
 
 Imports nothing of JAX or of the JAX package.
@@ -69,7 +81,11 @@ SHAPES = {
     "c": dict(G=3, T=7, B=1000, role="ragged: B not a multiple of any tile"),
     "d": dict(G=3, T=26, B=512, role="QMIX update: the critic shared by N=3 agents over T+1=26 steps"),
     "e": dict(G=3, T=1, B=32768, role="QMIX rollout: policy step of the shared critic, T=1 over all envs"),
+    "f": dict(G=2, T=25, B=8192, role="actor-critic update: actor and critic over the whole rollout, T=25"),
+    "g": dict(G=2, T=1, B=8192, role="actor-critic rollout: the actor's policy step, T=1 over all envs"),
 }
+# the value-based phases' replay settings
+DQN_ARGV = ["algorithm.updates_per_collect=8", "algorithm.training_start=0", "algorithm.replay_slot_reuse=clear"]
 # published peaks, dense, no sparsity (NVIDIA data sheets): HBM bytes/s,
 # FP32 (non-tensor-core) flop/s and TF32 tensor-core flop/s, keyed by the
 # name the card reports
@@ -289,18 +305,16 @@ def check_shape(key, G, T, B, gen, peaks):
 
 def train_phase(phase, smi, argv, E, iters, per_iteration, T=25):
     """Train through `codebase_tpu_torch.run.main` on the card for at least
-    `iters` iterations of E envs, then one eval and log row, with the launch
-    counters set to 0 just before and read just after. Fails unless every
-    logged loss and every parameter is finite and each GRU kernel named in
-    `per_iteration` launched at least that often per iteration (and the
-    others never). Returns (launch counts, final state)."""
+    `iters` iterations of E envs, then one log row (and, for the
+    value-based family, one eval), with the launch counters set to 0 just
+    before and read just after. Fails unless every logged loss and every
+    parameter is finite and each GRU kernel named in `per_iteration`
+    launched at least that often per iteration (and the others never).
+    Returns (launch counts, final state)."""
     with tempfile.TemporaryDirectory() as run_dir:
         argv = argv + [
             f"env.time_limit={T}",
             f"env.parallel_envs={E}",
-            "algorithm.updates_per_collect=8",
-            "algorithm.training_start=0",
-            "algorithm.replay_slot_reuse=clear",
             # the loop stops once env steps exceed total_steps: `iters`
             # iterations of (at most) E*T steps each, then one eval + log row
             f"algorithm.total_steps={(iters - 1) * E * T}",
@@ -342,6 +356,22 @@ def train_phase(phase, smi, argv, E, iters, per_iteration, T=25):
     return counts, state
 
 
+def check_target_refresh(state, tau=200) -> None:
+    """The MAPPO target critic after the run: it holds the critic's params
+    exactly when the last iteration began at an env-step count that is a
+    multiple of tau (the reference's rule, tested before the count
+    advances); every iteration of 8192 envs x t_max 25 steps begins at a
+    multiple of 204,800, so then it is refreshed every iteration."""
+    start = state.env_steps - state.timings[-1][0]
+    target, critic = state.target_critic.param_leaves(), state.model.critic.param_leaves()
+    same = all(torch.equal(t, c) for t, c in zip(target, critic))
+    if same != (start % tau == 0) or not all(torch.isfinite(t).all() for t in target):
+        raise AssertionError(f"train_mappo: target critic equal to the critic: {same}; last iteration began at "
+                             f"{start} env steps (tau {tau})")
+    emit({"phase": "train_mappo_target", "last_iteration_start": start, "target_equals_critic": same,
+          "steps_per_iteration": [n for n, _ in state.timings]})
+
+
 def main() -> None:
     # --- 1. device
     dev = resolve_device("cuda")  # also pins f32 matmuls (allow_tf32 = False)
@@ -376,6 +406,7 @@ def main() -> None:
     counts, _ = train_phase("train", smi, [
         "+algorithm=idqn", "env.name=lbforaging:Foraging-8x8-2p-3f-v3", "algorithm.model.use_rnn=true",
         "algorithm.model.layers=[128,128]", "algorithm.batch_size=1024", "algorithm.buffer_size=131072",
+        *DQN_ARGV,
     ], E=65536, iters=3, per_iteration={"fwd": 25, "bwd": 8, "dw": 8, "reduce": 8})
 
     # --- 5. train_qmix: the QMIX preset, shared recurrent critic (G=3),
@@ -384,6 +415,7 @@ def main() -> None:
         "+algorithm=qmix", "env.name=lbforaging:Foraging-10x10-3p-3f-v3", "algorithm.model.use_rnn=true",
         "algorithm.model.layers=[128,128]", "algorithm.model.parameter_sharing=true",
         "algorithm.batch_size=512", "algorithm.buffer_size=65536", "env.standardise_rewards=true",
+        *DQN_ARGV,
     ], E=32768, iters=3, per_iteration={"fwd": 41, "bwd": 8, "dw": 8, "reduce": 8})
     stream_n = state.reward_stream.n
     if not float(stream_n.min()) > 0 or state.reward_stream.wmean.device.type != "cuda":
@@ -395,7 +427,7 @@ def main() -> None:
     # --- 6. train_vdn: the vdn_shared_lbf10 lane (MLP): no GRU launch
     train_phase("train_vdn", smi, [
         "+algorithm=vdn", "env.name=lbforaging:Foraging-10x10-3p-3f-v3", "algorithm.model.parameter_sharing=true",
-        "algorithm.batch_size=512", "algorithm.buffer_size=65536",
+        "algorithm.batch_size=512", "algorithm.buffer_size=65536", *DQN_ARGV,
     ], E=32768, iters=2, per_iteration={})
 
     # --- 7. train_lstm: the LSTM never reaches the GRU kernels; return
@@ -403,13 +435,42 @@ def main() -> None:
     _, state = train_phase("train_lstm", smi, [
         "+algorithm=idqn", "env.name=lbforaging:Foraging-8x8-2p-3f-v3", "algorithm.model.use_rnn=lstm",
         "algorithm.model.layers=[128,128]", "algorithm.batch_size=1024", "algorithm.buffer_size=32768",
-        "algorithm.standardise_returns=true",
+        "algorithm.standardise_returns=true", *DQN_ARGV,
     ], E=16384, iters=2, per_iteration={})
     rms = state.ret_rms
     if not (float(rms.count) > 1e-4 and torch.isfinite(rms.mean).all() and torch.isfinite(rms.var).all()):
         raise AssertionError(f"train_lstm: return moments did not advance or are not finite: {rms}")
     emit({"phase": "train_lstm_return_moments", "count": float(rms.count), "mean": rms.mean.tolist(),
           "var": rms.var.tolist()})
+    del state
+
+    # --- 8. train_mappo: recurrent actor and centralised recurrent critic,
+    # the GRU kernels at (g) in the rollout and (f) in the update
+    mappo_counts, state = train_phase("train_mappo", smi, [
+        "+algorithm=mappo", "env.name=lbforaging:Foraging-8x8-2p-3f-v3",
+        "algorithm.model.actor.use_rnn=true", "algorithm.model.critic.use_rnn=true",
+    ], E=8192, iters=3, per_iteration={"fwd": 35, "bwd": 8, "dw": 8, "reduce": 8})
+    check_target_refresh(state)
+    del state
+
+    # --- 9. train_ia2c: the ia2c_lbf lane (MLP): no GRU launch
+    train_phase("train_ia2c", smi, ["+algorithm=ia2c", "env.name=lbforaging:Foraging-8x8-2p-3f-v3"],
+                E=8192, iters=2, per_iteration={})
+
+    # --- 10. train_ippo_std: reward and return standardisation on the card
+    _, state = train_phase("train_ippo_std", smi, [
+        "+algorithm=ippo", "env.name=lbforaging:Foraging-8x8-2p-3f-v3", "env.standardise_rewards=true",
+        "algorithm.standardise_returns=true",
+    ], E=8192, iters=2, per_iteration={})
+    stream, rms = state.reward_stream, state.ret_rms
+    if not (float(stream.n.min()) > 0 and stream.wmean.device.type == "cuda" and torch.isfinite(stream.wmean).all()):
+        raise AssertionError("train_ippo_std: the reward stream did not advance on the card")
+    if not (float(rms.count) > 1e-4 and rms.mean.device.type == "cuda"
+            and torch.isfinite(rms.mean).all() and torch.isfinite(rms.var).all()):
+        raise AssertionError(f"train_ippo_std: return moments did not advance or are not finite: {rms}")
+    emit({"phase": "train_ippo_std_moments", "stream_n_min": float(stream.n.min()),
+          "stream_wmean_mean": float(stream.wmean.mean()), "returns_count": float(rms.count),
+          "returns_mean": rms.mean.tolist(), "returns_var": rms.var.tolist()})
     del state
 
     b = results["b"]
@@ -428,6 +489,7 @@ def main() -> None:
             "replaces": sources[k],
             "launches": counts[counter],
             "launches_train_qmix": qmix_counts[counter],
+            "launches_train_mappo": mappo_counts[counter],
             "max_abs_err": max(results[s][k]["max_abs_err"] for s in SHAPES),
             "ms": b[k]["ms"],
             "plain_ms": b[k]["plain_ms"],
@@ -438,7 +500,8 @@ def main() -> None:
             "timed_at": "shape b (G=2 T=26 B=1024 H=128)",
             **{f"{role}_shape_{key}": {f: results[key][k][f] for f in (
                 "ms", "plain_ms", "library_ms", "library", "bound_ms", "bound_by")}
-               for role, key in (("rollout", "a"), ("qmix_update", "d"), ("qmix_rollout", "e"))},
+               for role, key in (("rollout", "a"), ("qmix_update", "d"), ("qmix_rollout", "e"),
+                                 ("ac_update", "f"), ("ac_rollout", "g"))},
         })
     summary[1]["ms_is"] = "the whole backward: gru_bwd_kernel, gru_dw_kernel, gru_reduce_kernel"
     for f in ("recurrence_ms", "recurrence_plain_ms", "recurrence_bound_ms", "recurrence_bound_by"):

@@ -22,6 +22,8 @@ class Adam:
     unclipped (`optax.masked(clip_by_global_norm(c), mask)`). QMIX clips the
     critic only, as the reference's `clip_grad_norm_(critic.parameters())`
     does: whole-tree clipping changed QMIX's learning in the JAX package.
+    The actor-critic family runs one Adam over the whole {"actor", "critic"}
+    tree, and a clip there covers every leaf.
 
     The clip decision stays on the device (`torch.where`), so a step never
     waits for the host. Parameters are updated in place.
@@ -49,9 +51,12 @@ class Adam:
                 for g, m in zip(grads, self.clip_mask)
             ]
         self.count += 1
-        # optax forms the bias corrections in float32: 1 - f32(b)**count
-        bc1 = float(np.float32(1.0) - np.float32(self.b1) ** np.float32(self.count))
-        bc2 = float(np.float32(1.0) - np.float32(self.b2) ** np.float32(self.count))
+        # optax forms the bias corrections in the default float type: 1 -
+        # f32(b)**count for float32 parameters, float64 where JAX runs in
+        # 64-bit mode
+        f = np.float64 if self.params[0].dtype == torch.float64 else np.float32
+        bc1 = float(f(1.0) - f(self.b1) ** f(self.count))
+        bc2 = float(f(1.0) - f(self.b2) ** f(self.count))
         for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
             mu.copy_((1.0 - self.b1) * g + self.b1 * mu)
             nu.copy_((1.0 - self.b2) * (g * g) + self.b2 * nu)

@@ -15,24 +15,8 @@ import torch
 
 from codebase_tpu_torch.algos.dqn import build_train_functions
 from codebase_tpu_torch.ops.schedules import epsilon_schedule
-
-
-def _eval_infos(eval_out) -> list:
-    """Per-episode info dicts shaped like the reference's eval infos."""
-    returns = eval_out["episode_returns"].cpu().numpy()  # (E, N)
-    lengths = eval_out["episode_lengths"].cpu().numpy()  # (E,)
-    infos = []
-    for e in range(returns.shape[0]):
-        info = {"episode_returns": returns[e], "episode_length": float(lengths[e])}
-        for i in range(returns.shape[1]):
-            info[f"agent{i}/episode_returns"] = float(returns[e, i])
-        infos.append(info)
-    return infos
-
-
-def _sync(device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+from codebase_tpu_torch.utils.device import sync
+from codebase_tpu_torch.utils.loggers import episode_infos
 
 
 def main(env, eval_env, logger, time_limit, cfg, device):
@@ -74,7 +58,7 @@ def main(env, eval_env, logger, time_limit, cfg, device):
     last_log = last_eval = step
     losses = []
     while step < total_steps + 1:
-        _sync(device)
+        sync(device)
         t0 = time.perf_counter()
         metrics = train_iteration(state)
         losses.append(float(metrics["loss"]))  # waits for the iteration's updates
@@ -87,7 +71,7 @@ def main(env, eval_env, logger, time_limit, cfg, device):
         do_eval = eval_interval and (step - last_eval) >= eval_interval
         do_log = log_interval and (step - last_log) >= log_interval
         if do_eval:
-            infos.extend(_eval_infos(evaluate(state, eval_gen)))
+            infos.extend(episode_infos(evaluate(state, eval_gen)))
             last_eval = step
         if do_log:
             arr = np.asarray(losses)

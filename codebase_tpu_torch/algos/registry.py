@@ -1,8 +1,8 @@
 """Algorithm registry: name -> train entry point
 `main(env, eval_env, logger, time_limit, cfg, device) -> final state`.
 
-The value-based family (IDQN, VDN, QMIX) is ported; the actor-critic
-family waits (ROADMAP.md Queue 1)."""
+Both families of the JAX package are ported: the value-based (IDQN, VDN,
+QMIX) and the actor-critic (IA2C, MAA2C, IPPO, MAPPO)."""
 
 from __future__ import annotations
 
@@ -13,21 +13,24 @@ def _dqn(env, eval_env, logger, time_limit, cfg, device):
     return main(env, eval_env, logger, time_limit, cfg, device)
 
 
-ALGORITHMS = {"idqn": _dqn, "vdn": _dqn, "qmix": _dqn}
+def _ac(env, eval_env, logger, time_limit, cfg, device):
+    from codebase_tpu_torch.algos.ac_train import main
 
-NOT_PORTED = {
-    "ia2c": "the actor-critic family",
-    "maa2c": "the actor-critic family",
-    "ippo": "the actor-critic family",
-    "mappo": "the actor-critic family",
+    return main(env, eval_env, logger, time_limit, cfg, device)
+
+
+ALGORITHMS = {
+    "idqn": _dqn,
+    "vdn": _dqn,
+    "qmix": _dqn,
+    "ia2c": _ac,
+    "maa2c": _ac,
+    "ippo": _ac,
+    "mappo": _ac,
 }
 
 
 def get_algorithm(name: str):
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"algorithm {name!r} is not ported yet (ROADMAP.md Queue 1: {NOT_PORTED[name]})"
-        )
     if name not in ALGORITHMS:
         raise ValueError(f"unknown algorithm {name!r}; available: {sorted(ALGORITHMS)}")
     return ALGORITHMS[name]

@@ -19,8 +19,6 @@ from typing import Any, Dict, List, Optional
 
 import yaml
 
-from codebase_tpu_torch.algos.registry import NOT_PORTED, get_algorithm
-
 CONFIG_DIR = Path(__file__).parent / "configs"
 
 
@@ -93,8 +91,6 @@ def load_algorithm_preset(name: str, config_dir: Path = CONFIG_DIR) -> Dict:
     else:
         path = config_dir / "algorithm" / f"{name}.yaml"
     if not path.exists():
-        if name in NOT_PORTED:
-            get_algorithm(name)  # raises, naming the ROADMAP item it waits for
         available = sorted(p.stem for p in (config_dir / "algorithm").glob("*.yaml"))
         raise ValueError(f"unknown algorithm {name!r}; available: {available}")
     preset = yaml.safe_load(path.read_text()) or {}

@@ -21,7 +21,7 @@ import torch
 from torch import nn
 
 from codebase_tpu_torch.models.networks import make_network_spec
-from codebase_tpu_torch.utils.params import load_tree, module_to_tree, tree_map, tree_to_module
+from codebase_tpu_torch.utils.params import load_tree, module_to_tree, tree_leaves, tree_map, tree_to_module
 
 
 def resolve_sharing(sharing: Union[bool, Sequence[int]], n_agents: int) -> Tuple[int, ...]:
@@ -92,6 +92,10 @@ class MultiAgentNetwork(nn.Module):
     def param_tree(self):
         """The parameters as a plain nested dict/list (leading axis G)."""
         return module_to_tree(self.params)
+
+    def param_leaves(self):
+        """The parameters in the JAX package's leaf order (`tree_leaves`)."""
+        return tree_leaves(self.param_tree())
 
     def load_params(self, tree) -> None:
         """Copy a tree of tensors with this network's layout into it."""

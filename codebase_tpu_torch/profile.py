@@ -1,6 +1,7 @@
 """Profiling CLI — where one training iteration's time goes, on the GPU.
 
-    python -m codebase_tpu_torch.profile +algorithm=idqn|vdn|qmix env.name=... env.time_limit=25 \
+    python -m codebase_tpu_torch.profile +algorithm=idqn|vdn|qmix|ia2c|maa2c|ippo|mappo \
+        env.name=... env.time_limit=25 \
         [profile.warmup=1] [profile.iters=3] [profile.top=15] [any run override]
 
 Builds the train iteration for the config, runs `warmup` iterations, times
@@ -8,9 +9,10 @@ Builds the train iteration for the config, runs `warmup` iterations, times
 `iters` more under `torch.profiler` and prints one JSON line: the card and its
 power limit, env-steps/s and iteration time untraced, the device time of
 every kernel (kernels, copies and fills, each counted once) per iteration,
-split over the iteration's named ranges (`dqn/rollout`, `dqn/reward_stream`
-when the env stack standardises rewards, `dqn/replay_add`, `dqn/updates`),
-the device's busy share, the GRU kernels' launches and time,
+split over the iteration's named ranges (the value-based family's
+`dqn/rollout`, `dqn/reward_stream` when the env stack standardises rewards,
+`dqn/replay_add` and `dqn/updates`; the actor-critic family's `ac/rollout`,
+`ac/reward_stream` and `ac/update`), the device's busy share, the GRU kernels' launches and time,
 the kernels with the most device time, and the peak device memory.
 
 The busy share is kernel time over the untraced iteration time: tracing
@@ -28,37 +30,45 @@ import time
 import torch
 from torch.autograd import DeviceType
 
-from codebase_tpu_torch.algos.dqn import build_train_functions
+from codebase_tpu_torch.algos import ac, dqn
 from codebase_tpu_torch.config import load_config
 from codebase_tpu_torch.ops import fused_gru
 from codebase_tpu_torch.run import build_envs
 from codebase_tpu_torch.utils.device import resolve_device
 
-RANGES = ("dqn/rollout", "dqn/reward_stream", "dqn/replay_add", "dqn/updates")
-ALGORITHMS = ("idqn", "vdn", "qmix")
+# each algorithm's family: its train functions and the ranges its iteration names
+FAMILIES = {name: "dqn" for name in ("idqn", "vdn", "qmix")} | {
+    name: "ac" for name in ("ia2c", "maa2c", "ippo", "mappo")
+}
+BUILDERS = {"dqn": dqn.build_train_functions, "ac": ac.build_train_functions}
+RANGES = {
+    "dqn": ("dqn/rollout", "dqn/reward_stream", "dqn/replay_add", "dqn/updates"),
+    "ac": ("ac/rollout", "ac/reward_stream", "ac/update"),
+}
 GRU_KERNELS = ("gru_fwd_kernel", "gru_bwd_kernel", "gru_dw_kernel", "gru_reduce_kernel")
 
 
-def device_breakdown(events, iters: int, top: int) -> dict:
+def device_breakdown(events, iters: int, top: int, ranges) -> dict:
     """Kernel time (ms per iteration) from a trace's events.
 
     Only device-side events count (PyTorch's op events carry their kernels'
     time too, so summing those would count it twice). A kernel belongs to
-    the range whose device-side span holds its start."""
+    the range whose device-side span holds its start. `ranges` are the
+    names of the family's ranges."""
     spans = [
         (e.name, e.time_range.start, e.time_range.end)
         for e in events
-        if e.name in RANGES and e.device_type != DeviceType.CPU
+        if e.name in ranges and e.device_type != DeviceType.CPU
     ]
-    host_us = dict.fromkeys(RANGES, 0.0)
-    span_us = dict.fromkeys(RANGES, 0.0)
-    kernel_us = dict.fromkeys(RANGES, 0.0)
+    host_us = dict.fromkeys(ranges, 0.0)
+    span_us = dict.fromkeys(ranges, 0.0)
+    kernel_us = dict.fromkeys(ranges, 0.0)
     for name, start, end in spans:
         span_us[name] += end - start
     by_name = {}
     total_us = 0.0
     for e in events:
-        if e.name in RANGES:
+        if e.name in ranges:
             if e.device_type == DeviceType.CPU:
                 host_us[e.name] += e.time_range.elapsed_us()
             continue
@@ -79,7 +89,7 @@ def device_breakdown(events, iters: int, top: int) -> dict:
         "ranges": {
             r: {"host_ms_per_iter_traced": ms(host_us[r]), "device_span_ms_per_iter": ms(span_us[r]),
                 "kernel_ms_per_iter": ms(kernel_us[r])}
-            for r in RANGES
+            for r in ranges
         },
         "gru_kernel_ms_per_iter": {
             k: ms(sum(acc for n, (_, acc) in by_name.items() if k in n)) for k in GRU_KERNELS
@@ -101,12 +111,26 @@ def _card(device) -> dict:
     return {"name": torch.cuda.get_device_name(device), "nvidia_smi": smi[0] if smi else None}
 
 
+def _network_config(c) -> dict:
+    return {"layers": list(c.layers), "use_rnn": c.use_rnn, "fused_rnn": str(c.get("fused_rnn", "auto"))}
+
+
+def _model_config(family: str, acfg) -> dict:
+    if family == "dqn":
+        return {"batch_size": int(acfg.batch_size), **_network_config(acfg.model)}
+    return {"actor": _network_config(acfg.model.actor),
+            "critic": {**_network_config(acfg.model.critic), "centralised": bool(acfg.model.critic.centralised)},
+            "num_epochs": int(acfg.get("num_epochs", 1)) if acfg.model.get("name") == "ppo" else 1}
+
+
 def main(argv=None):
     cfg = load_config(argv if argv is not None else sys.argv[1:])
     if not cfg.env.get("name") or not cfg.env.get("time_limit"):
         raise ValueError("env.name and env.time_limit must be set")
-    if cfg.get("algorithm", {}).get("name") not in ALGORITHMS:
-        raise NotImplementedError(f"profiles the value-based family only; select one of {ALGORITHMS} with +algorithm=")
+    name = cfg.get("algorithm", {}).get("name")
+    if name not in FAMILIES:
+        raise ValueError(f"unknown algorithm {name!r}; select one of {sorted(FAMILIES)} with +algorithm=")
+    family = FAMILIES[name]
     pcfg = cfg.get("profile") or {}
     warmup, iters, top = (int(pcfg.get(k, d)) for k, d in (("warmup", 1), ("iters", 3), ("top", 15)))
     device = resolve_device(cfg.get("device", "cuda"))
@@ -114,7 +138,7 @@ def main(argv=None):
     if "parallel_envs" in cfg.env:
         cfg.algorithm.parallel_envs = int(cfg.env.parallel_envs)
     T = int(cfg.env.time_limit)
-    init_state, train_iteration, _ = build_train_functions(env, eval_env, cfg.algorithm, T, device)
+    init_state, train_iteration = BUILDERS[family](env, eval_env, cfg.algorithm, T, device)[:2]
     state = init_state(int(cfg.get("seed") or 0))
     on_gpu = device.type == "cuda"
 
@@ -144,7 +168,7 @@ def main(argv=None):
     with torch.profiler.profile(activities=activities) as prof:
         _, traced_seconds = run(iters)
     launches = fused_gru.launch_counts()
-    breakdown = device_breakdown(prof.events(), iters, top)
+    breakdown = device_breakdown(prof.events(), iters, top, RANGES[family])
     measured = on_gpu and breakdown["kernel_ms_per_iter"] > 0
     if not measured:  # no device trace: keep the host ranges only
         for r in breakdown["ranges"].values():
@@ -152,12 +176,11 @@ def main(argv=None):
         breakdown.update(kernel_ms_per_iter=None, gru_kernel_ms_per_iter=None, top_kernels=None)
     report = {
         "card": _card(device),
-        "config": {"algorithm": cfg.algorithm.name, "env": cfg.env.name, "time_limit": T, "parallel_envs": int(cfg.algorithm.get("parallel_envs", 1)),
-                   "batch_size": int(cfg.algorithm.batch_size), "layers": list(cfg.algorithm.model.layers),
-                   "use_rnn": cfg.algorithm.model.use_rnn,
+        "config": {"algorithm": name, "env": cfg.env.name, "time_limit": T,
+                   "parallel_envs": int(cfg.algorithm.get("parallel_envs", 1)),
                    "standardise_rewards": bool(cfg.env.get("standardise_rewards")),
                    "standardise_returns": bool(cfg.algorithm.get("standardise_returns")),
-                   "fused_rnn": str(cfg.algorithm.model.get("fused_rnn", "auto"))},
+                   **_model_config(family, cfg.algorithm)},
         "iters": iters,
         "env_steps_per_s": steps / seconds,
         "iteration_ms": iteration_ms,

@@ -23,3 +23,9 @@ def resolve_device(name) -> torch.device:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+def sync(device) -> None:
+    """Wait for the device's queued work (a no-op on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -21,6 +21,20 @@ import numpy as np
 log = logging.getLogger("codebase_tpu_torch")
 
 
+def episode_infos(out) -> list:
+    """Per-episode info dicts shaped like the reference's episode infos, from
+    `episode_returns` (E, N) and `episode_lengths` (E,) tensors."""
+    returns = out["episode_returns"].cpu().numpy()
+    lengths = out["episode_lengths"].cpu().numpy()
+    infos = []
+    for e in range(returns.shape[0]):
+        info = {"episode_returns": returns[e], "episode_length": float(lengths[e])}
+        for i in range(returns.shape[1]):
+            info[f"agent{i}/episode_returns"] = float(returns[e, i])
+        infos.append(info)
+    return infos
+
+
 def squash_info(info: List[Dict]) -> Dict[str, float]:
     new_info = {}
     keys = {k for i in info for k in i.keys()}

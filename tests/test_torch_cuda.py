@@ -1,7 +1,7 @@
 """The port on the card: the GRU kernels against their plain version, the
-IDQN and QMIX losses through the kernels against the plain CPU path, a tiny
-IDQN train run and one QMIX train iteration. Every test needs a CUDA GPU and
-skips without one.
+IDQN, QMIX and MAPPO losses through the kernels against the plain CPU path,
+a tiny IDQN train run, one QMIX and one MAPPO train iteration. Every test
+needs a CUDA GPU and skips without one.
 
 This file imports no JAX, so it runs where only PyTorch is installed:
 
@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from codebase_tpu_torch import run
+from codebase_tpu_torch.algos import ac
 from codebase_tpu_torch.algos.dqn import DQNModel, build_train_functions
 from codebase_tpu_torch.config import Config, load_config
 from codebase_tpu_torch.envs.lbforaging import parse_lbf_name
@@ -49,13 +50,15 @@ def _gru_inputs(G, T, B, seed):
 
 
 @pytest.mark.parametrize(
-    "G,T,B", [(3, 7, 1000), (2, 1, 4100), (1, 26, 5), (2, 1, 65536), (2, 26, 1000), (2, 3, 9)]
+    "G,T,B", [(3, 7, 1000), (2, 1, 4100), (1, 26, 5), (2, 1, 65536), (2, 26, 1000), (2, 3, 9),
+              (2, 25, 8192), (2, 1, 8192)]
 )
 def test_kernels_match_plain_version_on_the_card(cuda_device, G, T, B):
     """Kernels 1-4 against the plain version: ragged batch edges, T=1, a
     batch smaller than one tile, more row tiles than the persistent forward
-    grid has blocks (2, 1, 65536), and a batch that is not a multiple of the
-    16-row tiles. Forward at 1e-5; gradients at 1e-4 of each one's
+    grid has blocks (2, 1, 65536), a batch that is not a multiple of the
+    16-row tiles, and the actor-critic update and rollout shapes (f) and (g),
+    whose dW_hh product sums K = 204,800 rows at (f). Forward at 1e-5; gradients at 1e-4 of each one's
     largest entry (dW_hh and db_hh sum T*B terms in another order)."""
     arrays = _gru_inputs(G, T, B, seed=6)
     ky, kh = (torch.tensor(a, device=cuda_device) for a in arrays[4:])
@@ -107,7 +110,7 @@ def test_reduce_is_deterministic_and_matches_the_plain_sum(cuda_device):
     torch.testing.assert_close(first, ref, rtol=0, atol=1e-5 * ref.abs().max().item())
 
 
-@pytest.mark.parametrize("G,T,B", [(2, 26, 1024), (3, 7, 1000), (2, 1, 65536)])
+@pytest.mark.parametrize("G,T,B", [(2, 26, 1024), (3, 7, 1000), (2, 1, 65536), (2, 25, 8192)])
 def test_backward_is_deterministic_and_matches_its_plain_version(cuda_device, G, T, B):
     """The whole backward (recurrence, weight gradient, reduction) has no
     atomics: two calls on the same inputs are bitwise equal. Against
@@ -260,3 +263,72 @@ def test_one_qmix_train_iteration_on_the_card_goes_through_the_kernels(cuda_devi
     assert after["fwd"] - counts["fwd"] == 5 + 2 * 2
     assert [after[k] - counts[k] for k in ("bwd", "dw", "reduce")] == [2, 2, 2]
     assert float(state.reward_stream.n.min()) > 0 and state.reward_stream.n.device.type == "cuda"
+
+
+MAPPO_RNN = ["+algorithm=mappo", "env.name=lbforaging:Foraging-8x8-2p-3f-v3",
+             "algorithm.model.actor.use_rnn=true", "algorithm.model.critic.use_rnn=true"]
+
+
+def test_mappo_loss_through_the_kernels_matches_the_plain_cpu_path(cuda_device):
+    """MAPPO with the recurrent actor and the recurrent centralised critic:
+    the returns from the target critic and one PPO epoch's loss and
+    gradients on the card (kernel path) against the same model on the CPU
+    (plain recurrence), same params and rollout."""
+    cfg = load_config(MAPPO_RNN)
+    env = parse_lbf_name("lbforaging:Foraging-8x8-2p-3f-v3")
+    cpu = ac.ACModel.create(env, cfg.algorithm.model, cfg.algorithm, torch.Generator().manual_seed(0))
+    cpu_target = ac.ACModel.create(env, cfg.algorithm.model, cfg.algorithm, torch.Generator().manual_seed(1)).critic
+    gpu, gpu_target = copy.deepcopy(cpu).to(cuda_device), copy.deepcopy(cpu_target).to(cuda_device)
+
+    N, T, B, D = env.n_agents, 25, 64, env.obs_dim
+    rng = np.random.default_rng(3)
+    lengths = rng.integers(1, T + 1, size=B)
+    filled = (np.arange(T)[:, None] < lengths[None]).astype(np.float32)
+    data = dict(
+        obs=rng.integers(-1, 8, size=(N, T + 1, B, D)).astype(np.float32),
+        actions=rng.integers(0, 6, size=(T, B, N)),
+        rewards=(rng.random((T, B, N)) * (rng.random((T, B, N)) < 0.3) * filled[..., None]).astype(np.float32),
+        dones=np.concatenate([np.zeros((1, B)), np.arange(T)[:, None] == lengths[None] - 1]).astype(np.float32),
+        filled=filled,
+        noise=rng.normal(0, 0.3, size=(T, B, N)).astype(np.float32),
+    )
+    counts = fg.launch_counts()
+    out = []
+    for model, target, dev in ((cpu, cpu_target, "cpu"), (gpu, gpu_target, cuda_device)):
+        t = {k: torch.as_tensor(v, device=dev) for k, v in data.items()}
+        with torch.no_grad():
+            returns, _ = model.compute_returns(target, t["obs"], t["rewards"], t["dones"], model.init_rms(dev))
+            old_lp, _ = model.log_probs_entropy(t["obs"][:, :-1], t["actions"])
+        loss, _ = model.ppo_loss(returns, old_lp + t["noise"], t["obs"][:, :-1], t["actions"], t["filled"])
+        out.append((returns, loss, torch.autograd.grad(loss, model.param_leaves())))
+    torch.cuda.synchronize()
+    after = fg.launch_counts()
+    # the target critic, the old log-probs, then the actor and critic of the epoch
+    assert [after[k] - counts[k] for k in ("fwd", "bwd", "dw", "reduce")] == [4, 2, 2, 2]
+    (r_cpu, l_cpu, g_cpu), (r_gpu, l_gpu, g_gpu) = out
+    torch.testing.assert_close(r_gpu.cpu(), r_cpu, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(l_gpu.cpu(), l_cpu, rtol=1e-4, atol=0)
+    for g, r in zip(g_gpu, g_cpu):
+        torch.testing.assert_close(g.cpu(), r, rtol=1e-4, atol=1e-4 * r.abs().max().item())
+
+
+def test_one_mappo_train_iteration_on_the_card_goes_through_the_kernels(cuda_device):
+    """One MAPPO iteration with the recurrent actor and critic: 5 rollout
+    steps of the actor, the target critic, the old log-probs and 4 epochs
+    of actor and critic through the kernels; the target critic takes the
+    critic at env step 0; env steps advance by t_max x E."""
+    cfg = load_config(MAPPO_RNN + ["env.time_limit=5", "algorithm.parallel_envs=256"])
+    env, eval_env = run.build_envs(cfg)
+    init_state, train_iteration, _, _ = ac.build_train_functions(env, eval_env, cfg.algorithm, 5, cuda_device)
+    state = init_state(0)
+    counts = fg.launch_counts()
+    out = train_iteration(state)
+    loss = float(out["loss"])
+    torch.cuda.synchronize()
+    after = fg.launch_counts()
+    assert np.isfinite(loss) and state.updates == 1
+    assert [after[k] - counts[k] for k in ("fwd", "bwd", "dw", "reduce")] == [5 + 1 + 1 + 2 * 4, 8, 8, 8]
+    assert state.env_steps == int(out["episode_lengths"].max()) * 256
+    target, critic = state.target_critic.param_leaves(), state.model.critic.param_leaves()
+    assert all(torch.equal(t, c) for t, c in zip(target, critic))
+    assert all(torch.isfinite(p).all() for p in state.model.param_leaves())

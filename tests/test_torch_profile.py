@@ -42,7 +42,7 @@ def test_device_breakdown_counts_each_kernel_once_and_by_range():
         _ev("gemm", gpu, 800, 820),
         _ev("Memcpy DtoD (Device -> Device)", gpu, 1100, 1110),  # outside every range
     ]
-    out = profile.device_breakdown(events, iters=2, top=2)
+    out = profile.device_breakdown(events, iters=2, top=2, ranges=profile.RANGES["dqn"])
     assert out["kernel_ms_per_iter"] == pytest.approx((60 + 2 + 100 + 300 + 20 + 10) / 1e3 / 2)
     r = out["ranges"]
     assert r["dqn/rollout"]["kernel_ms_per_iter"] == pytest.approx(160 / 2e3)
@@ -72,6 +72,7 @@ def test_profile_cli_on_cpu_reports_host_ranges_and_no_device_numbers(tmp_path, 
     assert report["env_steps_per_s"] > 0
     assert report["device_busy_share"] is None and report["top_kernels"] is None
     ranges = report["ranges"]
+    assert set(ranges) == {"dqn/rollout", "dqn/reward_stream", "dqn/replay_add", "dqn/updates"}
     assert ranges.pop("dqn/reward_stream")["host_ms_per_iter_traced"] == 0  # no standardiser in the stack
     assert all(r["host_ms_per_iter_traced"] > 0 for r in ranges.values())
     assert report["gru_launches_per_iter"] == {"fwd": 0, "bwd": 0, "dw": 0, "reduce": 0}
@@ -87,6 +88,28 @@ def test_profile_cli_takes_qmix_and_reads_the_reward_stream_range(tmp_path, monk
     ])
     assert report["config"]["algorithm"] == "qmix" and report["config"]["standardise_rewards"]
     assert all(r["host_ms_per_iter_traced"] > 0 for r in report["ranges"].values())
-    with pytest.raises(NotImplementedError, match="value-based"):
-        profile.main(["+algorithm=idqn", "algorithm.name=ia2c", "env.name=lbforaging:Foraging-5x5-2p-1f-v3",
+    with pytest.raises(ValueError, match="unknown algorithm 'nosuch'"):
+        profile.main(["+algorithm=idqn", "algorithm.name=nosuch", "env.name=lbforaging:Foraging-5x5-2p-1f-v3",
                       "env.time_limit=5", "device=cpu"])
+
+
+@pytest.mark.parametrize("standardise_rewards", [False, True])
+def test_profile_cli_takes_mappo_and_reads_the_ac_ranges(tmp_path, monkeypatch, standardise_rewards):
+    """An actor-critic run reports its own ranges only (`ac/rollout`,
+    `ac/reward_stream`, `ac/update`), each with host time when its work ran."""
+    monkeypatch.chdir(tmp_path)
+    report = profile.main([
+        "+algorithm=mappo", "env.name=lbforaging:Foraging-5x5-2p-1f-v3", "env.time_limit=5",
+        "env.parallel_envs=4", f"env.standardise_rewards={str(standardise_rewards).lower()}",
+        "algorithm.model.actor.use_rnn=true", "algorithm.model.critic.use_rnn=true",
+        "device=cpu", "profile.iters=1", "seed=0",
+    ])
+    config = report["config"]
+    assert config["algorithm"] == "mappo" and config["critic"]["centralised"] and config["num_epochs"] == 4
+    ranges = report["ranges"]
+    assert set(ranges) == {"ac/rollout", "ac/reward_stream", "ac/update"}
+    stream = ranges.pop("ac/reward_stream")["host_ms_per_iter_traced"]
+    assert (stream > 0) == standardise_rewards
+    assert all(r["host_ms_per_iter_traced"] > 0 for r in ranges.values())
+    assert report["env_steps_per_s"] > 0 and report["device_busy_share"] is None
+    assert report["gru_launches_per_iter"] == {"fwd": 0, "bwd": 0, "dw": 0, "reduce": 0}  # the CPU path
