@@ -10,9 +10,15 @@ exits non-zero:
              rollout shape (a) G=2 T=1 B=65536, the update shape (b) G=2 T=26
              B=1024, a ragged shape (c) G=3 T=7 B=1000, the QMIX update
              and rollout shapes (d) G=3 T=26 B=512 and (e) G=3 T=1 B=32768,
-             and the actor-critic update and rollout shapes (f) G=2 T=25
-             B=8192 and (g) G=2 T=1 B=8192 (H=128): the forward against
-             `gru_sequence_plain`, the whole backward (recurrence, weight
+             the actor-critic update and rollout shapes (f) G=2 T=25
+             B=8192 and (g) G=2 T=1 B=8192, the SMAClite 3m shapes:
+             QMIX's rollout (h) G=3 T=1 B=65536 and update (i) G=3 T=61
+             B=256, MAPPO's update (j) G=3 T=60 B=8192, rollout (k) G=3
+             T=1 B=8192 and target critic (l) G=3 T=61 B=8192, LBF
+             MAPPO's target critic (m) G=2 T=26 B=8192, and the evals of
+             100 episodes (n) G=3 T=1 B=100 and (o) G=2 T=1 B=100 (H=128;
+             every shape a train phase below gives the kernels): the
+             forward against `gru_sequence_plain`, the whole backward (recurrence, weight
              gradient, reduction) against `gru_backward_plain`, the weight
              gradient alone against `gru_dw_plain` on the recurrence
              kernel's outputs; checks that two backward calls, and two
@@ -23,15 +29,19 @@ exits non-zero:
              `torch.sum` for the reduction) on the device (see `time_ms`; the
              reduction's input fits in the L2, so it is timed on copies that
              do not, see `cold_copies`).
-Then seven train phases through `codebase_tpu_torch.run.main`, each with
-the launch counters set to 0 just before and read just after:
+Then ten train phases through `codebase_tpu_torch.run.main`, each with
+the launch counters set to 0 just before and read just after, and logging
+every iteration (`log_interval` = E*T, so the host loop's chunk is one
+iteration, as before the chunk rule):
 4. train       — recurrent IDQN on lbforaging:Foraging-8x8-2p-3f-v3 (T=25,
                  layers [128,128], 65536 envs, batch 1024, 8 updates per
-                 collect), 3 iterations.
+                 collect), 3 iterations and one eval: the GRU kernels at (a),
+                 (b) and (o).
 5. train_qmix  — the QMIX preset (CooperativeReward) with reward
                  standardisation, the recurrent critic shared by the 3 agents
                  of lbforaging:Foraging-10x10-3p-3f-v3 (the kernels at G=3),
-                 32768 envs, batch 512, 3 iterations and one eval.
+                 32768 envs, batch 512, 3 iterations and one eval: (e), (d)
+                 and (n).
 6. train_vdn   — the VDN preset at the JAX package's `vdn_shared_lbf10`
                  sizes (MLP, shared, 32768 envs, batch 512), 2 iterations,
                  no GRU launch.
@@ -41,15 +51,33 @@ the launch counters set to 0 just before and read just after:
 8. train_mappo — the MAPPO preset with a recurrent actor and a recurrent
                  centralised critic on Foraging-8x8-2p-3f-v3, 8192 envs (the
                  JAX package's `ia2c_lbf` lane width), 3 iterations: the GRU
-                 kernels at (g) in the rollout and (f) in the update (35
-                 forward and 8 of each backward kernel per iteration); the
-                 target critic follows the refresh rule.
+                 kernels at (g) in the rollout, (f) in the update and (m) for
+                 the target critic (35 forward and 8 of each backward kernel
+                 per iteration); the target critic follows the refresh rule.
 9. train_ia2c  — the `ia2c_lbf` lane as the JAX package defines it (MLP,
                  8192 envs), 2 iterations, no GRU launch.
 10. train_ippo_std — IPPO (MLP, 8192 envs) with reward and return
                  standardisation, 2 iterations: the reward streams and the
                  return moments advance on the card.
-Then the kernel summary line and, last, the device line.
+11. train_qmix_smaclite — the JAX package's `qmix_smaclite_3m` lane
+                 (smaclite:3m-v0, T=60, 65536 envs, batch 256, buffer 65536)
+                 with the recurrent critic (layers [128,128], no sharing):
+                 the GRU kernels at (h), (i) and (n), 76 forwards and 8 of each
+                 backward kernel per iteration; at least 3 iterations (the
+                 episodes end early, so the env steps of 2 full-length
+                 iterations take more) and one eval.
+12. train_mappo_smaclite — MAPPO on smaclite:3m-v0, T=60, recurrent actor
+                 and centralised recurrent critic, 8192 envs: the GRU at (k)
+                 in the rollout, (j) in the update and (l) for the target
+                 critic; 70 forwards and 8 of each backward kernel per
+                 iteration.
+13. train_qmix_rware — the JAX package's `qmix_rware` lane
+                 (rware-tiny-2ag-v2, T=500, MLP, 8192 envs, batch 128,
+                 buffer 16384, bf16 replay), 2 iterations, no GRU launch.
+The SMAClite phases count, on the card, the actions their rollouts took
+that the step's mask forbade (it must be 0), the valid actions per step and
+the mean episode length, and check that QMIX's replay stores f32 obs and
+the masks. Then the kernel summary line and, last, the device line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -71,6 +99,8 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke: torch.cuda.is_available() is false; this smoke run needs a CUDA GPU")
 
 from codebase_tpu_torch import run as port_run  # noqa: E402
+from codebase_tpu_torch.algos import ac as port_ac  # noqa: E402
+from codebase_tpu_torch.algos import dqn as port_dqn  # noqa: E402
 from codebase_tpu_torch.ops import fused_gru as fg  # noqa: E402
 from codebase_tpu_torch.utils.device import resolve_device  # noqa: E402
 
@@ -83,6 +113,14 @@ SHAPES = {
     "e": dict(G=3, T=1, B=32768, role="QMIX rollout: policy step of the shared critic, T=1 over all envs"),
     "f": dict(G=2, T=25, B=8192, role="actor-critic update: actor and critic over the whole rollout, T=25"),
     "g": dict(G=2, T=1, B=8192, role="actor-critic rollout: the actor's policy step, T=1 over all envs"),
+    "h": dict(G=3, T=1, B=65536, role="SMAClite 3m QMIX rollout: the 3 agents' critics, T=1 over all envs"),
+    "i": dict(G=3, T=61, B=256, role="SMAClite 3m QMIX update: online/target critics over T+1=61 steps"),
+    "j": dict(G=3, T=60, B=8192, role="SMAClite 3m MAPPO update: actor and critic over the whole rollout, T=60"),
+    "k": dict(G=3, T=1, B=8192, role="SMAClite 3m MAPPO rollout: the actor's policy step, T=1 over all envs"),
+    "l": dict(G=3, T=61, B=8192, role="SMAClite 3m MAPPO target critic: bootstrap values over T+1=61 steps"),
+    "m": dict(G=2, T=26, B=8192, role="LBF MAPPO target critic: bootstrap values over T+1=26 steps"),
+    "n": dict(G=3, T=1, B=100, role="QMIX eval (LBF and SMAClite): policy step over 100 episodes"),
+    "o": dict(G=2, T=1, B=100, role="IDQN eval: policy step over 100 episodes"),
 }
 # the value-based phases' replay settings
 DQN_ARGV = ["algorithm.updates_per_collect=8", "algorithm.training_start=0", "algorithm.replay_slot_reuse=clear"]
@@ -305,25 +343,28 @@ def check_shape(key, G, T, B, gen, peaks):
 
 def train_phase(phase, smi, argv, E, iters, per_iteration, T=25):
     """Train through `codebase_tpu_torch.run.main` on the card for at least
-    `iters` iterations of E envs, then one log row (and, for the
-    value-based family, one eval), with the launch counters set to 0 just
-    before and read just after. Fails unless every logged loss and every
-    parameter is finite and each GRU kernel named in `per_iteration`
-    launched at least that often per iteration (and the others never).
-    Returns (launch counts, final state)."""
+    `iters` iterations of E envs (exactly `iters` when every episode runs
+    the full T), logging every iteration, and (for the value-based family)
+    one eval at the end, with the launch counters set to 0 just before and
+    read just after. Fails unless every logged loss and every parameter is
+    finite and each GRU kernel named in `per_iteration` launched at least
+    that often per iteration (and the others never). Returns (launch
+    counts, final state)."""
     with tempfile.TemporaryDirectory() as run_dir:
         argv = argv + [
             f"env.time_limit={T}",
             f"env.parallel_envs={E}",
             # the loop stops once env steps exceed total_steps: `iters`
-            # iterations of (at most) E*T steps each, then one eval + log row
+            # iterations of (at most) E*T steps each; log_interval = E*T
+            # makes the host loop's chunk one iteration
             f"algorithm.total_steps={(iters - 1) * E * T}",
             f"algorithm.eval_interval={(iters - 1) * E * T}",
-            f"algorithm.log_interval={(iters - 1) * E * T}",
+            f"algorithm.log_interval={E * T}",
             "seed=0",
             "device=cuda",
             f"run_dir={run_dir}",
         ]
+        torch.cuda.reset_peak_memory_stats()
         fg.reset_launch_counts()
         rows, state = port_run.main(argv)
         counts = fg.launch_counts()
@@ -352,7 +393,66 @@ def train_phase(phase, smi, argv, E, iters, per_iteration, T=25):
         "env_steps_per_s_after_first": sum(n for n, _ in steady) / sum(s for _, s in steady),
         "loss": losses,
         "results_columns": list(rows[0].keys()),
+        "peak_device_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
     })
+    return counts, state
+
+
+class MaskAudit:
+    """Wraps the episode collector in the train modules: for every rollout,
+    counts on the card the actions taken on filled steps that the mask of
+    their step forbade, the valid actions per agent and filled step, and
+    the mean episode length. `report()` holds the last rollout of `n_envs`
+    envs (the training one) and the invalid count over every rollout. The
+    audit runs inside the timed train iteration; the QMIX phase times it
+    apart (`audit_ms`)."""
+
+    def __init__(self, modules, n_envs):
+        self.modules, self.n_envs, self.calls = modules, n_envs, []
+
+    def __enter__(self):
+        self.collect = self.modules[0].collect_episodes
+        for m in self.modules:
+            m.collect_episodes = self
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.modules:
+            m.collect_episodes = self.collect
+
+    def __call__(self, env, policy, carry, generator, n_envs, *args, **kwargs):
+        rollout, carry = self.collect(env, policy, carry, generator, n_envs, *args, **kwargs)
+        self.calls.append((n_envs, audit_rollout(rollout.action_mask, rollout.actions, rollout.filled)))
+        return rollout, carry
+
+    def report(self) -> dict:
+        trained = [a for n, a in self.calls if n == self.n_envs]
+        if not trained:  # the train modules no longer reach the collector through the wrapped name
+            raise AssertionError(f"MaskAudit saw no rollout of {self.n_envs} envs ({len(self.calls)} in all)")
+        last = trained[-1]
+        return {**{k: float(v) for k, v in last.items()}, "rollouts": len(self.calls),
+                "invalid_all_rollouts": int(sum(a["invalid"] for _, a in self.calls))}
+
+
+def audit_rollout(mask, actions, filled) -> dict:
+    """mask (T+1, E, N, A), actions (T, E, N), filled (T, E), time-major:
+    each action against the mask of the observation it was taken from."""
+    taken = mask[:-1].gather(-1, actions.unsqueeze(-1)).squeeze(-1)  # (T, E, N)
+    cells = (filled > 0)[..., None].expand_as(taken)
+    return {"invalid": ((taken == 0) & cells).sum(), "agent_steps": cells.sum(),
+            "valid_actions_per_step": (mask[:-1].sum(-1) * cells).sum() / cells.sum(),
+            "mean_episode_length": filled.sum(0).mean()}
+
+
+def smaclite_phase(phase, smi, argv, E, iters, per_iteration, modules):
+    """A train phase on smaclite:3m-v0 (T=60) under a `MaskAudit`: fails if
+    any action of any rollout left its mask."""
+    with MaskAudit(modules, E) as audit:
+        counts, state = train_phase(phase, smi, argv, E=E, iters=iters, per_iteration=per_iteration, T=60)
+    report = audit.report()
+    if report["invalid"] or report["invalid_all_rollouts"]:
+        raise AssertionError(f"{phase}: actions outside the mask: {report}")
+    emit({"phase": f"{phase}_masks", **report})
     return counts, state
 
 
@@ -473,6 +573,47 @@ def main() -> None:
           "returns_mean": rms.mean.tolist(), "returns_var": rms.var.tolist()})
     del state
 
+    # --- 11. train_qmix_smaclite: the qmix_smaclite_3m lane with the
+    # recurrent critic, the GRU kernels at (h) and (i), masks everywhere
+    smac_qmix_counts, state = smaclite_phase("train_qmix_smaclite", smi, [
+        "+algorithm=qmix", "env.name=smaclite:3m-v0", "algorithm.model.use_rnn=true",
+        "algorithm.model.layers=[128,128]", "algorithm.batch_size=256", "algorithm.buffer_size=65536",
+        *DQN_ARGV,
+    ], E=65536, iters=3, per_iteration={"fwd": 76, "bwd": 8, "dw": 8, "reduce": 8}, modules=[port_dqn])
+    buf = state.buffer
+    if buf.obs.dtype != torch.float32 or buf.action_mask is None or buf.obs.device.type != "cuda":
+        raise AssertionError(f"train_qmix_smaclite: replay obs {buf.obs.dtype}, masks stored: "
+                             f"{buf.action_mask is not None}; expected float32 obs and masks on the card")
+    # the buffer holds exactly the last rollout (buffer = envs, slots cleared)
+    stored_rollout = (buf.action_mask.transpose(0, 1), buf.actions.transpose(0, 1), buf.filled.transpose(0, 1))
+    stored = audit_rollout(*stored_rollout)
+    if int(stored["invalid"]):
+        raise AssertionError(f"train_qmix_smaclite: replay holds actions outside the mask: {stored}")
+    emit({"phase": "train_qmix_smaclite_replay", "obs_dtype": str(buf.obs.dtype), "mask_dtype": str(buf.action_mask.dtype),
+          "obs_gb": buf.obs.nbytes / 1e9, "mask_gb": buf.action_mask.nbytes / 1e9,
+          **{k: float(v) for k, v in stored.items()},
+          # device time of one audit of a 65536-env rollout, which each
+          # timed iteration of the SMAClite phases includes
+          "audit_ms": time_ms(lambda: audit_rollout(*stored_rollout))})
+    del state, buf, stored_rollout
+
+    # --- 12. train_mappo_smaclite: recurrent actor and centralised
+    # recurrent critic on 3m, the GRU kernels at (k), (j) and (l)
+    smac_mappo_counts, state = smaclite_phase("train_mappo_smaclite", smi, [
+        "+algorithm=mappo", "env.name=smaclite:3m-v0",
+        "algorithm.model.actor.use_rnn=true", "algorithm.model.critic.use_rnn=true",
+    ], E=8192, iters=2, per_iteration={"fwd": 70, "bwd": 8, "dw": 8, "reduce": 8}, modules=[port_ac])
+    del state
+
+    # --- 13. train_qmix_rware: the qmix_rware lane (MLP, bf16 replay)
+    rware_counts, state = train_phase("train_qmix_rware", smi, [
+        "+algorithm=qmix", "env.name=rware-tiny-2ag-v2", "algorithm.batch_size=128", "algorithm.buffer_size=16384",
+        *DQN_ARGV,
+    ], E=8192, iters=2, per_iteration={}, T=500)
+    if state.buffer.obs.dtype != torch.bfloat16 or state.buffer.action_mask is not None:
+        raise AssertionError("train_qmix_rware: expected bf16 replay obs and no masks")
+    del state
+
     b = results["b"]
     sources = {
         "gru_fwd": "codebase_tpu/ops/fused_gru.py:80 (_fwd_kernel, pallas_call at :238)",
@@ -490,6 +631,9 @@ def main() -> None:
             "launches": counts[counter],
             "launches_train_qmix": qmix_counts[counter],
             "launches_train_mappo": mappo_counts[counter],
+            "launches_train_qmix_smaclite": smac_qmix_counts[counter],
+            "launches_train_mappo_smaclite": smac_mappo_counts[counter],
+            "launches_train_qmix_rware": rware_counts[counter],
             "max_abs_err": max(results[s][k]["max_abs_err"] for s in SHAPES),
             "ms": b[k]["ms"],
             "plain_ms": b[k]["plain_ms"],
@@ -501,7 +645,10 @@ def main() -> None:
             **{f"{role}_shape_{key}": {f: results[key][k][f] for f in (
                 "ms", "plain_ms", "library_ms", "library", "bound_ms", "bound_by")}
                for role, key in (("rollout", "a"), ("qmix_update", "d"), ("qmix_rollout", "e"),
-                                 ("ac_update", "f"), ("ac_rollout", "g"))},
+                                 ("ac_update", "f"), ("ac_rollout", "g"), ("smaclite_qmix_rollout", "h"),
+                                 ("smaclite_qmix_update", "i"), ("smaclite_mappo_update", "j"),
+                                 ("smaclite_mappo_rollout", "k"), ("smaclite_mappo_target", "l"),
+                                 ("ac_target", "m"), ("qmix_eval", "n"), ("idqn_eval", "o"))},
         })
     summary[1]["ms_is"] = "the whole backward: gru_bwd_kernel, gru_dw_kernel, gru_reduce_kernel"
     for f in ("recurrence_ms", "recurrence_plain_ms", "recurrence_bound_ms", "recurrence_bound_by"):

@@ -21,9 +21,12 @@ The semantics are the JAX package's (`codebase_tpu/algos/ac.py`):
   update when tau < 1;
 - env steps advance by t_max * E, where t_max is the longest episode in
   the rollout (every env is stepped until the last one finishes), not by
-  the number of filled steps.
-Action masks, bfloat16, sweeps' traced hyperparameters and the mesh wait
-for later slices (ROADMAP.md Queue 1).
+  the number of filled steps;
+- with an env that masks actions (SMAClite), masked logits take -1e8 in
+  the sampling policy and in the loss's log-probs and entropy, each step
+  with the mask of the observation the action was taken from.
+bfloat16, sweeps' traced hyperparameters and the mesh wait for later slices
+(ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -56,7 +59,7 @@ class ACModel(nn.Module):
 
     def __init__(self, actor: MultiAgentNetwork, critic: MultiAgentNetwork, centralised_critic: bool,
                  ppo: bool, gamma: float, n_steps: int, entropy_coef: float, value_loss_coef: float,
-                 standardise_returns: bool, num_epochs: int, ppo_clip: float):
+                 standardise_returns: bool, num_epochs: int, ppo_clip: float, use_action_masks: bool):
         super().__init__()
         self.actor = actor
         self.critic = critic
@@ -69,11 +72,10 @@ class ACModel(nn.Module):
         self.standardise_returns = bool(standardise_returns)
         self.num_epochs = int(num_epochs)
         self.ppo_clip = float(ppo_clip)
+        self.use_action_masks = bool(use_action_masks)
 
     @staticmethod
     def create(env: Environment, model_cfg, algo_cfg, generator=None, device="cpu") -> "ACModel":
-        if env.has_action_mask:
-            raise NotImplementedError("action masks are not ported yet (ROADMAP.md Queue 1)")
         for part in ("actor", "critic"):
             dtype = str(model_cfg[part].get("dtype", "float32"))
             if dtype != "float32":
@@ -111,6 +113,7 @@ class ACModel(nn.Module):
             standardise_returns=bool(algo_cfg.standardise_returns),
             num_epochs=int(algo_cfg.get("num_epochs", 1)) if ppo else 1,
             ppo_clip=float(algo_cfg.get("ppo_clip", 0.2)),
+            use_action_masks=env.has_action_mask,
         )
 
     @property
@@ -144,14 +147,17 @@ class ACModel(nn.Module):
 
     def policy(self):
         """Sampling rollout policy for `collect_episodes`: carry = the
-        actor's RNN hiddens (N, L, E, C) or None; obs (E, N, D)."""
+        actor's RNN hiddens (N, L, E, C) or None; obs (E, N, D); mask (E, N,
+        A)."""
 
         @torch.no_grad()
         def act(carry, obs, mask, generator):
-            del mask  # maskless envs only in this slice
             x = obs.transpose(0, 1).unsqueeze(1)  # (N, 1, E, D)
             logits, carry = self.actor(x, carry)
-            actions = D.sample(generator, logits[:, 0])  # (N, E)
+            logits = logits[:, 0]  # (N, E, A)
+            if self.use_action_masks:
+                logits = D.apply_mask(logits, mask.transpose(0, 1))
+            actions = D.sample(generator, logits)  # (N, E)
             return carry, actions.T.contiguous()  # (E, N)
 
         return act
@@ -173,10 +179,13 @@ class ACModel(nn.Module):
         v, _ = critic(self._critic_inputs(obs_agents))
         return v[..., 0].permute(1, 2, 0)
 
-    def log_probs_entropy(self, obs_agents, actions):
-        """obs_agents (N, T, B, D), actions (T, B, N) -> (log-probs (T, B,
-        N), entropy (T, B) summed over agents)."""
+    def log_probs_entropy(self, obs_agents, actions, amask=None):
+        """obs_agents (N, T, B, D), actions (T, B, N), amask (N, T, B, A),
+        used when the env masks actions -> (log-probs (T, B, N), entropy
+        (T, B) summed over agents)."""
         logits, _ = self.actor(obs_agents)  # (N, T, B, A)
+        if self.use_action_masks:
+            logits = D.apply_mask(logits, amask)
         lp = D.log_prob(logits, actions.permute(2, 0, 1))  # (N, T, B)
         return lp.permute(1, 2, 0), D.entropy(logits).sum(0)
 
@@ -218,19 +227,20 @@ class ACModel(nn.Module):
         }
         return loss, metrics
 
-    def a2c_loss(self, returns, obs_in, actions, filled):
+    def a2c_loss(self, returns, obs_in, actions, filled, amask=None):
         """Advantage actor-critic loss. obs_in (N, T, B, D), returns and
-        actions (T, B, N), filled (T, B). Returns (loss, metrics)."""
+        actions (T, B, N), filled (T, B), amask (N, T, B, A). Returns (loss,
+        metrics)."""
         values = self.values(self.critic, obs_in)
-        log_probs, entropy = self.log_probs_entropy(obs_in, actions)
+        log_probs, entropy = self.log_probs_entropy(obs_in, actions, amask)
         advantage = returns - values
         return self._loss(log_probs * advantage.detach(), entropy, advantage, filled)
 
-    def ppo_loss(self, returns, old_log_probs, obs_in, actions, filled):
+    def ppo_loss(self, returns, old_log_probs, obs_in, actions, filled, amask=None):
         """Clipped-surrogate loss of one epoch against the pre-update
         log-probs (T, B, N). Returns (loss, metrics)."""
         values = self.values(self.critic, obs_in)
-        log_probs, entropy = self.log_probs_entropy(obs_in, actions)
+        log_probs, entropy = self.log_probs_entropy(obs_in, actions, amask)
         advantage = returns - values
         adv = advantage.detach()
         ratio = torch.exp(log_probs - old_log_probs)
@@ -283,19 +293,21 @@ def build_train_functions(env: Environment, eval_env: Environment, cfg, time_lim
         params = model.param_leaves()
         obs_agents = rollout.obs.permute(2, 0, 1, 3).contiguous()  # (N, T+1, E, D)
         obs_in = obs_agents[:, :-1]
+        # the mask of the observation each action was taken from
+        amask_in = rollout.action_mask.permute(2, 0, 1, 3)[:, :-1] if model.use_action_masks else None
         with torch.no_grad():
             returns, state.ret_rms = model.compute_returns(
                 state.target_critic, obs_agents, rollout.rewards, rollout.dones, state.ret_rms
             )
         if not model.ppo:
-            loss, metrics = model.a2c_loss(returns, obs_in, rollout.actions, rollout.filled)
+            loss, metrics = model.a2c_loss(returns, obs_in, rollout.actions, rollout.filled, amask_in)
             state.opt.step(torch.autograd.grad(loss, params))
         else:
             with torch.no_grad():
-                old_log_probs, _ = model.log_probs_entropy(obs_in, rollout.actions)
+                old_log_probs, _ = model.log_probs_entropy(obs_in, rollout.actions, amask_in)
             epochs = []
             for _ in range(model.num_epochs):
-                loss, m = model.ppo_loss(returns, old_log_probs, obs_in, rollout.actions, rollout.filled)
+                loss, m = model.ppo_loss(returns, old_log_probs, obs_in, rollout.actions, rollout.filled, amask_in)
                 state.opt.step(torch.autograd.grad(loss, params))
                 epochs.append(m)
             metrics = {k: torch.stack([m[k] for m in epochs]).mean() for k in METRICS}

@@ -14,7 +14,10 @@ or mixed by the QMIX hypernetwork over the concatenated observations; a
 `filled`-masked mean; optional return standardisation; joint epsilon
 exploration (one coin per env flips all agents to random actions); hard
 target copy every `target_update_interval_or_tau` updates when that is > 1,
-else a Polyak update. Action masks wait for a later slice and raise.
+else a Polyak update. With an env that masks actions (SMAClite), the greedy
+action and the exploring draw take valid actions only, and the target
+side of the loss sees masked actions at -1e8 (the target Q, and under
+double Q the online Q before its argmax).
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from codebase_tpu_torch.algos.common import hard_update, make_optimizer, soft_up
 from codebase_tpu_torch.envs.api import Environment
 from codebase_tpu_torch.envs.vector import collect_episodes
 from codebase_tpu_torch.envs.wrappers import standardisation_plan
+from codebase_tpu_torch.models import distributions as D
 from codebase_tpu_torch.models.mixers import QMixer
 from codebase_tpu_torch.models.multi_agent import MultiAgentNetwork
 from codebase_tpu_torch.ops.replay import (
@@ -54,7 +58,7 @@ class DQNModel(nn.Module):
     """The value-based model: a multi-agent critic and, for QMIX, a mixer."""
 
     def __init__(self, critic: MultiAgentNetwork, mixer: Optional[QMixer], mixer_type: str,
-                 gamma: float, double_q: bool, standardise_returns: bool):
+                 gamma: float, double_q: bool, standardise_returns: bool, use_action_masks: bool):
         super().__init__()
         self.critic = critic
         self.mixer = mixer
@@ -62,14 +66,13 @@ class DQNModel(nn.Module):
         self.gamma = float(gamma)
         self.double_q = bool(double_q)
         self.standardise_returns = bool(standardise_returns)
+        self.use_action_masks = bool(use_action_masks)
 
     @staticmethod
     def create(env: Environment, model_cfg, algo_cfg, generator=None, device="cpu") -> "DQNModel":
         name = model_cfg.get("name", "qnetwork")
         if name not in MIXER_TYPES:
             raise ValueError(f"model.name must be one of {sorted(MIXER_TYPES)}; got {name!r}")
-        if env.has_action_mask:
-            raise NotImplementedError("action masks are not ported yet (ROADMAP.md Queue 1)")
         if str(model_cfg.get("dtype", "float32")) != "float32":
             raise NotImplementedError("model.dtype other than float32 is not ported yet")
         if generator is None:
@@ -99,7 +102,7 @@ class DQNModel(nn.Module):
                 device=device,
             )
         return DQNModel(critic, mixer, MIXER_TYPES[name], float(algo_cfg.gamma), bool(algo_cfg.double_q),
-                        bool(algo_cfg.get("standardise_returns", False)))
+                        bool(algo_cfg.get("standardise_returns", False)), env.has_action_mask)
 
     def param_tree(self):
         """{"critic": ..., "mixer": ...} (the mixer only for QMIX), the JAX
@@ -141,22 +144,26 @@ class DQNModel(nn.Module):
     def policy(self, epsilon: float):
         """Epsilon-greedy rollout policy for `collect_episodes`.
 
-        carry = RNN hiddens (N, L, E, C) or None; obs (E, N, D). Joint
-        exploration: one coin per env flips every agent to a uniform random
-        action."""
+        carry = RNN hiddens (N, L, E, C) or None; obs (E, N, D); mask (E, N,
+        A). Joint exploration: one coin per env flips every agent to a
+        uniform random action, uniform over the valid ones when the env masks
+        actions."""
 
         @torch.no_grad()
         def act(carry, obs, mask, generator):
-            del mask  # maskless envs only in this slice
             x = obs.transpose(0, 1).unsqueeze(1)  # (N, 1, E, D)
             q, carry = self.critic(x, carry)
             q = q[:, 0]  # (N, E, A)
+            if self.use_action_masks:
+                amask = mask.transpose(0, 1)  # (N, E, A)
+                q = D.apply_mask(q, amask)
             greedy = q.argmax(-1)  # (N, E)
             E = obs.shape[0]
             explore = torch.rand((E,), generator=generator, device=obs.device) < epsilon
-            rand = torch.randint(
-                0, q.shape[-1], greedy.shape, generator=generator, device=obs.device
-            )
+            if self.use_action_masks:
+                rand = D.sample(generator, torch.where(amask > 0, 0.0, float("-inf")))
+            else:
+                rand = torch.randint(0, q.shape[-1], greedy.shape, generator=generator, device=obs.device)
             actions = torch.where(explore[None, :], rand, greedy)
             return carry, actions.T.contiguous()  # (E, N)
 
@@ -167,7 +174,8 @@ class DQNModel(nn.Module):
     def loss(self, target: "DQNModel", batch: dict, ret_rms: RunningMeanStd):
         """Episode double-Q TD loss on a reference-layout batch:
         obss (N, T+1, B, D), actions (N, T, B), rewards (N, T, B),
-        dones (T+1, B), filled (T, B). Returns (loss, new ret_rms).
+        dones (T+1, B), filled (T, B), action_mask (N, T+1, B, A) or None.
+        Returns (loss, new ret_rms).
 
         With `standardise_returns` the target is denormalised with the
         moments as they were, the moments are updated with the returns
@@ -181,8 +189,14 @@ class DQNModel(nn.Module):
         with torch.no_grad():
             tq_all, _ = target.critic(obss)
             tq = tq_all[:, 1:]
+            if self.use_action_masks:
+                valid = batch["action_mask"][:, 1:] > 0
+                tq = torch.where(valid, tq, D.MASK_NEG)
             if self.double_q:
-                a_prime = q_all.detach()[:, 1:].argmax(-1, keepdim=True)
+                qc = q_all.detach()[:, 1:]
+                if self.use_action_masks:
+                    qc = torch.where(valid, qc, D.MASK_NEG)
+                a_prime = qc.argmax(-1, keepdim=True)
                 target_qs = tq.gather(-1, a_prime).squeeze(-1)
             else:
                 target_qs = tq.amax(-1)  # (N, T, B)

@@ -1,9 +1,12 @@
 """DQN-family training loop on the host: the loop over train iterations.
 
-Decides when to evaluate and log, reads scalar counters at iteration
-boundaries and writes `results.csv` rows through the logger, with the same
-row contents as the JAX package's `dqn_train.main`. Checkpoints, resume, preemption
-handling and video wait for a later slice (ROADMAP.md Queue 1).
+Runs the iterations in chunks and, after each chunk, decides whether to
+evaluate and log, as the JAX package's `dqn_train.main` does with its
+jitted chunks: `chunk_iters = min(256, max(1, finest cadence // (E * T)))`
+iterations (10,000 steps when no cadence is set), so `results.csv` rows
+fall at the same env steps, the run stops at the same step, and the `loss`
+column is the nan-mean of the last chunk's losses. Checkpoints, resume,
+preemption handling and video wait for a later slice (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -38,6 +41,8 @@ def main(env, eval_env, logger, time_limit, cfg, device):
     eval_interval = int(acfg.eval_interval) if acfg.eval_interval else 0
     n_envs = int(acfg.get("parallel_envs", 1))
     max_steps_per_iter = n_envs * time_limit
+    cadences = [c for c in (log_interval, eval_interval) if c]
+    chunk_iters = min(256, max(1, (min(cadences) if cadences else 10_000) // max_steps_per_iter))
     for label, interval in (("eval_interval", eval_interval), ("log_interval", log_interval)):
         if interval and interval < max_steps_per_iter:
             logger.warning(
@@ -56,14 +61,15 @@ def main(env, eval_env, logger, time_limit, cfg, device):
 
     step = state.env_steps
     last_log = last_eval = step
-    losses = []
     while step < total_steps + 1:
-        sync(device)
-        t0 = time.perf_counter()
-        metrics = train_iteration(state)
-        losses.append(float(metrics["loss"]))  # waits for the iteration's updates
-        state.timings.append((state.env_steps - step, time.perf_counter() - t0))
-        step = state.env_steps
+        losses = []
+        for _ in range(chunk_iters):
+            sync(device)
+            t0 = time.perf_counter()
+            metrics = train_iteration(state)
+            losses.append(float(metrics["loss"]))  # waits for the iteration's updates
+            state.timings.append((state.env_steps - step, time.perf_counter() - t0))
+            step = state.env_steps
 
         # eval rollouts and training metrics merge into ONE results.csv row
         # when their cadences coincide
@@ -74,10 +80,9 @@ def main(env, eval_env, logger, time_limit, cfg, device):
             infos.extend(episode_infos(evaluate(state, eval_gen)))
             last_eval = step
         if do_log:
-            arr = np.asarray(losses)
+            arr = np.asarray(losses)  # this chunk's only
             if np.any(~np.isnan(arr)):
                 infos.append({"loss": float(np.nanmean(arr))})
-            losses = []
             last_log = step
         if infos:
             counters = {"updates": state.updates, "environment_steps": step}

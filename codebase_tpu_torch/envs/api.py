@@ -83,3 +83,10 @@ class Environment:
         """True when every observation entry is a small integer, so bf16
         replay storage is lossless."""
         return False
+
+
+def gumbel_argmax(allowed: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """Uniform choice among the allowed rows of each column: argmax of
+    Gumbel noise over the allowed cells. allowed (K, E) bool -> (E,) int64."""
+    g = -torch.log(torch.empty(allowed.shape, device=allowed.device).exponential_(generator=generator))
+    return torch.where(allowed, g, float("-inf")).argmax(0)

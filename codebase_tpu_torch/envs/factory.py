@@ -13,17 +13,21 @@ import warnings
 from codebase_tpu_torch.envs import wrappers as W
 from codebase_tpu_torch.envs.api import Environment
 from codebase_tpu_torch.envs.lbforaging import parse_lbf_name
+from codebase_tpu_torch.envs.matrix import parse_matrix_name
+from codebase_tpu_torch.envs.rware import parse_rware_name
+from codebase_tpu_torch.envs.smaclite import parse_smaclite_name
 
 
 def make_base_env(name: str) -> Environment:
     short = name.split(":")[-1]
     if short.startswith("Foraging"):
         return parse_lbf_name(name)
-    if short.startswith("rware") or "smaclite" in name.lower() or short.startswith("matrix"):
-        raise NotImplementedError(
-            f"environment {name!r} is not ported yet "
-            "(ROADMAP.md Queue 1: RWARE, SMAClite with masks, and matrix games)"
-        )
+    if short.startswith("rware"):
+        return parse_rware_name(name)
+    if "smaclite" in name.lower():
+        return parse_smaclite_name(name)
+    if short.startswith("matrix"):
+        return parse_matrix_name(name)
     raise ValueError(f"Unknown environment name: {name}")
 
 

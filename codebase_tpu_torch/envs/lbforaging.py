@@ -22,7 +22,7 @@ from dataclasses import dataclass, replace
 import torch
 import torch.nn.functional as Fnn
 
-from codebase_tpu_torch.envs.api import Environment, TimeStep
+from codebase_tpu_torch.envs.api import Environment, TimeStep, gumbel_argmax
 
 NONE, NORTH, SOUTH, WEST, EAST, LOAD = range(6)
 
@@ -42,15 +42,6 @@ class LBFBatchState:
     t: torch.Tensor  # (E,) int32
 
 
-def _gumbel_argmax(allowed, generator):
-    """Uniform choice among the allowed rows of each column: argmax of
-    Gumbel noise over the allowed cells. allowed (K, E) bool -> (E,) int64."""
-    g = -torch.log(
-        torch.empty(allowed.shape, device=allowed.device).exponential_(generator=generator)
-    )
-    return torch.where(allowed, g, float("-inf")).argmax(0)
-
-
 @dataclass(frozen=True)
 class LevelBasedForaging(Environment):
     rows: int = 8
@@ -65,6 +56,9 @@ class LevelBasedForaging(Environment):
     min_player_level: int = 1
     max_player_level: int = 3
     min_food_level: int = 1
+    # grid observations (`Foraging-grid-...` ids): each agent's flattened
+    # (3, 2*sight+1, 2*sight+1) window of agent levels, food levels and access
+    grid_obs: bool = False
 
     @property
     def n_agents(self) -> int:
@@ -72,6 +66,9 @@ class LevelBasedForaging(Environment):
 
     @property
     def obs_dim(self) -> int:
+        if self.grid_obs:
+            w = 2 * self.sight + 1
+            return 3 * w * w
         return 3 * self.max_food + 3 * self.num_agents
 
     @property
@@ -109,7 +106,7 @@ class LevelBasedForaging(Environment):
         occ = torch.zeros((RC, E), dtype=torch.bool, device=dev)
         player_cells = []
         for _ in range(N):
-            cell = _gumbel_argmax(~occ, generator)
+            cell = gumbel_argmax(~occ, generator)
             player_cells.append(cell)
             occ = occ | (cell_iota == cell[None, :])
         player_cells = torch.stack(player_cells)  # (N, E)
@@ -136,7 +133,7 @@ class LevelBasedForaging(Environment):
             any_valid = valid.reshape(RC, E).any(0)  # (E,)
             # no valid cell: the draw is uniform over all cells and the food
             # stays inactive (as the JAX package's all-invalid guard)
-            cell = _gumbel_argmax(valid.reshape(RC, E) | ~any_valid[None, :], generator)
+            cell = gumbel_argmax(valid.reshape(RC, E) | ~any_valid[None, :], generator)
             onehot = (cell_iota == cell[None, :]).view(R, C, E)
             food_grid = food_grid | (onehot & any_valid[None, None, :])
             food_cells.append(cell)
@@ -261,6 +258,38 @@ class LevelBasedForaging(Environment):
     # ------------------------------------------------------------ observations
 
     def _make_obs_batch(self, state: LBFBatchState):
+        """(E, N, D) observations: the grid window with `grid_obs`, else food
+        triples then player triples (see `_make_obs_triples`)."""
+        if self.grid_obs:
+            return self._make_obs_grid_batch(state)
+        return self._make_obs_triples(state)
+
+    def _make_obs_grid_batch(self, state: LBFBatchState):
+        """(E, N, 3*(2s+1)^2) grid observations: three layers over the field
+        (agent levels, active food levels, and access: 1 on in-bounds cells
+        with no agent and no active food), each agent seeing the (2s+1)^2
+        window centred on itself, flattened layer-major then row-major; cells
+        off the field read 0 in every layer. Each window cell matches the
+        agents and foods against its coordinates, so no grid is built."""
+        s, R, C = self.sight, self.rows, self.cols
+        off = torch.arange(-s, s + 1, device=state.agent_r.device)
+        cell_r = (state.agent_r[:, None, :] + off[None, :, None])[:, :, None, None, :]  # (N, w, 1, 1, E)
+        cell_c = (state.agent_c[:, None, :] + off[None, :, None])[:, None, :, None, :]  # (N, 1, w, 1, E)
+        at_agent = (cell_r == state.agent_r[None, None, None]) & (cell_c == state.agent_c[None, None, None])
+        at_food = (
+            (cell_r == state.food_r[None, None, None])
+            & (cell_c == state.food_c[None, None, None])
+            & state.food_active[None, None, None]
+        )  # (N, w, w, F, E)
+        agent_layer = (at_agent * state.agent_level[None, None, None]).sum(3)  # (N, w, w, E)
+        food_layer = (at_food * state.food_level[None, None, None]).sum(3)
+        inside = (cell_r >= 0) & (cell_r < R) & (cell_c >= 0) & (cell_c < C)
+        access = inside[:, :, :, 0] & ~at_agent.any(3) & ~at_food.any(3)
+        N, E = state.agent_r.shape
+        obs = torch.stack([agent_layer, food_layer, access], dim=1).float()  # (N, 3, w, w, E)
+        return obs.reshape(N, -1, E).permute(2, 0, 1).contiguous()
+
+    def _make_obs_triples(self, state: LBFBatchState):
         """(E, N, D) observations: food triples then player triples (y, x,
         level) relative to the agent's sight-window origin, visible entries
         compacted to the front (foods row-major, players by index), empty
@@ -335,19 +364,19 @@ class LevelBasedForaging(Environment):
 
 
 def parse_lbf_name(name: str) -> LevelBasedForaging:
-    """Parse `Foraging[-{s}s]-{S}x{S}-{P}p-{F}f[-coop][-vK]` (optionally
-    prefixed with `lbforaging:`) into an env spec. Grid observations
-    (`-grid` ids) wait for a later slice (ROADMAP.md, Queue 1)."""
+    """Parse `Foraging[-grid][-{s}s]-{S}x{S}-{P}p-{F}f[-coop][-vK]`
+    (optionally prefixed with `lbforaging:`) into an env spec. `-grid`
+    selects grid observations, right after "Foraging" as the original
+    package registers it, or trailing."""
     base = name.split(":")[-1]
     parts = base.split("-")
     if parts[0] != "Foraging":
         raise ValueError(f"not an lbforaging id: {name}")
-    if "grid" in parts:
-        raise NotImplementedError(
-            "LBF grid observations are not ported yet (ROADMAP.md Queue 1: other envs)"
-        )
     idx = 1
     sight = None
+    grid_obs = parts[idx] == "grid"
+    if grid_obs:
+        idx += 1
     if parts[idx].endswith("s") and parts[idx][:-1].isdigit():  # "Foraging-2s-..."
         sight = int(parts[idx][:-1])
         idx += 1
@@ -368,4 +397,5 @@ def parse_lbf_name(name: str) -> LevelBasedForaging:
         max_food=foods,
         sight=sight if sight is not None else max(rows, cols),
         force_coop="coop" in parts[idx:],
+        grid_obs=grid_obs or "grid" in parts[idx:],
     )

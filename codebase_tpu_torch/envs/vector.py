@@ -17,6 +17,7 @@ from dataclasses import dataclass
 from typing import Callable
 
 import torch
+from torch.profiler import record_function
 
 from codebase_tpu_torch.envs.api import Environment
 
@@ -71,7 +72,8 @@ def collect_episodes(
     out = {k: [] for k in ("obs", "actions", "rewards", "stat_rewards", "dones", "filled", "action_mask")}
     for _ in range(time_limit):
         carry, actions = policy(carry, ts.obs, ts.action_mask, generator)
-        states, ts = env.step_batch(states, actions, generator, ts.action_mask)
+        with record_function("env/step"):  # read by `codebase_tpu_torch.profile`
+            states, ts = env.step_batch(states, actions, generator, ts.action_mask)
         done = ts.done  # (E,)
         proper_done = ts.terminated if use_proper_termination else done
         rmask = running.float()

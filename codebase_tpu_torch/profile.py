@@ -12,8 +12,10 @@ every kernel (kernels, copies and fills, each counted once) per iteration,
 split over the iteration's named ranges (the value-based family's
 `dqn/rollout`, `dqn/reward_stream` when the env stack standardises rewards,
 `dqn/replay_add` and `dqn/updates`; the actor-critic family's `ac/rollout`,
-`ac/reward_stream` and `ac/update`), the device's busy share, the GRU kernels' launches and time,
-the kernels with the most device time, and the peak device memory.
+`ac/reward_stream` and `ac/update`) and the sub-range `env/step` (the env
+steps inside the rollout, the rest of it being the policy), the device's
+busy share, the GRU kernels' launches and time, the kernels with the most
+device time, and the peak device memory.
 
 The busy share is kernel time over the untraced iteration time: tracing
 slows the host's launch loop (`traced_iteration_ms`) but not the kernels.
@@ -45,6 +47,7 @@ RANGES = {
     "dqn": ("dqn/rollout", "dqn/reward_stream", "dqn/replay_add", "dqn/updates"),
     "ac": ("ac/rollout", "ac/reward_stream", "ac/update"),
 }
+SUB_RANGES = ("env/step",)  # inside the rollout range of either family
 GRU_KERNELS = ("gru_fwd_kernel", "gru_bwd_kernel", "gru_dw_kernel", "gru_reduce_kernel")
 
 
@@ -54,21 +57,24 @@ def device_breakdown(events, iters: int, top: int, ranges) -> dict:
     Only device-side events count (PyTorch's op events carry their kernels'
     time too, so summing those would count it twice). A kernel belongs to
     the range whose device-side span holds its start. `ranges` are the
-    names of the family's ranges."""
-    spans = [
-        (e.name, e.time_range.start, e.time_range.end)
-        for e in events
-        if e.name in ranges and e.device_type != DeviceType.CPU
-    ]
-    host_us = dict.fromkeys(ranges, 0.0)
-    span_us = dict.fromkeys(ranges, 0.0)
-    kernel_us = dict.fromkeys(ranges, 0.0)
-    for name, start, end in spans:
+    names of the family's ranges, which do not nest; the `SUB_RANGES` lie
+    inside them and are attributed the same way, on their own."""
+    named = set(ranges) | set(SUB_RANGES)
+
+    def device_spans(names):
+        return [(e.name, e.time_range.start, e.time_range.end)
+                for e in events if e.name in names and e.device_type != DeviceType.CPU]
+
+    spans, sub_spans = device_spans(ranges), device_spans(SUB_RANGES)
+    host_us = dict.fromkeys(named, 0.0)
+    span_us = dict.fromkeys(named, 0.0)
+    kernel_us = dict.fromkeys(named, 0.0)
+    for name, start, end in spans + sub_spans:
         span_us[name] += end - start
     by_name = {}
     total_us = 0.0
     for e in events:
-        if e.name in ranges:
+        if e.name in named:
             if e.device_type == DeviceType.CPU:
                 host_us[e.name] += e.time_range.elapsed_us()
             continue
@@ -78,19 +84,22 @@ def device_breakdown(events, iters: int, top: int, ranges) -> dict:
         total_us += us
         calls, acc = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (calls + 1, acc + us)
-        for name, start, end in spans:
-            if start <= e.time_range.start < end:
-                kernel_us[name] += us
-                break
+        for group in (spans, sub_spans):
+            for name, start, end in group:
+                if start <= e.time_range.start < end:
+                    kernel_us[name] += us
+                    break
     ms = lambda us: us / 1e3 / iters  # noqa: E731
     ranked = sorted(by_name.items(), key=lambda kv: kv[1][1], reverse=True)
+
+    def report(names):
+        return {r: {"host_ms_per_iter_traced": ms(host_us[r]), "device_span_ms_per_iter": ms(span_us[r]),
+                    "kernel_ms_per_iter": ms(kernel_us[r])} for r in names}
+
     return {
         "kernel_ms_per_iter": ms(total_us),
-        "ranges": {
-            r: {"host_ms_per_iter_traced": ms(host_us[r]), "device_span_ms_per_iter": ms(span_us[r]),
-                "kernel_ms_per_iter": ms(kernel_us[r])}
-            for r in ranges
-        },
+        "ranges": report(ranges),
+        "sub_ranges": report(SUB_RANGES),
         "gru_kernel_ms_per_iter": {
             k: ms(sum(acc for n, (_, acc) in by_name.items() if k in n)) for k in GRU_KERNELS
         },
@@ -171,7 +180,7 @@ def main(argv=None):
     breakdown = device_breakdown(prof.events(), iters, top, RANGES[family])
     measured = on_gpu and breakdown["kernel_ms_per_iter"] > 0
     if not measured:  # no device trace: keep the host ranges only
-        for r in breakdown["ranges"].values():
+        for r in [*breakdown["ranges"].values(), *breakdown["sub_ranges"].values()]:
             r["device_span_ms_per_iter"] = r["kernel_ms_per_iter"] = None
         breakdown.update(kernel_ms_per_iter=None, gru_kernel_ms_per_iter=None, top_kernels=None)
     report = {

@@ -434,3 +434,118 @@ def test_step_count_is_t_max_times_envs():
     out = evaluate(state, torch.Generator().manual_seed(1))
     assert out["episode_returns"].shape == (6, 2) and out["episode_lengths"].shape == (6,)
     assert state.env_steps == steps and state.updates == 4
+
+
+# ---------------------------------------------------------------- masks
+# SMAClite 3m: three agents, 27 fractional features, 9 actions of which the
+# mask allows a few; dead agents may only NOOP
+
+SMAC = "smaclite:3m-v0"
+SN, SOBS, SA = 3, 27, 9
+
+
+def _masked_models(seed=0, **kw):
+    from codebase_tpu.envs.smaclite import parse_smaclite_name as jax_parse_smaclite_name
+    from codebase_tpu_torch.envs.smaclite import parse_smaclite_name
+
+    (jm, ja), (m, a) = _cfgs(**kw)
+    jmodel = JaxACModel.create(jax_parse_smaclite_name(SMAC), jm, ja)
+    model = ACModel.create(parse_smaclite_name(SMAC), m, a)
+    assert jmodel.use_action_masks and model.use_action_masks
+    params = jax.jit(jmodel.init_params)(jax.random.PRNGKey(seed))
+    model.load_params(jax.device_get(params))
+    return jmodel, params, model
+
+
+def _masked_rollout(seed):
+    """A rollout in the collector's layout whose masks allow few actions
+    (each valid with p 0.3, STOP always while alive; 20% of the rows
+    NOOP-only, a dead agent's), actions drawn among the valid ones, padded
+    steps with an all-ones mask and action 0."""
+    rng = np.random.default_rng(seed)
+    r = _rollout(seed)
+    r["obs"] = rng.random((T + 1, E, SN, SOBS)).astype(np.float32)
+    mask = (rng.random((T + 1, E, SN, SA)) < 0.3).astype(np.float32)
+    mask[..., 0], mask[..., 1] = 0.0, 1.0
+    dead = rng.random((T + 1, E, SN)) < 0.2
+    mask[dead] = 0.0
+    mask[dead, 0] = 1.0
+    filled = r["filled"]
+    mask[1:][filled == 0] = 1.0  # padded steps
+    r["action_mask"] = mask
+    r["actions"] = np.where(filled[..., None] > 0, (rng.random(mask[:-1].shape) * mask[:-1]).argmax(-1), 0)
+    r["rewards"] = np.repeat(r["rewards"][..., :1], SN, -1)
+    return r
+
+
+@pytest.mark.parametrize("name,centralised,use_rnn", [("a2c", False, False), ("ppo", True, True)])
+def test_masked_log_probs_entropy_and_losses_match_jax(name, centralised, use_rnn):
+    """Masked logits take -1e8: log-probs, entropy (0 * log 0 adds 0, a
+    NOOP-only row has entropy 0), and the A2C or PPO loss, metrics and
+    gradients against the JAX model on the same params and rollout."""
+    jmodel, params, model = _masked_models(seed=21, name=name, centralised=centralised, use_rnn=use_rnn)
+    r = _masked_rollout(22)
+    obs_agents, amask, actions, _, _, filled = _jax_inputs(r)
+    tobs = torch.tensor(r["obs"]).permute(2, 0, 1, 3)[:, :-1]
+    tmask = torch.tensor(r["action_mask"]).permute(2, 0, 1, 3)[:, :-1]
+    lp, ent = model.log_probs_entropy(tobs, torch.tensor(r["actions"]), tmask)
+    jlp, jent = jmodel.log_probs_entropy(params["actor"], obs_agents[:, :-1], actions, amask[:, :-1])
+    np.testing.assert_allclose(lp.detach().numpy(), np.asarray(jlp), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(ent.detach().numpy(), np.asarray(jent), rtol=1e-5, atol=1e-5)
+    assert torch.isfinite(ent).all() and torch.isfinite(lp).all()
+    logits = D.apply_mask(model.actor(tobs)[0], tmask)
+    one_valid = tmask.sum(-1) == 1
+    assert one_valid.any() and bool((D.entropy(logits)[one_valid] == 0).all())
+    unmasked, _ = model.log_probs_entropy(tobs, torch.tensor(r["actions"]), torch.ones_like(tmask))
+    assert float((unmasked - lp).detach().abs().max()) > 0.1  # the mask matters
+
+    rng = np.random.default_rng(23)
+    returns = rng.standard_normal((T, E, SN)).astype(np.float32)
+    targs = (torch.tensor(returns), tobs, torch.tensor(r["actions"]), torch.tensor(r["filled"]))
+    jargs = (jnp.asarray(returns), obs_agents[:, :-1], actions, amask[:, :-1], filled)
+    if name == "a2c":
+        loss, metrics = model.a2c_loss(*targs, amask=tmask)
+        jfn = lambda p: jmodel.a2c_loss(p, *jargs)  # noqa: E731
+    else:
+        old = (np.asarray(jlp) + rng.normal(0, 0.3, size=jlp.shape)).astype(np.float32)
+        loss, metrics = model.ppo_loss(targs[0], torch.tensor(old), *targs[1:], amask=tmask)
+        jfn = lambda p: jmodel.ppo_loss(p, jargs[0], jnp.asarray(old), *jargs[1:])  # noqa: E731
+    (jloss, jmetrics), jgrads = jax.jit(jax.value_and_grad(jfn, has_aux=True))(params)
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=2e-4)
+    for k, v in metrics.items():
+        np.testing.assert_allclose(v.item(), float(jmetrics[k]), rtol=2e-4, err_msg=k)
+    _assert_leaves(torch.autograd.grad(loss, model.param_leaves()), jgrads, rtol=2e-4)
+
+
+def test_masked_update_takes_each_action_with_its_observation_mask():
+    """One A2C update through the port's `update` on a masked rollout: the
+    loss sees `action_mask[:-1]`, the mask of the observation each action
+    was taken from (JAX `update`); params after the Adam step equal the JAX
+    model's with optax. The masked sampling policy never draws a masked
+    action."""
+    lr = 1e-3
+    argv = ["+algorithm=ia2c", f"algorithm.lr={lr}", "algorithm.n_steps=3"]
+    cfg, jcfg = load_config(argv), jax_load_config(argv)
+    cfg.algorithm.parallel_envs = E
+    from codebase_tpu_torch.envs.smaclite import parse_smaclite_name
+
+    env = parse_smaclite_name(SMAC)
+    update = build_train_functions(env, env, cfg.algorithm, T, CPU)[3]
+    jmodel, params, model = _masked_models(seed=24)
+    state = _port_state(model, _target(model, params["critic"]), lr)
+    r = _masked_rollout(25)
+    obs_agents, amask, actions, rewards, dones, filled = _jax_inputs(r)
+    returns, _ = jax.jit(jmodel.compute_returns)(params["critic"], obs_agents, rewards, dones, jmodel.init_rms())
+    (_, jm), grads = jax.jit(jax.value_and_grad(jmodel.a2c_loss, has_aux=True))(
+        params, returns, obs_agents[:, :-1], actions, amask[:, :-1], filled)
+    opt = jax_make_optimizer(jcfg.algorithm.optimizer, lr, jcfg.algorithm.grad_clip)
+    upd, _ = opt.update(grads, opt.init(params), params)
+    params = optax.apply_updates(params, upd)
+    metrics = update(state, _torch_rollout(r))
+    np.testing.assert_allclose(metrics["loss"].item(), float(jm["loss"]), rtol=2e-4)
+    _assert_leaves(model.param_leaves(), params, rtol=2e-4, atol_of=lambda r: 5e-2 * lr)
+
+    mask = torch.tensor(r["action_mask"][0])  # (E, N, A)
+    obs = torch.tensor(r["obs"][0])
+    _, acts = model.policy()(None, obs.repeat(500, 1, 1), mask.repeat(500, 1, 1), torch.Generator().manual_seed(0))
+    assert bool((mask.repeat(500, 1, 1).gather(-1, acts.unsqueeze(-1)) == 1).all())

@@ -1,7 +1,9 @@
 """The port on the card: the GRU kernels against their plain version, the
 IDQN, QMIX and MAPPO losses through the kernels against the plain CPU path,
-a tiny IDQN train run, one QMIX and one MAPPO train iteration. Every test
-needs a CUDA GPU and skips without one.
+a tiny IDQN train run, one QMIX and one MAPPO train iteration, the
+SMAClite, RWARE and LBF-grid steps on the card against the CPU steps, and
+masked rollouts on the card. Every test needs a CUDA GPU and skips without
+one.
 
 This file imports no JAX, so it runs where only PyTorch is installed:
 
@@ -21,7 +23,9 @@ from codebase_tpu_torch import run
 from codebase_tpu_torch.algos import ac
 from codebase_tpu_torch.algos.dqn import DQNModel, build_train_functions
 from codebase_tpu_torch.config import Config, load_config
+from codebase_tpu_torch.envs.factory import make_base_env
 from codebase_tpu_torch.envs.lbforaging import parse_lbf_name
+from codebase_tpu_torch.envs.vector import collect_episodes
 from codebase_tpu_torch.ops import fused_gru as fg
 from codebase_tpu_torch.ops.running_stats import RunningMeanStd
 from codebase_tpu_torch.utils.device import resolve_device
@@ -332,3 +336,78 @@ def test_one_mappo_train_iteration_on_the_card_goes_through_the_kernels(cuda_dev
     target, critic = state.target_critic.param_leaves(), state.model.critic.param_leaves()
     assert all(torch.equal(t, c) for t, c in zip(target, critic))
     assert all(torch.isfinite(p).all() for p in state.model.param_leaves())
+
+
+def _to(state, device):
+    return type(state)(**{k: v.to(device) for k, v in vars(state).items()})
+
+
+@pytest.mark.parametrize("name", ["smaclite:3m-v0", "smaclite:MMM2-v0", "rware-tiny-2ag-v2",
+                                  "lbforaging:Foraging-grid-8x8-2p-3f-v3"])
+def test_env_steps_on_the_card_equal_the_cpu_steps(cuda_device, name):
+    """The same state and actions on the card and on the CPU for 40 steps
+    of 512 envs: states, observations, masks, rewards and flags exactly
+    equal (SMAClite divides by constants as products with float32
+    reciprocals, which round alike on both). RWARE's requests drawn after a
+    delivery come from each device's generator: the CPU's are copied to the
+    card after each step, and every env that did not deliver must agree."""
+    env = make_base_env(name)
+    E = 512
+    cpu_state, ts = env.reset_batch(torch.Generator().manual_seed(0), E)
+    gpu_state = _to(cpu_state, cuda_device)
+    mask = ts.action_mask
+    rng = np.random.default_rng(1)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    rewarded = 0
+    for t in range(40):
+        a = (torch.tensor(rng.random(mask.shape)) * mask).argmax(-1)  # valid actions
+        cpu_state, ts = env.step_batch(cpu_state, a, torch.Generator().manual_seed(t), mask)
+        gpu_state, gts = env.step_batch(gpu_state, a.to(cuda_device), gen, mask.to(cuda_device))
+        torch.cuda.synchronize()
+        delivered = ts.reward.sum(1) > 0
+        for k, v in vars(cpu_state).items():
+            got = getattr(gpu_state, k).cpu()
+            if k == "requested":
+                assert torch.equal(got[:, ~delivered], v[:, ~delivered])
+                gpu_state.requested = v.to(cuda_device)
+            else:
+                assert torch.equal(got, v), f"step {t} {k}"
+        for k in ("reward", "terminated", "truncated", "action_mask"):
+            assert torch.equal(getattr(gts, k).cpu(), getattr(ts, k)), f"step {t} {k}"
+        if "rware" in name:  # the obs of the copied requests
+            assert torch.equal(env._make_obs_batch(gpu_state).cpu(), ts.obs), f"step {t} obs"
+        else:
+            assert torch.equal(gts.obs.cpu(), ts.obs), f"step {t} obs"
+        mask = ts.action_mask
+        rewarded += int((ts.reward != 0).sum())
+    assert rewarded > 0 or "rware" in name
+
+
+@pytest.mark.parametrize("algo", ["qmix", "mappo"])
+def test_masked_rollout_on_the_card_never_takes_an_invalid_action(cuda_device, algo):
+    """Rollouts of 4096 SMAClite 3m envs on the card through the recurrent
+    QMIX critic (epsilon 1 and 0: uniform over valid actions, then greedy)
+    and the recurrent MAPPO actor: every filled step's action is allowed by
+    the mask of the observation it was taken from; the GRU kernels ran."""
+    argv = [f"+algorithm={algo}", "env.name=smaclite:3m-v0", "env.time_limit=60"]
+    argv += (["algorithm.model.use_rnn=true"] if algo == "qmix"
+             else ["algorithm.model.actor.use_rnn=true", "algorithm.model.critic.use_rnn=true"])
+    cfg = load_config(argv)
+    env, _ = run.build_envs(cfg)
+    E = 4096
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    if algo == "qmix":
+        model = DQNModel.create(env, cfg.algorithm.model, cfg.algorithm, torch.Generator().manual_seed(0), cuda_device)
+        policies, net = [model.policy(1.0), model.policy(0.0)], model.critic
+    else:
+        model = ac.ACModel.create(env, cfg.algorithm.model, cfg.algorithm, torch.Generator().manual_seed(0), cuda_device)
+        policies, net = [model.policy()], model.actor
+    counts = fg.launch_counts()["fwd"]
+    for policy in policies:
+        rollout, _ = collect_episodes(env, policy, net.init_hiddens(E), gen, E, 60)
+        taken = rollout.action_mask[:-1].gather(-1, rollout.actions.unsqueeze(-1)).squeeze(-1)  # (T, E, N)
+        filled = rollout.filled > 0
+        assert int((taken[filled] == 0).sum()) == 0
+        assert float(rollout.filled.sum(0).mean()) < 60  # episodes end early: padded steps were skipped
+    torch.cuda.synchronize()
+    assert fg.launch_counts()["fwd"] - counts == 60 * len(policies)

@@ -295,3 +295,150 @@ def test_mixed_return_standardisation_diverges_from_init_in_both_packages(name):
                                        rtol=2e-4, err_msg=f"{f} after call {k}")
         variances.append(float(rms.var[0]))
     assert all(b > 2 * a for a, b in zip(variances[1:], variances[2:])), variances
+
+
+# ---------------------------------------------------------------- masks
+# SMAClite 3m: three agents, 27 fractional features, 9 actions of which the
+# mask allows a few; the GRU critic (the JAX kernel in interpret mode)
+
+SMAC = "smaclite:3m-v0"
+SN, SD, SA = 3, 27, 9
+
+
+def _masked_family(name, double_q=True):
+    from codebase_tpu.envs.smaclite import parse_smaclite_name as jax_parse_smaclite_name
+    from codebase_tpu_torch.envs.smaclite import parse_smaclite_name
+
+    model_cfg = {**MODEL, "name": name, "mixing": MIXING}
+    algo = {**ALGO, "double_q": double_q}
+    jmodel = JaxDQNModel.create(
+        jax_parse_smaclite_name(SMAC), JaxConfig({**model_cfg, "fused_rnn": "interpret"}), JaxConfig(algo)
+    )
+    assert jmodel.use_action_masks
+    return jmodel, lambda: DQNModel.create(parse_smaclite_name(SMAC), Config(model_cfg), Config(algo))
+
+
+def _random_masks(rng, shape, p_valid=0.35):
+    """(..., A) masks: each action valid with p_valid, STOP (1) always; a
+    share of rows NOOP-only, as a dead agent's."""
+    mask = (rng.random(shape) < p_valid).astype(np.float32)
+    mask[..., 0] = 0.0
+    mask[..., 1] = 1.0
+    dead = rng.random(shape[:-1]) < 0.15
+    mask[dead] = 0.0
+    mask[dead, 0] = 1.0
+    return mask
+
+
+def _pick_valid(rng, mask):
+    return (rng.random(mask.shape) * mask).argmax(-1)
+
+
+def _masked_batch(seed):
+    """A reference-layout batch whose masks allow few actions; padded steps
+    (past each episode's end) carry an all-ones mask, as the collector
+    writes them, and action 0."""
+    rng = np.random.default_rng(seed)
+    b = _batch(seed, D=SD, A=SA, N=SN)
+    b["obss"] = rng.random((SN, T + 1, B, SD)).astype(np.float32)
+    mask = _random_masks(rng, (SN, T + 1, B, SA))
+    padded = np.concatenate([np.zeros((1, B)), 1.0 - b["filled"]], 0) > 0  # (T+1, B)
+    mask[:, padded] = 1.0
+    b["action_mask"] = mask
+    b["actions"] = np.where(b["filled"][None] > 0, _pick_valid(rng, mask[:, :-1]), 0).astype(np.int32)
+    return b
+
+
+@pytest.mark.parametrize("name,double_q", [("qnetwork", True), ("qmix", True), ("qnetwork", False)])
+def test_masked_double_q_loss_and_grads_match_jax(name, double_q):
+    """The target side sees masked actions at -1e8: the target Q, and under
+    double Q the online Q before its argmax. Loss and gradients at rtol
+    2e-4 on injected params; without the mask the loss moves."""
+    jmodel, make = _masked_family(name, double_q)
+    params = jax.jit(jmodel.init_params)(jax.random.PRNGKey(0))
+    tparams = jax.jit(jmodel.init_params)(jax.random.PRNGKey(1))
+    model, target = make(), make()
+    _to_torch_model(model, params)
+    _to_torch_model(target, tparams)
+    assert model.use_action_masks
+    batch = _masked_batch(40)
+    loss_fn = lambda p: jmodel.loss(p, tparams, _jax_batch(batch), jmodel.init_rms())[0]  # noqa: E731
+    jloss, jgrads = jax.jit(jax.value_and_grad(loss_fn))(params)
+    loss, _ = model.loss(target, _torch_batch(batch), model.init_rms())
+    grads = torch.autograd.grad(loss, model.param_leaves())
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=2e-4)
+    ref = tree_leaves(jax.device_get(jgrads))
+    assert len(grads) == len(ref)
+    for g, r in zip(grads, ref):
+        np.testing.assert_allclose(g.numpy(), r, rtol=2e-4, atol=1e-6 * max(1.0, np.abs(r).max()))
+    unmasked = _torch_batch({**batch, "action_mask": np.ones_like(batch["action_mask"])})
+    assert abs(model.loss(target, unmasked, model.init_rms())[0].item() - loss.item()) > 1e-3 * abs(loss.item())
+
+
+def test_masked_policy_is_greedy_over_valid_actions_and_explores_uniformly():
+    """Greedy (epsilon 0): the JAX policy's actions on injected params, all
+    valid. Epsilon 1: uniform over each agent's valid actions (20,000 envs,
+    every frequency within 5 sigma), never an invalid one. Epsilon 0.5: one
+    coin per env flips all its agents, so all agents act greedily with
+    probability 0.5 + 0.5 * prod(1 / valid count), within 5 sigma."""
+    jmodel, make = _masked_family("qnetwork")
+    params = jax.jit(jmodel.init_params)(jax.random.PRNGKey(2))
+    model = make()
+    _to_torch_model(model, params)
+    rng = np.random.default_rng(3)
+    E = 64
+    obs = rng.random((E, SN, SD)).astype(np.float32)
+    mask = _random_masks(rng, (E, SN, SA))
+    _, jgreedy = jmodel.policy(params, 0.0)(jmodel.critic.init_hiddens(E), jnp.asarray(obs), jnp.asarray(mask),
+                                            jax.random.PRNGKey(4))
+    gen = torch.Generator().manual_seed(0)
+    _, greedy = model.policy(0.0)(model.critic.init_hiddens(E), torch.tensor(obs), torch.tensor(mask), gen)
+    np.testing.assert_array_equal(greedy.numpy(), np.asarray(jgreedy))
+    assert np.all(np.take_along_axis(mask, greedy.numpy()[..., None], -1) == 1)
+
+    n = 20_000
+    row = np.zeros((SN, SA), np.float32)
+    row[0, [1, 3, 7]] = 1.0
+    row[1, [1, 2, 4, 6, 8]] = 1.0
+    row[2, 0] = 1.0  # dead: NOOP only
+    big_obs = torch.tensor(np.repeat(obs[:1], n, 0))
+    big_mask = torch.tensor(np.repeat(row[None], n, 0))
+    _, acts = model.policy(1.0)(model.critic.init_hiddens(n), big_obs, big_mask, gen)
+    acts = acts.numpy()
+    for i in range(SN):
+        valid = row[i] > 0
+        freq = np.bincount(acts[:, i], minlength=SA) / n
+        p = valid / valid.sum()
+        assert np.all(freq[~valid] == 0)
+        assert np.all(np.abs(freq - p) <= 5 * np.sqrt(p * (1 - p) / n) + 1e-12), (i, freq)
+    _, g1 = model.policy(0.0)(model.critic.init_hiddens(1), big_obs[:1], big_mask[:1], gen)
+    _, half = model.policy(0.5)(model.critic.init_hiddens(n), big_obs, big_mask, gen)
+    all_greedy = (half.numpy() == g1.numpy()).all(1).mean()
+    p = 0.5 + 0.5 / (3 * 5 * 1)
+    assert abs(all_greedy - p) <= 5 * np.sqrt(p * (1 - p) / n), all_greedy
+
+
+@pytest.mark.parametrize("env_name", ["smaclite:2m-v0", "rware-tiny-2ag-v2", "lbforaging:Foraging-8x8-2p-3f-v3"])
+def test_replay_dtypes_follow_jax(env_name):
+    """Replay stores obs in bf16 only where the env's obs are integers (RWARE,
+    LBF), and f32 with f32 masks for SMAClite's fractional obs; masks only
+    for envs that mask, as the JAX package's buffer."""
+    from codebase_tpu.algos.dqn import build_train_functions as jax_build_train_functions
+    from codebase_tpu.config import load_config as jax_load_config
+    from codebase_tpu.envs.factory import make_env as jax_make_env
+    from codebase_tpu_torch.algos.dqn import build_train_functions
+    from codebase_tpu_torch.config import load_config
+    from codebase_tpu_torch.envs.factory import make_env
+
+    argv = ["+algorithm=idqn", "algorithm.buffer_size=4", "algorithm.batch_size=2"]
+    jcfg, cfg = jax_load_config(argv), load_config(argv)
+    jcfg.algorithm.parallel_envs = cfg.algorithm.parallel_envs = 2
+    _, jinit, _, _ = jax_build_train_functions(jax_make_env(env_name, time_limit=6), None, jcfg.algorithm, 6)
+    jbuf = jinit(jax.random.PRNGKey(0)).buffer
+    env = make_env(env_name, time_limit=6)
+    buf = build_train_functions(env, env, cfg.algorithm, 6, torch.device("cpu"))[0](0).buffer
+    assert str(buf.obs.dtype).removeprefix("torch.") == str(jbuf.obs.dtype)
+    assert (buf.action_mask is None) == (jbuf.action_mask is None) == (not env.has_action_mask)
+    if buf.action_mask is not None:
+        assert buf.action_mask.dtype == torch.float32 and str(jbuf.action_mask.dtype) == "float32"
+    assert tuple(buf.obs.shape) == tuple(jbuf.obs.shape)

@@ -3,7 +3,8 @@
 `step_batch` and the observations must match exactly on states made by the
 JAX `reset_batch` and on numpy-drawn actions (the dynamics ignore the key).
 Spawning draws different random numbers on each side, so the reset is held
-to the JAX package by its marginal distributions.
+to the JAX package by its marginal distributions. Grid observations
+(`-grid` ids) are held to the JAX package's the same way.
 """
 
 from dataclasses import fields
@@ -117,7 +118,26 @@ def _as_jax(state):
 
 
 def test_parse_rejects_what_waits():
-    with pytest.raises(NotImplementedError):
-        parse_lbf_name("lbforaging:Foraging-grid-8x8-2p-3f-v3")
+    """Grid observations (`-grid` ids), which this test once expected the
+    parser to refuse, against the JAX package's: the JAX grid env steps its
+    vmapped scalar step on an unbatched state; the port steps its batched
+    state (the same state through the JAX `to_batch`) and builds the grid
+    windows batched. Observations and rewards equal, step for step."""
+    for name in ("lbforaging:Foraging-grid-8x8-2p-3f-v3", "Foraging-2s-8x8-3p-2f-grid-v3"):
+        E, steps = 32, 25
+        jenv, env = jax_parse_lbf_name(name), parse_lbf_name(name)
+        assert env.grid_obs and (env.obs_dim, env.sight) == (jenv.obs_dim, jenv.sight)
+        jstate, jts = jax.jit(jenv.reset_batch, static_argnums=1)(jax.random.PRNGKey(0), E)
+        state = to_torch_state(jenv.to_batch(jstate))
+        np.testing.assert_array_equal(env._make_obs_batch(state).numpy(), np.asarray(jts.obs))
+        rng = np.random.default_rng(1)
+        jax_step = jax.jit(jenv.step_batch)
+        for t in range(steps):
+            a = rng.choice(6, size=(E, env.n_agents), p=P_ACTIONS)
+            jstate, jts = jax_step(jstate, jnp.asarray(a, jnp.int32), jax.random.PRNGKey(t))
+            state, ts = env.step_batch(state, torch.as_tensor(a))
+            assert_state_equal(jenv.to_batch(jstate), state)
+            np.testing.assert_array_equal(ts.obs.numpy(), np.asarray(jts.obs), err_msg=f"{name} step {t}")
+            np.testing.assert_array_equal(ts.reward.numpy(), np.asarray(jts.reward))
     env = parse_lbf_name("Foraging-2s-8x8-3p-2f-coop-v3")
-    assert (env.sight, env.num_agents, env.max_food, env.force_coop) == (2, 3, 2, True)
+    assert (env.sight, env.num_agents, env.max_food, env.force_coop, env.grid_obs) == (2, 3, 2, True, False)

@@ -60,6 +60,29 @@ def test_device_breakdown_counts_each_kernel_once_and_by_range():
     assert out["top_kernels"][0]["calls_per_iter"] == 0.5
 
 
+def test_device_breakdown_attributes_the_env_step_sub_range_inside_the_rollout():
+    """`env/step` lies inside `ac/rollout`: a kernel in both counts once in
+    the total and in each of the two; a rollout kernel outside the env step
+    (the policy's) counts in the rollout only."""
+    cpu, gpu = DeviceType.CPU, DeviceType.CUDA
+    events = [
+        _ev("ac/rollout", gpu, 0, 1000, True),
+        _ev("env/step", gpu, 100, 300, True),
+        _ev("env/step", gpu, 600, 700, True),
+        _ev("env/step", cpu, 50, 80, True),
+        _ev("compare", gpu, 110, 150),
+        _ev("where", gpu, 610, 620),
+        _ev("gemm", gpu, 400, 500),
+    ]
+    out = profile.device_breakdown(events, iters=1, top=3, ranges=profile.RANGES["ac"])
+    assert out["kernel_ms_per_iter"] == pytest.approx(150 / 1e3)
+    assert out["ranges"]["ac/rollout"]["kernel_ms_per_iter"] == pytest.approx(150 / 1e3)
+    step = out["sub_ranges"]["env/step"]
+    assert step["kernel_ms_per_iter"] == pytest.approx(50 / 1e3)
+    assert step["device_span_ms_per_iter"] == pytest.approx(300 / 1e3)
+    assert step["host_ms_per_iter_traced"] == pytest.approx(30 / 1e3)
+
+
 def test_profile_cli_on_cpu_reports_host_ranges_and_no_device_numbers(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     report = profile.main([
@@ -76,6 +99,7 @@ def test_profile_cli_on_cpu_reports_host_ranges_and_no_device_numbers(tmp_path, 
     assert ranges.pop("dqn/reward_stream")["host_ms_per_iter_traced"] == 0  # no standardiser in the stack
     assert all(r["host_ms_per_iter_traced"] > 0 for r in ranges.values())
     assert report["gru_launches_per_iter"] == {"fwd": 0, "bwd": 0, "dw": 0, "reduce": 0}
+    assert report["sub_ranges"]["env/step"]["host_ms_per_iter_traced"] > 0
 
 
 def test_profile_cli_takes_qmix_and_reads_the_reward_stream_range(tmp_path, monkeypatch):
