@@ -16,8 +16,13 @@ exits non-zero:
              B=256, MAPPO's update (j) G=3 T=60 B=8192, rollout (k) G=3
              T=1 B=8192 and target critic (l) G=3 T=61 B=8192, LBF
              MAPPO's target critic (m) G=2 T=26 B=8192, and the evals of
-             100 episodes (n) G=3 T=1 B=100 and (o) G=2 T=1 B=100 (H=128;
-             every shape a train phase below gives the kernels): the
+             100 episodes (n) G=3 T=1 B=100 and (o) G=2 T=1 B=100 (H=128),
+             and for the wide kernels (H >= 256) the MMM2 shapes at H=512
+             G=10: QMIX's rollout (p) T=1 B=2048, update (q) T=121 B=256
+             and eval (r) T=1 B=100, MAPPO's rollout (s) T=1 B=256, update
+             (t) T=120 B=256 and target critic (u) T=121 B=256, and two
+             ragged shapes (v) G=3 T=7 B=1000 H=256, (w) G=3 T=5 B=333
+             H=384 (every shape a train phase below gives the kernels): the
              forward against `gru_sequence_plain`, the whole backward (recurrence, weight
              gradient, reduction) against `gru_backward_plain`, the weight
              gradient alone against `gru_dw_plain` on the recurrence
@@ -29,7 +34,7 @@ exits non-zero:
              `torch.sum` for the reduction) on the device (see `time_ms`; the
              reduction's input fits in the L2, so it is timed on copies that
              do not, see `cold_copies`).
-Then ten train phases through `codebase_tpu_torch.run.main`, each with
+Then twelve train phases through `codebase_tpu_torch.run.main`, each with
 the launch counters set to 0 just before and read just after, and logging
 every iteration (`log_interval` = E*T, so the host loop's chunk is one
 iteration, as before the chunk rule):
@@ -74,9 +79,20 @@ iteration, as before the chunk rule):
 13. train_qmix_rware — the JAX package's `qmix_rware` lane
                  (rware-tiny-2ag-v2, T=500, MLP, 8192 envs, batch 128,
                  buffer 16384, bf16 replay), 2 iterations, no GRU launch.
+14. train_qmix_mmm2 — the JAX package's `qmix_smaclite_mmm2_big` lane
+                 (smaclite:MMM2-v0, T=120, the 10 allies' shared 2x512 GRU
+                 critic in bf16, 2048 envs, batch 256, buffer 2048, early
+                 exit on under auto): the wide kernels at (p), (q) and (r).
+15. train_mappo_mmm2 — `mappo_smaclite_mmm2_big` (shared 2x512 GRU actor
+                 and centralised critic in bf16, 256 envs, no early exit):
+                 the wide kernels at (s), (t) and (u).
+The SMAClite 3m and MMM2 QMIX phases are followed by rollouts of their
+trained policy with the early exit on and off in turns, which must be
+identical (and leave the caller's generator alike), timed on the host.
 The SMAClite phases count, on the card, the actions their rollouts took
-that the step's mask forbade (it must be 0), the valid actions per step and
-the mean episode length, and check that QMIX's replay stores f32 obs and
+that the step's mask forbade (it must be 0), the valid actions per step,
+the mean episode length, the steps the last rollout took and whether the
+early exit was on, and check that QMIX's replay stores f32 obs and
 the masks. Then the kernel summary line and, last, the device line.
 
 Imports nothing of JAX or of the JAX package.
@@ -101,10 +117,11 @@ if not torch.cuda.is_available():
 from codebase_tpu_torch import run as port_run  # noqa: E402
 from codebase_tpu_torch.algos import ac as port_ac  # noqa: E402
 from codebase_tpu_torch.algos import dqn as port_dqn  # noqa: E402
+from codebase_tpu_torch.config import load_config  # noqa: E402
+from codebase_tpu_torch.envs import vector as port_vector  # noqa: E402
 from codebase_tpu_torch.ops import fused_gru as fg  # noqa: E402
 from codebase_tpu_torch.utils.device import resolve_device  # noqa: E402
 
-H = 128
 SHAPES = {
     "a": dict(G=2, T=1, B=65536, role="rollout: policy step, T=1 over all envs"),
     "b": dict(G=2, T=26, B=1024, role="update: online/target nets over T+1=26 steps"),
@@ -121,7 +138,19 @@ SHAPES = {
     "m": dict(G=2, T=26, B=8192, role="LBF MAPPO target critic: bootstrap values over T+1=26 steps"),
     "n": dict(G=3, T=1, B=100, role="QMIX eval (LBF and SMAClite): policy step over 100 episodes"),
     "o": dict(G=2, T=1, B=100, role="IDQN eval: policy step over 100 episodes"),
+    # the wide kernels (H >= 256): the MMM2 lanes' shared 2x512 GRU gathered
+    # for the 10 allies (G=10), and two ragged shapes of other widths
+    "p": dict(G=10, T=1, B=2048, H=512, role="MMM2 QMIX rollout: the shared critic, T=1 over all envs"),
+    "q": dict(G=10, T=121, B=256, H=512, role="MMM2 QMIX update: online/target critics over T+1=121 steps"),
+    "r": dict(G=10, T=1, B=100, H=512, role="MMM2 QMIX eval: policy step over 100 episodes"),
+    "s": dict(G=10, T=1, B=256, H=512, role="MMM2 MAPPO rollout: the actor's policy step, T=1 over all envs"),
+    "t": dict(G=10, T=120, B=256, H=512, role="MMM2 MAPPO update: actor and critic over the padded rollout, T=120"),
+    "u": dict(G=10, T=121, B=256, H=512, role="MMM2 MAPPO target critic: bootstrap values over T+1=121 steps"),
+    "v": dict(G=3, T=7, B=1000, H=256, role="ragged at H=256"),
+    "w": dict(G=3, T=5, B=333, H=384, role="ragged at H=384"),
 }
+for _shape in SHAPES.values():
+    _shape.setdefault("H", 128)
 # the value-based phases' replay settings
 DQN_ARGV = ["algorithm.updates_per_collect=8", "algorithm.training_start=0", "algorithm.replay_slot_reuse=clear"]
 # published peaks, dense, no sparsity (NVIDIA data sheets): HBM bytes/s,
@@ -200,7 +229,7 @@ def time_ms(fn, reps=25, warmup=3) -> float:
     return statistics.median(_run_ms(fn, n) for _ in range(reps))
 
 
-def bounds(kernel, G, T, B, P, peaks):
+def bounds(kernel, G, T, B, H, P, peaks):
     """Least time (ms) for the function's work: max(bytes / HBM rate,
     operations / peak rate), each input read once and each output written
     once, no scratch or partials. The forward's product, the backward's
@@ -234,10 +263,11 @@ def bounds(kernel, G, T, B, P, peaks):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_shape(key, G, T, B, gen, peaks):
+def check_shape(key, G, T, B, H, gen, peaks):
     dev = torch.device("cuda")
     gi = torch.randn((G, T, B, 3 * H), device=dev, generator=gen)
-    w = torch.randn((G, H, 3 * H), device=dev, generator=gen) * 0.1
+    # scaled so that h @ W_hh has the same spread at every H as at H=128
+    w = torch.randn((G, H, 3 * H), device=dev, generator=gen) * (0.1 * (128 / H) ** 0.5)
     b = torch.randn((G, 3 * H), device=dev, generator=gen) * 0.1
     h0 = torch.randn((G, B, H), device=dev, generator=gen)
     ky = torch.randn((G, T, B, H), device=dev, generator=gen)
@@ -321,7 +351,7 @@ def check_shape(key, G, T, B, gen, peaks):
              "gru_dw": ("dw_dW_hh", "dw_db_hh"), "gru_reduce": ("partials_sum",)}
     out = {}
     for k in ("gru_fwd", "gru_bwd", "gru_dw", "gru_reduce"):
-        bound_ms, bound_by = bounds(k, G, T, B, P, peaks)
+        bound_ms, bound_by = bounds(k, G, T, B, H, P, peaks)
         out[k] = {
             "max_abs_err": max(errs[n] for n in names[k]),
             "errors": {n: errs[n] for n in names[k]},
@@ -336,7 +366,7 @@ def check_shape(key, G, T, B, gen, peaks):
     out["gru_bwd"]["recurrence_ms"] = t["gru_bwd_recurrence"]
     out["gru_bwd"]["recurrence_plain_ms"] = t["gru_bwd_recurrence_plain"]
     out["gru_bwd"]["recurrence_bound_ms"], out["gru_bwd"]["recurrence_bound_by"] = bounds(
-        "gru_bwd_recurrence", G, T, B, P, peaks)
+        "gru_bwd_recurrence", G, T, B, H, P, peaks)
     out["gru_reduce"]["partials_per_group"] = P
     return out
 
@@ -394,6 +424,8 @@ def train_phase(phase, smi, argv, E, iters, per_iteration, T=25):
         "loss": losses,
         "results_columns": list(rows[0].keys()),
         "peak_device_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        # how each network's recurrent layers ran (`RNNSpec.route`)
+        "gru_route": {n: getattr(m.spec, "route", "mlp") for n, m in state.model.named_children() if hasattr(m, "spec")},
     })
     return counts, state
 
@@ -421,8 +453,18 @@ class MaskAudit:
             m.collect_episodes = self.collect
 
     def __call__(self, env, policy, carry, generator, n_envs, *args, **kwargs):
-        rollout, carry = self.collect(env, policy, carry, generator, n_envs, *args, **kwargs)
-        self.calls.append((n_envs, audit_rollout(rollout.action_mask, rollout.actions, rollout.filled)))
+        steps = []
+
+        def counted(*a):
+            steps.append(1)
+            return policy(*a)
+
+        rollout, carry = self.collect(env, counted, carry, generator, n_envs, *args, **kwargs)
+        audit = audit_rollout(rollout.action_mask, rollout.actions, rollout.filled)
+        audit["policy_steps"] = len(steps)  # T, or fewer where the early exit stopped
+        opt = kwargs.get("early_exit", args[2] if len(args) > 2 else "auto")
+        audit["early_exit_on"] = (n_envs >= 512 and env.early_termination_possible) if opt == "auto" else bool(opt)
+        self.calls.append((n_envs, audit))
         return rollout, carry
 
     def report(self) -> dict:
@@ -444,16 +486,64 @@ def audit_rollout(mask, actions, filled) -> dict:
             "mean_episode_length": filled.sum(0).mean()}
 
 
-def smaclite_phase(phase, smi, argv, E, iters, per_iteration, modules):
-    """A train phase on smaclite:3m-v0 (T=60) under a `MaskAudit`: fails if
-    any action of any rollout left its mask."""
+def smaclite_phase(phase, smi, argv, E, iters, per_iteration, modules, T=60):
+    """A train phase on SMAClite under a `MaskAudit`: fails if any action
+    of any rollout left its mask. `policy_steps` is the number of steps the
+    last training rollout took: T, or fewer under the early exit."""
     with MaskAudit(modules, E) as audit:
-        counts, state = train_phase(phase, smi, argv, E=E, iters=iters, per_iteration=per_iteration, T=60)
+        counts, state = train_phase(phase, smi, argv, E=E, iters=iters, per_iteration=per_iteration, T=T)
     report = audit.report()
     if report["invalid"] or report["invalid_all_rollouts"]:
         raise AssertionError(f"{phase}: actions outside the mask: {report}")
     emit({"phase": f"{phase}_masks", **report})
     return counts, state
+
+
+def early_exit_cost(phase, smi, argv, E, T, state) -> None:
+    """Rollouts of the phase's trained QMIX policy (epsilon 0.05) with the
+    early exit on and off, in turns (on, off, on, off), each from a caller's
+    generator seeded alike: fails unless the rollouts and the caller's next
+    draw are identical. Reports each rollout's host-clock seconds (ending
+    in a device sync) and steps, and the time a step took with and without
+    the per-step `any(running)` sync."""
+    env, _ = port_run.build_envs(load_config(argv + [f"env.time_limit={T}", f"env.parallel_envs={E}"]))
+    policy = state.model.policy(0.05)
+    seconds, runs = {True: [], False: []}, {}
+    for early in (True, False, True, False):
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        steps = []
+
+        def counted(*a):
+            steps.append(1)
+            return policy(*a)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rollout, _ = port_vector.collect_episodes(env, counted, state.model.critic.init_hiddens(E), gen, E, T,
+                                                  early_exit=early)
+        torch.cuda.synchronize()
+        seconds[early].append(time.perf_counter() - t0)
+        runs[early] = (rollout, torch.rand((4,), generator=gen, device="cuda"), len(steps))
+    (on, next_on, steps_on), (off, next_off, steps_off) = runs[True], runs[False]
+    same = [f for f in ("obs", "actions", "rewards", "stat_rewards", "dones", "filled", "action_mask")
+            if torch.equal(getattr(on, f), getattr(off, f))]
+    if len(same) != 7 or not torch.equal(next_on, next_off) or steps_off != T:
+        raise AssertionError(f"{phase}: early exit on/off differ: equal fields {same}, next draw equal "
+                             f"{torch.equal(next_on, next_off)}, steps {steps_on} / {steps_off}")
+    emit({"phase": phase, "card": smi, "envs": E, "time_limit": T, "steps_on": steps_on, "steps_off": steps_off,
+          "seconds_on": seconds[True], "seconds_off": seconds[False],
+          "ms_per_step_on": [1e3 * t / steps_on for t in seconds[True]],
+          "ms_per_step_off": [1e3 * t / steps_off for t in seconds[False]],
+          "identical_rollouts_and_next_draw": True})
+
+
+def mmm2_report(state, nets) -> None:
+    """Fails unless every GRU network of an MMM2 phase holds the 10 allies'
+    shared weights in bf16 on the wide kernels' route."""
+    got = [(n.n_agents, n.n_groups, n.spec.hidden_size, n.spec.compute_dtype, n.spec.route) for n in nets]
+    if any(g != (10, 1, 512, "bfloat16", "kernel_wide") for g in got):
+        raise AssertionError(f"MMM2 networks (agents, groups, H, dtype, route): {got}")
+    emit({"phase": "mmm2_networks", "agents_groups_hidden_dtype_route": got})
 
 
 def check_target_refresh(state, tau=200) -> None:
@@ -497,10 +587,10 @@ def main() -> None:
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {}
     for key, s in SHAPES.items():
-        results[key] = check_shape(key, s["G"], s["T"], s["B"], gen, peaks)
+        results[key] = check_shape(key, s["G"], s["T"], s["B"], s["H"], gen, peaks)
         torch.cuda.empty_cache()
     emit({"phase": "kernels", "card": smi,
-          "shapes": {k: {**SHAPES[k], "H": H} for k in SHAPES}, "results": results})
+          "shapes": SHAPES, "results": results})
 
     # --- 4. train: recurrent IDQN
     counts, _ = train_phase("train", smi, [
@@ -575,11 +665,14 @@ def main() -> None:
 
     # --- 11. train_qmix_smaclite: the qmix_smaclite_3m lane with the
     # recurrent critic, the GRU kernels at (h) and (i), masks everywhere
-    smac_qmix_counts, state = smaclite_phase("train_qmix_smaclite", smi, [
-        "+algorithm=qmix", "env.name=smaclite:3m-v0", "algorithm.model.use_rnn=true",
-        "algorithm.model.layers=[128,128]", "algorithm.batch_size=256", "algorithm.buffer_size=65536",
-        *DQN_ARGV,
-    ], E=65536, iters=3, per_iteration={"fwd": 76, "bwd": 8, "dw": 8, "reduce": 8}, modules=[port_dqn])
+    # (16 forwards an iteration in the updates, and one a rollout step: the
+    # early exit stops at the longest episode)
+    smac3m_argv = ["+algorithm=qmix", "env.name=smaclite:3m-v0", "algorithm.model.use_rnn=true",
+                   "algorithm.model.layers=[128,128]", "algorithm.batch_size=256", "algorithm.buffer_size=65536",
+                   *DQN_ARGV]
+    smac_qmix_counts, state = smaclite_phase("train_qmix_smaclite", smi, smac3m_argv, E=65536, iters=3,
+                                             per_iteration={"fwd": 17, "bwd": 8, "dw": 8, "reduce": 8},
+                                             modules=[port_dqn])
     buf = state.buffer
     if buf.obs.dtype != torch.float32 or buf.action_mask is None or buf.obs.device.type != "cuda":
         raise AssertionError(f"train_qmix_smaclite: replay obs {buf.obs.dtype}, masks stored: "
@@ -595,14 +688,16 @@ def main() -> None:
           # device time of one audit of a 65536-env rollout, which each
           # timed iteration of the SMAClite phases includes
           "audit_ms": time_ms(lambda: audit_rollout(*stored_rollout))})
-    del state, buf, stored_rollout
+    del buf, stored_rollout
+    early_exit_cost("early_exit_smaclite_3m", smi, smac3m_argv, 65536, 60, state)
+    del state
 
     # --- 12. train_mappo_smaclite: recurrent actor and centralised
     # recurrent critic on 3m, the GRU kernels at (k), (j) and (l)
     smac_mappo_counts, state = smaclite_phase("train_mappo_smaclite", smi, [
         "+algorithm=mappo", "env.name=smaclite:3m-v0",
         "algorithm.model.actor.use_rnn=true", "algorithm.model.critic.use_rnn=true",
-    ], E=8192, iters=2, per_iteration={"fwd": 70, "bwd": 8, "dw": 8, "reduce": 8}, modules=[port_ac])
+    ], E=8192, iters=2, per_iteration={"fwd": 11, "bwd": 8, "dw": 8, "reduce": 8}, modules=[port_ac])
     del state
 
     # --- 13. train_qmix_rware: the qmix_rware lane (MLP, bf16 replay)
@@ -614,48 +709,90 @@ def main() -> None:
         raise AssertionError("train_qmix_rware: expected bf16 replay obs and no masks")
     del state
 
-    b = results["b"]
+    # --- 14. train_qmix_mmm2: the qmix_smaclite_mmm2_big lane (10 allies,
+    # the shared 2x512 GRU critic in bf16): the wide kernels at (p), (q)
+    # and (r); 2048 envs, so the early exit is on under auto
+    mmm2_qmix_argv = [
+        "+algorithm=qmix", "env.name=smaclite:MMM2-v0", "algorithm.model.use_rnn=true",
+        "algorithm.model.layers=[512,512]", "algorithm.model.parameter_sharing=true",
+        "algorithm.model.dtype=bfloat16", "algorithm.batch_size=256", "algorithm.buffer_size=2048", *DQN_ARGV,
+    ]
+    mmm2_qmix_counts, state = smaclite_phase("train_qmix_mmm2", smi, mmm2_qmix_argv, E=2048, iters=2,
+                                             per_iteration={"fwd_wide": 17, "bwd_wide": 8, "dw": 8, "reduce": 8},
+                                             modules=[port_dqn], T=120)
+    mmm2_report(state, [state.model.critic])
+    early_exit_cost("early_exit_mmm2", smi, mmm2_qmix_argv, 2048, 120, state)
+    del state
+
+    # --- 15. train_mappo_mmm2: the mappo_smaclite_mmm2_big lane (shared
+    # 2x512 GRU actor and centralised critic in bf16, 256 envs: no early
+    # exit): the wide kernels at (s), (t) and (u), 120 rollout steps and 10
+    # forwards in the update an iteration
+    mmm2_mappo_counts, state = smaclite_phase("train_mappo_mmm2", smi, [
+        "+algorithm=mappo", "env.name=smaclite:MMM2-v0",
+        *[f"algorithm.model.{part}.{k}" for part in ("actor", "critic") for k in (
+            "use_rnn=true", "layers=[512,512]", "parameter_sharing=true", "dtype=bfloat16")],
+    ], E=256, iters=2, per_iteration={"fwd_wide": 130, "bwd_wide": 8, "dw": 8, "reduce": 8},
+        modules=[port_ac], T=120)
+    mmm2_report(state, [state.model.actor, state.model.critic])
+    del state
+
     sources = {
         "gru_fwd": "codebase_tpu/ops/fused_gru.py:80 (_fwd_kernel, pallas_call at :238)",
         "gru_bwd": "codebase_tpu/ops/fused_gru.py:105 (_bwd_kernel, pallas_call at :299)",
         "gru_dw": "codebase_tpu/ops/fused_gru.py:160 (_bwd_kernel's dW_hh/db_hh products, :160-165)",
         "gru_reduce": "codebase_tpu/ops/fused_gru.py:166 (_bwd_kernel's in-order dW_hh/db_hh sum, :166-167)",
     }
+    roles = {"a": "rollout", "b": "update", "c": "ragged", "d": "qmix_update", "e": "qmix_rollout",
+             "f": "ac_update", "g": "ac_rollout", "h": "smaclite_qmix_rollout", "i": "smaclite_qmix_update",
+             "j": "smaclite_mappo_update", "k": "smaclite_mappo_rollout", "l": "smaclite_mappo_target",
+             "m": "ac_target", "n": "qmix_eval", "o": "idqn_eval", "p": "mmm2_qmix_rollout",
+             "q": "mmm2_qmix_update", "r": "mmm2_qmix_eval", "s": "mmm2_mappo_rollout", "t": "mmm2_mappo_update",
+             "u": "mmm2_mappo_target", "v": "ragged_h256", "w": "ragged_h384"}
+    resident = [k for k in SHAPES if SHAPES[k]["H"] == 128]
+    wide = [k for k in SHAPES if SHAPES[k]["H"] != 128]
+    phases = {"train": counts, "train_qmix": qmix_counts, "train_mappo": mappo_counts,
+              "train_qmix_smaclite": smac_qmix_counts, "train_mappo_smaclite": smac_mappo_counts,
+              "train_qmix_rware": rware_counts, "train_qmix_mmm2": mmm2_qmix_counts,
+              "train_mappo_mmm2": mmm2_mappo_counts}
     summary = []
-    for k, counter in (("gru_fwd", "fwd"), ("gru_bwd", "bwd"), ("gru_dw", "dw"), ("gru_reduce", "reduce")):
-        summary.append({
-            "name": k,
+    # (name, counter, the kernel's key in the per-shape results, the shapes
+    # it takes, the shape it is timed at and the phase its launches are from)
+    for kernel, counter, k, keys, at, main_phase in (
+            ("gru_fwd", "fwd", "gru_fwd", resident, "b", "train"),
+            ("gru_bwd", "bwd", "gru_bwd", resident, "b", "train"),
+            ("gru_fwd_wide", "fwd_wide", "gru_fwd", wide, "q", "train_qmix_mmm2"),
+            ("gru_bwd_wide", "bwd_wide", "gru_bwd", wide, "q", "train_qmix_mmm2"),
+            ("gru_dw", "dw", "gru_dw", list(SHAPES), "b", "train"),
+            ("gru_reduce", "reduce", "gru_reduce", list(SHAPES), "b", "train")):
+        r = results[at][k]
+        entry = {
+            "name": kernel,
             "route": "cuda",
             "source": "codebase_tpu_torch/csrc/fused_gru.cu",
             "replaces": sources[k],
-            "launches": counts[counter],
-            "launches_train_qmix": qmix_counts[counter],
-            "launches_train_mappo": mappo_counts[counter],
-            "launches_train_qmix_smaclite": smac_qmix_counts[counter],
-            "launches_train_mappo_smaclite": smac_mappo_counts[counter],
-            "launches_train_qmix_rware": rware_counts[counter],
-            "max_abs_err": max(results[s][k]["max_abs_err"] for s in SHAPES),
-            "ms": b[k]["ms"],
-            "plain_ms": b[k]["plain_ms"],
-            "bound_ms": b[k]["bound_ms"],
-            "bound_by": b[k]["bound_by"],
-            "library_ms": b[k]["library_ms"],
-            "library": b[k]["library"],
-            "timed_at": "shape b (G=2 T=26 B=1024 H=128)",
-            **{f"{role}_shape_{key}": {f: results[key][k][f] for f in (
-                "ms", "plain_ms", "library_ms", "library", "bound_ms", "bound_by")}
-               for role, key in (("rollout", "a"), ("qmix_update", "d"), ("qmix_rollout", "e"),
-                                 ("ac_update", "f"), ("ac_rollout", "g"), ("smaclite_qmix_rollout", "h"),
-                                 ("smaclite_qmix_update", "i"), ("smaclite_mappo_update", "j"),
-                                 ("smaclite_mappo_rollout", "k"), ("smaclite_mappo_target", "l"),
-                                 ("ac_target", "m"), ("qmix_eval", "n"), ("idqn_eval", "o"))},
-        })
-    summary[1]["ms_is"] = "the whole backward: gru_bwd_kernel, gru_dw_kernel, gru_reduce_kernel"
-    for f in ("recurrence_ms", "recurrence_plain_ms", "recurrence_bound_ms", "recurrence_bound_by"):
-        summary[1][f] = b["gru_bwd"][f]
-    summary[1]["recurrence_library"] = (
-        "none: no single PyTorch call computes the recurrence without the weight "
-        "gradient (cuDNN's GRU backward forms dW too)")
+            "launches": phases[main_phase][counter],
+            "launches_from": main_phase,
+            **{f"launches_{ph}": c[counter] for ph, c in phases.items()},
+            "max_abs_err": max(results[s][k]["max_abs_err"] for s in keys),
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "library": r["library"],
+            "timed_at": f"shape {at} (G={SHAPES[at]['G']} T={SHAPES[at]['T']} B={SHAPES[at]['B']} H={SHAPES[at]['H']})",
+            **{f"{roles[key]}_shape_{key}": {f: results[key][k][f] for f in (
+                "ms", "plain_ms", "library_ms", "library", "bound_ms", "bound_by")} for key in keys if key != at},
+        }
+        if k == "gru_bwd":
+            entry["ms_is"] = "the whole backward: the recurrence kernel, gru_dw_kernel, gru_reduce_kernel"
+            for f in ("recurrence_ms", "recurrence_plain_ms", "recurrence_bound_ms", "recurrence_bound_by"):
+                entry[f] = r[f]
+            entry["recurrence_library"] = (
+                "none: no single PyTorch call computes the recurrence without the weight "
+                "gradient (cuDNN's GRU backward forms dW too)")
+        summary.append(entry)
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})
 

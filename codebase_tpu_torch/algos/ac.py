@@ -25,7 +25,7 @@ The semantics are the JAX package's (`codebase_tpu/algos/ac.py`):
 - with an env that masks actions (SMAClite), masked logits take -1e8 in
   the sampling policy and in the loss's log-probs and entropy, each step
   with the mask of the observation the action was taken from.
-bfloat16, sweeps' traced hyperparameters and the mesh wait for later slices
+Sweeps' traced hyperparameters and the mesh wait for later slices
 (ROADMAP.md Queue 1).
 """
 
@@ -40,7 +40,7 @@ import torch
 from torch import nn
 from torch.profiler import record_function
 
-from codebase_tpu_torch.algos.common import Adam, hard_update, make_optimizer, soft_update
+from codebase_tpu_torch.algos.common import Adam, early_exit_option, hard_update, make_optimizer, soft_update
 from codebase_tpu_torch.envs.api import Environment
 from codebase_tpu_torch.envs.vector import Rollout, collect_episodes
 from codebase_tpu_torch.envs.wrappers import standardisation_plan
@@ -76,12 +76,6 @@ class ACModel(nn.Module):
 
     @staticmethod
     def create(env: Environment, model_cfg, algo_cfg, generator=None, device="cpu") -> "ACModel":
-        for part in ("actor", "critic"):
-            dtype = str(model_cfg[part].get("dtype", "float32"))
-            if dtype != "float32":
-                raise NotImplementedError(
-                    f"algorithm.model.{part}.dtype={dtype!r} is not ported yet; the port computes in float32"
-                )
         if generator is None:
             generator = torch.Generator().manual_seed(0)
 
@@ -94,6 +88,7 @@ class ACModel(nn.Module):
                 use_rnn=c.use_rnn,
                 use_orthogonal_init=c.use_orthogonal_init,
                 fused_rnn=str(c.get("fused_rnn", "auto")),
+                compute_dtype=str(c.get("dtype", "float32")),
                 generator=generator,
                 device=device,
             )
@@ -272,6 +267,7 @@ def build_train_functions(env: Environment, eval_env: Environment, cfg, time_lim
     n_envs = int(acfg.get("parallel_envs", 1))
     tau = float(acfg.target_update_interval_or_tau)
     reward_plan = standardisation_plan(env)
+    early_exit = early_exit_option(acfg)
 
     def init_state(seed: int) -> ACTrainState:
         init_gen = torch.Generator().manual_seed(int(seed))  # weights, made on the host
@@ -332,6 +328,7 @@ def build_train_functions(env: Environment, eval_env: Environment, cfg, time_lim
                 n_envs,
                 time_limit,
                 bool(acfg.use_proper_termination),
+                early_exit,
             )
         if reward_plan is not None:
             with record_function("ac/reward_stream"):

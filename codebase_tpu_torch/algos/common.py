@@ -1,4 +1,5 @@
-"""Shared training utilities: the optimizer and target-network updates."""
+"""Shared training utilities: the optimizer, target-network updates and the
+early-exit option of the episode collector."""
 
 from __future__ import annotations
 
@@ -68,6 +69,21 @@ def make_optimizer(name: str, params, lr: float, grad_clip=False, clip_mask=None
     if str(name).lower() != "adam":
         raise NotImplementedError(f"optimizer {name!r} is not ported yet; use adam")
     return Adam(params, lr, grad_clip, clip_mask=clip_mask)
+
+
+def early_exit_option(acfg):
+    """The `rollout_early_exit` config key for `collect_episodes`: "auto"
+    (the default: early exit at E >= 512 when the env can end early), or a
+    forced True ("on") or False ("off"). Both give identical rollouts
+    (`envs/vector.py`)."""
+    opt = acfg.get("rollout_early_exit", "auto")
+    if opt in ("auto", None):
+        return "auto"
+    if opt in ("on", True, "true"):
+        return True
+    if opt in ("off", False, "false"):
+        return False
+    raise ValueError(f"rollout_early_exit must be auto/on/off, got {opt!r}")
 
 
 @torch.no_grad()

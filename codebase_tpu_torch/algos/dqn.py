@@ -32,7 +32,7 @@ import torch
 from torch import nn
 from torch.profiler import record_function
 
-from codebase_tpu_torch.algos.common import hard_update, make_optimizer, soft_update
+from codebase_tpu_torch.algos.common import early_exit_option, hard_update, make_optimizer, soft_update
 from codebase_tpu_torch.envs.api import Environment
 from codebase_tpu_torch.envs.vector import collect_episodes
 from codebase_tpu_torch.envs.wrappers import standardisation_plan
@@ -73,8 +73,6 @@ class DQNModel(nn.Module):
         name = model_cfg.get("name", "qnetwork")
         if name not in MIXER_TYPES:
             raise ValueError(f"model.name must be one of {sorted(MIXER_TYPES)}; got {name!r}")
-        if str(model_cfg.get("dtype", "float32")) != "float32":
-            raise NotImplementedError("model.dtype other than float32 is not ported yet")
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         critic = MultiAgentNetwork(
@@ -85,6 +83,7 @@ class DQNModel(nn.Module):
             use_rnn=model_cfg.use_rnn,
             use_orthogonal_init=model_cfg.use_orthogonal_init,
             fused_rnn=str(model_cfg.get("fused_rnn", "auto")),
+            compute_dtype=str(model_cfg.get("dtype", "float32")),
             generator=generator,
             device=device,
         )
@@ -281,6 +280,7 @@ def build_train_functions(env: Environment, eval_env: Environment, cfg, time_lim
         torch, str(acfg.get("replay_obs_dtype", "bfloat16" if env.integer_valued_obs else "float32"))
     )
     reward_plan = standardisation_plan(env)
+    early_exit = early_exit_option(acfg)
 
     def init_state(seed: int) -> DQNTrainState:
         init_gen = torch.Generator().manual_seed(int(seed))  # weights, made on the host
@@ -328,6 +328,7 @@ def build_train_functions(env: Environment, eval_env: Environment, cfg, time_lim
                 n_envs,
                 time_limit,
                 bool(acfg.use_proper_termination),
+                early_exit,
             )
         if reward_plan is not None:
             with record_function("dqn/reward_stream"):

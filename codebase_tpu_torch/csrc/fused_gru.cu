@@ -100,6 +100,36 @@
 // 64 partials, as torch.sum does; 16-byte loads with more of them in flight
 // were measured 4% faster there and not kept.
 //
+// gru_fwd_wide_kernel and gru_bwd_wide_kernel: the same two functions at
+// any H % 128 == 0 from 256 to kMaxH (the TPU kernel takes any H % 128 ==
+// 0 that fits its VMEM budget). W_hh is H x 3H x 4 bytes, 768 KB at H=256
+// and 3 MB at H=512: it does not fit the 227 KB of shared memory a block
+// can have, so these kernels read it from global memory (the L2, 50 MB,
+// holds it: 30 MB for the ten copies of the MMM2 update at G=10) at every
+// step, straight into the registers of the MMA fragments. What bounds them
+// on an H100: that L2 stream (each 16-row tile reads all of W_hh per step:
+// at G=10 T=121 B=256, 160 tiles x 3 MB a step) and the 3xTF32 mma.sync
+// work of the tile, each of the same order. Design (simple first; a
+// cluster split of W_hh over DSMEM is the redesign):
+// - one block per 16-row tile of a group, all T steps (no persistent
+//   grid: W_hh is not staged, so there is nothing to amortise);
+// - the hidden units are walked in chunks of 128 (8 warps x 2 unit blocks
+//   of 8, the H=128 kernels' warp ownership): one thread's accumulators
+//   hold r, z and n of the same (row, unit), so the gates stay in registers;
+// - B fragments: four scalar loads of W_hh[16kp + 4tig + i, 8nt + gid]
+//   (every 32-byte sector read is used), the k order inside a 16-deep slice
+//   permuted as in the H=128 kernels;
+// - forward: the h tile is double-buffered in shared memory (stride H + 16,
+//   16 mod 32: conflict-free A loads), since every chunk reads all of h;
+// - backward: the h_prev tile and the dgh tile (16 x 3H, stride 3H + 16) in
+//   shared memory; dh is carried between steps in dh0 itself, each thread
+//   reading and writing only its own positions; dgh @ W_hh^T reads W_hh by
+//   rows as float4 (W_hh[unit, 16kp + 4tig + 0..3]).
+// gru_dw_kernel serves every H: its 64 x 192 tiles of dW_hh number
+// (H / 64) * (3H / 192), 4 at H=128, 64 at H=512. It is built twice: with
+// H fixed at 128 (index arithmetic folded at compile time; H at run time
+// measured 6-10% slower there on an H100) and with H taken at run time.
+//
 // Rows past the batch edge are masked inside the kernels; there is no
 // padding of time or batch.
 
@@ -108,8 +138,9 @@
 
 namespace {
 
-constexpr int kH = 128;       // hidden size the kernels are built for
+constexpr int kH = 128;       // hidden size of the resident-W_hh kernels
 constexpr int kH3 = 3 * kH;
+constexpr int kMaxH = 896;    // the wide kernels' largest H: the backward's tiles fill shared memory
 
 // the forward's gate: branch-free (division by a 2-ulp reciprocal, no
 // IEEE slow path), so a thread's gates interleave
@@ -643,14 +674,282 @@ gru_bwd_kernel(const float* __restrict__ gi, const float* __restrict__ w_hh,
 }
 
 // ---------------------------------------------------------------------------
+// Wide variants (256 <= H <= kMaxH, H % 128 == 0): W_hh read from the L2
+// ---------------------------------------------------------------------------
+
+constexpr int kChunk = 8 * kUB * kFwdWarps;  // hidden units per pass: 128
+
+// a 16-row tile of a (B, H) matrix m into shared memory at row stride s;
+// rows past B are zero
+__device__ __forceinline__ void load_tile_wide(float* hs, int s, const float* __restrict__ m, int B,
+                                               int r0, int H) {
+  const int q = H / 4;
+  for (int i = threadIdx.x; i < kFwdRows * q; i += kFwdThreads) {
+    const int rr = i / q, c = i % q, row = r0 + rr;
+    *reinterpret_cast<float4*>(hs + rr * s + 4 * c) =
+        row < B ? __ldg(reinterpret_cast<const float4*>(m + (size_t)row * H) + c)
+                : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// first column of this thread's n-tile j (gate j % 3 of unit block
+// uc * 16 + warp * kUB + j / 3) in a row of a (., 3H) matrix
+__device__ __forceinline__ int wide_col(int j, int H, int uc, int warp) {
+  return (j % 3) * H + uc * kChunk + (warp * kUB + j / 3) * 8;
+}
+
+// acc += h @ W_hh at this thread's n-tiles of unit chunk uc: h a 16-row
+// tile at stride s in shared memory, W_hh (H, 3H) row-major in global
+// memory. Each 16-deep slice of k in a fresh accumulator, added in f32.
+__device__ __forceinline__ void wide_product(float (&acc)[kNJ][4], const float* hs, int s,
+                                             const float* __restrict__ w, int H, int uc, int warp,
+                                             int lane) {
+  const int gid = lane >> 2, tig = lane & 3, H3 = 3 * H;
+  int col[kNJ];
+#pragma unroll
+  for (int j = 0; j < kNJ; ++j) col[j] = wide_col(j, H, uc, warp) + gid;
+  const float* wl = w + (size_t)(4 * tig) * H3;
+#pragma unroll 2
+  for (int kp = 0; kp < H / 16; ++kp) {
+    const float4 lo = *reinterpret_cast<const float4*>(hs + gid * s + kp * 16 + 4 * tig);
+    const float4 hi = *reinterpret_cast<const float4*>(hs + (gid + 8) * s + kp * 16 + 4 * tig);
+    uint32_t ab[2][4], as[2][4];
+    split_a(lo, hi, ab, as);
+    const float* wk = wl + (size_t)(kp * 16) * H3;
+#pragma unroll
+    for (int j = 0; j < kNJ; ++j) {
+      const float* src = wk + col[j];
+      uint32_t bb[2][2], bs[2][2];
+      split_b(__ldg(src), __ldg(src + H3), __ldg(src + 2 * H3), __ldg(src + 3 * H3), bb, bs);
+      float part[4] = {0.f, 0.f, 0.f, 0.f};
+      mma_3xtf32_slice(part, ab, as, bb, bs);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][i] += part[i];
+    }
+  }
+}
+
+// acc starts at b_hh, at this thread's columns of unit chunk uc
+__device__ __forceinline__ void wide_bias(float (&acc)[kNJ][4], const float* __restrict__ b, int H,
+                                          int uc, int warp, int tig) {
+#pragma unroll
+  for (int j = 0; j < kNJ; ++j) {
+    const float2 v = __ldg(reinterpret_cast<const float2*>(b + wide_col(j, H, uc, warp) + 2 * tig));
+    acc[j][0] = acc[j][2] = v.x;
+    acc[j][1] = acc[j][3] = v.y;
+  }
+}
+
+// gi (B rows of 3H at `rows`) at this thread's accumulator positions of
+// unit chunk uc; rows past B read as zero
+__device__ __forceinline__ void wide_gi(float2 (&gv)[2][kNJ], const float* __restrict__ rows, int B,
+                                        int r0, int H, int uc, int warp, int gid, int tig) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = r0 + gid + 8 * half;
+#pragma unroll
+    for (int j = 0; j < kNJ; ++j)
+      gv[half][j] = row < B ? __ldg(reinterpret_cast<const float2*>(
+                                  rows + (size_t)row * 3 * H + wide_col(j, H, uc, warp) + 2 * tig))
+                            : make_float2(0.f, 0.f);
+  }
+}
+
+// unit of this thread's position u in unit chunk uc
+__device__ __forceinline__ int wide_unit(int uc, int warp, int u, int tig) {
+  return uc * kChunk + (warp * kUB + u) * 8 + 2 * tig;
+}
+
+// grid (ceil(B / 16), G), kFwdThreads threads, 2 * 16 * (H + 16) floats of
+// dynamic shared memory: block x of group g runs row tile x over all T
+// steps.
+__global__ void __launch_bounds__(kFwdThreads, 2)
+gru_fwd_wide_kernel(const float* __restrict__ gi, const float* __restrict__ w_hh,
+                    const float* __restrict__ b_hh, const float* __restrict__ h0,
+                    float* __restrict__ y, float* __restrict__ hT, int T, int B, int H) {
+  extern __shared__ __align__(16) float smem[];
+  const int s = H + 16;  // 16 mod 32
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int g = blockIdx.y, r0 = blockIdx.x * kFwdRows;
+  const int H3 = 3 * H, chunks = H / kChunk;
+  const float* w = w_hh + (size_t)g * H * H3;
+  const float* bg = b_hh + (size_t)g * H3;
+  float* hbuf[2] = {smem, smem + kFwdRows * s};
+  load_tile_wide(hbuf[0], s, h0 + (size_t)g * B * H, B, r0, H);
+  __syncthreads();
+
+  for (int t = 0; t < T; ++t) {
+    const size_t base = ((size_t)g * T + t) * B;
+    const float* hs = hbuf[t & 1];
+    float* hn_s = hbuf[(t & 1) ^ 1];
+    const bool last = t == T - 1;
+    for (int uc = 0; uc < chunks; ++uc) {
+      float2 gv[2][kNJ];
+      wide_gi(gv, gi + base * H3, B, r0, H, uc, warp, gid, tig);
+      float acc[kNJ][4];
+      wide_bias(acc, bg, H, uc, warp, tig);
+      wide_product(acc, hs, s, w, H, uc, warp, lane);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int lr = gid + 8 * half, row = r0 + lr;
+        const int c = 2 * half;
+#pragma unroll
+        for (int u = 0; u < kUB; ++u) {
+          const int unit = wide_unit(uc, warp, u, tig);
+          const float2 hp = *reinterpret_cast<const float2*>(hs + lr * s + unit);
+          const float2 gr = gv[half][3 * u], gz = gv[half][3 * u + 1], gn = gv[half][3 * u + 2];
+          float2 hn;
+          hn.x = gru_gate(gr.x, gz.x, gn.x, acc[3 * u][c], acc[3 * u + 1][c], acc[3 * u + 2][c], hp.x);
+          hn.y = gru_gate(gr.y, gz.y, gn.y, acc[3 * u][c + 1], acc[3 * u + 1][c + 1],
+                          acc[3 * u + 2][c + 1], hp.y);
+          // the next step's tile: a buffer no chunk of this step reads
+          *reinterpret_cast<float2*>(hn_s + lr * s + unit) = hn;
+          if (row < B) {
+            *reinterpret_cast<float2*>(y + (base + row) * H + unit) = hn;
+            if (last) *reinterpret_cast<float2*>(hT + ((size_t)g * B + row) * H + unit) = hn;
+          }
+        }
+      }
+    }
+    __syncthreads();  // the next step's tile is complete; every read of this one is done
+  }
+}
+
+// grid (ceil(B / 16), G), kFwdThreads threads, 16 * (4H + 32) floats of
+// dynamic shared memory: block x of group g runs row tile x in reverse
+// time. Writes dgi, dgh_n and dh0, which carries dh between steps.
+__global__ void __launch_bounds__(kFwdThreads, 1)
+gru_bwd_wide_kernel(const float* __restrict__ gi, const float* __restrict__ w_hh,
+                    const float* __restrict__ b_hh, const float* __restrict__ h0,
+                    const float* __restrict__ y, const float* __restrict__ dy,
+                    const float* __restrict__ dhT, float* __restrict__ dgi,
+                    float* __restrict__ dh0, float* __restrict__ dgh_n, int T, int B, int H) {
+  extern __shared__ __align__(16) float smem[];
+  const int s = H + 16, ds_s = 3 * H + 16;  // both 16 mod 32
+  float* hs = smem;                         // (16, s) h_prev tile
+  float* ds = smem + kFwdRows * s;          // (16, ds_s) dgh tile
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int g = blockIdx.y, r0 = blockIdx.x * kFwdRows;
+  const int H3 = 3 * H, chunks = H / kChunk;
+  const float* w = w_hh + (size_t)g * H * H3;
+  const float* bg = b_hh + (size_t)g * H3;
+  const float* yg = y + (size_t)g * T * B * H;
+  const float* h0g = h0 + (size_t)g * B * H;
+  float* dhg = dh0 + (size_t)g * B * H;  // dh at this thread's positions
+  for (int uc = 0; uc < chunks; ++uc)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = r0 + gid + 8 * half;
+#pragma unroll
+      for (int u = 0; u < kUB; ++u) {
+        const size_t at = (size_t)row * H + wide_unit(uc, warp, u, tig);
+        if (row < B)
+          *reinterpret_cast<float2*>(dhg + at) =
+              __ldg(reinterpret_cast<const float2*>(dhT + (size_t)g * B * H + at));
+      }
+    }
+  load_tile_wide(hs, s, T > 1 ? yg + (size_t)(T - 2) * B * H : h0g, B, r0, H);
+  __syncthreads();
+
+  for (int t = T - 1; t >= 0; --t) {
+    const size_t base = ((size_t)g * T + t) * B;
+    // the gates' backward, chunk by chunk: dgi and dgh_n out, dgh into the
+    // tile, dh_total * z (the direct path to dh_{t-1}) into dh0
+    for (int uc = 0; uc < chunks; ++uc) {
+      float2 gv[2][kNJ];
+      wide_gi(gv, gi + base * H3, B, r0, H, uc, warp, gid, tig);
+      float acc[kNJ][4];
+      wide_bias(acc, bg, H, uc, warp, tig);
+      wide_product(acc, hs, s, w, H, uc, warp, lane);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int lr = gid + 8 * half, row = r0 + lr;
+        const int c = 2 * half;
+#pragma unroll
+        for (int u = 0; u < kUB; ++u) {
+          const int unit = wide_unit(uc, warp, u, tig);
+          const float2 hp = *reinterpret_cast<const float2*>(hs + lr * s + unit);
+          float2 dht = make_float2(0.f, 0.f);
+          if (row < B) {
+            const float2 dyv = __ldg(reinterpret_cast<const float2*>(dy + (base + row) * H + unit));
+            const float2 dhv = *reinterpret_cast<const float2*>(dhg + (size_t)row * H + unit);
+            dht = make_float2(dyv.x + dhv.x, dyv.y + dhv.y);
+          }
+          const float2 xr = gv[half][3 * u], xz = gv[half][3 * u + 1], xn = gv[half][3 * u + 2];
+          float2 d_r, d_z, d_n, d_gn, carry;
+          gru_gate_bwd(xr.x, xz.x, xn.x, acc[3 * u][c], acc[3 * u + 1][c], acc[3 * u + 2][c], hp.x,
+                       dht.x, d_r.x, d_z.x, d_n.x, d_gn.x, carry.x);
+          gru_gate_bwd(xr.y, xz.y, xn.y, acc[3 * u][c + 1], acc[3 * u + 1][c + 1],
+                       acc[3 * u + 2][c + 1], hp.y, dht.y, d_r.y, d_z.y, d_n.y, d_gn.y, carry.y);
+          // rows past B: dht is zero, so every gradient there is zero
+          *reinterpret_cast<float2*>(ds + lr * ds_s + unit) = d_r;
+          *reinterpret_cast<float2*>(ds + lr * ds_s + H + unit) = d_z;
+          *reinterpret_cast<float2*>(ds + lr * ds_s + 2 * H + unit) = d_gn;
+          if (row < B) {
+            float* dgir = dgi + (base + row) * H3 + unit;
+            *reinterpret_cast<float2*>(dgir) = d_r;
+            *reinterpret_cast<float2*>(dgir + H) = d_z;
+            *reinterpret_cast<float2*>(dgir + 2 * H) = d_n;
+            *reinterpret_cast<float2*>(dgh_n + (base + row) * H + unit) = d_gn;
+            *reinterpret_cast<float2*>(dhg + (size_t)row * H + unit) = carry;
+          }
+        }
+      }
+    }
+    __syncthreads();  // the dgh tile is complete; every read of the h_prev tile is done
+    if (t > 0) load_tile_wide(hs, s, t > 1 ? yg + (size_t)(t - 2) * B * H : h0g, B, r0, H);
+
+    // dh_{t-1} = dh_total * z + dgh @ W_hh^T, on the same (row, unit)
+    // positions as the gates: B fragments W_hh[unit, 16kp + 4tig + 0..3]
+    for (int uc = 0; uc < chunks; ++uc) {
+      float dacc[kUB][4] = {};
+      const float* wr[kUB];
+#pragma unroll
+      for (int u = 0; u < kUB; ++u)
+        wr[u] = w + (size_t)(uc * kChunk + (warp * kUB + u) * 8 + gid) * H3 + 4 * tig;
+#pragma unroll 2
+      for (int kp = 0; kp < H3 / 16; ++kp) {
+        const float4 lo = *reinterpret_cast<const float4*>(ds + gid * ds_s + kp * 16 + 4 * tig);
+        const float4 hi = *reinterpret_cast<const float4*>(ds + (gid + 8) * ds_s + kp * 16 + 4 * tig);
+        uint32_t ab[2][4], as[2][4];
+        split_a(lo, hi, ab, as);
+#pragma unroll
+        for (int u = 0; u < kUB; ++u) {
+          const float4 wv = __ldg(reinterpret_cast<const float4*>(wr[u] + kp * 16));
+          uint32_t bb[2][2], bs[2][2];
+          split_b(wv.x, wv.y, wv.z, wv.w, bb, bs);
+          float part[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_3xtf32_slice(part, ab, as, bb, bs);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) dacc[u][i] += part[i];
+        }
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = r0 + gid + 8 * half;
+#pragma unroll
+        for (int u = 0; u < kUB; ++u) {
+          float2* at = reinterpret_cast<float2*>(dhg + (size_t)row * H + wide_unit(uc, warp, u, tig));
+          if (row < B) {
+            const float2 carry = *at;
+            *at = make_float2(carry.x + dacc[u][2 * half], carry.y + dacc[u][2 * half + 1]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the next h_prev tile has landed; every read of the dgh tile is done
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Backward, kernel 2: dW_hh = sum_k h_prev[k]^T dgh[k], a long-K product
 // (tensor cores, 3xTF32)
 // ---------------------------------------------------------------------------
 
 constexpr int kDwK = 64;              // rows of k per staged chunk
 constexpr int kDwM = 64, kDwN = 192;  // a block's tile of dW_hh (H x 3H)
-constexpr int kDwTilesN = kH3 / kDwN;
-constexpr int kDwTiles = (kH / kDwM) * kDwTilesN;
 constexpr int kDwHS = kDwM + 8;       // staged row strides, 8 mod 32: the
 constexpr int kDwGS = kDwN + 8;       // scalar fragment loads are conflict-free
 constexpr int kDwStage = kDwK * (kDwHS + kDwGS);
@@ -670,29 +969,34 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// grid (P, kDwTiles, G), kFwdThreads threads, kDwSmem bytes of dynamic
-// shared memory. Block (p, tile, g) sums rows [p * rows, (p + 1) * rows) of
+// grid (P, (H / kDwM) * (3H / kDwN), G), kFwdThreads threads, kDwSmem
+// bytes of dynamic shared memory. kHc: the hidden size fixed at compile
+// time (kH: the H=128 instance, whose index arithmetic folds to shifts),
+// or 0 to take it from h_size at run time (the wide sizes). Block (p, tile, g) sums rows [p * rows, (p + 1) * rows) of
 // k over T * B for its kDwM x kDwN tile of dW_hh[g], and writes them into
 // partials[g, p] (laid out [dW_hh (H x 3H) | db_hh (3H)]); the blocks of the
 // first row of tiles also sum db_hh over their columns. Row k of h_prev is
 // h0[g, k] for k < B, else row k - B of y[g] (time-major over (T, B)); row k
 // of dgh is [dgi[g, k, :2H] | dgh_n[g, k]].
+template <int kHc>
 __global__ void __launch_bounds__(kFwdThreads, 1)
 gru_dw_kernel(const float* __restrict__ h0, const float* __restrict__ y,
               const float* __restrict__ dgi, const float* __restrict__ dgh_n,
-              float* __restrict__ partials, int T, int B, int rows) {
+              float* __restrict__ partials, int T, int B, int h_size, int rows) {
   extern __shared__ __align__(16) float smem[];
+  const int H = kHc ? kHc : h_size;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;
   const int p = blockIdx.x, g = blockIdx.z;
-  const int m0 = (blockIdx.y / kDwTilesN) * kDwM, n0 = (blockIdx.y % kDwTilesN) * kDwN;
+  const int H3 = 3 * H, tiles_n = H3 / kDwN;
+  const int m0 = (blockIdx.y / tiles_n) * kDwM, n0 = (blockIdx.y % tiles_n) * kDwN;
   const int K = T * B;
   const int k0 = p * rows, k1 = min(K, k0 + rows);
   const int n_chunks = k1 > k0 ? (k1 - k0 + kDwK - 1) / kDwK : 0;
-  const float* h0g = h0 + (size_t)g * B * kH;
-  const float* yg = y + (size_t)g * T * B * kH;
-  const float* dgig = dgi + (size_t)g * K * kH3;
-  const float* dgng = dgh_n + (size_t)g * K * kH;
+  const float* h0g = h0 + (size_t)g * B * H;
+  const float* yg = y + (size_t)g * T * B * H;
+  const float* dgig = dgi + (size_t)g * K * H3;
+  const float* dgng = dgh_n + (size_t)g * K * H;
 
   // chunk c (rows k0 + c * kDwK, ...) into buf: h_prev rows at stride kDwHS, then dgh rows
   auto stage = [&](int c, float* buf) {
@@ -700,14 +1004,14 @@ gru_dw_kernel(const float* __restrict__ h0, const float* __restrict__ y,
     for (int i = tid; i < kDwK * kDwM / 4; i += kFwdThreads) {
       const int rr = i / (kDwM / 4), q = i % (kDwM / 4), k = kc + rr;
       const bool ok = k < k1;
-      const float* row = k < B ? h0g + (size_t)k * kH : yg + (size_t)(k - B) * kH;
+      const float* row = k < B ? h0g + (size_t)k * H : yg + (size_t)(k - B) * H;
       cp_async16(buf + rr * kDwHS + 4 * q, ok ? row + m0 + 4 * q : h0g, ok);
     }
     float* gs = buf + kDwK * kDwHS;
     for (int i = tid; i < kDwK * kDwN / 4; i += kFwdThreads) {
       const int rr = i / (kDwN / 4), q = i % (kDwN / 4), k = kc + rr, col = n0 + 4 * q;
       const bool ok = k < k1;
-      const float* src = col < 2 * kH ? dgig + (size_t)k * kH3 + col : dgng + (size_t)k * kH + col - 2 * kH;
+      const float* src = col < 2 * H ? dgig + (size_t)k * H3 + col : dgng + (size_t)k * H + col - 2 * H;
       cp_async16(gs + rr * kDwGS + 4 * q, ok ? src : dgig, ok);
     }
   };
@@ -778,16 +1082,16 @@ gru_dw_kernel(const float* __restrict__ h0, const float* __restrict__ y,
     }
   }
 
-  float* out = partials + ((size_t)g * gridDim.x + p) * (kH * kH3 + kH3);
+  float* out = partials + ((size_t)g * gridDim.x + p) * ((size_t)H * H3 + H3);
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
     for (int ni = 0; ni < 6; ++ni) {
       const int m = m0 + wm * 32 + mi * 16 + gid, n = n0 + wn * 48 + ni * 8 + 2 * tig;
-      *reinterpret_cast<float2*>(out + (size_t)m * kH3 + n) = make_float2(acc[mi][ni][0], acc[mi][ni][1]);
-      *reinterpret_cast<float2*>(out + (size_t)(m + 8) * kH3 + n) = make_float2(acc[mi][ni][2], acc[mi][ni][3]);
+      *reinterpret_cast<float2*>(out + (size_t)m * H3 + n) = make_float2(acc[mi][ni][0], acc[mi][ni][1]);
+      *reinterpret_cast<float2*>(out + (size_t)(m + 8) * H3 + n) = make_float2(acc[mi][ni][2], acc[mi][ni][3]);
     }
-  if (do_db) out[kH * kH3 + n0 + tid] = db;
+  if (do_db) out[(size_t)H * H3 + n0 + tid] = db;
 }
 
 // ---------------------------------------------------------------------------
@@ -810,10 +1114,13 @@ __global__ void gru_reduce_kernel(const float* __restrict__ partials, float* __r
 
 extern "C" {
 
-int gru_kernel_hidden() { return kH; }
+int gru_max_hidden() { return kMaxH; }
 int gru_fwd_rows() { return kFwdRows; }
 int gru_dw_chunk() { return kDwK; }
-int gru_dw_tiles() { return kDwTiles; }
+int gru_dw_tiles(int H) { return (H / kDwM) * (3 * H / kDwN); }
+
+// the sizes the kernels take: H = kH (resident W_hh), or the wide kernels
+static bool wide_hidden(int H) { return H > kH && H <= kMaxH && H % kChunk == 0; }
 
 // Each launcher returns cudaGetLastError() after its launch (0 = success).
 // blocks_per_group: the persistent grid's blocks for each group. Pointers
@@ -843,19 +1150,47 @@ int gru_bwd(const float* gi, const float* w_hh, const float* b_hh, const float* 
   return (int)cudaGetLastError();
 }
 
+// the wide variants: one block per 16-row tile of each group
+int gru_fwd_wide(const float* gi, const float* w_hh, const float* b_hh, const float* h0, float* y,
+                 float* hT, int G, int T, int B, int H, void* stream) {
+  if (!wide_hidden(H) || G < 1 || T < 1 || B < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)2 * kFwdRows * (H + 16) * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(gru_fwd_wide_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  gru_fwd_wide_kernel<<<dim3((B + kFwdRows - 1) / kFwdRows, G), kFwdThreads, smem, s>>>(
+      gi, w_hh, b_hh, h0, y, hT, T, B, H);
+  return (int)cudaGetLastError();
+}
+
+int gru_bwd_wide(const float* gi, const float* w_hh, const float* b_hh, const float* h0,
+                 const float* y, const float* dy, const float* dhT, float* dgi, float* dh0,
+                 float* dgh_n, int G, int T, int B, int H, void* stream) {
+  if (!wide_hidden(H) || G < 1 || T < 1 || B < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)kFwdRows * (4 * H + 32) * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(gru_bwd_wide_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  gru_bwd_wide_kernel<<<dim3((B + kFwdRows - 1) / kFwdRows, G), kFwdThreads, smem, s>>>(
+      gi, w_hh, b_hh, h0, y, dy, dhT, dgi, dh0, dgh_n, T, B, H);
+  return (int)cudaGetLastError();
+}
+
 // P blocks per tile of dW_hh, each summing `rows` rows of k (a multiple of
 // gru_dw_chunk()); partials (G, P, H * 3H + 3H)
 int gru_dw(const float* h0, const float* y, const float* dgi, const float* dgh_n, float* partials,
            int G, int T, int B, int H, int P, int rows, void* stream) {
-  if (H != kH || G < 1 || T < 1 || B < 1 || P < 1 || rows < 1 || rows % kDwK ||
+  if (!(H == kH || wide_hidden(H)) || G < 1 || T < 1 || B < 1 || P < 1 || rows < 1 || rows % kDwK ||
       (long long)P * rows < (long long)T * B)
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(gru_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)kDwSmem);
+  auto kernel = H == kH ? gru_dw_kernel<kH> : gru_dw_kernel<0>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDwSmem);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  gru_dw_kernel<<<dim3(P, kDwTiles, G), kFwdThreads, kDwSmem, s>>>(h0, y, dgi, dgh_n, partials, T,
-                                                                   B, rows);
+  kernel<<<dim3(P, gru_dw_tiles(H), G), kFwdThreads, kDwSmem, s>>>(h0, y, dgi, dgh_n, partials, T, B, H,
+                                                                   rows);
   return (int)cudaGetLastError();
 }
 

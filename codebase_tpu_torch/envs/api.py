@@ -84,6 +84,14 @@ class Environment:
         replay storage is lossless."""
         return False
 
+    @property
+    def early_termination_possible(self) -> bool:
+        """False when episodes can only end at the env's fixed horizon
+        (RWARE). The early-exit collector could then never stop before the
+        time limit, so `early_exit="auto"` does not check. True by default
+        (LBF ends when the food is collected, SMAClite on elimination)."""
+        return True
+
 
 def gumbel_argmax(allowed: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     """Uniform choice among the allowed rows of each column: argmax of

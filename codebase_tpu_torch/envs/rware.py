@@ -98,6 +98,10 @@ class RWARE(Environment):
         return True  # coords, flags and one-hots: bf16 replay is exact
 
     @property
+    def early_termination_possible(self) -> bool:
+        return False  # episodes end only at the fixed horizon (`terminated = t >= max_steps`)
+
+    @property
     def obs_dim(self) -> int:
         w = 2 * self.sensor_range + 1
         return 8 + w * w * 5 + w * w * 2

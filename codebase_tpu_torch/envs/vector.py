@@ -7,8 +7,16 @@ The same semantics as the JAX package's `collect_episodes` (scan path):
   zero, `filled` is 0 and `action_mask` is ones;
 - `dones` stores termination per `use_proper_termination`: when False,
   truncation counts as termination for the learner.
-The early-exit variant (stop at the first step with no running env) waits
-for a later slice; it gives identical outputs.
+The early-exit variant stops at the first step with no running env and
+fills the steps not taken as the loop fills finished envs (zeros, masks of
+ones), so its rollout is identical; the returned policy carry is the one at
+the stop, as in the JAX package's while_loop. Its test for a running env is
+a host sync per step.
+
+Random draws: the rollout (reset, policy, env step) draws from a generator
+of its own, seeded by one draw of the caller's, so the caller's generator
+ends in the same state whether or not the loop stops early (the JAX package
+presplits one key per step, and a skipped step leaves the rest untouched).
 """
 
 from __future__ import annotations
@@ -58,19 +66,29 @@ def collect_episodes(
     n_envs: int,
     time_limit: int,
     use_proper_termination: bool = False,
+    early_exit="auto",
 ):
     """Collect one full (padded) episode from each of `n_envs` instances.
 
     `policy(carry, obs (E, N, D), mask (E, N, A), generator) -> (carry,
     actions (E, N))`; the carry typically holds RNN hiddens and is
-    re-initialised by the caller per rollout. Returns (Rollout, final carry).
+    re-initialised by the caller per rollout. `early_exit`: True, False or
+    "auto", which stops early only for wide batches (E >= 512) of an env
+    that can end before its time limit, the JAX package's rule. Returns
+    (Rollout, final carry).
     """
+    if early_exit == "auto":
+        early_exit = n_envs >= 512 and env.early_termination_possible
+    seed = torch.randint(2**62, (), generator=generator, device=generator.device)
+    generator = torch.Generator(device=generator.device).manual_seed(int(seed))
     states, ts = env.reset_batch(generator, n_envs)
     obs0, mask0 = ts.obs, ts.action_mask
     running = torch.ones((n_envs,), dtype=torch.bool, device=ts.obs.device)
     carry = policy_carry
     out = {k: [] for k in ("obs", "actions", "rewards", "stat_rewards", "dones", "filled", "action_mask")}
     for _ in range(time_limit):
+        if early_exit and not bool(running.any()):
+            break
         carry, actions = policy(carry, ts.obs, ts.action_mask, generator)
         with record_function("env/step"):  # read by `codebase_tpu_torch.profile`
             states, ts = env.step_batch(states, actions, generator, ts.action_mask)
@@ -87,6 +105,10 @@ def collect_episodes(
             torch.where(running[:, None, None], ts.action_mask, torch.ones_like(ts.action_mask))
         )
         running = running & ~done
+    skipped = time_limit - len(out["filled"])  # the steps an early exit did not take
+    if skipped:
+        for k, steps in out.items():
+            steps += [(torch.ones_like if k == "action_mask" else torch.zeros_like)(steps[-1])] * skipped
 
     rollout = Rollout(
         obs=torch.stack([obs0] + out["obs"]),

@@ -47,6 +47,10 @@ class WrapperBase(Environment):
         # as they are, so integrality is the base env's
         return self.env.integer_valued_obs
 
+    @property
+    def early_termination_possible(self):
+        return self.env.early_termination_possible
+
     def reset_batch(self, generator, n):
         return self.env.reset_batch(generator, n)
 

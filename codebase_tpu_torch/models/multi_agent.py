@@ -64,6 +64,7 @@ class MultiAgentNetwork(nn.Module):
         use_rnn=False,
         use_orthogonal_init: bool = True,
         fused_rnn: str = "auto",
+        compute_dtype: str = "float32",
         generator: torch.Generator = None,
         device="cpu",
     ):
@@ -80,7 +81,7 @@ class MultiAgentNetwork(nn.Module):
         self.n_groups = max(self.sharing) + 1
         self.use_rnn = bool(use_rnn)
         dims = (int(input_sizes[0]),) + tuple(int(h) for h in hidden_dims) + (int(output_sizes[0]),)
-        self.spec = make_network_spec(dims, use_rnn, use_orthogonal_init, "float32", fused_rnn)
+        self.spec = make_network_spec(dims, use_rnn, use_orthogonal_init, compute_dtype, fused_rnn)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.params = tree_to_module(_stack([self.spec.init(generator) for _ in range(self.n_groups)]))

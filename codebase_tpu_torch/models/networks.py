@@ -11,17 +11,26 @@ Initialisation matches the JAX package (and the reference):
   `use_orthogonal_init`, else torch's Linear default U(+-sqrt(1/fan_in)).
 - RNN: first Linear and GRU/LSTM use torch defaults; only the final Linear
   is orthogonally initialised. GRU and LSTM weights use U(+-1/sqrt(hidden)).
+
+`compute_dtype="bfloat16"` is the JAX package's mixed precision: every
+matmul (MLP layers, the RNN's first and final layers, the GRU's input
+projection, the per-step GRU and LSTM cells) takes bf16 inputs and gives an
+f32 result (`ops/matmul.py`); biases, activations, the GRU kernels'
+recurrence and everything downstream stay f32.
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Tuple
 
 import torch
 
-from codebase_tpu_torch.ops.fused_gru import gru_layer_sequence
+from codebase_tpu_torch.ops.fused_gru import MAX_HIDDEN, gru_layer_sequence, kernel_variant
+from codebase_tpu_torch.ops.matmul import grouped_matmul
+
+DTYPES = ("float32", "bfloat16")
 
 # ---------------------------------------------------------------------------
 # Initialisers (one network; CPU tensors from a CPU generator)
@@ -82,30 +91,31 @@ def gru_layer_init(in_dim: int, hidden: int, generator: torch.Generator):
 # ---------------------------------------------------------------------------
 
 
-def linear(x, w, b):
+def linear(x, w, b, compute_dtype="float32"):
     """x (G, ..., in), w (G, in, out), b (G, out) -> (G, ..., out)."""
     G = x.shape[0]
-    y = torch.bmm(x.reshape(G, -1, x.shape[-1]), w).view(*x.shape[:-1], w.shape[-1])
+    y = grouped_matmul(x.reshape(G, -1, x.shape[-1]), w, compute_dtype).view(*x.shape[:-1], w.shape[-1])
     return y + b.view((G,) + (1,) * (x.ndim - 2) + (w.shape[-1],))
 
 
-def gru_cell(params, x, h):
+def gru_cell(params, x, h, compute_dtype="float32"):
     """One GRU step, torch gate convention. x (G, B, in), h (G, B, H)."""
     H = h.shape[-1]
-    gi = linear(x, params["w_ih"], params["b_ih"])
-    gh = linear(h, params["w_hh"], params["b_hh"])
+    gi = linear(x, params["w_ih"], params["b_ih"], compute_dtype)
+    gh = linear(h, params["w_hh"], params["b_hh"], compute_dtype)
     r = torch.sigmoid(gi[..., :H] + gh[..., :H])
     z = torch.sigmoid(gi[..., H : 2 * H] + gh[..., H : 2 * H])
     n = torch.tanh(gi[..., 2 * H :] + r * gh[..., 2 * H :])
     return (1.0 - z) * n + z * h
 
 
-def lstm_cell(params, x, hc):
+def lstm_cell(params, x, hc, compute_dtype="float32"):
     """One LSTM step, torch gate convention. x (G, B, in); hc (G, B, 2H) is
     h and c concatenated, so the carry is one tensor like the GRU's."""
     H = hc.shape[-1] // 2
     h, c = hc[..., :H], hc[..., H:]
-    gates = linear(x, params["w_ih"], params["b_ih"]) + linear(h, params["w_hh"], params["b_hh"])
+    gates = linear(x, params["w_ih"], params["b_ih"], compute_dtype) + linear(
+        h, params["w_hh"], params["b_hh"], compute_dtype)
     i = torch.sigmoid(gates[..., :H])
     f = torch.sigmoid(gates[..., H : 2 * H])
     g = torch.tanh(gates[..., 2 * H : 3 * H])
@@ -125,6 +135,7 @@ class MLPSpec:
 
     dims: Tuple[int, ...]  # (in, h1, ..., out)
     use_orthogonal_init: bool = True
+    compute_dtype: str = "float32"
 
     def init(self, generator):
         return {
@@ -138,7 +149,7 @@ class MLPSpec:
         """x (G, ..., in) -> (G, ..., out); ReLU between layers."""
         n = len(params["layers"])
         for i, layer in enumerate(params["layers"]):
-            x = linear(x, layer["w"], layer["b"])
+            x = linear(x, layer["w"], layer["b"], self.compute_dtype)
             if i < n - 1:
                 x = torch.relu(x)
         return x, h
@@ -156,18 +167,31 @@ class RNNSpec:
     layers, all hidden sizes equal. Hidden state (G, L, B, C): C = H for the
     GRU, 2H (h and c concatenated) for the LSTM.
 
-    `fused_rnn`: on a CUDA tensor "auto" and "on" run every GRU layer
-    through the CUDA kernels (`ops/fused_gru.py`); "off" is the explicit
-    request for the plain per-step recurrence and is never chosen
-    automatically. On a CPU tensor every mode computes the plain recurrence.
-    The LSTM has no kernel in either package: it always runs the plain
-    per-step cell, and "on" with the LSTM raises.
+    `route`, decided from the cell, `fused_rnn` and the hidden size H when
+    the spec is built, says how every recurrent layer runs, as the JAX
+    package decides where its TPU kernel applies:
+
+    | GRU, H | "auto" | "on" |
+    |---|---|---|
+    | H = 128 | "kernel_resident" | "kernel_resident" |
+    | H % 128 == 0, 256 <= H <= 896 | "kernel_wide" | "kernel_wide" |
+    | any other H | "cell" | ValueError |
+
+    "off" and the LSTM (no kernel in either package; "on" with it raises)
+    take "cell", the per-step recurrence, with `gh` from bf16 inputs under
+    bf16 as the JAX package's scan. The kernel routes run the GRU kernels
+    of `ops/fused_gru.py` on a CUDA tensor (they launch or raise) and their
+    plain version on a CPU tensor, with `gh` in f32 at every dtype: the JAX
+    package's `fused_rnn="on"` (its "interpret" on the CPU), not its "auto",
+    which always scans.
     """
 
     dims: Tuple[int, ...]
     use_orthogonal_init: bool = True
     fused_rnn: str = "auto"
     cell: str = "gru"  # "gru" | "lstm"
+    compute_dtype: str = "float32"
+    route: str = field(init=False)
 
     def __post_init__(self):
         hiddens = self.dims[1:-1]
@@ -177,6 +201,13 @@ class RNNSpec:
             )
         if self.cell == "lstm" and self.fused_rnn == "on":
             raise ValueError("fused_rnn=on requires the GRU cell")
+        variant = kernel_variant(self.hidden_size) if self.cell == "gru" and self.fused_rnn != "off" else None
+        if self.fused_rnn == "on" and variant is None:
+            raise ValueError(
+                f"fused_rnn=on needs a hidden size the GRU kernels take (H % 128 == 0, up to "
+                f"{MAX_HIDDEN}); got {self.hidden_size}"
+            )
+        object.__setattr__(self, "route", f"kernel_{variant}" if variant else "cell")
 
     @property
     def hidden_size(self):
@@ -204,23 +235,24 @@ class RNNSpec:
         G, T, B, _ = x.shape
         if h is None:
             h = self.init_hiddens(G, B, x.device)
-        x = torch.relu(linear(x, params["first"]["w"], params["first"]["b"]))
+        dtype = self.compute_dtype
+        x = torch.relu(linear(x, params["first"]["w"], params["first"]["b"], dtype))
         H = self.hidden_size
         cell = lstm_cell if self.cell == "lstm" else gru_cell
         new_h = []
         for i, layer in enumerate(params["rnn"]):
             h0 = h[:, i].contiguous()
-            if self.cell == "lstm" or self.fused_rnn == "off":
+            if self.route == "cell":
                 ys = []
                 hl = h0
                 for t in range(T):
-                    hl = cell(layer, x[:, t], hl)
+                    hl = cell(layer, x[:, t], hl, dtype)
                     ys.append(hl[..., :H])  # the layer's output is h only
                 x = torch.stack(ys, dim=1)
             else:
-                x, hl = gru_layer_sequence(layer, x, h0)
+                x, hl = gru_layer_sequence(layer, x, h0, dtype)
             new_h.append(hl)
-        y = linear(x, params["final"]["w"], params["final"]["b"])
+        y = linear(x, params["final"]["w"], params["final"]["b"], dtype)
         return y, torch.stack(new_h, dim=1)
 
     def init_hiddens(self, G: int, batch_size: int, device):
@@ -251,12 +283,10 @@ def normalize_fused_rnn(fused_rnn) -> str:
 
 def make_network_spec(dims, use_rnn=False, use_orthogonal_init=True, compute_dtype="float32", fused_rnn="auto"):
     """`make_network` switch: an RNNSpec when `use_rnn`, else an MLPSpec."""
-    if compute_dtype != "float32":
-        raise NotImplementedError(
-            f"model dtype {compute_dtype!r} is not ported yet; the port computes in float32"
-        )
+    if compute_dtype not in DTYPES:
+        raise ValueError(f"unsupported model dtype {compute_dtype!r}; choose float32 or bfloat16")
     dims = tuple(int(d) for d in dims)
     cell = normalize_rnn_cell(use_rnn)
     if cell:
-        return RNNSpec(dims, bool(use_orthogonal_init), normalize_fused_rnn(fused_rnn), cell)
-    return MLPSpec(dims, bool(use_orthogonal_init))
+        return RNNSpec(dims, bool(use_orthogonal_init), normalize_fused_rnn(fused_rnn), cell, compute_dtype)
+    return MLPSpec(dims, bool(use_orthogonal_init), compute_dtype)

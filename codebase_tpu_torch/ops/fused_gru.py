@@ -1,10 +1,11 @@
 """GRU recurrence over a whole sequence: hand-written CUDA kernels + plain version.
 
 Replaces the Pallas TPU kernels of the JAX package's `ops/fused_gru.py`
-(`_fwd_kernel`, `_bwd_kernel`) with four kernels in `csrc/fused_gru.cu`,
-each forming its products on tensor cores in 3xTF32 (each operand split
-into two TF32 parts, three products summed in f32), so results stay at f32
-level:
+(`_fwd_kernel`, `_bwd_kernel`) with kernels in `csrc/fused_gru.cu`, each
+forming its products on tensor cores in 3xTF32 (each operand split into two
+TF32 parts, three products summed in f32), so results stay at f32 level.
+They take what the TPU kernel takes, H % 128 == 0, up to `MAX_HIDDEN`
+(`kernel_variant`). At H=128:
 
 - `gru_fwd` (replaces `_fwd_kernel`): the recurrence over all T steps in
   one launch on a persistent grid of about one block per SM. Each block
@@ -29,6 +30,11 @@ level:
   run in parallel, so each writes its own partial and this kernel reduces
   them, bound by bytes, in a fixed order (deterministic, no atomics).
 
+At 256 <= H <= MAX_HIDDEN, W_hh (3 MB at H=512) does not fit in shared
+memory, and two wide variants take the recurrences: `gru_fwd_wide` and
+`gru_bwd_wide`, one block per 16-row tile, reading W_hh from the L2 at
+every step. `gru_dw` and `gru_reduce` serve every H.
+
 The header of `csrc/fused_gru.cu` says what bounds each kernel and what the
 design does about it. The library is built with nvcc for sm_90a at first
 use, into `codebase_tpu_torch/_build/`, and loaded with ctypes.
@@ -42,9 +48,10 @@ to; no path runs them on a CUDA tensor.
 Every tensor carries a leading group axis G (agents or sharing groups): one
 launch covers all groups.
 
-Launch counters (`FWD_LAUNCHES`, `BWD_LAUNCHES`, `DW_LAUNCHES`,
-`REDUCE_LAUNCHES`) rise by one where a kernel is launched and nowhere else,
-so a run can show that its path went through the kernels.
+Launch counters (`FWD_LAUNCHES`, `BWD_LAUNCHES`, `FWD_WIDE_LAUNCHES`,
+`BWD_WIDE_LAUNCHES`, `DW_LAUNCHES`, `REDUCE_LAUNCHES`) rise by one where a
+kernel is launched and nowhere else, so a run can show that its path went
+through the kernels.
 """
 
 from __future__ import annotations
@@ -59,12 +66,17 @@ from pathlib import Path
 
 import torch
 
+from codebase_tpu_torch.ops.matmul import grouped_matmul
+
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
+FWD_WIDE_LAUNCHES = 0
+BWD_WIDE_LAUNCHES = 0
 DW_LAUNCHES = 0
 REDUCE_LAUNCHES = 0
 
-KERNEL_HIDDEN = 128  # the hidden size the kernels are built for
+RESIDENT_HIDDEN = 128  # the hidden size of the kernels that hold W_hh in shared memory
+MAX_HIDDEN = 896  # the wide kernels' largest H: the backward's tiles fill shared memory
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "fused_gru.cu"
@@ -79,12 +91,23 @@ _lib_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    global FWD_LAUNCHES, BWD_LAUNCHES, DW_LAUNCHES, REDUCE_LAUNCHES
-    FWD_LAUNCHES = BWD_LAUNCHES = DW_LAUNCHES = REDUCE_LAUNCHES = 0
+    global FWD_LAUNCHES, BWD_LAUNCHES, FWD_WIDE_LAUNCHES, BWD_WIDE_LAUNCHES, DW_LAUNCHES, REDUCE_LAUNCHES
+    FWD_LAUNCHES = BWD_LAUNCHES = FWD_WIDE_LAUNCHES = BWD_WIDE_LAUNCHES = DW_LAUNCHES = REDUCE_LAUNCHES = 0
 
 
 def launch_counts() -> dict:
-    return {"fwd": FWD_LAUNCHES, "bwd": BWD_LAUNCHES, "dw": DW_LAUNCHES, "reduce": REDUCE_LAUNCHES}
+    return {"fwd": FWD_LAUNCHES, "bwd": BWD_LAUNCHES, "fwd_wide": FWD_WIDE_LAUNCHES,
+            "bwd_wide": BWD_WIDE_LAUNCHES, "dw": DW_LAUNCHES, "reduce": REDUCE_LAUNCHES}
+
+
+def kernel_variant(H: int):
+    """Which recurrence kernels take hidden size H: "resident" (H=128, W_hh
+    in shared memory), "wide" (H % 128 == 0 up to MAX_HIDDEN) or None."""
+    if H == RESIDENT_HIDDEN:
+        return "resident"
+    if H % 128 == 0 and RESIDENT_HIDDEN < H <= MAX_HIDDEN:
+        return "wide"
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -206,15 +229,19 @@ def _library():
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.gru_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
             lib.gru_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
+            lib.gru_fwd_wide.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+            lib.gru_bwd_wide.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, p]
             lib.gru_dw.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
             lib.gru_reduce.argtypes = [p, p, i, i, i, p]
-            sizes = (lib.gru_kernel_hidden, lib.gru_fwd_rows, lib.gru_dw_chunk, lib.gru_dw_tiles)
-            for fn in (lib.gru_fwd, lib.gru_bwd, lib.gru_dw, lib.gru_reduce, *sizes):
+            lib.gru_dw_tiles.argtypes = [i]
+            sizes = (lib.gru_max_hidden, lib.gru_fwd_rows, lib.gru_dw_chunk)
+            for fn in (lib.gru_fwd, lib.gru_bwd, lib.gru_fwd_wide, lib.gru_bwd_wide, lib.gru_dw,
+                       lib.gru_reduce, lib.gru_dw_tiles, *sizes):
                 fn.restype = i
             for fn in sizes:
                 fn.argtypes = []
-            if lib.gru_kernel_hidden() != KERNEL_HIDDEN:
-                raise RuntimeError("fused GRU library was built for another hidden size")
+            if lib.gru_max_hidden() != MAX_HIDDEN:
+                raise RuntimeError("fused GRU library was built for other hidden sizes")
             _lib = lib
         return _lib
 
@@ -243,8 +270,8 @@ def _dims(gi):
         raise ValueError(f"gi must be (G, T, B, 3H); got shape {tuple(gi.shape)}")
     G, T, B, H3 = gi.shape
     H = H3 // 3
-    if H3 != 3 * H or H != KERNEL_HIDDEN:
-        raise ValueError(f"the GRU kernels take H={KERNEL_HIDDEN}; got 3H={H3}")
+    if H3 != 3 * H or kernel_variant(H) is None:
+        raise ValueError(f"the GRU kernels take H % 128 == 0 up to H={MAX_HIDDEN}; got 3H={H3}")
     if min(G, T, B) < 1:
         raise ValueError(f"empty GRU input of shape {tuple(gi.shape)}")
     return G, T, B, H
@@ -277,8 +304,9 @@ def forward_blocks_per_group(G: int, B: int, rows: int) -> int:
 
 
 def gru_fwd_cuda(gi, w_hh, b_hh, h0):
-    """Kernel 1: (y (G, T, B, H), hT (G, B, H))."""
-    global FWD_LAUNCHES
+    """Kernel 1, `gru_fwd` at H=128, `gru_fwd_wide` above:
+    (y (G, T, B, H), hT (G, B, H))."""
+    global FWD_LAUNCHES, FWD_WIDE_LAUNCHES
     G, T, B, H = _dims(gi)
     dev = gi.device
     _check(
@@ -289,20 +317,26 @@ def gru_fwd_cuda(gi, w_hh, b_hh, h0):
     lib = _library()
     y = torch.empty((G, T, B, H), device=dev)
     hT = torch.empty((G, B, H), device=dev)
+    args = (_ptr(gi), _ptr(w_hh), _ptr(b_hh), _ptr(h0), _ptr(y), _ptr(hT), G, T, B, H)
+    wide = kernel_variant(H) == "wide"
     with torch.cuda.device(dev):
-        code = lib.gru_fwd(
-            _ptr(gi), _ptr(w_hh), _ptr(b_hh), _ptr(h0), _ptr(y), _ptr(hT),
-            G, T, B, H, forward_blocks_per_group(G, B, lib.gru_fwd_rows()), _stream(dev),
-        )
-    _raise_on(code, "gru_fwd launch")
-    FWD_LAUNCHES += 1
+        if wide:
+            code = lib.gru_fwd_wide(*args, _stream(dev))
+        else:
+            code = lib.gru_fwd(*args, forward_blocks_per_group(G, B, lib.gru_fwd_rows()), _stream(dev))
+    _raise_on(code, "gru_fwd_wide launch" if wide else "gru_fwd launch")
+    if wide:
+        FWD_WIDE_LAUNCHES += 1
+    else:
+        FWD_LAUNCHES += 1
     return y, hT
 
 
 def gru_bwd_cuda(gi, w_hh, b_hh, h0, y, dy, dhT):
-    """Kernel 2, the reverse-time recurrence, on the forward's persistent
-    grid: (dgi (G, T, B, 3H), dh0 (G, B, H), dgh_n (G, T, B, H))."""
-    global BWD_LAUNCHES
+    """Kernel 2, the reverse-time recurrence (`gru_bwd` on the forward's
+    persistent grid at H=128, `gru_bwd_wide` above): (dgi (G, T, B, 3H),
+    dh0 (G, B, H), dgh_n (G, T, B, H))."""
+    global BWD_LAUNCHES, BWD_WIDE_LAUNCHES
     G, T, B, H = _dims(gi)
     dev = gi.device
     _check(
@@ -315,21 +349,27 @@ def gru_bwd_cuda(gi, w_hh, b_hh, h0, y, dy, dhT):
     dgi = torch.empty_like(gi)
     dh0 = torch.empty_like(h0)
     dgh_n = torch.empty_like(y)
+    args = (_ptr(gi), _ptr(w_hh), _ptr(b_hh), _ptr(h0), _ptr(y), _ptr(dy), _ptr(dhT), _ptr(dgi),
+            _ptr(dh0), _ptr(dgh_n), G, T, B, H)
+    wide = kernel_variant(H) == "wide"
     with torch.cuda.device(dev):
-        code = lib.gru_bwd(
-            _ptr(gi), _ptr(w_hh), _ptr(b_hh), _ptr(h0), _ptr(y), _ptr(dy), _ptr(dhT), _ptr(dgi),
-            _ptr(dh0), _ptr(dgh_n), G, T, B, H, forward_blocks_per_group(G, B, lib.gru_fwd_rows()),
-            _stream(dev),
-        )
-    _raise_on(code, "gru_bwd launch")
-    BWD_LAUNCHES += 1
+        if wide:
+            code = lib.gru_bwd_wide(*args, _stream(dev))
+        else:
+            code = lib.gru_bwd(*args, forward_blocks_per_group(G, B, lib.gru_fwd_rows()), _stream(dev))
+    _raise_on(code, "gru_bwd_wide launch" if wide else "gru_bwd launch")
+    if wide:
+        BWD_WIDE_LAUNCHES += 1
+    else:
+        BWD_LAUNCHES += 1
     return dgi, dh0, dgh_n
 
 
 def dw_blocks_per_group(G: int, K: int, tiles: int, chunk: int) -> tuple:
     """Split of the dW_hh product's K = T*B rows: (P, rows), P blocks per
     tile of dW_hh, each summing `rows` rows (a multiple of `chunk`), about
-    one block per SM over all groups and tiles."""
+    one block per SM over all groups and tiles; P=1 (every row in one
+    block) once the tiles alone fill the card, as at H=512 G=10 (640 tiles)."""
     rows = -(-K // max(1, _sms() // (G * tiles)))
     rows = -(-rows // chunk) * chunk
     return -(-K // rows), rows
@@ -348,7 +388,7 @@ def gru_dw_cuda(h0, y, dgi, dgh_n):
         dev,
     )
     lib = _library()
-    P, rows = dw_blocks_per_group(G, T * B, lib.gru_dw_tiles(), lib.gru_dw_chunk())
+    P, rows = dw_blocks_per_group(G, T * B, lib.gru_dw_tiles(H), lib.gru_dw_chunk())
     partials = torch.empty((G, P, H * 3 * H + 3 * H), device=dev)
     with torch.cuda.device(dev):
         code = lib.gru_dw(
@@ -418,12 +458,14 @@ def fused_gru_sequence(gi, w_hh, b_hh, h0):
     raise ValueError(f"fused_gru_sequence runs on cpu or cuda tensors; got {gi.device}")
 
 
-def gru_layer_sequence(params, x, h0):
-    """Full GRU layer: the input projection as one matmul, then the fused
-    recurrence. params {w_ih (G, in, 3H), w_hh, b_ih (G, 3H), b_hh},
+def gru_layer_sequence(params, x, h0, compute_dtype: str = "float32"):
+    """Full GRU layer: the input projection as one matmul (bf16 inputs and
+    an f32 result under `compute_dtype="bfloat16"`, as the JAX package's
+    layer), then the fused recurrence, in f32 at every dtype.
+    params {w_ih (G, in, 3H), w_hh, b_ih (G, 3H), b_hh},
     x (G, T, B, in), h0 (G, B, H) -> (y (G, T, B, H), hT (G, B, H))."""
     G, T, B, D = x.shape
     w_ih = params["w_ih"]
-    gi = torch.bmm(x.reshape(G, T * B, D), w_ih).view(G, T, B, w_ih.shape[-1])
+    gi = grouped_matmul(x.reshape(G, T * B, D), w_ih, compute_dtype).view(G, T, B, w_ih.shape[-1])
     gi = gi + params["b_ih"][:, None, None, :]
     return fused_gru_sequence(gi, params["w_hh"], params["b_hh"], h0.contiguous())

@@ -48,7 +48,8 @@ RANGES = {
     "ac": ("ac/rollout", "ac/reward_stream", "ac/update"),
 }
 SUB_RANGES = ("env/step",)  # inside the rollout range of either family
-GRU_KERNELS = ("gru_fwd_kernel", "gru_bwd_kernel", "gru_dw_kernel", "gru_reduce_kernel")
+GRU_KERNELS = ("gru_fwd_kernel", "gru_bwd_kernel", "gru_fwd_wide_kernel", "gru_bwd_wide_kernel", "gru_dw_kernel",
+               "gru_reduce_kernel")
 
 
 def device_breakdown(events, iters: int, top: int, ranges) -> dict:

@@ -41,15 +41,15 @@ def cuda_device():
     return resolve_device("cuda")  # full-f32 matmuls, as the entry points set
 
 
-def _gru_inputs(G, T, B, seed):
+def _gru_inputs(G, T, B, seed, hidden=H):
     rng = np.random.default_rng(seed)
     return [
-        rng.standard_normal((G, T, B, 3 * H)).astype(np.float32),
-        (rng.standard_normal((G, H, 3 * H)) * 0.1).astype(np.float32),
-        (rng.standard_normal((G, 3 * H)) * 0.1).astype(np.float32),
-        rng.standard_normal((G, B, H)).astype(np.float32),
-        rng.standard_normal((G, T, B, H)).astype(np.float32),
-        rng.standard_normal((G, B, H)).astype(np.float32),
+        rng.standard_normal((G, T, B, 3 * hidden)).astype(np.float32),
+        (rng.standard_normal((G, hidden, 3 * hidden)) * 0.1 * (H / hidden) ** 0.5).astype(np.float32),
+        (rng.standard_normal((G, 3 * hidden)) * 0.1).astype(np.float32),
+        rng.standard_normal((G, B, hidden)).astype(np.float32),
+        rng.standard_normal((G, T, B, hidden)).astype(np.float32),
+        rng.standard_normal((G, B, hidden)).astype(np.float32),
     ]
 
 
@@ -139,24 +139,51 @@ def _sass_functions(name):
     return [f for f in sass.split("Function : ")[1:] if name in f.splitlines()[0]]
 
 
-@pytest.mark.parametrize("kernel", ["gru_bwd_kernel", "gru_dw_kernel"])
+@pytest.mark.parametrize("G,T,B,hidden", [(3, 7, 1000, 256), (3, 5, 333, 384), (2, 3, 9, 512), (10, 2, 40, 896)])
+def test_wide_kernels_match_plain_version_on_the_card(cuda_device, G, T, B, hidden):
+    """The wide variants (H >= 256) through the autograd function: forward
+    at 1e-5, gradients at 1e-4 of each one's largest entry, the backward
+    bitwise equal in two calls; they count as the wide kernels."""
+    arrays = _gru_inputs(G, T, B, seed=6, hidden=hidden)
+    ky, kh = (torch.tensor(a, device=cuda_device) for a in arrays[4:])
+    t = [torch.tensor(a, device=cuda_device, requires_grad=True) for a in arrays[:4]]
+    p = [torch.tensor(a, device=cuda_device, requires_grad=True) for a in arrays[:4]]
+    counts = fg.launch_counts()
+    y, hT = fg.fused_gru_sequence(*t)
+    yr, hTr = fg.gru_sequence_plain(*p)
+    torch.testing.assert_close(y, yr, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(hT, hTr, rtol=1e-5, atol=1e-5)
+    grads = torch.autograd.grad((y * ky).sum() + (hT * kh).sum(), t)
+    ref = torch.autograd.grad((yr * ky).sum() + (hTr * kh).sum(), p)
+    again = fg.gru_backward_cuda(*(x.detach() for x in t), y.detach(), ky, kh)
+    torch.cuda.synchronize()
+    for g, r in zip(grads, ref):
+        torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4 * r.abs().max().item())
+    assert all(torch.equal(u, v) for u, v in zip(grads, (again[0], again[1], again[2], again[3])))
+    after = fg.launch_counts()
+    assert {k: after[k] - counts[k] for k in after} == {"fwd": 0, "bwd": 0, "fwd_wide": 1, "bwd_wide": 2,
+                                                         "dw": 2, "reduce": 2}
+
+
+@pytest.mark.parametrize("kernel", ["gru_bwd_kernel", "gru_dw_kernel", "gru_bwd_wide_kernel"])
 def test_backward_kernels_run_on_tensor_cores(cuda_device, kernel):
     """The backward's three products (h_prev @ W_hh and dgh @ W_hh^T in the
     recurrence, h_prev^T dgh in the weight gradient) are tensor-core MMA in
     TF32, in kernels of this library (no cuBLAS)."""
-    functions = _sass_functions(kernel)
-    assert len(functions) == 1
-    assert any("HMMA" in line and "TF32" in line for line in functions[0].splitlines())
+    functions = _sass_functions(kernel)  # gru_dw_kernel has two instances: H=128 and H at run time
+    assert len(functions) == (2 if kernel == "gru_dw_kernel" else 1)
+    assert all(any("HMMA" in line and "TF32" in line for line in f.splitlines()) for f in functions)
 
 
-def test_forward_kernel_runs_on_tensor_cores(cuda_device):
+@pytest.mark.parametrize("kernel", ["gru_fwd_kernel", "gru_fwd_wide_kernel"])
+def test_forward_kernel_runs_on_tensor_cores(cuda_device, kernel):
     """The forward's product is tensor-core MMA in TF32: gru_fwd_kernel in
     the built library holds HMMA ... TF32 instructions
     (its 3xTF32 compensation shows in the 1e-5 agreement above, which
     single-pass TF32 misses, see tests/test_torch_fused_gru.py)."""
-    functions = _sass_functions("gru_fwd_kernel")
-    assert len(functions) == 1
-    assert any("HMMA" in line and "TF32" in line for line in functions[0].splitlines())
+    functions = _sass_functions(kernel)
+    assert len(functions) == (2 if kernel == "gru_dw_kernel" else 1)
+    assert all(any("HMMA" in line and "TF32" in line for line in f.splitlines()) for f in functions)
 
 
 def _loss_on_card_and_cpu(cuda_device, env_name, model_cfg, algo_cfg, rms_shape=None):
@@ -402,12 +429,13 @@ def test_masked_rollout_on_the_card_never_takes_an_invalid_action(cuda_device, a
     else:
         model = ac.ACModel.create(env, cfg.algorithm.model, cfg.algorithm, torch.Generator().manual_seed(0), cuda_device)
         policies, net = [model.policy()], model.actor
-    counts = fg.launch_counts()["fwd"]
+    counts, steps = fg.launch_counts()["fwd"], 0
     for policy in policies:
         rollout, _ = collect_episodes(env, policy, net.init_hiddens(E), gen, E, 60)
         taken = rollout.action_mask[:-1].gather(-1, rollout.actions.unsqueeze(-1)).squeeze(-1)  # (T, E, N)
         filled = rollout.filled > 0
         assert int((taken[filled] == 0).sum()) == 0
         assert float(rollout.filled.sum(0).mean()) < 60  # episodes end early: padded steps were skipped
+        steps += int(rollout.filled.sum(0).max())  # 4096 envs: the early exit stops at the longest episode
     torch.cuda.synchronize()
-    assert fg.launch_counts()["fwd"] - counts == 60 * len(policies)
+    assert fg.launch_counts()["fwd"] - counts == steps

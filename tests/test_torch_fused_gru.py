@@ -29,13 +29,13 @@ H = 128
 _BMM = torch.bmm
 
 
-def _inputs(G, T, B, seed=0):
+def _inputs(G, T, B, seed=0, hidden=H):
     rng = np.random.default_rng(seed)
-    gi = rng.standard_normal((G, T, B, 3 * H)).astype(np.float32)
-    w_hh = (rng.standard_normal((G, H, 3 * H)) * 0.1).astype(np.float32)
-    b_hh = (rng.standard_normal((G, 3 * H)) * 0.1).astype(np.float32)
-    h0 = rng.standard_normal((G, B, H)).astype(np.float32)
-    kw = rng.standard_normal((G, B, H)).astype(np.float32)
+    gi = rng.standard_normal((G, T, B, 3 * hidden)).astype(np.float32)
+    w_hh = (rng.standard_normal((G, hidden, 3 * hidden)) * 0.1).astype(np.float32)
+    b_hh = (rng.standard_normal((G, 3 * hidden)) * 0.1).astype(np.float32)
+    h0 = rng.standard_normal((G, B, hidden)).astype(np.float32)
+    kw = rng.standard_normal((G, B, hidden)).astype(np.float32)
     return gi, w_hh, b_hh, h0, kw
 
 
@@ -107,8 +107,13 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     gi, w_hh, b_hh, h0, _ = (torch.tensor(a) for a in _inputs(1, 2, 4))
     with pytest.raises(ValueError, match="CUDA tensor"):
         fg.gru_fwd_cuda(gi, w_hh, b_hh, h0)
-    with pytest.raises(ValueError, match="H=128"):
-        fg.gru_fwd_cuda(gi[..., :96], w_hh[:, :32, :96], b_hh[:, :96], h0[..., :32])
+    # the kernels take H % 128 == 0 up to MAX_HIDDEN, as the TPU kernel
+    for hidden in (32, 192, fg.MAX_HIDDEN + 128):
+        gi_h, w_h, b_h, h0_h, _ = (torch.tensor(a) for a in _inputs(1, 2, 4, hidden=hidden))
+        with pytest.raises(ValueError, match=r"H % 128 == 0 up to H=896"):
+            fg.gru_fwd_cuda(gi_h, w_h, b_h, h0_h)
+    assert [fg.kernel_variant(h) for h in (64, 128, 256, 384, 512, 896, 1024)] == [
+        None, "resident", "wide", "wide", "wide", "wide", None]
     with pytest.raises(ValueError, match="cpu or cuda"):
         fg.fused_gru_sequence(gi.to("meta"), w_hh.to("meta"), b_hh.to("meta"), h0.to("meta"))
 
@@ -198,13 +203,13 @@ def test_reduce_partials_plain_is_the_sum_over_blocks():
 
 
 @functools.lru_cache(maxsize=4)
-def _backward_case(G, T, B, seed):
+def _backward_case(G, T, B, seed, hidden=H):
     """Inputs of the backward (y from the JAX forward) and the JAX backward
     kernel's outputs (dgi, dW_hh, db_hh, dh0) on them, in interpret mode."""
     rng = np.random.default_rng(seed)
-    gi, w_hh, b_hh, h0, _ = _inputs(G, T, B, seed)
-    dy = rng.standard_normal((G, T, B, H)).astype(np.float32)
-    dhT = rng.standard_normal((G, B, H)).astype(np.float32)
+    gi, w_hh, b_hh, h0, _ = _inputs(G, T, B, seed, hidden)
+    dy = rng.standard_normal((G, T, B, hidden)).astype(np.float32)
+    dhT = rng.standard_normal((G, B, hidden)).astype(np.float32)
     y, _ = _jax_fused(*map(jnp.asarray, (gi, w_hh, b_hh, h0)))
     y = np.asarray(y)
 
@@ -260,7 +265,7 @@ def test_backward_wrappers_refuse_cpu_tensors():
         fg.gru_bwd_cuda(gi, w_hh, b_hh, h0, y, dy, h0)
     with pytest.raises(ValueError, match="CUDA tensor"):
         fg.gru_dw_cuda(h0, y, gi, y)
-    with pytest.raises(ValueError, match="H=128"):
+    with pytest.raises(ValueError, match=r"H % 128 == 0 up to H=896"):
         fg.gru_dw_cuda(h0[..., :32], y[..., :32], gi[..., :96], y[..., :32])
 
 
@@ -276,8 +281,8 @@ class _FakeLibrary:
     def gru_dw_chunk(self):
         return 64
 
-    def gru_dw_tiles(self):
-        return 4
+    def gru_dw_tiles(self, hidden):
+        return (hidden // 64) * (3 * hidden // 192)
 
     def gru_bwd(self, *args):
         self.calls["bwd"] = args[-2]
@@ -314,3 +319,47 @@ def test_backward_grids_fill_the_card(monkeypatch, G, T, B):
     assert P * G * 4 <= max(132, G * 4)
     if (G, T, B) == (2, 26, 1024):
         assert (lib.calls["bwd"], P, rows) == (64, 16, 1664)
+
+
+@pytest.mark.parametrize("hidden,G,T,product", [(256, 3, 4, "f32"), (256, 3, 4, "3xtf32"),
+                                                (512, 2, 3, "f32"), (512, 2, 3, "3xtf32")])
+def test_wide_plain_forward_and_backward_match_pallas_interpret(monkeypatch, hidden, G, T, product):
+    """The wide kernels' references at H=256 and 512 (B=16) against the JAX
+    kernels in interpret mode, as formed in f32 and as the kernels form
+    their products (3xTF32): y and hT within 1e-5, dgi and dh0 within 2e-4,
+    dW_hh and db_hh within 1e-4 of their largest entry."""
+    arrays, ref = _backward_case(G, T, 16, 17, hidden)
+    gi, w_hh, b_hh, h0, y_ref, dy, dhT = (torch.tensor(a) for a in arrays)
+    if product == "3xtf32":
+        monkeypatch.setattr(torch, "bmm", _bmm_3xtf32)
+    y, hT = fg.gru_sequence_plain(gi, w_hh, b_hh, h0)
+    np.testing.assert_allclose(y.numpy(), y_ref.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(hT.numpy(), y_ref[:, -1].numpy(), rtol=1e-5, atol=1e-5)
+    got = fg.gru_backward_plain(gi, w_hh, b_hh, h0, y_ref, dy, dhT)
+    for g, r, name in zip(got, ref, ["dgi", "dw_hh", "db_hh", "dh0"]):
+        if name in ("dgi", "dh0"):
+            np.testing.assert_allclose(g.numpy(), r, rtol=2e-4, atol=2e-4, err_msg=name)
+        else:
+            np.testing.assert_allclose(g.numpy(), r, rtol=0, atol=1e-4 * np.abs(r).max(), err_msg=name)
+
+
+@pytest.mark.parametrize("G,T,B,H_,P", [(10, 121, 256, 512, 1), (3, 7, 1000, 256, 2), (1, 3, 5, 384, 1),
+                                        (2, 26, 1024, 128, 16)])
+def test_weight_gradient_split_at_every_hidden_size(monkeypatch, G, T, B, H_, P):
+    """`gru_dw` takes H at run time: (H / 64) * (3H / 192) tiles of dW_hh.
+    Once the tiles alone fill the card (640 at H=512 G=10, the MMM2 QMIX
+    update) every tile sums all T*B rows in one block (P=1), so the sum
+    has one fixed order: deterministic with no reduction across blocks."""
+    lib = _FakeLibrary()
+    monkeypatch.setattr(fg, "_sms", lambda: 132)
+    monkeypatch.setattr(fg, "_library", lambda: lib)
+    monkeypatch.setattr(fg, "_check", lambda shapes, device: None)
+    monkeypatch.setattr(fg, "_stream", lambda device: None)
+    monkeypatch.setattr(fg, "_ptr", lambda t: None)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    gi = torch.empty((G, T, B, 3 * H_), device="meta")
+    y, h0 = torch.empty((G, T, B, H_), device="meta"), torch.empty((G, B, H_), device="meta")
+    partials = fg.gru_dw_cuda(h0, y, gi, y)
+    got_P, rows = lib.calls["dw"]
+    assert got_P == P and partials.shape == (G, P, H_ * 3 * H_ + 3 * H_)
+    assert rows % 64 == 0 and (P - 1) * rows < T * B <= P * rows

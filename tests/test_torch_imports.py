@@ -50,7 +50,7 @@ from codebase_tpu_torch.ops import fused_gru
 net = MultiAgentNetwork([7, 7], [128, 128], [4, 4], use_rnn=True)
 y, h = net(torch.zeros(2, 3, 5, 7))
 assert y.shape == (2, 3, 5, 4) and h.shape == (2, 1, 5, 128)
-assert fused_gru._lib is None and fused_gru.launch_counts() == {{"fwd": 0, "bwd": 0, "dw": 0, "reduce": 0}}
+assert fused_gru._lib is None and fused_gru.launch_counts() == {{"fwd": 0, "bwd": 0, "fwd_wide": 0, "bwd_wide": 0, "dw": 0, "reduce": 0}}
 print("ok")
 """
     res = subprocess.run(

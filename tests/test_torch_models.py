@@ -11,6 +11,7 @@ import torch
 from codebase_tpu.models.multi_agent import MultiAgentNetwork as JaxMultiAgentNetwork
 from codebase_tpu_torch.models.multi_agent import MultiAgentNetwork, resolve_sharing
 from codebase_tpu_torch.models.networks import make_network_spec
+from codebase_tpu_torch.ops import fused_gru as fg
 from codebase_tpu_torch.utils.params import params_from_numpy, params_to_numpy, tree_leaves
 
 torch.set_num_threads(2)
@@ -131,3 +132,35 @@ def test_lstm_forward_and_gradients_match_jax(sharing):
     np.testing.assert_allclose(grads[-1].numpy(), gh_ref, rtol=2e-4, atol=1e-5)
     for g, r in zip(grads[:-1], tree_leaves(jax.device_get(gp_ref))):
         np.testing.assert_allclose(g.numpy(), r, rtol=2e-4, atol=1e-5)
+
+
+def test_gru_route_follows_the_hidden_size_as_in_jax(monkeypatch):
+    """Dispatch by hidden size, decided when the spec is built, as the JAX
+    package decides where its TPU kernel applies: H=128 the resident-W_hh
+    kernels, H % 128 == 0 up to 896 the wide kernels, any other H the
+    per-step cell under "auto" and ValueError under "on". The kernel entry
+    is stood in for by one that makes the CUDA wrappers' size check and
+    then computes the plain version, so this CPU run goes where a CUDA
+    tensor would."""
+    calls = []
+
+    def kernel_entry(gi, w_hh, b_hh, h0):
+        calls.append(fg._dims(gi)[-1])
+        return fg.gru_sequence_plain(gi, w_hh, b_hh, h0)
+
+    monkeypatch.setattr(fg, "fused_gru_sequence", kernel_entry)
+    x = torch.zeros((2, 2, 3, D))
+    routes = {64: "cell", 128: "kernel_resident", 256: "kernel_wide", 512: "kernel_wide", 1024: "cell"}
+    for hidden, route in routes.items():
+        calls.clear()
+        net = MultiAgentNetwork([D] * 2, [hidden, hidden], [A] * 2, use_rnn=True)
+        with torch.no_grad():
+            y, h = net(x)
+        assert calls == ([] if route == "cell" else [hidden]), hidden
+        assert net.spec.route == route and y.shape == (2, 2, 3, A) and h.shape == (2, 1, 3, hidden)
+    assert make_network_spec((D, 256, 256, A), use_rnn=True, fused_rnn="on").route == "kernel_wide"
+    assert make_network_spec((D, 256, 256, A), use_rnn=True, fused_rnn="off").route == "cell"
+    assert make_network_spec((D, 256, 256, A), use_rnn="lstm").route == "cell"
+    for hidden in (64, 1024):
+        with pytest.raises(ValueError, match="fused_rnn=on needs a hidden size the GRU kernels take"):
+            make_network_spec((D, hidden, hidden, A), use_rnn=True, fused_rnn="on")

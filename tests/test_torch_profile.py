@@ -98,7 +98,7 @@ def test_profile_cli_on_cpu_reports_host_ranges_and_no_device_numbers(tmp_path, 
     assert set(ranges) == {"dqn/rollout", "dqn/reward_stream", "dqn/replay_add", "dqn/updates"}
     assert ranges.pop("dqn/reward_stream")["host_ms_per_iter_traced"] == 0  # no standardiser in the stack
     assert all(r["host_ms_per_iter_traced"] > 0 for r in ranges.values())
-    assert report["gru_launches_per_iter"] == {"fwd": 0, "bwd": 0, "dw": 0, "reduce": 0}
+    assert report["gru_launches_per_iter"] == {"fwd": 0, "bwd": 0, "fwd_wide": 0, "bwd_wide": 0, "dw": 0, "reduce": 0}
     assert report["sub_ranges"]["env/step"]["host_ms_per_iter_traced"] > 0
 
 
@@ -136,4 +136,4 @@ def test_profile_cli_takes_mappo_and_reads_the_ac_ranges(tmp_path, monkeypatch, 
     assert (stream > 0) == standardise_rewards
     assert all(r["host_ms_per_iter_traced"] > 0 for r in ranges.values())
     assert report["env_steps_per_s"] > 0 and report["device_busy_share"] is None
-    assert report["gru_launches_per_iter"] == {"fwd": 0, "bwd": 0, "dw": 0, "reduce": 0}  # the CPU path
+    assert report["gru_launches_per_iter"] == {"fwd": 0, "bwd": 0, "fwd_wide": 0, "bwd_wide": 0, "dw": 0, "reduce": 0}  # the CPU path

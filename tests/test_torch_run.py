@@ -1,6 +1,7 @@
 """Tiny end-to-end training runs of the port on the CPU (`device=cpu`),
 recurrent IDQN, recurrent QMIX with reward standardisation and the four
-actor-critic presets on LBF, and QMIX on SMAClite, against the JAX
+actor-critic presets on LBF, QMIX on SMAClite (and MMM2 with the shared
+GRU in bf16), against the JAX
 package's runs of the same configs: both write results.csv with the same
 header. The host loops' cadence is held to the JAX drivers' on the same
 stubbed sequence of iteration steps and losses."""
@@ -61,9 +62,10 @@ def test_entry_point_refuses_what_it_cannot_do(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         run.main(ARGV + ["device=cuda", f"run_dir={tmp_path}"])
-    with pytest.raises(NotImplementedError, match="bfloat16"):
+    # bfloat16 is ported; other model dtypes are refused, as in the JAX package
+    with pytest.raises(ValueError, match="choose float32 or bfloat16"):
         run.main(["+algorithm=ia2c", "env.name=lbforaging:Foraging-5x5-2p-1f-v3", "env.time_limit=5",
-                  "algorithm.model.actor.dtype=bfloat16", "device=cpu", f"run_dir={tmp_path}"])
+                  "algorithm.model.actor.dtype=float16", "device=cpu", f"run_dir={tmp_path}"])
     with pytest.raises(ValueError, match="unknown algorithm 'nosuch'"):
         run.main(["+algorithm=nosuch", "env.name=lbforaging:Foraging-5x5-2p-1f-v3", "env.time_limit=5",
                   "device=cpu", f"run_dir={tmp_path}"])
@@ -261,3 +263,30 @@ def test_rows_and_stop_follow_the_jax_chunk_rule(monkeypatch, algo, sequence):
         if "loss" in ref:
             assert got["loss"] == pytest.approx(ref["loss"], rel=1e-6, nan_ok=True)
     assert len(log.rows) >= 3 and any("loss" in r for r in log.rows)
+
+
+@pytest.mark.parametrize("algo", ["qmix", "mappo"])
+def test_cpu_mmm2_runs_with_the_shared_gru_in_bf16(tmp_path, algo):
+    """The MMM2 lanes' model (10 allies of three unit types, one shared GRU
+    network, `model.dtype=bfloat16`) at a tiny size: the port's run trains
+    with finite losses through the kernel route (H=128 here; the card runs
+    H=512) and writes the JAX run's header."""
+    argv = [f"+algorithm={algo}", "env.name=smaclite:MMM2-v0", "env.time_limit=8", "env.parallel_envs=2",
+            "algorithm.total_steps=20", "algorithm.log_interval=10", "algorithm.eval_interval=10",
+            "algorithm.eval_episodes=2"]
+    if algo == "qmix":
+        argv += ["algorithm.model.use_rnn=true", "algorithm.model.parameter_sharing=true",
+                 "algorithm.model.dtype=bfloat16", "algorithm.batch_size=2", "algorithm.buffer_size=4",
+                 "algorithm.training_start=0", "algorithm.updates_per_collect=2"]
+    else:
+        argv += [f"algorithm.model.{p}.{k}={v}" for p in ("actor", "critic")
+                 for k, v in (("use_rnn", "true"), ("parameter_sharing", "true"), ("dtype", "bfloat16"))]
+    rows, state = run.main(argv + ["seed=1", "device=cpu", f"run_dir={tmp_path / 'port'}"])
+    jax_run.main(argv + [f"run_dir={tmp_path / 'jax'}"])
+    assert _header(tmp_path / "port" / "results.csv") == _header(tmp_path / "jax" / "results.csv")
+    nets = [state.model.critic] if algo == "qmix" else [state.model.actor, state.model.critic]
+    for net in nets:
+        assert net.n_agents == 10 and net.n_groups == 1
+        assert (net.spec.compute_dtype, net.spec.route) == ("bfloat16", "kernel_resident")
+    assert rows and all(math.isfinite(float(r["loss"])) for r in rows if r.get("loss"))
+    assert all(torch.isfinite(p).all() for p in state.model.param_leaves())
