@@ -20,9 +20,11 @@ exits non-zero:
              and for the wide kernels (H >= 256) the MMM2 shapes at H=512
              G=10: QMIX's rollout (p) T=1 B=2048, update (q) T=121 B=256
              and eval (r) T=1 B=100, MAPPO's rollout (s) T=1 B=256, update
-             (t) T=120 B=256 and target critic (u) T=121 B=256, and two
+             (t) T=120 B=256 and target critic (u) T=121 B=256, and three
              ragged shapes (v) G=3 T=7 B=1000 H=256, (w) G=3 T=5 B=333
-             H=384 (every shape a train phase below gives the kernels): the
+             H=384 and (x) G=2 T=9 B=77 H=896, the largest H, where shared
+             memory leaves the wide forward's tiling the least room (every
+             shape a train phase below gives the kernels): the
              forward against `gru_sequence_plain`, the whole backward (recurrence, weight
              gradient, reduction) against `gru_backward_plain`, the weight
              gradient alone against `gru_dw_plain` on the recurrence
@@ -33,7 +35,9 @@ exits non-zero:
              backward for the backward, `torch.bmm` for the weight gradient,
              `torch.sum` for the reduction) on the device (see `time_ms`; the
              reduction's input fits in the L2, so it is timed on copies that
-             do not, see `cold_copies`).
+             do not, see `cold_copies`). At the wide shapes it also
+             reports the wide forward's tiling (`wide_forward_tiling`: row
+             tile, grid, unit split, ring stages, shared memory).
 Then twelve train phases through `codebase_tpu_torch.run.main`, each with
 the launch counters set to 0 just before and read just after, and logging
 every iteration (`log_interval` = E*T, so the host loop's chunk is one
@@ -148,6 +152,7 @@ SHAPES = {
     "u": dict(G=10, T=121, B=256, H=512, role="MMM2 MAPPO target critic: bootstrap values over T+1=121 steps"),
     "v": dict(G=3, T=7, B=1000, H=256, role="ragged at H=256"),
     "w": dict(G=3, T=5, B=333, H=384, role="ragged at H=384"),
+    "x": dict(G=2, T=9, B=77, H=896, role="ragged at H=896, the largest H: the least shared memory for the tiling"),
 }
 for _shape in SHAPES.values():
     _shape.setdefault("H", 128)
@@ -368,6 +373,9 @@ def check_shape(key, G, T, B, H, gen, peaks):
     out["gru_bwd"]["recurrence_bound_ms"], out["gru_bwd"]["recurrence_bound_by"] = bounds(
         "gru_bwd_recurrence", G, T, B, H, P, peaks)
     out["gru_reduce"]["partials_per_group"] = P
+    if H != 128:  # the wide forward's launch at this shape
+        out["gru_fwd"]["tiling"] = fg.wide_forward_tiling(
+            G, T, B, H, torch.cuda.get_device_properties(dev).multi_processor_count)
     return out
 
 
@@ -748,7 +756,7 @@ def main() -> None:
              "j": "smaclite_mappo_update", "k": "smaclite_mappo_rollout", "l": "smaclite_mappo_target",
              "m": "ac_target", "n": "qmix_eval", "o": "idqn_eval", "p": "mmm2_qmix_rollout",
              "q": "mmm2_qmix_update", "r": "mmm2_qmix_eval", "s": "mmm2_mappo_rollout", "t": "mmm2_mappo_update",
-             "u": "mmm2_mappo_target", "v": "ragged_h256", "w": "ragged_h384"}
+             "u": "mmm2_mappo_target", "v": "ragged_h256", "w": "ragged_h384", "x": "ragged_h896"}
     resident = [k for k in SHAPES if SHAPES[k]["H"] == 128]
     wide = [k for k in SHAPES if SHAPES[k]["H"] != 128]
     phases = {"train": counts, "train_qmix": qmix_counts, "train_mappo": mappo_counts,
@@ -785,6 +793,8 @@ def main() -> None:
             **{f"{roles[key]}_shape_{key}": {f: results[key][k][f] for f in (
                 "ms", "plain_ms", "library_ms", "library", "bound_ms", "bound_by")} for key in keys if key != at},
         }
+        if kernel == "gru_fwd_wide":
+            entry["tiling"] = {key: results[key][k]["tiling"] for key in keys}
         if k == "gru_bwd":
             entry["ms_is"] = "the whole backward: the recurrence kernel, gru_dw_kernel, gru_reduce_kernel"
             for f in ("recurrence_ms", "recurrence_plain_ms", "recurrence_bound_ms", "recurrence_bound_by"):

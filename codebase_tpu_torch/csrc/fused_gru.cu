@@ -104,25 +104,52 @@
 // any H % 128 == 0 from 256 to kMaxH (the TPU kernel takes any H % 128 ==
 // 0 that fits its VMEM budget). W_hh is H x 3H x 4 bytes, 768 KB at H=256
 // and 3 MB at H=512: it does not fit the 227 KB of shared memory a block
-// can have, so these kernels read it from global memory (the L2, 50 MB,
-// holds it: 30 MB for the ten copies of the MMM2 update at G=10) at every
-// step, straight into the registers of the MMA fragments. What bounds them
-// on an H100: that L2 stream (each 16-row tile reads all of W_hh per step:
-// at G=10 T=121 B=256, 160 tiles x 3 MB a step) and the 3xTF32 mma.sync
-// work of the tile, each of the same order. Design (simple first; a
-// cluster split of W_hh over DSMEM is the redesign):
-// - one block per 16-row tile of a group, all T steps (no persistent
-//   grid: W_hh is not staged, so there is nothing to amortise);
-// - the hidden units are walked in chunks of 128 (8 warps x 2 unit blocks
-//   of 8, the H=128 kernels' warp ownership): one thread's accumulators
-//   hold r, z and n of the same (row, unit), so the gates stay in registers;
+// can have. Both walk the hidden units in chunks of 128 (8 warps x 2 unit
+// blocks of 8, the H=128 kernels' warp ownership): one thread's
+// accumulators hold r, z and n of the same (row, unit), so the gates stay
+// in registers; the k order inside a 16-deep slice is permuted as in the
+// H=128 kernels.
+//
+// gru_fwd_wide_kernel. What bounds it on an H100: the stream of W_hh out
+// of the L2 (50 MB; the ten copies of the MMM2 update at G=10 take 30 MB)
+// into each block at every step, G * ceil(B / R) * 12H^2 bytes a step for
+// row tiles of R rows, and the 3xTF32 mma.sync work (2.95 ms of
+// operations at G=10 T=121 B=256 H=512, at the TF32 peak). Its first
+// design read all of W_hh from the L2 for each 16-row tile at every step,
+// fragment by fragment, and moved that stream at about 1.9 TB/s. Design:
+// - R = 16, 32 or 64 rows a block (a template parameter: R / 16 m-tiles);
+//   the host picks R and, at T=1, a split of the hidden units across
+//   blocks (ops/fused_gru.py wide_forward_tiling);
+// - W_hh goes through shared memory in stages of one 16-deep k slice of
+//   one unit chunk's r, z and n columns (16 x 384 floats), copied by
+//   16-byte cp.async into a ring of two stages (deeper rings measured
+//   slower), in the order (step, chunk, slice), so the copies run ahead
+//   across chunk and step boundaries; each stage is read once per block,
+//   and each B fragment is read and split into TF32 parts once for all R
+//   rows, the products of several n-tiles issued interleaved;
+// - each warp copies, waits for and reads only its own 48 columns of a
+//   stage, so the warps meet once a step (for the h tile) rather than once
+//   a stage, and one warp's gates overlap another's products;
+// - the columns are XOR-swizzled by row (wide_stage_at), so the B-fragment
+//   reads (four rows, one column per lane) are conflict-free;
+// - the h tile (R x H, stride H + 16) is double-buffered when T > 1, since
+//   every chunk of a step reads all of h; it arrives with the first stage;
+// - at T=1 the grid's y axis runs over unit chunks: one block forms one
+//   chunk of a row tile (no block needs another's h), which fills the card
+//   at small batches and lets a large batch take R = 64;
+// - gi of a chunk is prefetched into the L2 when its product starts and
+//   read into registers after it.
+//
+// gru_bwd_wide_kernel. What bounds it on an H100: W_hh read from the L2
+// at every step (each 16-row tile reads all of W_hh per step, twice: for
+// h_prev @ W_hh and for dgh @ W_hh^T) and the 3xTF32 mma.sync work of the
+// tile, each of the same order. Design (simple first; the forward's
+// staged ring is the next step):
+// - one block per 16-row tile of a group, all T steps;
 // - B fragments: four scalar loads of W_hh[16kp + 4tig + i, 8nt + gid]
-//   (every 32-byte sector read is used), the k order inside a 16-deep slice
-//   permuted as in the H=128 kernels;
-// - forward: the h tile is double-buffered in shared memory (stride H + 16,
-//   16 mod 32: conflict-free A loads), since every chunk reads all of h;
-// - backward: the h_prev tile and the dgh tile (16 x 3H, stride 3H + 16) in
-//   shared memory; dh is carried between steps in dh0 itself, each thread
+//   (every 32-byte sector read is used);
+// - the h_prev tile and the dgh tile (16 x 3H, stride 3H + 16) in shared
+//   memory; dh is carried between steps in dh0 itself, each thread
 //   reading and writing only its own positions; dgh @ W_hh^T reads W_hh by
 //   rows as float4 (W_hh[unit, 16kp + 4tig + 0..3]).
 // gru_dw_kernel serves every H: its 64 x 192 tiles of dW_hh number
@@ -186,6 +213,19 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// 16 bytes global -> shared, asynchronous; zero-filled when !valid
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+// wait until at most N groups of this thread's copies are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // A 16-row tile of a (B, H) matrix m in registers: float4 i = threadIdx.x +
@@ -760,59 +800,218 @@ __device__ __forceinline__ int wide_unit(int uc, int warp, int u, int tig) {
   return uc * kChunk + (warp * kUB + u) * 8 + 2 * tig;
 }
 
-// grid (ceil(B / 16), G), kFwdThreads threads, 2 * 16 * (H + 16) floats of
-// dynamic shared memory: block x of group g runs row tile x over all T
-// steps.
-__global__ void __launch_bounds__(kFwdThreads, 2)
+// The wide forward's W_hh stages: one 16-deep slice of k (rows 16kp .. +15
+// of W_hh) of one unit chunk's r, z and n columns, in 8 parts, one a warp:
+// the 48 columns of its own 16 units (r, z and n), 16 rows at a stride of
+// 52 floats. 26 KB a stage.
+constexpr int kWideWarpCols = 3 * 8 * kUB;
+constexpr int kWideWarpStride = kWideWarpCols + 4;
+constexpr int kWideWarpFloats = 16 * kWideWarpStride;
+constexpr int kWideStageFloats = kFwdWarps * kWideWarpFloats;
+constexpr int kWideStages = 2;  // the ring: deeper rings measured slower on an H100 (PERF.md)
+constexpr size_t kSmemPerBlock = 232448;  // the most dynamic shared memory an H100 block can have
+
+// float offset of (row k, column c) in a warp's part of a stage: bit 3 of
+// the column XORed with bit 3 of the row. The B fragments read rows 4tig +
+// i at column base + gid (base a multiple of 8): at a stride of 52 floats
+// rows 4 apart lie 16 banks apart, and the XOR moves tig 2 and 3 by 8, so
+// the 32 lanes fall on 32 banks. A 16-byte copy of 4 columns stays
+// contiguous, and the XOR keeps every column below 48.
+__device__ __forceinline__ int wide_stage_at(int k, int c) {
+  return k * kWideWarpStride + (c ^ (((k >> 3) & 1) << 3));
+}
+
+__device__ __forceinline__ void prefetch_l2(const float* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
+// the forward's dynamic shared memory: the h tile (double-buffered when
+// T > 1: every chunk of a step reads all of h), then the ring
+__host__ __device__ __forceinline__ size_t wide_fwd_smem(int T, int H, int rows) {
+  return ((size_t)(T > 1 ? 2 : 1) * rows * (H + 16) + (size_t)kWideStages * kWideStageFloats) * sizeof(float);
+}
+
+// grid (ceil(B / kR), units, G), kFwdThreads threads, wide_fwd_smem(T, H,
+// kR) bytes of dynamic shared memory; kR = 16 * kM rows a block.
+// units == 1: block (x, 0, g) runs row tile x of group g over all T steps
+// and all unit chunks. units == H / kChunk (T == 1 only): block (x, y, g)
+// forms unit chunk y alone (a single step needs no other block's h).
+// W_hh stages run through a ring of kWideStages buffers in the order (t,
+// chunk, kp): stage q + 1 is copied while stage q is summed, across chunk
+// and step boundaries (W_hh does not depend on h). Each warp copies and
+// reads only its own part of each stage, so it waits for its own copies
+// alone (__syncwarp); the block meets once a step, for the h tile.
+template <int kM>
+__global__ void __launch_bounds__(kFwdThreads, kM == 1 ? 2 : 1)
 gru_fwd_wide_kernel(const float* __restrict__ gi, const float* __restrict__ w_hh,
                     const float* __restrict__ b_hh, const float* __restrict__ h0,
                     float* __restrict__ y, float* __restrict__ hT, int T, int B, int H) {
+  constexpr int kR = 16 * kM;
   extern __shared__ __align__(16) float smem[];
-  const int s = H + 16;  // 16 mod 32
+  const int s = H + 16;  // 16 mod 32: conflict-free A loads
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;
-  const int g = blockIdx.y, r0 = blockIdx.x * kFwdRows;
-  const int H3 = 3 * H, chunks = H / kChunk;
+  const int g = blockIdx.z, r0 = blockIdx.x * kR;
+  const int H3 = 3 * H, KS = H / 16;
+  const int chunks = gridDim.y == 1 ? H / kChunk : 1;  // this block's unit chunks, from uc0
+  const int uc0 = gridDim.y == 1 ? 0 : blockIdx.y;
   const float* w = w_hh + (size_t)g * H * H3;
   const float* bg = b_hh + (size_t)g * H3;
-  float* hbuf[2] = {smem, smem + kFwdRows * s};
-  load_tile_wide(hbuf[0], s, h0 + (size_t)g * B * H, B, r0, H);
-  __syncthreads();
+  const float* h0g = h0 + (size_t)g * B * H;
+  float* hbuf[2] = {smem, smem + kR * s};
+  float* ring = smem + (T > 1 ? 2 : 1) * kR * s;
 
+  // the next stage to copy (this warp's part): its index, slice and chunk
+  const long long n_stages = (long long)T * chunks * KS;
+  long long iq = 0;
+  int ikp = 0, ic = 0, wslot = 0;
+  float* ring_w = ring + warp * kWideWarpFloats;
+  auto issue = [&]() {
+    if (iq < n_stages) {
+      float* dst = ring_w + wslot * kWideStageFloats;
+      const float* src = w + (size_t)(ikp * 16) * H3 + (uc0 + ic) * kChunk + warp * 8 * kUB;
+#pragma unroll
+      for (int r = 0; r < 16 * kWideWarpCols / 4 / 32; ++r) {
+        const int i = lane + 32 * r;
+        const int k = i / (kWideWarpCols / 4), c = 4 * (i % (kWideWarpCols / 4));
+        // column c: gate c / 16, unit c % 16 of the warp's 16
+        cp_async16(dst + wide_stage_at(k, c), src + (size_t)k * H3 + (c / 16) * H + c % 16, true);
+      }
+      ++iq;
+      if (++ikp == KS) {
+        ikp = 0;
+        if (++ic == chunks) ic = 0;
+      }
+      if (++wslot == kWideStages) wslot = 0;
+    }
+    cp_async_commit();
+  };
+  static_assert(16 * kWideWarpCols % (4 * 32) == 0, "a warp's part is whole 16-byte copies per lane");
+
+  // group 0: the h0 tile (rows past B zero-filled) and stage 0
+  for (int i = tid; i < kR * (H / 4); i += kFwdThreads) {
+    const int rr = i / (H / 4), c = 4 * (i % (H / 4)), row = r0 + rr;
+    cp_async16(hbuf[0] + rr * s + c, row < B ? h0g + (size_t)row * H + c : h0g, row < B);
+  }
+  for (int q = 0; q < kWideStages - 1; ++q) issue();
+
+  // this thread's B-fragment offsets in the warp's part of a stage: rows
+  // 4tig + 0..3 at the column of n-tile j (gate j % 3 of the warp's unit
+  // block j / 3)
+  int wcol[kNJ];
+#pragma unroll
+  for (int j = 0; j < kNJ; ++j) wcol[j] = wide_stage_at(4 * tig, (j % 3) * 8 * kUB + (j / 3) * 8 + gid);
+
+  cp_async_wait<0>();  // the h0 tile and the first stages
+  int rslot = 0;
   for (int t = 0; t < T; ++t) {
     const size_t base = ((size_t)g * T + t) * B;
     const float* hs = hbuf[t & 1];
     float* hn_s = hbuf[(t & 1) ^ 1];
     const bool last = t == T - 1;
-    for (int uc = 0; uc < chunks; ++uc) {
-      float2 gv[2][kNJ];
-      wide_gi(gv, gi + base * H3, B, r0, H, uc, warp, gid, tig);
-      float acc[kNJ][4];
-      wide_bias(acc, bg, H, uc, warp, tig);
-      wide_product(acc, hs, s, w, H, uc, warp, lane);
+    // the h tile is whole (h0's copies, or every warp's gates of step
+    // t - 1), and no warp still reads the buffer this step writes
+    __syncthreads();
+    for (int c = 0; c < chunks; ++c) {
+      const int uc = uc0 + c;
+      // this warp's gi of the chunk (r, z, n of its 16 units: 3 x 64
+      // bytes a row) into the L2; read after the product
+      for (int i = lane; i < kR * 3; i += 32) {
+        const int row = r0 + i / 3;
+        if (row < B) prefetch_l2(gi + (base + row) * H3 + (i % 3) * H + uc * kChunk + warp * 8 * kUB);
+      }
+      float acc[kM][kNJ][4];
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int lr = gid + 8 * half, row = r0 + lr;
-        const int c = 2 * half;
+      for (int m = 0; m < kM; ++m) wide_bias(acc[m], bg, H, uc, warp, tig);
+
+      for (int kp = 0; kp < KS; ++kp) {
+        // the warp's part of stage q has landed, and every lane is done
+        // with stage q - 1, whose buffer the copy of stage q + kWideStages
+        // - 1 takes
+        cp_async_wait<kWideStages - 2>();
+        __syncwarp();
+        issue();
+        const float* ws = ring_w + rslot * kWideStageFloats;
+        if (++rslot == kWideStages) rslot = 0;
+
+        // A fragments of all kM m-tiles (rows 16m + gid, + 8), split once
+        uint32_t ab[kM][2][4], as[kM][2][4];
 #pragma unroll
-        for (int u = 0; u < kUB; ++u) {
-          const int unit = wide_unit(uc, warp, u, tig);
-          const float2 hp = *reinterpret_cast<const float2*>(hs + lr * s + unit);
-          const float2 gr = gv[half][3 * u], gz = gv[half][3 * u + 1], gn = gv[half][3 * u + 2];
-          float2 hn;
-          hn.x = gru_gate(gr.x, gz.x, gn.x, acc[3 * u][c], acc[3 * u + 1][c], acc[3 * u + 2][c], hp.x);
-          hn.y = gru_gate(gr.y, gz.y, gn.y, acc[3 * u][c + 1], acc[3 * u + 1][c + 1],
-                          acc[3 * u + 2][c + 1], hp.y);
-          // the next step's tile: a buffer no chunk of this step reads
-          *reinterpret_cast<float2*>(hn_s + lr * s + unit) = hn;
-          if (row < B) {
-            *reinterpret_cast<float2*>(y + (base + row) * H + unit) = hn;
-            if (last) *reinterpret_cast<float2*>(hT + ((size_t)g * B + row) * H + unit) = hn;
+        for (int m = 0; m < kM; ++m) {
+          const float* hr = hs + (16 * m + gid) * s + kp * 16 + 4 * tig;
+          split_a(*reinterpret_cast<const float4*>(hr), *reinterpret_cast<const float4*>(hr + 8 * s),
+                  ab[m], as[m]);
+        }
+        // each B fragment (rows 4tig + 0..3 of the slice, the column of
+        // n-tile j) is read and split once and serves all kM m-tiles. The
+        // products of kJG n-tiles are issued interleaved, each accumulator
+        // taking the order of mma_3xtf32_slice (so the sums are the same):
+        // all six n-tiles at kR = 16, two at 32 and 64 (six there take
+        // 250-255 registers and measured slower on an H100, PERF.md).
+        constexpr int kJG = kM == 1 ? kNJ : 2;
+#pragma unroll
+        for (int j0 = 0; j0 < kNJ; j0 += kJG) {
+          uint32_t bb[kJG][2][2], bs[kJG][2][2];
+#pragma unroll
+          for (int jj = 0; jj < kJG; ++jj) {
+            const float* wc = ws + wcol[j0 + jj];
+            split_b(wc[0], wc[kWideWarpStride], wc[2 * kWideWarpStride], wc[3 * kWideWarpStride], bb[jj], bs[jj]);
           }
+          float part[kM][kJG][4] = {};
+#pragma unroll
+          for (int ks = 0; ks < 2; ++ks) {
+#pragma unroll
+            for (int jj = 0; jj < kJG; ++jj)
+#pragma unroll
+              for (int m = 0; m < kM; ++m) mma_tf32(part[m][jj], as[m][ks], bb[jj][ks]);
+#pragma unroll
+            for (int jj = 0; jj < kJG; ++jj)
+#pragma unroll
+              for (int m = 0; m < kM; ++m) mma_tf32(part[m][jj], ab[m][ks], bs[jj][ks]);
+#pragma unroll
+            for (int jj = 0; jj < kJG; ++jj)
+#pragma unroll
+              for (int m = 0; m < kM; ++m) mma_tf32(part[m][jj], ab[m][ks], bb[jj][ks]);
+          }
+#pragma unroll
+          for (int jj = 0; jj < kJG; ++jj)
+#pragma unroll
+            for (int m = 0; m < kM; ++m)
+#pragma unroll
+              for (int i = 0; i < 4; ++i) acc[m][j0 + jj][i] += part[m][jj][i];
         }
       }
+
+      // the gates at this thread's positions of every m-tile
+      float2 gv[kM][2][kNJ];
+#pragma unroll
+      for (int m = 0; m < kM; ++m) wide_gi(gv[m], gi + base * H3, B, r0 + 16 * m, H, uc, warp, gid, tig);
+#pragma unroll
+      for (int m = 0; m < kM; ++m)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int lr = 16 * m + gid + 8 * half, row = r0 + lr;
+          const int cc = 2 * half;
+#pragma unroll
+          for (int u = 0; u < kUB; ++u) {
+            const int unit = wide_unit(uc, warp, u, tig);
+            const float2 hp = *reinterpret_cast<const float2*>(hs + lr * s + unit);
+            const float2 gr = gv[m][half][3 * u], gz = gv[m][half][3 * u + 1], gn = gv[m][half][3 * u + 2];
+            float2 hn;
+            hn.x = gru_gate(gr.x, gz.x, gn.x, acc[m][3 * u][cc], acc[m][3 * u + 1][cc], acc[m][3 * u + 2][cc],
+                            hp.x);
+            hn.y = gru_gate(gr.y, gz.y, gn.y, acc[m][3 * u][cc + 1], acc[m][3 * u + 1][cc + 1],
+                            acc[m][3 * u + 2][cc + 1], hp.y);
+            // the next step's tile: a buffer no chunk of this step reads;
+            // the next step reads it after its barrier
+            if (!last) *reinterpret_cast<float2*>(hn_s + lr * s + unit) = hn;
+            if (row < B) {
+              *reinterpret_cast<float2*>(y + (base + row) * H + unit) = hn;
+              if (last) *reinterpret_cast<float2*>(hT + ((size_t)g * B + row) * H + unit) = hn;
+            }
+          }
+        }
     }
-    __syncthreads();  // the next step's tile is complete; every read of this one is done
   }
 }
 
@@ -955,19 +1154,6 @@ constexpr int kDwGS = kDwN + 8;       // scalar fragment loads are conflict-free
 constexpr int kDwStage = kDwK * (kDwHS + kDwGS);
 constexpr int kDwStages = 3;          // chunks in flight: a ring of staged buffers
 constexpr size_t kDwSmem = kDwStages * kDwStage * sizeof(float);
-
-// 16 bytes global -> shared, asynchronous; zero-filled when !valid
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-// wait until at most N groups of this thread's copies are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // grid (P, (H / kDwM) * (3H / kDwN), G), kFwdThreads threads, kDwSmem
 // bytes of dynamic shared memory. kHc: the hidden size fixed at compile
@@ -1150,17 +1336,23 @@ int gru_bwd(const float* gi, const float* w_hh, const float* b_hh, const float* 
   return (int)cudaGetLastError();
 }
 
-// the wide variants: one block per 16-row tile of each group
+// the wide forward's shared memory at a row tile (bytes)
+int gru_fwd_wide_smem(int T, int H, int rows) { return (int)wide_fwd_smem(T, H, rows); }
+
+// the wide forward: grid (ceil(B / rows), units, G), rows in {16, 32, 64},
+// units 1 or (T == 1 only) H / 128
 int gru_fwd_wide(const float* gi, const float* w_hh, const float* b_hh, const float* h0, float* y,
-                 float* hT, int G, int T, int B, int H, void* stream) {
-  if (!wide_hidden(H) || G < 1 || T < 1 || B < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)2 * kFwdRows * (H + 16) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(gru_fwd_wide_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                 float* hT, int G, int T, int B, int H, int rows, int units, void* stream) {
+  if (!wide_hidden(H) || G < 1 || T < 1 || B < 1 || !(units == 1 || (T == 1 && units == H / kChunk)))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = wide_fwd_smem(T, H, rows);
+  auto kernel = rows == 16 ? gru_fwd_wide_kernel<1> : rows == 32 ? gru_fwd_wide_kernel<2>
+              : rows == 64 ? gru_fwd_wide_kernel<4> : nullptr;
+  if (kernel == nullptr || smem > kSmemPerBlock) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  gru_fwd_wide_kernel<<<dim3((B + kFwdRows - 1) / kFwdRows, G), kFwdThreads, smem, s>>>(
-      gi, w_hh, b_hh, h0, y, hT, T, B, H);
+  kernel<<<dim3((B + rows - 1) / rows, units, G), kFwdThreads, smem, s>>>(gi, w_hh, b_hh, h0, y, hT, T, B, H);
   return (int)cudaGetLastError();
 }
 

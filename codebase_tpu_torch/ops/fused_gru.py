@@ -31,9 +31,14 @@ They take what the TPU kernel takes, H % 128 == 0, up to `MAX_HIDDEN`
   them, bound by bytes, in a fixed order (deterministic, no atomics).
 
 At 256 <= H <= MAX_HIDDEN, W_hh (3 MB at H=512) does not fit in shared
-memory, and two wide variants take the recurrences: `gru_fwd_wide` and
-`gru_bwd_wide`, one block per 16-row tile, reading W_hh from the L2 at
-every step. `gru_dw` and `gru_reduce` serve every H.
+memory, and two wide variants take the recurrences. `gru_fwd_wide` streams
+W_hh through a ring of shared-memory stages (16-deep slices of one
+128-unit chunk's r, z and n columns, filled by `cp.async`) and reads each
+stage once per block for a row tile of 16, 32 or 64 rows; at T=1 its grid
+also splits the hidden units across blocks. `wide_forward_tiling` picks
+the row tile and grid from the shape and the SM count. `gru_bwd_wide` runs
+one block per 16-row tile, reading W_hh from the L2 at every step. `gru_dw`
+and `gru_reduce` serve every H.
 
 The header of `csrc/fused_gru.cu` says what bounds each kernel and what the
 design does about it. The library is built with nvcc for sm_90a at first
@@ -77,6 +82,19 @@ REDUCE_LAUNCHES = 0
 
 RESIDENT_HIDDEN = 128  # the hidden size of the kernels that hold W_hh in shared memory
 MAX_HIDDEN = 896  # the wide kernels' largest H: the backward's tiles fill shared memory
+
+# the wide forward's shared memory (csrc/fused_gru.cu `wide_fwd_smem`): an
+# h tile of `rows` rows at stride H + 16 floats (two when T > 1), and a ring
+# of two W_hh stages of 8 warps' 16 x 48 columns at a stride of 52 floats;
+# an H100 block can have 232,448 bytes. WIDE_STAGE_COST: a weight for the
+# time of a block's stage at each row tile, fitted so that
+# `wide_forward_tiling` picks the fastest tiling measured at every wide
+# shape of chip_smoke.py on an H100 (`kernel_bench --tilings`, PERF.md).
+WIDE_CHUNK = 128
+WIDE_STAGES = 2
+WIDE_STAGE_BYTES = 8 * 16 * 52 * 4
+SMEM_PER_BLOCK = 232_448
+WIDE_STAGE_COST = {16: 1.0, 32: 1.5, 64: 2.9}
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "fused_gru.cu"
@@ -229,19 +247,23 @@ def _library():
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.gru_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
             lib.gru_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
-            lib.gru_fwd_wide.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+            lib.gru_fwd_wide.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
+            lib.gru_fwd_wide_smem.argtypes = [i, i, i]
             lib.gru_bwd_wide.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, p]
             lib.gru_dw.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
             lib.gru_reduce.argtypes = [p, p, i, i, i, p]
             lib.gru_dw_tiles.argtypes = [i]
             sizes = (lib.gru_max_hidden, lib.gru_fwd_rows, lib.gru_dw_chunk)
-            for fn in (lib.gru_fwd, lib.gru_bwd, lib.gru_fwd_wide, lib.gru_bwd_wide, lib.gru_dw,
-                       lib.gru_reduce, lib.gru_dw_tiles, *sizes):
+            for fn in (lib.gru_fwd, lib.gru_bwd, lib.gru_fwd_wide, lib.gru_fwd_wide_smem, lib.gru_bwd_wide,
+                       lib.gru_dw, lib.gru_reduce, lib.gru_dw_tiles, *sizes):
                 fn.restype = i
             for fn in sizes:
                 fn.argtypes = []
             if lib.gru_max_hidden() != MAX_HIDDEN:
                 raise RuntimeError("fused GRU library was built for other hidden sizes")
+            if any(lib.gru_fwd_wide_smem(T, MAX_HIDDEN, rows) != wide_forward_smem(T, MAX_HIDDEN, rows)
+                   for T in (1, 2) for rows in (16, 32, 64)):
+                raise RuntimeError("fused GRU library sizes the wide forward's shared memory otherwise")
             _lib = lib
         return _lib
 
@@ -303,9 +325,47 @@ def forward_blocks_per_group(G: int, B: int, rows: int) -> int:
     return max(1, min(-(-B // rows), _sms() // G))
 
 
-def gru_fwd_cuda(gi, w_hh, b_hh, h0):
+def wide_forward_smem(T: int, H: int, rows: int) -> int:
+    """Bytes of dynamic shared memory of the wide forward: the h tile(s) and
+    the ring (csrc/fused_gru.cu `wide_fwd_smem`)."""
+    return (2 if T > 1 else 1) * rows * (H + 16) * 4 + WIDE_STAGES * WIDE_STAGE_BYTES
+
+
+def wide_forward_tiling(G: int, T: int, B: int, H: int, sms: int) -> dict:
+    """The wide forward's launch for a shape on a card of `sms` SMs.
+
+    rows: the row tile (16, 32 or 64), each block's share of the batch;
+    every W_hh stage it copies and every B fragment it splits serves that
+    many rows, so the L2 stream of a step is G * ceil(B / rows) * 12H^2
+    bytes. units: H / 128 at T=1, where each block forms one 128-unit chunk
+    (a single step needs no other block's h), else 1. Waves count one
+    block an SM.
+
+    The cost of a row tile is its waves of blocks times `WIDE_STAGE_COST`,
+    a fitted weight for the time of a block's stage; among the tiles whose
+    shared memory fits, the cheapest wins, the larger on a tie. Returns {rows,
+    units, stages, smem, grid (x, y, z), waves}."""
+    units = H // WIDE_CHUNK if T == 1 else 1
+    best = None
+    for rows in (64, 32, 16):
+        smem = wide_forward_smem(T, H, rows)
+        if smem > SMEM_PER_BLOCK:
+            continue
+        tiles = -(-B // rows)
+        waves = -(-(tiles * units * G) // sms)
+        cost = waves * WIDE_STAGE_COST[rows]
+        if best is None or cost < best[0]:
+            best = (cost, dict(rows=rows, units=units, stages=WIDE_STAGES, smem=smem, grid=(tiles, units, G),
+                               waves=waves))
+    if best is None:
+        raise ValueError(f"no wide forward tiling fits shared memory at T={T} H={H}")
+    return best[1]
+
+
+def gru_fwd_cuda(gi, w_hh, b_hh, h0, tiling=None):
     """Kernel 1, `gru_fwd` at H=128, `gru_fwd_wide` above:
-    (y (G, T, B, H), hT (G, B, H))."""
+    (y (G, T, B, H), hT (G, B, H)). `tiling` ({rows, units}) replaces
+    `wide_forward_tiling`'s choice for the wide forward (for measurements)."""
     global FWD_LAUNCHES, FWD_WIDE_LAUNCHES
     G, T, B, H = _dims(gi)
     dev = gi.device
@@ -321,7 +381,8 @@ def gru_fwd_cuda(gi, w_hh, b_hh, h0):
     wide = kernel_variant(H) == "wide"
     with torch.cuda.device(dev):
         if wide:
-            code = lib.gru_fwd_wide(*args, _stream(dev))
+            tile = tiling or wide_forward_tiling(G, T, B, H, _sms())
+            code = lib.gru_fwd_wide(*args, tile["rows"], tile["units"], _stream(dev))
         else:
             code = lib.gru_fwd(*args, forward_blocks_per_group(G, B, lib.gru_fwd_rows()), _stream(dev))
     _raise_on(code, "gru_fwd_wide launch" if wide else "gru_fwd launch")

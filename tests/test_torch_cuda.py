@@ -139,11 +139,14 @@ def _sass_functions(name):
     return [f for f in sass.split("Function : ")[1:] if name in f.splitlines()[0]]
 
 
-@pytest.mark.parametrize("G,T,B,hidden", [(3, 7, 1000, 256), (3, 5, 333, 384), (2, 3, 9, 512), (10, 2, 40, 896)])
+@pytest.mark.parametrize("G,T,B,hidden", [(3, 7, 1000, 256), (3, 5, 333, 384), (2, 3, 9, 512), (10, 2, 40, 896),
+                                          (2, 4, 50, 640), (1, 1, 1000, 512), (2, 9, 77, 640)])
 def test_wide_kernels_match_plain_version_on_the_card(cuda_device, G, T, B, hidden):
     """The wide variants (H >= 256) through the autograd function: forward
     at 1e-5, gradients at 1e-4 of each one's largest entry, the backward
-    bitwise equal in two calls; they count as the wide kernels."""
+    bitwise equal in two calls; they count as the wide kernels. The batches
+    (1000 at T=1 with the unit split, 77 over 9 steps) are not multiples of
+    the forward's row tile."""
     arrays = _gru_inputs(G, T, B, seed=6, hidden=hidden)
     ky, kh = (torch.tensor(a, device=cuda_device) for a in arrays[4:])
     t = [torch.tensor(a, device=cuda_device, requires_grad=True) for a in arrays[:4]]
@@ -165,6 +168,33 @@ def test_wide_kernels_match_plain_version_on_the_card(cuda_device, G, T, B, hidd
                                                          "dw": 2, "reduce": 2}
 
 
+@pytest.mark.parametrize("G,T,B,hidden", [(10, 1, 2048, 512), (10, 121, 256, 512), (10, 1, 100, 512),
+                                          (3, 7, 1000, 256), (2, 9, 77, 896), (1, 1, 33, 768)])
+def test_wide_forward_is_deterministic_at_every_tiling(cuda_device, G, T, B, hidden):
+    """Two calls of the wide forward are bitwise equal, and so is every row
+    tile and unit split the launcher takes whose shared memory fits: each
+    output is the same sequence of operations whatever block forms it.
+    Against the plain version at 1e-5."""
+    gi, w, b, h0 = (torch.tensor(a, device=cuda_device) for a in _gru_inputs(G, T, B, seed=8, hidden=hidden)[:4])
+    y, hT = fg.gru_fwd_cuda(gi, w, b, h0)
+    again = fg.gru_fwd_cuda(gi, w, b, h0)
+    yr, hTr = fg.gru_sequence_plain(gi, w, b, h0)
+    torch.cuda.synchronize()
+    assert torch.equal(y, again[0]) and torch.equal(hT, again[1])
+    torch.testing.assert_close(y, yr, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(hT, hTr, rtol=1e-5, atol=1e-5)
+    tried = 0
+    for rows in (16, 32, 64):
+        for units in sorted({1, hidden // 128 if T == 1 else 1}):
+            if fg.wide_forward_smem(T, hidden, rows) > fg.SMEM_PER_BLOCK:
+                continue
+            other = fg.gru_fwd_cuda(gi, w, b, h0, tiling=dict(rows=rows, units=units))
+            torch.cuda.synchronize()
+            assert torch.equal(y, other[0]) and torch.equal(hT, other[1]), (rows, units)
+            tried += 1
+    assert tried >= 1
+
+
 @pytest.mark.parametrize("kernel", ["gru_bwd_kernel", "gru_dw_kernel", "gru_bwd_wide_kernel"])
 def test_backward_kernels_run_on_tensor_cores(cuda_device, kernel):
     """The backward's three products (h_prev @ W_hh and dgh @ W_hh^T in the
@@ -180,9 +210,10 @@ def test_forward_kernel_runs_on_tensor_cores(cuda_device, kernel):
     """The forward's product is tensor-core MMA in TF32: gru_fwd_kernel in
     the built library holds HMMA ... TF32 instructions
     (its 3xTF32 compensation shows in the 1e-5 agreement above, which
-    single-pass TF32 misses, see tests/test_torch_fused_gru.py)."""
+    single-pass TF32 misses, see tests/test_torch_fused_gru.py), and so does
+    each instance of gru_fwd_wide_kernel (row tiles of 16, 32 and 64)."""
     functions = _sass_functions(kernel)
-    assert len(functions) == (2 if kernel == "gru_dw_kernel" else 1)
+    assert len(functions) == (3 if kernel == "gru_fwd_wide_kernel" else 1)
     assert all(any("HMMA" in line and "TF32" in line for line in f.splitlines()) for f in functions)
 
 

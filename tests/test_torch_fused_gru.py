@@ -190,6 +190,91 @@ def test_forward_grid_fills_the_card(monkeypatch):
     assert fg.forward_blocks_per_group(200, 64, 16) == 1
 
 
+# the wide kernels' shapes on the MMM2 paths and the ragged checks
+# (chip_smoke.py (p)-(x)): (G, T, B, H)
+WIDE_SHAPES = {
+    "p": (10, 1, 2048, 512), "q": (10, 121, 256, 512), "r": (10, 1, 100, 512), "s": (10, 1, 256, 512),
+    "t": (10, 120, 256, 512), "u": (10, 121, 256, 512), "v": (3, 7, 1000, 256), "w": (3, 5, 333, 384),
+    "x": (2, 9, 77, 896),
+}
+WIDE_HIDDEN = range(256, fg.MAX_HIDDEN + 1, 128)
+
+
+@pytest.mark.parametrize("hidden", WIDE_HIDDEN)
+def test_wide_forward_tiling_fits_shared_memory(hidden):
+    """At every wide H and every (G, T, B) of (p)-(x), on 132 SMs: the
+    shared memory asked for is the kernel's (h tiles and a ring of two
+    26 KB W_hh stages) and fits a block's 227 KB."""
+    for G, T, B, _ in WIDE_SHAPES.values():
+        tile = fg.wide_forward_tiling(G, T, B, hidden, 132)
+        assert tile["rows"] in (16, 32, 64) and tile["stages"] == 2
+        assert tile["smem"] == fg.wide_forward_smem(T, hidden, tile["rows"])
+        assert tile["smem"] == ((2 if T > 1 else 1) * tile["rows"] * (hidden + 16) + 2 * 16 * 52 * 8) * 4
+        assert tile["smem"] <= fg.SMEM_PER_BLOCK == 232_448
+
+
+def _coverage(G, T, B, H, tile):
+    """How often the launch's blocks form each (group, row, unit)."""
+    seen = np.zeros((G, B, H), dtype=np.int64)
+    nx, ny, nz = tile["grid"]
+    assert nz == G and ny == tile["units"]
+    chunk = H // ny
+    for x in range(nx):
+        for y in range(ny):
+            seen[:, x * tile["rows"] : (x + 1) * tile["rows"], y * chunk : (y + 1) * chunk] += 1
+    return seen
+
+
+@pytest.mark.parametrize("G,T,B,hidden", [*WIDE_SHAPES.values(), (1, 1, 1000, 512), (2, 9, 77, 640), (1, 1, 1, 256),
+                                          (3, 1, 65, 896), (1, 2, 33, 768)])
+def test_wide_forward_tiles_cover_every_row_and_unit_once(G, T, B, hidden):
+    """The grid's row tiles and unit chunks form every (group, row, unit)
+    exactly once, B a multiple of the row tile or not (the kernel masks the
+    rows past B); a unit chunk is 128 units."""
+    tile = fg.wide_forward_tiling(G, T, B, hidden, 132)
+    assert (tile["grid"][0] - 1) * tile["rows"] < B <= tile["grid"][0] * tile["rows"]
+    assert hidden // tile["units"] in (128, hidden)
+    assert (_coverage(G, T, B, hidden, tile) == 1).all()
+
+
+@pytest.mark.parametrize("T", [1, 2, 26, 121])
+def test_wide_forward_splits_units_only_at_one_step(T):
+    """At T=1 a block forms one 128-unit chunk (H / 128 blocks a row tile);
+    over several steps each block needs the whole of h every step, so it
+    forms every unit."""
+    for hidden in WIDE_HIDDEN:
+        tile = fg.wide_forward_tiling(10, T, 256, hidden, 132)
+        assert tile["units"] == (hidden // 128 if T == 1 else 1)
+
+
+def test_wide_forward_tiling_fills_the_card():
+    """At the MMM2 update (q) 32-row tiles run in one wave (80 blocks on 132
+    SMs; 16-row tiles would need two), halving the W_hh stream of the
+    16-row design; the rollout (p) takes 64-row tiles, the largest, over the
+    unit split; H=896 leaves room for 16-row tiles only; the eval (r),
+    MAPPO's rollout (s) and the ragged shapes take the tiling measured
+    fastest there. Every shape of
+    more than one step runs its row tiles' chains in one wave, on an H100
+    SXM (132 SMs) and PCIe (114)."""
+    q = fg.wide_forward_tiling(*WIDE_SHAPES["q"], 132)
+    assert (q["rows"], q["grid"], q["waves"]) == (32, (8, 1, 10), 1)
+    p = fg.wide_forward_tiling(*WIDE_SHAPES["p"], 132)
+    assert (p["rows"], p["grid"], p["units"]) == (64, (32, 4, 10), 4)
+    x = fg.wide_forward_tiling(*WIDE_SHAPES["x"], 132)
+    assert (x["rows"], x["grid"]) == (16, (5, 1, 2))
+    # the fastest tiling measured on an H100 at the other shapes (PERF.md)
+    chosen = {k: (t["rows"], t["units"]) for k, t in
+              ((k, fg.wide_forward_tiling(*WIDE_SHAPES[k], 132)) for k in "rsvw")}
+    assert chosen == {"r": (64, 4), "s": (32, 4), "v": (32, 1), "w": (16, 1)}
+    for sms in (132, 114):
+        for key, (G, T, B, hidden) in WIDE_SHAPES.items():
+            tile = fg.wide_forward_tiling(G, T, B, hidden, sms)
+            blocks = tile["grid"][0] * tile["grid"][1] * tile["grid"][2]
+            assert tile["waves"] == -(-blocks // sms), key
+            if T > 1:
+                assert tile["waves"] == 1, (key, sms)
+
+
 def test_reduce_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match=r"\(G, P, E\)"):
         fg.reduce_partials_cuda(torch.zeros((2, 7)))
@@ -292,6 +377,10 @@ class _FakeLibrary:
         self.calls["dw"] = args[-3:-1]
         return 0
 
+    def gru_fwd_wide(self, *args):
+        self.calls["fwd_wide"] = args[-3:-1]
+        return 0
+
 
 @pytest.mark.parametrize("G,T,B", [(2, 26, 1024), (2, 1, 65536), (3, 7, 1000), (1, 3, 5), (200, 2, 64)])
 def test_backward_grids_fill_the_card(monkeypatch, G, T, B):
@@ -319,6 +408,33 @@ def test_backward_grids_fill_the_card(monkeypatch, G, T, B):
     assert P * G * 4 <= max(132, G * 4)
     if (G, T, B) == (2, 26, 1024):
         assert (lib.calls["bwd"], P, rows) == (64, 16, 1664)
+
+
+@pytest.mark.parametrize("G,T,B,hidden", [WIDE_SHAPES["p"], WIDE_SHAPES["q"], WIDE_SHAPES["x"]])
+def test_wide_forward_wrapper_launches_the_tiling(monkeypatch, G, T, B, hidden):
+    """`gru_fwd_cuda` at a wide H hands the launcher the row tile and unit
+    split of `wide_forward_tiling` for the card's SM count, or the tiling
+    it is given; it counts one wide launch."""
+    lib = _FakeLibrary()
+    monkeypatch.setattr(fg, "_sms", lambda: 132)
+    monkeypatch.setattr(fg, "_library", lambda: lib)
+    monkeypatch.setattr(fg, "_check", lambda shapes, device: None)
+    monkeypatch.setattr(fg, "_stream", lambda device: None)
+    monkeypatch.setattr(fg, "_ptr", lambda t: None)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    gi = torch.empty((G, T, B, 3 * hidden), device="meta")
+    w, b = torch.empty((G, hidden, 3 * hidden), device="meta"), torch.empty((G, 3 * hidden), device="meta")
+    h0 = torch.empty((G, B, hidden), device="meta")
+    before = fg.launch_counts()
+    y, hT = fg.gru_fwd_cuda(gi, w, b, h0)
+    tile = fg.wide_forward_tiling(G, T, B, hidden, 132)
+    assert lib.calls["fwd_wide"] == (tile["rows"], tile["units"])
+    assert y.shape == (G, T, B, hidden) and hT.shape == (G, B, hidden)
+    fg.gru_fwd_cuda(gi, w, b, h0, tiling=dict(rows=16, units=1))
+    assert lib.calls["fwd_wide"] == (16, 1)
+    after = fg.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {"fwd": 0, "bwd": 0, "fwd_wide": 2, "bwd_wide": 0,
+                                                         "dw": 0, "reduce": 0}
 
 
 @pytest.mark.parametrize("hidden,G,T,product", [(256, 3, 4, "f32"), (256, 3, 4, "3xtf32"),
