@@ -37,7 +37,10 @@ exits non-zero:
              reduction's input fits in the L2, so it is timed on copies that
              do not, see `cold_copies`). At the wide shapes it also
              reports the wide forward's tiling (`wide_forward_tiling`: row
-             tile, grid, unit split, ring stages, shared memory).
+             tile, grid, unit split, ring stages, shared memory) and the
+             wide backward's (`wide_backward_tiling`: row tile, grid,
+             shared memory, blocks an SM, waves; the blocks an SM checked
+             against the CUDA runtime's count).
 Then twelve train phases through `codebase_tpu_torch.run.main`, each with
 the launch counters set to 0 just before and read just after, and logging
 every iteration (`log_interval` = E*T, so the host loop's chunk is one
@@ -373,9 +376,14 @@ def check_shape(key, G, T, B, H, gen, peaks):
     out["gru_bwd"]["recurrence_bound_ms"], out["gru_bwd"]["recurrence_bound_by"] = bounds(
         "gru_bwd_recurrence", G, T, B, H, P, peaks)
     out["gru_reduce"]["partials_per_group"] = P
-    if H != 128:  # the wide forward's launch at this shape
-        out["gru_fwd"]["tiling"] = fg.wide_forward_tiling(
-            G, T, B, H, torch.cuda.get_device_properties(dev).multi_processor_count)
+    if H != 128:  # the wide kernels' launches at this shape
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        out["gru_fwd"]["tiling"] = fg.wide_forward_tiling(G, T, B, H, sms)
+        tile = out["gru_bwd"]["tiling"] = fg.wide_backward_tiling(G, T, B, H, sms)
+        on_card = fg._library().gru_bwd_wide_blocks_per_sm(H, tile["rows"])
+        if on_card != tile["blocks_per_sm"]:
+            raise AssertionError(f"wide backward at {key}: the runtime fits {on_card} blocks an SM, "
+                                 f"the tiling counts {tile['blocks_per_sm']}")
     return out
 
 
@@ -793,7 +801,7 @@ def main() -> None:
             **{f"{roles[key]}_shape_{key}": {f: results[key][k][f] for f in (
                 "ms", "plain_ms", "library_ms", "library", "bound_ms", "bound_by")} for key in keys if key != at},
         }
-        if kernel == "gru_fwd_wide":
+        if kernel in ("gru_fwd_wide", "gru_bwd_wide"):
             entry["tiling"] = {key: results[key][k]["tiling"] for key in keys}
         if k == "gru_bwd":
             entry["ms_is"] = "the whole backward: the recurrence kernel, gru_dw_kernel, gru_reduce_kernel"

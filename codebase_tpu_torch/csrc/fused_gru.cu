@@ -140,18 +140,33 @@
 // - gi of a chunk is prefetched into the L2 when its product starts and
 //   read into registers after it.
 //
-// gru_bwd_wide_kernel. What bounds it on an H100: W_hh read from the L2
-// at every step (each 16-row tile reads all of W_hh per step, twice: for
-// h_prev @ W_hh and for dgh @ W_hh^T) and the 3xTF32 mma.sync work of the
-// tile, each of the same order. Design (simple first; the forward's
-// staged ring is the next step):
-// - one block per 16-row tile of a group, all T steps;
-// - B fragments: four scalar loads of W_hh[16kp + 4tig + i, 8nt + gid]
-//   (every 32-byte sector read is used);
-// - the h_prev tile and the dgh tile (16 x 3H, stride 3H + 16) in shared
-//   memory; dh is carried between steps in dh0 itself, each thread
-//   reading and writing only its own positions; dgh @ W_hh^T reads W_hh by
-//   rows as float4 (W_hh[unit, 16kp + 4tig + 0..3]).
+// gru_bwd_wide_kernel. What bounds it on an H100: the same two streams
+// as the forward's, twice a step (W_hh for h_prev @ W_hh and again for
+// dgh @ W_hh^T: G * ceil(B / R) * 24H^2 bytes a step out of the L2), and
+// twice the forward's 3xTF32 mma.sync work (5.91 ms of operations at G=10
+// T=121 B=256 H=512, at the TF32 peak). Its first design read all of W_hh
+// from the L2 twice a step for each 16-row tile, fragment by fragment, and
+// kept the whole dgh tile (16 x 3H) in shared memory. Design:
+// - R = 16 or 32 rows a block (a template parameter), picked by the host
+//   (ops/fused_gru.py wide_backward_tiling); two 16-row blocks share an SM
+//   where their shared memory allows (H=256 .. 512);
+// - both products read W_hh from the forward's warp-private ring of
+//   cp.async stages: each stage is read once per block for R rows. A
+//   chunk's gh stages are the forward's (a 16-deep slice of its r, z and n
+//   columns); its dh stages hold the rows of W_hh (units) of the warp's
+//   16 units of one unit chunk by 48 of the summed chunk's 384 columns
+//   (dh_stage_at), the same size, so one ring carries both in the order
+//   (step, chunk, gh slices, dh stages);
+// - dh is summed one unit chunk at a time: after the gates of chunk uc,
+//   its dgh columns (R x 384, kDghStride) sit in shared memory and their
+//   share dgh[:, cols(uc)] @ W_hh[:, cols(uc)]^T is added to dh_{t-1} over
+//   all H units. Only that chunk's dgh is held, so the shared memory does
+//   not grow with 3H: R=32 fits at every H up to kMaxH. dh_{t-1} is summed
+//   in device memory, each thread at its own positions (dgh_n[t - 1], which
+//   step t - 1 reads before it overwrites it, or dh0);
+// - the h_prev tile (R x H, stride H + 16) is copied under the last
+//   chunk's dh product; gi, dy and dh_t of a chunk are prefetched into the
+//   L2 when its product starts.
 // gru_dw_kernel serves every H: its 64 x 192 tiles of dW_hh number
 // (H / 64) * (3H / 192), 4 at H=128, 64 at H=512. It is built twice: with
 // H fixed at 128 (index arithmetic folded at compile time; H at run time
@@ -167,7 +182,10 @@ namespace {
 
 constexpr int kH = 128;       // hidden size of the resident-W_hh kernels
 constexpr int kH3 = 3 * kH;
-constexpr int kMaxH = 896;    // the wide kernels' largest H: the backward's tiles fill shared memory
+// the wide kernels' largest H: where the first wide backward, which held the whole
+// dgh tile, filled shared memory; the tiles of both wide kernels now leave
+// room at 896 (ops/fused_gru.py MAX_HIDDEN)
+constexpr int kMaxH = 896;
 
 // the forward's gate: branch-free (division by a 2-ulp reciprocal, no
 // IEEE slow path), so a thread's gates interleave
@@ -714,7 +732,7 @@ gru_bwd_kernel(const float* __restrict__ gi, const float* __restrict__ w_hh,
 }
 
 // ---------------------------------------------------------------------------
-// Wide variants (256 <= H <= kMaxH, H % 128 == 0): W_hh read from the L2
+// Wide variants (256 <= H <= kMaxH, H % 128 == 0): W_hh streamed through shared memory
 // ---------------------------------------------------------------------------
 
 constexpr int kChunk = 8 * kUB * kFwdWarps;  // hidden units per pass: 128
@@ -1015,132 +1033,332 @@ gru_fwd_wide_kernel(const float* __restrict__ gi, const float* __restrict__ w_hh
   }
 }
 
-// grid (ceil(B / 16), G), kFwdThreads threads, 16 * (4H + 32) floats of
-// dynamic shared memory: block x of group g runs row tile x in reverse
-// time. Writes dgi, dgh_n and dh0, which carries dh between steps.
-__global__ void __launch_bounds__(kFwdThreads, 1)
+// The wide backward's dh stages: W_hh^T for dgh @ W_hh^T, whose B operand
+// is rows of W_hh. A warp's part holds the 16 rows (units) of W_hh whose
+// dh it forms in one unit chunk, by 48 of the 384 columns (r, z and n) of
+// the chunk whose dgh is summed, at a stride of 48 floats: 768 of the 832
+// floats of a part of the forward's layout, so both kinds of stage share
+// one ring. The B fragments are float4 reads (row 8u + gid, columns 16sl +
+// 4tig .. + 3); a quarter-warp holds two rows, 48 floats (16 banks) apart,
+// so its eight 16-byte reads fall on 32 banks. A 16-byte copy of 4
+// columns stays contiguous and inside the row.
+constexpr int kDhStride = kWideWarpCols;
+__device__ __forceinline__ int dh_stage_at(int u, int c) { return u * kDhStride + c; }
+
+// the wide backward's dgh tile: one unit chunk's 384 columns (r, z, n) at a
+// stride of 400 floats (16 mod 32: conflict-free A loads)
+constexpr int kDghStride = 3 * kChunk + 16;
+
+// the backward's dynamic shared memory: the h_prev tile, the dgh tile of
+// one unit chunk and the ring
+__host__ __device__ __forceinline__ size_t wide_bwd_smem(int H, int rows) {
+  return ((size_t)rows * (H + 16) + (size_t)rows * kDghStride + (size_t)kWideStages * kWideStageFloats) *
+         sizeof(float);
+}
+
+// grid (ceil(B / kR), G), kFwdThreads threads, wide_bwd_smem(H, kR) bytes
+// of dynamic shared memory; kR = 16 * kM rows a block. Block (x, g) runs
+// row tile x of group g in reverse time. At step t, for each unit chunk uc
+// in turn: gh = b_hh + h_prev @ W_hh at the chunk's columns (the forward's
+// stages and product), the gates' backward at this thread's positions
+// (dgi and dgh_n out, dgh into the tile), then the chunk's share of
+// dh_{t-1}, dgh[:, cols(uc)] @ W_hh[:, cols(uc)]^T, over all H units, one
+// unit chunk uc' at a time (8 dh stages each). dh_{t-1} is summed in
+// device memory at this thread's own positions, so no other thread reads
+// it: in dgh_n[t - 1], which step t - 1 reads before it writes its dgh_n
+// there, or in dh0 at t = 0. Its sum at a unit of chunk uc' runs over the
+// chunks in order, with dh_total * z added when chunk uc' passes its gates:
+// the same operations in the same order for a row whatever the row tile.
+// The W_hh stages run through the forward's ring in the order (t, uc, the
+// chunk's KS gh stages, its KS = 8 * chunks dh stages), warp-private; the
+// block meets twice a chunk, for the dgh tile, and once a step, for the
+// h_prev tile, which is copied while the last chunk's dh is summed.
+template <int kM>
+__global__ void __launch_bounds__(kFwdThreads, kM == 1 ? 2 : 1)
 gru_bwd_wide_kernel(const float* __restrict__ gi, const float* __restrict__ w_hh,
                     const float* __restrict__ b_hh, const float* __restrict__ h0,
                     const float* __restrict__ y, const float* __restrict__ dy,
                     const float* __restrict__ dhT, float* __restrict__ dgi,
                     float* __restrict__ dh0, float* __restrict__ dgh_n, int T, int B, int H) {
+  constexpr int kR = 16 * kM;
   extern __shared__ __align__(16) float smem[];
-  const int s = H + 16, ds_s = 3 * H + 16;  // both 16 mod 32
-  float* hs = smem;                         // (16, s) h_prev tile
-  float* ds = smem + kFwdRows * s;          // (16, ds_s) dgh tile
+  const int s = H + 16;  // 16 mod 32: conflict-free A loads
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;
-  const int g = blockIdx.y, r0 = blockIdx.x * kFwdRows;
-  const int H3 = 3 * H, chunks = H / kChunk;
+  const int g = blockIdx.y, r0 = blockIdx.x * kR;
+  const int H3 = 3 * H, KS = H / 16, chunks = H / kChunk;
   const float* w = w_hh + (size_t)g * H * H3;
   const float* bg = b_hh + (size_t)g * H3;
   const float* yg = y + (size_t)g * T * B * H;
   const float* h0g = h0 + (size_t)g * B * H;
-  float* dhg = dh0 + (size_t)g * B * H;  // dh at this thread's positions
-  for (int uc = 0; uc < chunks; ++uc)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = r0 + gid + 8 * half;
-#pragma unroll
-      for (int u = 0; u < kUB; ++u) {
-        const size_t at = (size_t)row * H + wide_unit(uc, warp, u, tig);
-        if (row < B)
-          *reinterpret_cast<float2*>(dhg + at) =
-              __ldg(reinterpret_cast<const float2*>(dhT + (size_t)g * B * H + at));
-      }
-    }
-  load_tile_wide(hs, s, T > 1 ? yg + (size_t)(T - 2) * B * H : h0g, B, r0, H);
-  __syncthreads();
+  float* hs = smem;                   // (kR, s) h_prev tile
+  float* ds = hs + kR * s;            // (kR, kDghStride) dgh tile of one unit chunk
+  float* ring = ds + kR * kDghStride;
 
+  // the next stage to copy (this warp's part): its index, its index in the
+  // chunk's gh (phase 0) or dh (phase 1) stages, and the chunk
+  const long long n_stages = (long long)T * chunks * 2 * KS;
+  long long iq = 0;
+  int ii = 0, iph = 0, ic = 0, wslot = 0;
+  float* ring_w = ring + warp * kWideWarpFloats;
+  auto issue = [&]() {
+    if (iq < n_stages) {
+      float* dst = ring_w + wslot * kWideStageFloats;
+      if (iph == 0) {  // slice ii of chunk ic's r, z, n columns: the forward's stage
+        const float* src = w + (size_t)(ii * 16) * H3 + ic * kChunk + warp * 8 * kUB;
+#pragma unroll
+        for (int r = 0; r < 16 * kWideWarpCols / 4 / 32; ++r) {
+          const int i = lane + 32 * r;
+          const int k = i / (kWideWarpCols / 4), c = 4 * (i % (kWideWarpCols / 4));
+          cp_async16(dst + wide_stage_at(k, c), src + (size_t)k * H3 + (c / 16) * H + c % 16, true);
+        }
+      } else {  // rows of the warp's 16 units of chunk ii / 8, columns 48 (ii % 8) .. + 47 of chunk ic's 384
+        const int kq = ii % 8;
+        const float* src = w + (size_t)((ii / 8) * kChunk + warp * 8 * kUB) * H3 + ic * kChunk;
+#pragma unroll
+        for (int r = 0; r < 16 * kWideWarpCols / 4 / 32; ++r) {
+          const int i = lane + 32 * r;
+          const int u = i / (kWideWarpCols / 4), c = 4 * (i % (kWideWarpCols / 4));
+          const int k = 48 * kq + c;  // column k % 128 of gate k / 128
+          cp_async16(dst + dh_stage_at(u, c), src + (size_t)u * H3 + (k / kChunk) * H + k % kChunk, true);
+        }
+      }
+      ++iq;
+      if (++ii == KS) {
+        ii = 0;
+        if (++iph == 2) {
+          iph = 0;
+          if (++ic == chunks) ic = 0;
+        }
+      }
+      if (++wslot == kWideStages) wslot = 0;
+    }
+    cp_async_commit();
+  };
+  // the h_prev tile of step t (h0, or y of step t - 1); rows past B zero-filled
+  auto load_h = [&](int t) {
+    const float* src = t > 0 ? yg + (size_t)(t - 1) * B * H : h0g;
+    for (int i = tid; i < kR * (H / 4); i += kFwdThreads) {
+      const int rr = i / (H / 4), c = 4 * (i % (H / 4)), row = r0 + rr;
+      cp_async16(hs + rr * s + c, row < B ? src + (size_t)row * H + c : src, row < B);
+    }
+    cp_async_commit();
+  };
+
+  load_h(T - 1);
+  for (int q = 0; q < kWideStages - 1; ++q) issue();
+
+  // B-fragment offsets of h_prev @ W_hh, as in the forward
+  int wcol[kNJ];
+#pragma unroll
+  for (int j = 0; j < kNJ; ++j) wcol[j] = wide_stage_at(4 * tig, (j % 3) * 8 * kUB + (j / 3) * 8 + gid);
+
+  int rslot = 0;
   for (int t = T - 1; t >= 0; --t) {
     const size_t base = ((size_t)g * T + t) * B;
-    // the gates' backward, chunk by chunk: dgi and dgh_n out, dgh into the
-    // tile, dh_total * z (the direct path to dh_{t-1}) into dh0
+    // dh_t (dhT, or summed at step t + 1 into dgh_n[t]) and where dh_{t-1}
+    // is summed: (B, H) rows
+    const float* dh_cur = t == T - 1 ? dhT + (size_t)g * B * H : dgh_n + base * H;
+    float* dh_nx = t > 0 ? dgh_n + (base - B) * H : dh0 + (size_t)g * B * H;
+    cp_async_wait<0>();
+    __syncthreads();  // the h_prev tile has landed
     for (int uc = 0; uc < chunks; ++uc) {
-      float2 gv[2][kNJ];
-      wide_gi(gv, gi + base * H3, B, r0, H, uc, warp, gid, tig);
-      float acc[kNJ][4];
-      wide_bias(acc, bg, H, uc, warp, tig);
-      wide_product(acc, hs, s, w, H, uc, warp, lane);
+      // this warp's gi, dy and dh_t of the chunk into the L2; read after the product
+      for (int i = lane; i < kR * 5; i += 32) {
+        const int row = r0 + i / 5, q = i % 5, col = uc * kChunk + warp * 8 * kUB;
+        if (row < B)
+          prefetch_l2(q < 3 ? gi + (base + row) * H3 + q * H + col
+                            : (q == 3 ? dy + (base + row) * H : dh_cur + (size_t)row * H) + col);
+      }
+      // gh = b_hh + h_prev @ W_hh at the chunk's columns: the forward's product
+      float acc[kM][kNJ][4];
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int lr = gid + 8 * half, row = r0 + lr;
-        const int c = 2 * half;
+      for (int m = 0; m < kM; ++m) wide_bias(acc[m], bg, H, uc, warp, tig);
+      for (int kp = 0; kp < KS; ++kp) {
+        cp_async_wait<kWideStages - 2>();
+        __syncwarp();
+        issue();
+        const float* ws = ring_w + rslot * kWideStageFloats;
+        if (++rslot == kWideStages) rslot = 0;
+        uint32_t ab[kM][2][4], as[kM][2][4];
 #pragma unroll
-        for (int u = 0; u < kUB; ++u) {
-          const int unit = wide_unit(uc, warp, u, tig);
-          const float2 hp = *reinterpret_cast<const float2*>(hs + lr * s + unit);
-          float2 dht = make_float2(0.f, 0.f);
-          if (row < B) {
-            const float2 dyv = __ldg(reinterpret_cast<const float2*>(dy + (base + row) * H + unit));
-            const float2 dhv = *reinterpret_cast<const float2*>(dhg + (size_t)row * H + unit);
-            dht = make_float2(dyv.x + dhv.x, dyv.y + dhv.y);
+        for (int m = 0; m < kM; ++m) {
+          const float* hr = hs + (16 * m + gid) * s + kp * 16 + 4 * tig;
+          split_a(*reinterpret_cast<const float4*>(hr), *reinterpret_cast<const float4*>(hr + 8 * s),
+                  ab[m], as[m]);
+        }
+        constexpr int kJG = kM == 1 ? kNJ : 2;
+#pragma unroll
+        for (int j0 = 0; j0 < kNJ; j0 += kJG) {
+          uint32_t bb[kJG][2][2], bs[kJG][2][2];
+#pragma unroll
+          for (int jj = 0; jj < kJG; ++jj) {
+            const float* wc = ws + wcol[j0 + jj];
+            split_b(wc[0], wc[kWideWarpStride], wc[2 * kWideWarpStride], wc[3 * kWideWarpStride], bb[jj], bs[jj]);
           }
-          const float2 xr = gv[half][3 * u], xz = gv[half][3 * u + 1], xn = gv[half][3 * u + 2];
-          float2 d_r, d_z, d_n, d_gn, carry;
-          gru_gate_bwd(xr.x, xz.x, xn.x, acc[3 * u][c], acc[3 * u + 1][c], acc[3 * u + 2][c], hp.x,
-                       dht.x, d_r.x, d_z.x, d_n.x, d_gn.x, carry.x);
-          gru_gate_bwd(xr.y, xz.y, xn.y, acc[3 * u][c + 1], acc[3 * u + 1][c + 1],
-                       acc[3 * u + 2][c + 1], hp.y, dht.y, d_r.y, d_z.y, d_n.y, d_gn.y, carry.y);
-          // rows past B: dht is zero, so every gradient there is zero
-          *reinterpret_cast<float2*>(ds + lr * ds_s + unit) = d_r;
-          *reinterpret_cast<float2*>(ds + lr * ds_s + H + unit) = d_z;
-          *reinterpret_cast<float2*>(ds + lr * ds_s + 2 * H + unit) = d_gn;
-          if (row < B) {
-            float* dgir = dgi + (base + row) * H3 + unit;
-            *reinterpret_cast<float2*>(dgir) = d_r;
-            *reinterpret_cast<float2*>(dgir + H) = d_z;
-            *reinterpret_cast<float2*>(dgir + 2 * H) = d_n;
-            *reinterpret_cast<float2*>(dgh_n + (base + row) * H + unit) = d_gn;
-            *reinterpret_cast<float2*>(dhg + (size_t)row * H + unit) = carry;
+          float part[kM][kJG][4] = {};
+#pragma unroll
+          for (int ks = 0; ks < 2; ++ks) {
+#pragma unroll
+            for (int jj = 0; jj < kJG; ++jj)
+#pragma unroll
+              for (int m = 0; m < kM; ++m) mma_tf32(part[m][jj], as[m][ks], bb[jj][ks]);
+#pragma unroll
+            for (int jj = 0; jj < kJG; ++jj)
+#pragma unroll
+              for (int m = 0; m < kM; ++m) mma_tf32(part[m][jj], ab[m][ks], bs[jj][ks]);
+#pragma unroll
+            for (int jj = 0; jj < kJG; ++jj)
+#pragma unroll
+              for (int m = 0; m < kM; ++m) mma_tf32(part[m][jj], ab[m][ks], bb[jj][ks]);
           }
+#pragma unroll
+          for (int jj = 0; jj < kJG; ++jj)
+#pragma unroll
+            for (int m = 0; m < kM; ++m)
+#pragma unroll
+              for (int i = 0; i < 4; ++i) acc[m][j0 + jj][i] += part[m][jj][i];
         }
       }
-    }
-    __syncthreads();  // the dgh tile is complete; every read of the h_prev tile is done
-    if (t > 0) load_tile_wide(hs, s, t > 1 ? yg + (size_t)(t - 2) * B * H : h0g, B, r0, H);
 
-    // dh_{t-1} = dh_total * z + dgh @ W_hh^T, on the same (row, unit)
-    // positions as the gates: B fragments W_hh[unit, 16kp + 4tig + 0..3]
-    for (int uc = 0; uc < chunks; ++uc) {
-      float dacc[kUB][4] = {};
-      const float* wr[kUB];
+      // the gates' backward at this thread's positions: dgi and dgh_n out,
+      // dgh into the tile, dh_total * z into dh_{t-1}
+      float2 gv[kM][2][kNJ];
 #pragma unroll
-      for (int u = 0; u < kUB; ++u)
-        wr[u] = w + (size_t)(uc * kChunk + (warp * kUB + u) * 8 + gid) * H3 + 4 * tig;
-#pragma unroll 2
-      for (int kp = 0; kp < H3 / 16; ++kp) {
-        const float4 lo = *reinterpret_cast<const float4*>(ds + gid * ds_s + kp * 16 + 4 * tig);
-        const float4 hi = *reinterpret_cast<const float4*>(ds + (gid + 8) * ds_s + kp * 16 + 4 * tig);
-        uint32_t ab[2][4], as[2][4];
-        split_a(lo, hi, ab, as);
+      for (int m = 0; m < kM; ++m) wide_gi(gv[m], gi + base * H3, B, r0 + 16 * m, H, uc, warp, gid, tig);
+      __syncthreads();  // every warp is done with the dgh tile of chunk uc - 1
 #pragma unroll
-        for (int u = 0; u < kUB; ++u) {
-          const float4 wv = __ldg(reinterpret_cast<const float4*>(wr[u] + kp * 16));
-          uint32_t bb[2][2], bs[2][2];
-          split_b(wv.x, wv.y, wv.z, wv.w, bb, bs);
-          float part[4] = {0.f, 0.f, 0.f, 0.f};
-          mma_3xtf32_slice(part, ab, as, bb, bs);
+      for (int m = 0; m < kM; ++m)
 #pragma unroll
-          for (int i = 0; i < 4; ++i) dacc[u][i] += part[i];
-        }
-      }
+        for (int half = 0; half < 2; ++half) {
+          const int lr = 16 * m + gid + 8 * half, row = r0 + lr;
+          const int cc = 2 * half;
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = r0 + gid + 8 * half;
-#pragma unroll
-        for (int u = 0; u < kUB; ++u) {
-          float2* at = reinterpret_cast<float2*>(dhg + (size_t)row * H + wide_unit(uc, warp, u, tig));
-          if (row < B) {
-            const float2 carry = *at;
-            *at = make_float2(carry.x + dacc[u][2 * half], carry.y + dacc[u][2 * half + 1]);
+          for (int u = 0; u < kUB; ++u) {
+            const int unit = wide_unit(uc, warp, u, tig), lu = unit - uc * kChunk;
+            const float2 hp = *reinterpret_cast<const float2*>(hs + lr * s + unit);
+            float2 dht = make_float2(0.f, 0.f);
+            if (row < B) {
+              const float2 dyv = __ldg(reinterpret_cast<const float2*>(dy + (base + row) * H + unit));
+              const float2 dhv = *reinterpret_cast<const float2*>(dh_cur + (size_t)row * H + unit);
+              dht = make_float2(dyv.x + dhv.x, dyv.y + dhv.y);
+            }
+            const float2 xr = gv[m][half][3 * u], xz = gv[m][half][3 * u + 1], xn = gv[m][half][3 * u + 2];
+            float2 d_r, d_z, d_n, d_gn, carry;
+            gru_gate_bwd(xr.x, xz.x, xn.x, acc[m][3 * u][cc], acc[m][3 * u + 1][cc], acc[m][3 * u + 2][cc],
+                         hp.x, dht.x, d_r.x, d_z.x, d_n.x, d_gn.x, carry.x);
+            gru_gate_bwd(xr.y, xz.y, xn.y, acc[m][3 * u][cc + 1], acc[m][3 * u + 1][cc + 1],
+                         acc[m][3 * u + 2][cc + 1], hp.y, dht.y, d_r.y, d_z.y, d_n.y, d_gn.y, carry.y);
+            // rows past B: dht is zero, so every gradient there is zero
+            *reinterpret_cast<float2*>(ds + lr * kDghStride + lu) = d_r;
+            *reinterpret_cast<float2*>(ds + lr * kDghStride + kChunk + lu) = d_z;
+            *reinterpret_cast<float2*>(ds + lr * kDghStride + 2 * kChunk + lu) = d_gn;
+            if (row < B) {
+              float* dgir = dgi + (base + row) * H3 + unit;
+              *reinterpret_cast<float2*>(dgir) = d_r;
+              *reinterpret_cast<float2*>(dgir + H) = d_z;
+              *reinterpret_cast<float2*>(dgir + 2 * H) = d_n;
+              // dgh_n[t] after dh_t was read from it (same thread, same position)
+              *reinterpret_cast<float2*>(dgh_n + (base + row) * H + unit) = d_gn;
+              float2* at = reinterpret_cast<float2*>(dh_nx + (size_t)row * H + unit);
+              if (uc == 0) {
+                *at = carry;
+              } else {
+                const float2 v = *at;
+                *at = make_float2(v.x + carry.x, v.y + carry.y);
+              }
+            }
           }
         }
+      __syncthreads();  // the dgh tile of chunk uc is whole
+      // every read of the h_prev tile at step t is done: the next one's copy
+      // runs under the last chunk's dh product
+      if (uc == chunks - 1 && t > 0) load_h(t - 1);
+
+      // dh_{t-1} += dgh[:, cols(uc)] @ W_hh[:, cols(uc)]^T, one unit chunk
+      // ucp of dh at a time, on this thread's (row, unit) positions
+      for (int ucp = 0; ucp < chunks; ++ucp) {
+        // the first of chunk ucp's terms is written, the rest added to the
+        // sum so far, read here so that its latency hides under the product
+        const bool first = uc == 0 && ucp > 0;
+        float2 sum[kM][2][kUB];
+#pragma unroll
+        for (int m = 0; m < kM; ++m)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int row = r0 + 16 * m + gid + 8 * half;
+#pragma unroll
+            for (int u = 0; u < kUB; ++u)
+              sum[m][half][u] = first || row >= B ? make_float2(0.f, 0.f)
+                  : *reinterpret_cast<const float2*>(dh_nx + (size_t)row * H + wide_unit(ucp, warp, u, tig));
+          }
+        float dacc[kM][kUB][4] = {};
+        for (int kq = 0; kq < 8; ++kq) {
+          cp_async_wait<kWideStages - 2>();
+          __syncwarp();
+          issue();
+          const float* ws = ring_w + rslot * kWideStageFloats;
+          if (++rslot == kWideStages) rslot = 0;
+#pragma unroll
+          for (int sl = 0; sl < 3; ++sl) {
+            const int kp = 3 * kq + sl;  // 16-deep slice of the chunk's 384 columns
+            uint32_t ab[kM][2][4], as[kM][2][4];
+#pragma unroll
+            for (int m = 0; m < kM; ++m) {
+              const float* dr = ds + (16 * m + gid) * kDghStride + kp * 16 + 4 * tig;
+              split_a(*reinterpret_cast<const float4*>(dr),
+                      *reinterpret_cast<const float4*>(dr + 8 * kDghStride), ab[m], as[m]);
+            }
+            uint32_t bb[kUB][2][2], bs[kUB][2][2];
+#pragma unroll
+            for (int u = 0; u < kUB; ++u) {
+              const float4 wv = *reinterpret_cast<const float4*>(ws + dh_stage_at(8 * u + gid, 16 * sl + 4 * tig));
+              split_b(wv.x, wv.y, wv.z, wv.w, bb[u], bs[u]);
+            }
+            float part[kM][kUB][4] = {};
+#pragma unroll
+            for (int ks = 0; ks < 2; ++ks) {
+#pragma unroll
+              for (int u = 0; u < kUB; ++u)
+#pragma unroll
+                for (int m = 0; m < kM; ++m) mma_tf32(part[m][u], as[m][ks], bb[u][ks]);
+#pragma unroll
+              for (int u = 0; u < kUB; ++u)
+#pragma unroll
+                for (int m = 0; m < kM; ++m) mma_tf32(part[m][u], ab[m][ks], bs[u][ks]);
+#pragma unroll
+              for (int u = 0; u < kUB; ++u)
+#pragma unroll
+                for (int m = 0; m < kM; ++m) mma_tf32(part[m][u], ab[m][ks], bb[u][ks]);
+            }
+#pragma unroll
+            for (int u = 0; u < kUB; ++u)
+#pragma unroll
+              for (int m = 0; m < kM; ++m)
+#pragma unroll
+                for (int i = 0; i < 4; ++i) dacc[m][u][i] += part[m][u][i];
+          }
+        }
+#pragma unroll
+        for (int m = 0; m < kM; ++m)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int row = r0 + 16 * m + gid + 8 * half;
+            if (row >= B) continue;
+#pragma unroll
+            for (int u = 0; u < kUB; ++u) {
+              const float2 d = make_float2(dacc[m][u][2 * half], dacc[m][u][2 * half + 1]);
+              const float2 v = sum[m][half][u];
+              *reinterpret_cast<float2*>(dh_nx + (size_t)row * H + wide_unit(ucp, warp, u, tig)) =
+                  first ? d : make_float2(v.x + d.x, v.y + d.y);
+            }
+          }
       }
     }
-    __syncthreads();  // the next h_prev tile has landed; every read of the dgh tile is done
   }
 }
+
+using BwdWideKernel = decltype(&gru_bwd_wide_kernel<1>);
 
 // ---------------------------------------------------------------------------
 // Backward, kernel 2: dW_hh = sum_k h_prev[k]^T dgh[k], a long-K product
@@ -1356,17 +1574,47 @@ int gru_fwd_wide(const float* gi, const float* w_hh, const float* b_hh, const fl
   return (int)cudaGetLastError();
 }
 
+// the wide backward's shared memory at a row tile (bytes)
+int gru_bwd_wide_smem(int H, int rows) { return (int)wide_bwd_smem(H, rows); }
+
+// the wide backward's instance for a row tile, with its attributes set for
+// `smem` bytes of dynamic shared memory, or nullptr (and an error) when
+// there is none
+static cudaError_t bwd_wide_instance(int H, int rows, BwdWideKernel* kernel, size_t* smem) {
+  *smem = wide_bwd_smem(H, rows);
+  *kernel = rows == 16 ? gru_bwd_wide_kernel<1> : rows == 32 ? gru_bwd_wide_kernel<2> : nullptr;
+  if (!wide_hidden(H) || *kernel == nullptr || *smem > kSmemPerBlock) return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+  if (e != cudaSuccess) return e;
+  // the whole of the SM's unified memory as shared memory, so that two
+  // 16-row blocks fit an SM where their shared memory allows
+  return cudaFuncSetAttribute(*kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
+}
+
+// blocks of the wide backward an SM holds at once at a row tile, as the
+// runtime computes it (negative: a CUDA error)
+int gru_bwd_wide_blocks_per_sm(int H, int rows) {
+  BwdWideKernel kernel;
+  size_t smem;
+  cudaError_t e = bwd_wide_instance(H, rows, &kernel, &smem);
+  int n = 0;
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kFwdThreads, smem);
+  return e == cudaSuccess ? n : -(int)e;
+}
+
+// the wide backward: grid (ceil(B / rows), G), rows in {16, 32}
 int gru_bwd_wide(const float* gi, const float* w_hh, const float* b_hh, const float* h0,
                  const float* y, const float* dy, const float* dhT, float* dgi, float* dh0,
-                 float* dgh_n, int G, int T, int B, int H, void* stream) {
-  if (!wide_hidden(H) || G < 1 || T < 1 || B < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)kFwdRows * (4 * H + 32) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(gru_bwd_wide_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                 float* dgh_n, int G, int T, int B, int H, int rows, void* stream) {
+  if (G < 1 || T < 1 || B < 1) return (int)cudaErrorInvalidValue;
+  BwdWideKernel kernel;
+  size_t smem;
+  cudaError_t e = bwd_wide_instance(H, rows, &kernel, &smem);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  gru_bwd_wide_kernel<<<dim3((B + kFwdRows - 1) / kFwdRows, G), kFwdThreads, smem, s>>>(
-      gi, w_hh, b_hh, h0, y, dy, dhT, dgi, dh0, dgh_n, T, B, H);
+  kernel<<<dim3((B + rows - 1) / rows, G), kFwdThreads, smem, s>>>(gi, w_hh, b_hh, h0, y, dy, dhT, dgi, dh0,
+                                                                   dgh_n, T, B, H);
   return (int)cudaGetLastError();
 }
 

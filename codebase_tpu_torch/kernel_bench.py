@@ -15,8 +15,9 @@ forward above), `bwd` (`gru_bwd_cuda`, the recurrence alone), `dw`
 and recurrence outputs are checked bitwise against the other's.
 
 `--tilings` also times this checkout's wide forward at every row tile and
-unit split whose shared memory fits, each held bitwise equal to the
-default tiling's output.
+unit split whose shared memory fits, and its wide backward recurrence at
+every row tile that fits, each held bitwise equal to the default tiling's
+output.
 
 Prints one JSON line a shape (the card, each kernel's times, their medians
 and the ratio this / base) and a last line with the ratios of all shapes.
@@ -94,13 +95,30 @@ def sweep_tilings(fg, G, T, B, H, gi, w, b, h0, time_ms) -> list:
     return out
 
 
+def sweep_backward_tilings(fg, G, T, B, H, gi, w, b, h0, y, dy, dhT, time_ms) -> list:
+    """This checkout's wide backward recurrence at every row tile whose
+    shared memory fits: ms each, bitwise equal to the default tiling's."""
+    ref = fg.gru_bwd_cuda(gi, w, b, h0, y, dy, dhT)
+    out = []
+    for rows in (16, 32):
+        smem = fg.wide_backward_smem(H, rows)
+        if smem > fg.SMEM_PER_BLOCK:
+            continue
+        tile = dict(rows=rows)
+        got = fg.gru_bwd_cuda(gi, w, b, h0, y, dy, dhT, tiling=tile)
+        if not all(torch.equal(u, v) for u, v in zip(got, ref)):
+            raise AssertionError(f"wide backward at tiling {tile} differs from the default tiling's")
+        out.append({**tile, "smem": smem, "ms": time_ms(lambda: fg.gru_bwd_cuda(gi, w, b, h0, y, dy, dhT, tiling=tile))})
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--base", type=Path, default=None, help="another checkout to time in turns with this one")
     ap.add_argument("--shapes", default=None, help="comma-separated keys of chip_smoke.SHAPES (default: all)")
     ap.add_argument("--kernels", default="fwd,bwd,dw,reduce")
     ap.add_argument("--rounds", type=int, default=2)
-    ap.add_argument("--tilings", action="store_true", help="sweep this checkout's wide forward tilings")
+    ap.add_argument("--tilings", action="store_true", help="sweep this checkout's wide kernels' tilings")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("kernel_bench: torch.cuda.is_available() is false; it times kernels on a CUDA GPU")
@@ -140,8 +158,11 @@ def main(argv=None) -> None:
                 "outputs_bitwise_equal_to_this": same}
         if H != 128:
             line["tiling"] = trees["this"].wide_forward_tiling(G, T, B, H, sms)
+            line["backward_tiling"] = trees["this"].wide_backward_tiling(G, T, B, H, sms)
             if args.tilings:
                 line["tilings"] = sweep_tilings(trees["this"], G, T, B, H, *data[:4], chip_smoke.time_ms)
+                line["backward_tilings"] = sweep_backward_tilings(
+                    trees["this"], G, T, B, H, *data[:4], outs["this"][0], *data[4:], chip_smoke.time_ms)
         if "base" in trees:
             line["this_over_base"] = {k: m["this"] / m["base"] for k, m in med.items()}
             ratios[key] = line["this_over_base"]

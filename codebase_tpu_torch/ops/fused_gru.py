@@ -31,14 +31,16 @@ They take what the TPU kernel takes, H % 128 == 0, up to `MAX_HIDDEN`
   them, bound by bytes, in a fixed order (deterministic, no atomics).
 
 At 256 <= H <= MAX_HIDDEN, W_hh (3 MB at H=512) does not fit in shared
-memory, and two wide variants take the recurrences. `gru_fwd_wide` streams
-W_hh through a ring of shared-memory stages (16-deep slices of one
-128-unit chunk's r, z and n columns, filled by `cp.async`) and reads each
-stage once per block for a row tile of 16, 32 or 64 rows; at T=1 its grid
-also splits the hidden units across blocks. `wide_forward_tiling` picks
-the row tile and grid from the shape and the SM count. `gru_bwd_wide` runs
-one block per 16-row tile, reading W_hh from the L2 at every step. `gru_dw`
-and `gru_reduce` serve every H.
+memory, and two wide variants take the recurrences. Both stream W_hh
+through a warp-private ring of shared-memory stages filled by `cp.async`
+and read each stage once per block for a row tile of R rows.
+`gru_fwd_wide`'s stages are 16-deep slices of one 128-unit chunk's r, z
+and n columns, its row tile 16, 32 or 64 rows; at T=1 its grid also splits
+the hidden units across blocks (`wide_forward_tiling`). `gru_bwd_wide`
+forms `h_prev @ W_hh` from the same stages and `dgh @ W_hh^T` from stages
+of W_hh's rows, one unit chunk of dgh at a time, so that it holds only
+that chunk's dgh in shared memory; its row tile is 16 or 32 rows
+(`wide_backward_tiling`). `gru_dw` and `gru_reduce` serve every H.
 
 The header of `csrc/fused_gru.cu` says what bounds each kernel and what the
 design does about it. The library is built with nvcc for sm_90a at first
@@ -81,7 +83,7 @@ DW_LAUNCHES = 0
 REDUCE_LAUNCHES = 0
 
 RESIDENT_HIDDEN = 128  # the hidden size of the kernels that hold W_hh in shared memory
-MAX_HIDDEN = 896  # the wide kernels' largest H: the backward's tiles fill shared memory
+MAX_HIDDEN = 896  # the wide kernels' largest H (csrc/fused_gru.cu kMaxH)
 
 # the wide forward's shared memory (csrc/fused_gru.cu `wide_fwd_smem`): an
 # h tile of `rows` rows at stride H + 16 floats (two when T > 1), and a ring
@@ -95,6 +97,18 @@ WIDE_STAGES = 2
 WIDE_STAGE_BYTES = 8 * 16 * 52 * 4
 SMEM_PER_BLOCK = 232_448
 WIDE_STAGE_COST = {16: 1.0, 32: 1.5, 64: 2.9}
+# the wide backward's shared memory (`wide_bwd_smem`): the h_prev tile
+# (stride H + 16), the dgh tile of one 128-unit chunk (stride 400) and the
+# forward's ring. An SM has 233,472 bytes, of which each resident block
+# also takes 1 KB; the 16-row instance is built for two blocks an SM (at
+# most 128 registers a thread), the 32-row one for one. WIDE_BWD_COST: a
+# weight for the time of a wave of blocks at each row tile (`kernel_bench
+# --tilings`, PERF.md).
+WIDE_BWD_DGH_STRIDE = 3 * WIDE_CHUNK + 16
+SMEM_PER_SM = 233_472
+SMEM_PER_BLOCK_RESERVED = 1024
+WIDE_BWD_MAX_BLOCKS_PER_SM = {16: 2, 32: 1}
+WIDE_BWD_COST = {16: 1.0, 32: 1.5}
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "fused_gru.cu"
@@ -249,13 +263,16 @@ def _library():
             lib.gru_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
             lib.gru_fwd_wide.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
             lib.gru_fwd_wide_smem.argtypes = [i, i, i]
-            lib.gru_bwd_wide.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, p]
+            lib.gru_bwd_wide.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
+            lib.gru_bwd_wide_smem.argtypes = [i, i]
+            lib.gru_bwd_wide_blocks_per_sm.argtypes = [i, i]
             lib.gru_dw.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
             lib.gru_reduce.argtypes = [p, p, i, i, i, p]
             lib.gru_dw_tiles.argtypes = [i]
             sizes = (lib.gru_max_hidden, lib.gru_fwd_rows, lib.gru_dw_chunk)
             for fn in (lib.gru_fwd, lib.gru_bwd, lib.gru_fwd_wide, lib.gru_fwd_wide_smem, lib.gru_bwd_wide,
-                       lib.gru_dw, lib.gru_reduce, lib.gru_dw_tiles, *sizes):
+                       lib.gru_bwd_wide_smem, lib.gru_bwd_wide_blocks_per_sm, lib.gru_dw, lib.gru_reduce,
+                       lib.gru_dw_tiles, *sizes):
                 fn.restype = i
             for fn in sizes:
                 fn.argtypes = []
@@ -264,6 +281,9 @@ def _library():
             if any(lib.gru_fwd_wide_smem(T, MAX_HIDDEN, rows) != wide_forward_smem(T, MAX_HIDDEN, rows)
                    for T in (1, 2) for rows in (16, 32, 64)):
                 raise RuntimeError("fused GRU library sizes the wide forward's shared memory otherwise")
+            if any(lib.gru_bwd_wide_smem(H, rows) != wide_backward_smem(H, rows)
+                   for H in (256, MAX_HIDDEN) for rows in WIDE_BWD_MAX_BLOCKS_PER_SM):
+                raise RuntimeError("fused GRU library sizes the wide backward's shared memory otherwise")
             _lib = lib
         return _lib
 
@@ -362,6 +382,42 @@ def wide_forward_tiling(G: int, T: int, B: int, H: int, sms: int) -> dict:
     return best[1]
 
 
+def wide_backward_smem(H: int, rows: int) -> int:
+    """Bytes of dynamic shared memory of the wide backward: the h_prev tile,
+    one unit chunk's dgh tile and the ring (csrc/fused_gru.cu `wide_bwd_smem`)."""
+    return rows * (H + 16 + WIDE_BWD_DGH_STRIDE) * 4 + WIDE_STAGES * WIDE_STAGE_BYTES
+
+
+def wide_backward_tiling(G: int, T: int, B: int, H: int, sms: int) -> dict:
+    """The wide backward's launch for a shape on a card of `sms` SMs.
+
+    rows: the row tile (16 or 32), each block's share of the batch; every
+    W_hh stage it copies serves that many rows, so the L2 stream of a step
+    is G * ceil(B / rows) * 24H^2 bytes. blocks_per_sm: how many blocks an
+    SM holds at once, by shared memory and the instance's launch bound (two
+    16-row blocks up to H=512). waves: ceil(blocks / (sms * blocks_per_sm)).
+
+    The cost of a row tile is its waves times `WIDE_BWD_COST`, a fitted
+    weight for the time of a wave; among the tiles whose shared memory
+    fits, the cheapest wins, the larger on a tie. T does not enter: every
+    step needs the whole of h, so the units are never split. Returns
+    {rows, grid (x, y), smem, blocks_per_sm, waves}."""
+    best = None
+    for rows in (32, 16):
+        smem = wide_backward_smem(H, rows)
+        if smem > SMEM_PER_BLOCK:
+            continue
+        per_sm = min(WIDE_BWD_MAX_BLOCKS_PER_SM[rows], SMEM_PER_SM // (smem + SMEM_PER_BLOCK_RESERVED))
+        tiles = -(-B // rows)
+        waves = -(-(tiles * G) // (sms * per_sm))
+        cost = waves * WIDE_BWD_COST[rows]
+        if best is None or cost < best[0]:
+            best = (cost, dict(rows=rows, grid=(tiles, G), smem=smem, blocks_per_sm=per_sm, waves=waves))
+    if best is None:
+        raise ValueError(f"no wide backward tiling fits shared memory at H={H}")
+    return best[1]
+
+
 def gru_fwd_cuda(gi, w_hh, b_hh, h0, tiling=None):
     """Kernel 1, `gru_fwd` at H=128, `gru_fwd_wide` above:
     (y (G, T, B, H), hT (G, B, H)). `tiling` ({rows, units}) replaces
@@ -393,10 +449,11 @@ def gru_fwd_cuda(gi, w_hh, b_hh, h0, tiling=None):
     return y, hT
 
 
-def gru_bwd_cuda(gi, w_hh, b_hh, h0, y, dy, dhT):
+def gru_bwd_cuda(gi, w_hh, b_hh, h0, y, dy, dhT, tiling=None):
     """Kernel 2, the reverse-time recurrence (`gru_bwd` on the forward's
     persistent grid at H=128, `gru_bwd_wide` above): (dgi (G, T, B, 3H),
-    dh0 (G, B, H), dgh_n (G, T, B, H))."""
+    dh0 (G, B, H), dgh_n (G, T, B, H)). `tiling` ({rows}) replaces
+    `wide_backward_tiling`'s choice for the wide backward (for measurements)."""
     global BWD_LAUNCHES, BWD_WIDE_LAUNCHES
     G, T, B, H = _dims(gi)
     dev = gi.device
@@ -415,7 +472,8 @@ def gru_bwd_cuda(gi, w_hh, b_hh, h0, y, dy, dhT):
     wide = kernel_variant(H) == "wide"
     with torch.cuda.device(dev):
         if wide:
-            code = lib.gru_bwd_wide(*args, _stream(dev))
+            tile = tiling or wide_backward_tiling(G, T, B, H, _sms())
+            code = lib.gru_bwd_wide(*args, tile["rows"], _stream(dev))
         else:
             code = lib.gru_bwd(*args, forward_blocks_per_group(G, B, lib.gru_fwd_rows()), _stream(dev))
     _raise_on(code, "gru_bwd_wide launch" if wide else "gru_bwd launch")

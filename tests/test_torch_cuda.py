@@ -195,13 +195,57 @@ def test_wide_forward_is_deterministic_at_every_tiling(cuda_device, G, T, B, hid
     assert tried >= 1
 
 
+@pytest.mark.parametrize("G,T,B,hidden", [(10, 121, 256, 512), (10, 1, 2048, 512), (2, 9, 77, 896), (2, 9, 77, 640),
+                                          (10, 2, 40, 896)])
+def test_wide_backward_is_deterministic_at_every_tiling(cuda_device, G, T, B, hidden):
+    """Two calls of the wide backward recurrence are bitwise equal, and so
+    is every row tile the launcher takes whose shared memory fits: each
+    output is the same sequence of operations whatever block forms it.
+    dgi and dh0 within 1e-4 of the largest entry of `gru_backward_plain`'s,
+    dgh_n of `gru_bwd_plain`'s."""
+    gi, w, b, h0, dy, dhT = (torch.tensor(a, device=cuda_device)
+                             for a in _gru_inputs(G, T, B, seed=9, hidden=hidden))
+    y = fg.gru_sequence_plain(gi, w, b, h0)[0].contiguous()
+    got = fg.gru_bwd_cuda(gi, w, b, h0, y, dy, dhT)
+    again = fg.gru_bwd_cuda(gi, w, b, h0, y, dy, dhT)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+    dgi_r, _, _, dh0_r = fg.gru_backward_plain(gi, w, b, h0, y, dy, dhT)
+    dgh_n_r = fg.gru_bwd_plain(gi, w, b, h0, y, dy, dhT)[2]
+    for g_, r_, name in zip(got, (dgi_r, dh0_r, dgh_n_r), ("dgi", "dh0", "dgh_n")):
+        torch.testing.assert_close(g_, r_, rtol=0, atol=1e-4 * r_.abs().max().item(), msg=name)
+    tried = 0
+    for rows in (16, 32):
+        if fg.wide_backward_smem(hidden, rows) > fg.SMEM_PER_BLOCK:
+            continue
+        other = fg.gru_bwd_cuda(gi, w, b, h0, y, dy, dhT, tiling=dict(rows=rows))
+        torch.cuda.synchronize()
+        assert all(torch.equal(u, v) for u, v in zip(got, other)), rows
+        tried += 1
+    assert tried == 2
+
+
+def test_wide_backward_blocks_per_sm_are_the_runtimes(cuda_device):
+    """The blocks an SM holds at once, as `wide_backward_tiling` counts
+    them from shared memory and the launch bound, are what the CUDA runtime
+    computes for the built kernel at every wide H and row tile."""
+    lib = fg._library()
+    for hidden in range(256, fg.MAX_HIDDEN + 1, 128):
+        for rows in (16, 32):
+            smem = fg.wide_backward_smem(hidden, rows)
+            expected = min(fg.WIDE_BWD_MAX_BLOCKS_PER_SM[rows], fg.SMEM_PER_SM // (smem + fg.SMEM_PER_BLOCK_RESERVED))
+            assert lib.gru_bwd_wide_blocks_per_sm(hidden, rows) == expected, (hidden, rows)
+
+
 @pytest.mark.parametrize("kernel", ["gru_bwd_kernel", "gru_dw_kernel", "gru_bwd_wide_kernel"])
 def test_backward_kernels_run_on_tensor_cores(cuda_device, kernel):
     """The backward's three products (h_prev @ W_hh and dgh @ W_hh^T in the
     recurrence, h_prev^T dgh in the weight gradient) are tensor-core MMA in
-    TF32, in kernels of this library (no cuBLAS)."""
-    functions = _sass_functions(kernel)  # gru_dw_kernel has two instances: H=128 and H at run time
-    assert len(functions) == (2 if kernel == "gru_dw_kernel" else 1)
+    TF32, in kernels of this library (no cuBLAS). gru_dw_kernel has two
+    instances (H=128 and H at run time), gru_bwd_wide_kernel two (row tiles
+    of 16 and 32)."""
+    functions = _sass_functions(kernel)
+    assert len(functions) == (1 if kernel == "gru_bwd_kernel" else 2)
     assert all(any("HMMA" in line and "TF32" in line for line in f.splitlines()) for f in functions)
 
 

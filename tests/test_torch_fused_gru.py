@@ -275,6 +275,62 @@ def test_wide_forward_tiling_fills_the_card():
                 assert tile["waves"] == 1, (key, sms)
 
 
+@pytest.mark.parametrize("hidden", WIDE_HIDDEN)
+def test_wide_backward_tiling_fits_shared_memory(hidden):
+    """At every wide H and every (G, T, B) of (p)-(x), on 132 SMs: the
+    shared memory asked for is the kernel's (the h_prev tile, one unit
+    chunk's dgh tile of 384 columns at a stride of 400, the forward's ring
+    of two 26 KB stages) and fits a block's 227 KB; as many blocks as an SM
+    is said to hold fit its 228 KB, 1 KB each set aside."""
+    for G, T, B, _ in WIDE_SHAPES.values():
+        tile = fg.wide_backward_tiling(G, T, B, hidden, 132)
+        rows = tile["rows"]
+        assert rows in (16, 32)
+        assert tile["smem"] == fg.wide_backward_smem(hidden, rows)
+        assert tile["smem"] == (rows * (hidden + 16) + rows * 400 + 2 * 16 * 52 * 8) * 4
+        assert tile["smem"] <= fg.SMEM_PER_BLOCK == 232_448
+        assert 1 <= tile["blocks_per_sm"] <= (2 if rows == 16 else 1)
+        assert tile["blocks_per_sm"] * (tile["smem"] + 1024) <= fg.SMEM_PER_SM == 233_472
+    # both row tiles fit at every wide H: the dgh tile holds one unit chunk, not 3H
+    assert fg.wide_backward_smem(hidden, 32) <= fg.SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("G,T,B,hidden", [*WIDE_SHAPES.values(), (1, 1, 1000, 512), (2, 9, 77, 640), (1, 1, 1, 256),
+                                          (3, 1, 65, 896), (1, 2, 33, 768), (10, 2, 40, 896)])
+def test_wide_backward_tiles_cover_every_row_once(G, T, B, hidden):
+    """The grid's row tiles form every (group, row) exactly once, B a
+    multiple of the row tile or not (the kernel masks the rows past B);
+    every block forms all H units."""
+    tile = fg.wide_backward_tiling(G, T, B, hidden, 132)
+    nx, nz = tile["grid"]
+    assert nz == G and (nx - 1) * tile["rows"] < B <= nx * tile["rows"]
+    seen = np.zeros((G, B), dtype=np.int64)
+    for x in range(nx):
+        seen[:, x * tile["rows"] : (x + 1) * tile["rows"]] += 1
+    assert (seen == 1).all()
+
+
+def test_wide_backward_tiling_fills_the_card():
+    """At the MMM2 updates (q) and (t) the backward runs in one wave on an
+    H100 SXM (132 SMs) and PCIe (114): 80 blocks of 32 rows, or 160 of 16
+    at two an SM. Two 16-row blocks share an SM up to H=512 (112,640
+    bytes each at H=512), one above; H=896 takes either tile."""
+    for sms in (132, 114):
+        for key in "qt":
+            G, T, B, hidden = WIDE_SHAPES[key]
+            tile = fg.wide_backward_tiling(G, T, B, hidden, sms)
+            assert tile["waves"] == 1, (key, sms)
+            assert (tile["rows"], tile["blocks_per_sm"], tile["grid"]) in ((32, 1, (8, 10)), (16, 2, (16, 10)))
+        for key, (G, T, B, hidden) in WIDE_SHAPES.items():
+            tile = fg.wide_backward_tiling(G, T, B, hidden, sms)
+            blocks = tile["grid"][0] * tile["grid"][1]
+            assert tile["waves"] == -(-blocks // (sms * tile["blocks_per_sm"])), key
+    assert fg.wide_backward_smem(512, 16) == 112_640
+    for hidden in WIDE_HIDDEN:
+        per_sm = fg.SMEM_PER_SM // (fg.wide_backward_smem(hidden, 16) + 1024)
+        assert min(2, per_sm) == (2 if hidden <= 512 else 1), hidden
+
+
 def test_reduce_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match=r"\(G, P, E\)"):
         fg.reduce_partials_cuda(torch.zeros((2, 7)))
@@ -381,6 +437,10 @@ class _FakeLibrary:
         self.calls["fwd_wide"] = args[-3:-1]
         return 0
 
+    def gru_bwd_wide(self, *args):
+        self.calls["bwd_wide"] = args[-2]
+        return 0
+
 
 @pytest.mark.parametrize("G,T,B", [(2, 26, 1024), (2, 1, 65536), (3, 7, 1000), (1, 3, 5), (200, 2, 64)])
 def test_backward_grids_fill_the_card(monkeypatch, G, T, B):
@@ -435,6 +495,94 @@ def test_wide_forward_wrapper_launches_the_tiling(monkeypatch, G, T, B, hidden):
     after = fg.launch_counts()
     assert {k: after[k] - before[k] for k in after} == {"fwd": 0, "bwd": 0, "fwd_wide": 2, "bwd_wide": 0,
                                                          "dw": 0, "reduce": 0}
+
+
+@pytest.mark.parametrize("G,T,B,hidden", [WIDE_SHAPES["p"], WIDE_SHAPES["q"], WIDE_SHAPES["x"]])
+def test_wide_backward_wrapper_launches_the_tiling(monkeypatch, G, T, B, hidden):
+    """`gru_bwd_cuda` at a wide H hands the launcher the row tile of
+    `wide_backward_tiling` for the card's SM count, or the tiling it is
+    given; it counts one wide backward launch."""
+    lib = _FakeLibrary()
+    monkeypatch.setattr(fg, "_sms", lambda: 132)
+    monkeypatch.setattr(fg, "_library", lambda: lib)
+    monkeypatch.setattr(fg, "_check", lambda shapes, device: None)
+    monkeypatch.setattr(fg, "_stream", lambda device: None)
+    monkeypatch.setattr(fg, "_ptr", lambda t: None)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    gi = torch.empty((G, T, B, 3 * hidden), device="meta")
+    w, b = torch.empty((G, hidden, 3 * hidden), device="meta"), torch.empty((G, 3 * hidden), device="meta")
+    y, h0 = torch.empty((G, T, B, hidden), device="meta"), torch.empty((G, B, hidden), device="meta")
+    before = fg.launch_counts()
+    dgi, dh0, dgh_n = fg.gru_bwd_cuda(gi, w, b, h0, y, y, h0)
+    assert lib.calls["bwd_wide"] == fg.wide_backward_tiling(G, T, B, hidden, 132)["rows"]
+    assert dgi.shape == gi.shape and dh0.shape == h0.shape and dgh_n.shape == y.shape
+    fg.gru_bwd_cuda(gi, w, b, h0, y, y, h0, tiling=dict(rows=32))
+    assert lib.calls["bwd_wide"] == 32
+    after = fg.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {"fwd": 0, "bwd": 0, "fwd_wide": 0, "bwd_wide": 2,
+                                                         "dw": 0, "reduce": 0}
+
+
+# The wide kernels' W_hh stages as csrc/fused_gru.cu lays them out: a
+# warp's part of a stage is 16 rows of 52 floats. The forward's (and the
+# backward's gh) stage, `wide_stage_at`: rows k of a 16-deep slice, columns
+# c = the warp's 16 units of r, z and n, bit 3 of c XORed with bit 3 of k;
+# B fragments read as scalars, rows 4tig + i at column (j % 3) * 16 + (j //
+# 3) * 8 + gid of n-tile j. The backward's dh stage, `dh_stage_at`: rows u
+# = the warp's 16 units, columns c = 48 of the summed chunk's 384, at a
+# stride of 48; B fragments read as float4, row 8u + gid, columns 16sl +
+# 4tig .. + 3 of slice sl.
+def _wide_stage_at(k, c):
+    return k * 52 + (c ^ (((k >> 3) & 1) << 3))
+
+
+def _dh_stage_at(u, c):
+    return u * 48 + c
+
+
+def _stage_reads(layout):
+    """Each warp-wide shared-memory read of a stage: a list of (lane,
+    offset, width in floats) for the 32 lanes."""
+    reads = []
+    if layout == "gh":
+        for j in range(6):
+            for i in range(4):
+                reads.append([(lane, _wide_stage_at(4 * (lane & 3) + i, (j % 3) * 16 + (j // 3) * 8 + (lane >> 2)), 1)
+                              for lane in range(32)])
+    else:
+        for u in range(2):
+            for sl in range(3):
+                reads.append([(lane, _dh_stage_at(8 * u + (lane >> 2), 16 * sl + 4 * (lane & 3)), 4)
+                              for lane in range(32)])
+    return reads
+
+
+@pytest.mark.parametrize("layout", ["gh", "dh"])
+def test_wide_stage_layouts_are_in_range_contiguous_and_conflict_free(layout):
+    """Each layout of a warp's part of a stage: the 16 x 48 floats copied
+    land once each inside the 832-float part, each 16-byte copy on 4
+    contiguous floats (16-byte aligned); every fragment read finds a copied
+    float, and is conflict-free: the 32 lanes of a scalar read on 32 banks,
+    and each quarter-warp of a float4 read (8 lanes, 128 bytes) on 32 banks."""
+    at = _wide_stage_at if layout == "gh" else _dh_stage_at
+    filled = {}
+    for row in range(16):
+        for c in range(0, 48, 4):
+            first = at(row, c)
+            assert first % 4 == 0 and [at(row, c + e) for e in range(4)] == [first + e for e in range(4)]
+            for e in range(4):
+                assert 0 <= first + e < 16 * 52 and first + e not in filled
+                filled[first + e] = (row, c + e)
+    assert len(filled) == 16 * 48
+    for read in _stage_reads(layout):
+        assert all(off + e in filled for _, off, width in read for e in range(width))
+        if read[0][2] == 1:
+            assert len({off % 32 for _, off, _ in read}) == 32
+        else:
+            for q in range(4):
+                phase = [off for lane, off, _ in read if lane // 8 == q]
+                assert all(off % 4 == 0 for off in phase)
+                assert sorted(b for off in phase for b in range(off % 32, off % 32 + 4)) == list(range(32))
 
 
 @pytest.mark.parametrize("hidden,G,T,product", [(256, 3, 4, "f32"), (256, 3, 4, "3xtf32"),
