@@ -147,9 +147,9 @@
 // T=121 B=256 H=512, at the TF32 peak). Its first design read all of W_hh
 // from the L2 twice a step for each 16-row tile, fragment by fragment, and
 // kept the whole dgh tile (16 x 3H) in shared memory. Design:
-// - R = 16 or 32 rows a block (a template parameter), picked by the host
-//   (ops/fused_gru.py wide_backward_tiling); two 16-row blocks share an SM
-//   where their shared memory allows (H=256 .. 512);
+// - R = 16 or 32 rows a block (a template parameter), one block an SM,
+//   picked by the host (ops/fused_gru.py wide_backward_tiling): 32 where
+//   16-row tiles would need a second wave, else 16, whose chain is shorter;
 // - both products read W_hh from the forward's warp-private ring of
 //   cp.async stages: each stage is read once per block for R rows. A
 //   chunk's gh stages are the forward's (a 16-deep slice of its r, z and n
@@ -1048,11 +1048,12 @@ __device__ __forceinline__ int dh_stage_at(int u, int c) { return u * kDhStride 
 // the wide backward's dgh tile: one unit chunk's 384 columns (r, z, n) at a
 // stride of 400 floats (16 mod 32: conflict-free A loads)
 constexpr int kDghStride = 3 * kChunk + 16;
+constexpr int kBwdStages = 2;  // the backward's ring
 
 // the backward's dynamic shared memory: the h_prev tile, the dgh tile of
 // one unit chunk and the ring
 __host__ __device__ __forceinline__ size_t wide_bwd_smem(int H, int rows) {
-  return ((size_t)rows * (H + 16) + (size_t)rows * kDghStride + (size_t)kWideStages * kWideStageFloats) *
+  return ((size_t)rows * (H + 16) + (size_t)rows * kDghStride + (size_t)kBwdStages * kWideStageFloats) *
          sizeof(float);
 }
 
@@ -1074,7 +1075,7 @@ __host__ __device__ __forceinline__ size_t wide_bwd_smem(int H, int rows) {
 // block meets twice a chunk, for the dgh tile, and once a step, for the
 // h_prev tile, which is copied while the last chunk's dh is summed.
 template <int kM>
-__global__ void __launch_bounds__(kFwdThreads, kM == 1 ? 2 : 1)
+__global__ void __launch_bounds__(kFwdThreads, 1)
 gru_bwd_wide_kernel(const float* __restrict__ gi, const float* __restrict__ w_hh,
                     const float* __restrict__ b_hh, const float* __restrict__ h0,
                     const float* __restrict__ y, const float* __restrict__ dy,
@@ -1131,7 +1132,7 @@ gru_bwd_wide_kernel(const float* __restrict__ gi, const float* __restrict__ w_hh
           if (++ic == chunks) ic = 0;
         }
       }
-      if (++wslot == kWideStages) wslot = 0;
+      if (++wslot == kBwdStages) wslot = 0;
     }
     cp_async_commit();
   };
@@ -1146,7 +1147,7 @@ gru_bwd_wide_kernel(const float* __restrict__ gi, const float* __restrict__ w_hh
   };
 
   load_h(T - 1);
-  for (int q = 0; q < kWideStages - 1; ++q) issue();
+  for (int q = 0; q < kBwdStages - 1; ++q) issue();
 
   // B-fragment offsets of h_prev @ W_hh, as in the forward
   int wcol[kNJ];
@@ -1175,11 +1176,11 @@ gru_bwd_wide_kernel(const float* __restrict__ gi, const float* __restrict__ w_hh
 #pragma unroll
       for (int m = 0; m < kM; ++m) wide_bias(acc[m], bg, H, uc, warp, tig);
       for (int kp = 0; kp < KS; ++kp) {
-        cp_async_wait<kWideStages - 2>();
+        cp_async_wait<kBwdStages - 2>();
         __syncwarp();
         issue();
         const float* ws = ring_w + rslot * kWideStageFloats;
-        if (++rslot == kWideStages) rslot = 0;
+        if (++rslot == kBwdStages) rslot = 0;
         uint32_t ab[kM][2][4], as[kM][2][4];
 #pragma unroll
         for (int m = 0; m < kM; ++m) {
@@ -1294,11 +1295,11 @@ gru_bwd_wide_kernel(const float* __restrict__ gi, const float* __restrict__ w_hh
           }
         float dacc[kM][kUB][4] = {};
         for (int kq = 0; kq < 8; ++kq) {
-          cp_async_wait<kWideStages - 2>();
+          cp_async_wait<kBwdStages - 2>();
           __syncwarp();
           issue();
           const float* ws = ring_w + rslot * kWideStageFloats;
-          if (++rslot == kWideStages) rslot = 0;
+          if (++rslot == kBwdStages) rslot = 0;
 #pragma unroll
           for (int sl = 0; sl < 3; ++sl) {
             const int kp = 3 * kq + sl;  // 16-deep slice of the chunk's 384 columns
@@ -1577,19 +1578,13 @@ int gru_fwd_wide(const float* gi, const float* w_hh, const float* b_hh, const fl
 // the wide backward's shared memory at a row tile (bytes)
 int gru_bwd_wide_smem(int H, int rows) { return (int)wide_bwd_smem(H, rows); }
 
-// the wide backward's instance for a row tile, with its attributes set for
-// `smem` bytes of dynamic shared memory, or nullptr (and an error) when
-// there is none
+// the wide backward's instance for a row tile, with its attribute set for
+// `smem` bytes of dynamic shared memory; an error when there is none
 static cudaError_t bwd_wide_instance(int H, int rows, BwdWideKernel* kernel, size_t* smem) {
   *smem = wide_bwd_smem(H, rows);
   *kernel = rows == 16 ? gru_bwd_wide_kernel<1> : rows == 32 ? gru_bwd_wide_kernel<2> : nullptr;
   if (!wide_hidden(H) || *kernel == nullptr || *smem > kSmemPerBlock) return cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
-  if (e != cudaSuccess) return e;
-  // the whole of the SM's unified memory as shared memory, so that two
-  // 16-row blocks fit an SM where their shared memory allows
-  return cudaFuncSetAttribute(*kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                              (int)cudaSharedmemCarveoutMaxShared);
+  return cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
 }
 
 // blocks of the wide backward an SM holds at once at a row tile, as the

@@ -280,8 +280,9 @@ def test_wide_backward_tiling_fits_shared_memory(hidden):
     """At every wide H and every (G, T, B) of (p)-(x), on 132 SMs: the
     shared memory asked for is the kernel's (the h_prev tile, one unit
     chunk's dgh tile of 384 columns at a stride of 400, the forward's ring
-    of two 26 KB stages) and fits a block's 227 KB; as many blocks as an SM
-    is said to hold fit its 228 KB, 1 KB each set aside."""
+    of two 26 KB stages) and fits a block's 227 KB, and the blocks an SM is
+    said to hold fit its 228 KB, 1 KB each set aside. The dgh tile holds
+    one unit chunk, not 3H, so both row tiles fit at every wide H."""
     for G, T, B, _ in WIDE_SHAPES.values():
         tile = fg.wide_backward_tiling(G, T, B, hidden, 132)
         rows = tile["rows"]
@@ -289,9 +290,8 @@ def test_wide_backward_tiling_fits_shared_memory(hidden):
         assert tile["smem"] == fg.wide_backward_smem(hidden, rows)
         assert tile["smem"] == (rows * (hidden + 16) + rows * 400 + 2 * 16 * 52 * 8) * 4
         assert tile["smem"] <= fg.SMEM_PER_BLOCK == 232_448
-        assert 1 <= tile["blocks_per_sm"] <= (2 if rows == 16 else 1)
+        assert tile["blocks_per_sm"] == 1
         assert tile["blocks_per_sm"] * (tile["smem"] + 1024) <= fg.SMEM_PER_SM == 233_472
-    # both row tiles fit at every wide H: the dgh tile holds one unit chunk, not 3H
     assert fg.wide_backward_smem(hidden, 32) <= fg.SMEM_PER_BLOCK
 
 
@@ -311,24 +311,21 @@ def test_wide_backward_tiles_cover_every_row_once(G, T, B, hidden):
 
 
 def test_wide_backward_tiling_fills_the_card():
-    """At the MMM2 updates (q) and (t) the backward runs in one wave on an
-    H100 SXM (132 SMs) and PCIe (114): 80 blocks of 32 rows, or 160 of 16
-    at two an SM. Two 16-row blocks share an SM up to H=512 (112,640
-    bytes each at H=512), one above; H=896 takes either tile."""
+    """At the MMM2 updates (q) and (t) the backward runs 80 blocks of 32
+    rows in one wave on an H100 SXM (132 SMs) and PCIe (114); 16-row tiles
+    would need two. Where 16-row tiles run in one wave ((r), (w), (x)),
+    they take them: each block's chain is shorter. The choice at every
+    shape is the row tile measured fastest there (PERF.md)."""
     for sms in (132, 114):
         for key in "qt":
-            G, T, B, hidden = WIDE_SHAPES[key]
-            tile = fg.wide_backward_tiling(G, T, B, hidden, sms)
-            assert tile["waves"] == 1, (key, sms)
-            assert (tile["rows"], tile["blocks_per_sm"], tile["grid"]) in ((32, 1, (8, 10)), (16, 2, (16, 10)))
+            tile = fg.wide_backward_tiling(*WIDE_SHAPES[key], sms)
+            assert (tile["rows"], tile["grid"], tile["waves"]) == (32, (8, 10), 1), (key, sms)
         for key, (G, T, B, hidden) in WIDE_SHAPES.items():
             tile = fg.wide_backward_tiling(G, T, B, hidden, sms)
             blocks = tile["grid"][0] * tile["grid"][1]
             assert tile["waves"] == -(-blocks // (sms * tile["blocks_per_sm"])), key
-    assert fg.wide_backward_smem(512, 16) == 112_640
-    for hidden in WIDE_HIDDEN:
-        per_sm = fg.SMEM_PER_SM // (fg.wide_backward_smem(hidden, 16) + 1024)
-        assert min(2, per_sm) == (2 if hidden <= 512 else 1), hidden
+    chosen = {k: fg.wide_backward_tiling(*WIDE_SHAPES[k], 132)["rows"] for k in WIDE_SHAPES}
+    assert chosen == {"p": 32, "q": 32, "r": 16, "s": 32, "t": 32, "u": 32, "v": 32, "w": 16, "x": 16}
 
 
 def test_reduce_wrapper_refuses_what_the_kernel_does_not_take():
@@ -523,15 +520,16 @@ def test_wide_backward_wrapper_launches_the_tiling(monkeypatch, G, T, B, hidden)
                                                          "dw": 0, "reduce": 0}
 
 
-# The wide kernels' W_hh stages as csrc/fused_gru.cu lays them out: a
-# warp's part of a stage is 16 rows of 52 floats. The forward's (and the
-# backward's gh) stage, `wide_stage_at`: rows k of a 16-deep slice, columns
-# c = the warp's 16 units of r, z and n, bit 3 of c XORed with bit 3 of k;
-# B fragments read as scalars, rows 4tig + i at column (j % 3) * 16 + (j //
-# 3) * 8 + gid of n-tile j. The backward's dh stage, `dh_stage_at`: rows u
-# = the warp's 16 units, columns c = 48 of the summed chunk's 384, at a
-# stride of 48; B fragments read as float4, row 8u + gid, columns 16sl +
-# 4tig .. + 3 of slice sl.
+# The wide kernels' W_hh stages as csrc/fused_gru.cu lays them out, a
+# warp's part of a stage in 832 floats. The forward's (and the backward's
+# gh) stage, `wide_stage_at`: 16 rows k of a 16-deep slice by 48 columns c
+# (the warp's 16 units of r, z and n) at a stride of 52, bit 3 of c XORed
+# with bit 3 of k; B fragments read as scalars, rows 4tig + i at column (j %
+# 3) * 16 + (j // 3) * 8 + gid of n-tile j. The backward's dh stage,
+# `dh_stage_at`: 16 rows u (the warp's 16 units of one unit chunk) by 48
+# columns c (three 16-deep slices of the summed chunk's 384) at a stride of
+# 48; B fragments read as float4, row 8u + gid, columns 16sl + 4tig .. + 3
+# of slice sl.
 def _wide_stage_at(k, c):
     return k * 52 + (c ^ (((k >> 3) & 1) << 3))
 
@@ -540,34 +538,30 @@ def _dh_stage_at(u, c):
     return u * 48 + c
 
 
+STAGE_LAYOUTS = {"gh": (_wide_stage_at, 16, 48), "dh": (_dh_stage_at, 16, 48)}
+
+
 def _stage_reads(layout):
     """Each warp-wide shared-memory read of a stage: a list of (lane,
     offset, width in floats) for the 32 lanes."""
-    reads = []
     if layout == "gh":
-        for j in range(6):
-            for i in range(4):
-                reads.append([(lane, _wide_stage_at(4 * (lane & 3) + i, (j % 3) * 16 + (j // 3) * 8 + (lane >> 2)), 1)
-                              for lane in range(32)])
-    else:
-        for u in range(2):
-            for sl in range(3):
-                reads.append([(lane, _dh_stage_at(8 * u + (lane >> 2), 16 * sl + 4 * (lane & 3)), 4)
-                              for lane in range(32)])
-    return reads
+        return [[(lane, _wide_stage_at(4 * (lane & 3) + i, (j % 3) * 16 + (j // 3) * 8 + (lane >> 2)), 1)
+                 for lane in range(32)] for j in range(6) for i in range(4)]
+    return [[(lane, _dh_stage_at(8 * u + (lane >> 2), 16 * sl + 4 * (lane & 3)), 4) for lane in range(32)]
+            for u in range(2) for sl in range(3)]
 
 
 @pytest.mark.parametrize("layout", ["gh", "dh"])
 def test_wide_stage_layouts_are_in_range_contiguous_and_conflict_free(layout):
-    """Each layout of a warp's part of a stage: the 16 x 48 floats copied
-    land once each inside the 832-float part, each 16-byte copy on 4
-    contiguous floats (16-byte aligned); every fragment read finds a copied
-    float, and is conflict-free: the 32 lanes of a scalar read on 32 banks,
-    and each quarter-warp of a float4 read (8 lanes, 128 bytes) on 32 banks."""
-    at = _wide_stage_at if layout == "gh" else _dh_stage_at
+    """Each layout of a warp's part of a stage: the 768 floats copied land
+    once each inside the 832-float part, each 16-byte copy on 4 contiguous
+    floats (16-byte aligned); every fragment read finds a copied float, and
+    is conflict-free: the 32 lanes of a scalar read on 32 banks, and each
+    quarter-warp of a float4 read (8 lanes, 128 bytes) on 32 banks."""
+    at, rows, cols = STAGE_LAYOUTS[layout]
     filled = {}
-    for row in range(16):
-        for c in range(0, 48, 4):
+    for row in range(rows):
+        for c in range(0, cols, 4):
             first = at(row, c)
             assert first % 4 == 0 and [at(row, c + e) for e in range(4)] == [first + e for e in range(4)]
             for e in range(4):
