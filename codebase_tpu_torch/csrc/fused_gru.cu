@@ -1048,12 +1048,11 @@ __device__ __forceinline__ int dh_stage_at(int u, int c) { return u * kDhStride 
 // the wide backward's dgh tile: one unit chunk's 384 columns (r, z, n) at a
 // stride of 400 floats (16 mod 32: conflict-free A loads)
 constexpr int kDghStride = 3 * kChunk + 16;
-constexpr int kBwdStages = 2;  // the backward's ring
 
 // the backward's dynamic shared memory: the h_prev tile, the dgh tile of
 // one unit chunk and the ring
 __host__ __device__ __forceinline__ size_t wide_bwd_smem(int H, int rows) {
-  return ((size_t)rows * (H + 16) + (size_t)rows * kDghStride + (size_t)kBwdStages * kWideStageFloats) *
+  return ((size_t)rows * (H + 16) + (size_t)rows * kDghStride + (size_t)kWideStages * kWideStageFloats) *
          sizeof(float);
 }
 
@@ -1132,7 +1131,7 @@ gru_bwd_wide_kernel(const float* __restrict__ gi, const float* __restrict__ w_hh
           if (++ic == chunks) ic = 0;
         }
       }
-      if (++wslot == kBwdStages) wslot = 0;
+      if (++wslot == kWideStages) wslot = 0;
     }
     cp_async_commit();
   };
@@ -1147,7 +1146,7 @@ gru_bwd_wide_kernel(const float* __restrict__ gi, const float* __restrict__ w_hh
   };
 
   load_h(T - 1);
-  for (int q = 0; q < kBwdStages - 1; ++q) issue();
+  for (int q = 0; q < kWideStages - 1; ++q) issue();
 
   // B-fragment offsets of h_prev @ W_hh, as in the forward
   int wcol[kNJ];
@@ -1176,11 +1175,11 @@ gru_bwd_wide_kernel(const float* __restrict__ gi, const float* __restrict__ w_hh
 #pragma unroll
       for (int m = 0; m < kM; ++m) wide_bias(acc[m], bg, H, uc, warp, tig);
       for (int kp = 0; kp < KS; ++kp) {
-        cp_async_wait<kBwdStages - 2>();
+        cp_async_wait<kWideStages - 2>();
         __syncwarp();
         issue();
         const float* ws = ring_w + rslot * kWideStageFloats;
-        if (++rslot == kBwdStages) rslot = 0;
+        if (++rslot == kWideStages) rslot = 0;
         uint32_t ab[kM][2][4], as[kM][2][4];
 #pragma unroll
         for (int m = 0; m < kM; ++m) {
@@ -1295,11 +1294,11 @@ gru_bwd_wide_kernel(const float* __restrict__ gi, const float* __restrict__ w_hh
           }
         float dacc[kM][kUB][4] = {};
         for (int kq = 0; kq < 8; ++kq) {
-          cp_async_wait<kBwdStages - 2>();
+          cp_async_wait<kWideStages - 2>();
           __syncwarp();
           issue();
           const float* ws = ring_w + rslot * kWideStageFloats;
-          if (++rslot == kBwdStages) rslot = 0;
+          if (++rslot == kWideStages) rslot = 0;
 #pragma unroll
           for (int sl = 0; sl < 3; ++sl) {
             const int kp = 3 * kq + sl;  // 16-deep slice of the chunk's 384 columns

@@ -39,8 +39,8 @@ and n columns, its row tile 16, 32 or 64 rows; at T=1 its grid also splits
 the hidden units across blocks (`wide_forward_tiling`). `gru_bwd_wide`
 forms `h_prev @ W_hh` from the same stages and `dgh @ W_hh^T` from stages
 of W_hh's rows, one unit chunk of dgh at a time, so that it holds only
-that chunk's dgh in shared memory; its
-row tile is 16 or 32 rows (`wide_backward_tiling`). `gru_dw` and `gru_reduce` serve every H.
+that chunk's dgh in shared memory; its row tile is 16 or 32 rows
+(`wide_backward_tiling`). `gru_dw` and `gru_reduce` serve every H.
 
 The header of `csrc/fused_gru.cu` says what bounds each kernel and what the
 design does about it. The library is built with nvcc for sm_90a at first
@@ -99,17 +99,14 @@ SMEM_PER_BLOCK = 232_448
 WIDE_STAGE_COST = {16: 1.0, 32: 1.5, 64: 2.9}
 # the wide backward's shared memory (`wide_bwd_smem`): the h_prev tile
 # (stride H + 16), the dgh tile of one 128-unit chunk (stride 400) and the
-# forward's ring. An SM has 233,472
-# bytes, of which each resident block also takes 1 KB; both instances use
-# more than 128 registers a thread, so one block an SM. WIDE_BWD_COST: a
-# weight for the time of a wave of blocks at each row tile, fitted so that
-# `wide_backward_tiling` picks the fastest row tile measured at every wide
-# shape of chip_smoke.py on an H100 (`kernel_bench --tilings`, PERF.md).
+# forward's ring. Both of its instances use more than 128 registers a
+# thread, so an SM holds one block (checked against the CUDA runtime's
+# count on the card). WIDE_BWD_COST: a weight for the time of a wave of
+# blocks at each row tile, fitted so that `wide_backward_tiling` picks the
+# fastest row tile measured at every wide shape of chip_smoke.py on an
+# H100 (`kernel_bench --tilings`, PERF.md).
 WIDE_BWD_DGH_STRIDE = 3 * WIDE_CHUNK + 16
-WIDE_BWD_STAGES = 2
-SMEM_PER_SM = 233_472
-SMEM_PER_BLOCK_RESERVED = 1024
-WIDE_BWD_MAX_BLOCKS_PER_SM = 1
+WIDE_BWD_BLOCKS_PER_SM = 1
 WIDE_BWD_COST = {16: 1.0, 32: 1.4}
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -387,7 +384,7 @@ def wide_forward_tiling(G: int, T: int, B: int, H: int, sms: int) -> dict:
 def wide_backward_smem(H: int, rows: int) -> int:
     """Bytes of dynamic shared memory of the wide backward: the h_prev tile,
     one unit chunk's dgh tile and the ring (csrc/fused_gru.cu `wide_bwd_smem`)."""
-    return rows * (H + 16 + WIDE_BWD_DGH_STRIDE) * 4 + WIDE_BWD_STAGES * WIDE_STAGE_BYTES
+    return rows * (H + 16 + WIDE_BWD_DGH_STRIDE) * 4 + WIDE_STAGES * WIDE_STAGE_BYTES
 
 
 def wide_backward_tiling(G: int, T: int, B: int, H: int, sms: int) -> dict:
@@ -395,8 +392,8 @@ def wide_backward_tiling(G: int, T: int, B: int, H: int, sms: int) -> dict:
 
     rows: the row tile (16 or 32), each block's share of the batch; every
     W_hh stage it copies serves that many rows, so the L2 stream of a step
-    is G * ceil(B / rows) * 24H^2 bytes. blocks_per_sm: how many blocks an SM holds at once, by shared
-    memory and registers (one at every wide H). waves: ceil(blocks / (sms *
+    is G * ceil(B / rows) * 24H^2 bytes. blocks_per_sm: the blocks an SM
+    holds at once (one: registers). waves: ceil(blocks / (sms *
     blocks_per_sm)).
 
     The cost of a row tile is its waves times `WIDE_BWD_COST`, a fitted
@@ -409,12 +406,12 @@ def wide_backward_tiling(G: int, T: int, B: int, H: int, sms: int) -> dict:
         smem = wide_backward_smem(H, rows)
         if smem > SMEM_PER_BLOCK:
             continue
-        per_sm = min(WIDE_BWD_MAX_BLOCKS_PER_SM, SMEM_PER_SM // (smem + SMEM_PER_BLOCK_RESERVED))
         tiles = -(-B // rows)
-        waves = -(-(tiles * G) // (sms * per_sm))
+        waves = -(-(tiles * G) // (sms * WIDE_BWD_BLOCKS_PER_SM))
         cost = waves * WIDE_BWD_COST[rows]
         if best is None or cost < best[0]:
-            best = (cost, dict(rows=rows, grid=(tiles, G), smem=smem, blocks_per_sm=per_sm, waves=waves))
+            best = (cost, dict(rows=rows, grid=(tiles, G), smem=smem, blocks_per_sm=WIDE_BWD_BLOCKS_PER_SM,
+                               waves=waves))
     if best is None:
         raise ValueError(f"no wide backward tiling fits shared memory at H={H}")
     return best[1]
