@@ -40,7 +40,9 @@ exits non-zero:
              tile, grid, unit split, ring stages, shared memory) and the
              wide backward's (`wide_backward_tiling`: row tile, grid,
              shared memory, blocks an SM, waves; the blocks an SM checked
-             against the CUDA runtime's count).
+             against the CUDA runtime's count), and at every shape the
+             weight gradient's (`dw_tiling`: tile, P, stages a block,
+             grid, waves, their fill, shared memory).
 Then twelve train phases through `codebase_tpu_torch.run.main`, each with
 the launch counters set to 0 just before and read just after, and logging
 every iteration (`log_interval` = E*T, so the host loop's chunk is one
@@ -376,8 +378,11 @@ def check_shape(key, G, T, B, H, gen, peaks):
     out["gru_bwd"]["recurrence_bound_ms"], out["gru_bwd"]["recurrence_bound_by"] = bounds(
         "gru_bwd_recurrence", G, T, B, H, P, peaks)
     out["gru_reduce"]["partials_per_group"] = P
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out["gru_dw"]["tiling"] = fg.dw_tiling(G, T, B, H, sms)
+    if out["gru_dw"]["tiling"]["P"] != P:
+        raise AssertionError(f"gru_dw at {key}: {P} partials a group, the tiling counts {out['gru_dw']['tiling']['P']}")
     if H != 128:  # the wide kernels' launches at this shape
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
         out["gru_fwd"]["tiling"] = fg.wide_forward_tiling(G, T, B, H, sms)
         tile = out["gru_bwd"]["tiling"] = fg.wide_backward_tiling(G, T, B, H, sms)
         on_card = fg._library().gru_bwd_wide_blocks_per_sm(H, tile["rows"])
@@ -801,7 +806,7 @@ def main() -> None:
             **{f"{roles[key]}_shape_{key}": {f: results[key][k][f] for f in (
                 "ms", "plain_ms", "library_ms", "library", "bound_ms", "bound_by")} for key in keys if key != at},
         }
-        if kernel in ("gru_fwd_wide", "gru_bwd_wide"):
+        if kernel in ("gru_fwd_wide", "gru_bwd_wide", "gru_dw"):
             entry["tiling"] = {key: results[key][k]["tiling"] for key in keys}
         if k == "gru_bwd":
             entry["ms_is"] = "the whole backward: the recurrence kernel, gru_dw_kernel, gru_reduce_kernel"

@@ -8,7 +8,7 @@
 //   gru_bwd_kernel    <- _bwd_kernel (body :105-168, launched by
 //                        _fused_gru_bwd :274-332): the reverse-time recurrence
 //   gru_dw_kernel     <- its dW_hh/db_hh products (:160-165), taken out of
-//                        the recurrence as one long-K product
+//                        the recurrence as one long-K product (wgmma, TMA)
 //   gru_reduce_kernel <- its in-order dW_hh/db_hh accumulation (:123-126,
 //                        :166-167), which on the TPU is race-free only
 //                        because grid steps run in order.
@@ -79,18 +79,48 @@
 //   does not hold) for the weight gradient; dW_hh is off the chain.
 //
 // gru_dw_kernel, the weight gradient: dW_hh[g] = sum_k h_prev[k]^T dgh[k]
-// and db_hh[g] = sum_k dgh[k] over the K = T * B rows (26,624 at the update
-// shape). Bound on an H100 by bytes and operations alike (h_prev and dgh,
-// 109 MB at the update shape: 0.033 ms at 3.35 TB/s; one 3xTF32 product:
-// 0.032 ms at the TF32 peak); in practice by mma.sync issue and the TF32
-// splits, as the recurrence. Design: each block takes a 64 x 192 tile of
-// dW_hh and one share of K (about one block per SM over groups and tiles);
-// 64-row chunks of h_prev and dgh go global -> shared with cp.async through
-// a ring of three buffers; 8 warps of 32 x 48, 3xTF32, each 16-deep slice of
-// k in a fresh accumulator added to f32 running sums, so the error does not
-// grow with K. Each block writes its partial sums; no atomics. ptxas gives
-// it 255 registers and spills 24 bytes; with the slice loop not unrolled it
-// needs 177 and spills nothing, but measured 7% slower, as did 32-row chunks.
+// and db_hh[g] = sum_k dgh[k] over the K = T * B rows, one kernel for every
+// H. What could bound it on an H100: the 3xTF32 products (2.95 ms at G=10 T=121
+// B=256 H=512 at the 495 TFLOP/s TF32 peak; its bytes, 2.5 GB, take 0.76
+// ms) and the stream of h_prev and dgh out of the L2 into every block, for
+// every tile of dW_hh: G * tiles * K * (128 + 192) * 4 bytes, 12.7 GB there.
+// Its first design (64 x 192 tiles, per-thread cp.async, mma.sync on 8
+// warps, each warp re-splitting its A and B fragments) streamed 20.3 GB and
+// trailed one f32 torch.bmm at the wide sizes. Design:
+// - tiles of 128 x 192 (two consumer warpgroups of 64 rows; 192 divides 3H
+//   at every H the kernels take), each over a share of K's stages of 32
+//   rows (ops/fused_gru.py dw_tiling: P blocks a tile, so that the grid
+//   fills whole waves and no block sums more than DW_MAX_STAGES stages);
+// - a producer warpgroup (one thread issues; setmaxnreg hands its
+//   registers to the consumers) brings each stage by TMA into a ring of
+//   three fp32 stages behind mbarriers: 4 + 6 boxes of 32 x 32 floats under the
+//   128-byte swizzle, h_prev's rows from h0 or y, dgh's from dgi or dgh_n;
+//   a stage never straddles h0 and y, and each tensor map ends where its
+//   segment does, so the ragged edges read as zeros with no branch;
+// - wgmma takes TF32 from shared memory only K-major, and both operands
+//   are M- or N-contiguous in device memory. So A = h_prev^T comes from
+//   registers (each thread reads its fragment from the fp32 stage and
+//   splits it once per warpgroup; the tile's rows are permuted so that the
+//   reads are conflict-free under the box swizzle), and B = dgh from a
+//   split pass: the consumers read each staged dgh value once per block and
+//   write its TF32 big and small parts K-major (128-byte rows, the swizzle
+//   the descriptor names) into one of two buffer pairs, under the previous
+//   stage's products, and read the next stage's A fragments into a second
+//   register set there too. Per k8 step three m64n192k8 wgmma: small * big,
+//   big * small, big * big, into one f32 accumulator a block;
+// - the accumulator's error grows with the stages it sums (about 2.4e-7
+//   of the largest entry a stage on an H100 80GB HBM3 at 700 W,
+//   kernel_bench --dw-stages), so the split bounds a block's share;
+// - db_hh: the split pass sums its staged dgh values (valid rows only) in
+//   the blocks of the first row of tiles, added in a fixed order; no
+//   atomics, two calls are bitwise equal.
+// A 128 x 384 tile (two n192 products a k8 step) would cut the stream by a
+// fifth but needs 192 accumulators a thread beside the A fragments. On an
+// H100 80GB HBM3 at 700 W (kernel_bench against copies of the kernel) a
+// stage takes about 2 us, in proportion to the shared-memory bytes it
+// moves (wgmma's B reads, the split pass, TMA's writes, the A reads): with
+// no split pass 68% of the time, with no products 46%, with no A reads 98%;
+// the L2 stream is not the limit (the grid's order made no difference).
 //
 // gru_reduce_kernel. Bound by bytes: it reads the P partials once (16 per
 // group at the update shape, 6.3 MB, 0.002 ms at 3.35 TB/s). One thread per
@@ -167,15 +197,12 @@
 // - the h_prev tile (R x H, stride H + 16) is copied under the last
 //   chunk's dh product; gi, dy and dh_t of a chunk are prefetched into the
 //   L2 when its product starts.
-// gru_dw_kernel serves every H: its 64 x 192 tiles of dW_hh number
-// (H / 64) * (3H / 192), 4 at H=128, 64 at H=512. It is built twice: with
-// H fixed at 128 (index arithmetic folded at compile time; H at run time
-// measured 6-10% slower there on an H100) and with H taken at run time.
-//
 // Rows past the batch edge are masked inside the kernels; there is no
 // padding of time or batch.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
+#include <cudaTypedefs.h>
 #include <stdint.h>
 
 namespace {
@@ -1362,140 +1389,301 @@ using BwdWideKernel = decltype(&gru_bwd_wide_kernel<1>);
 
 // ---------------------------------------------------------------------------
 // Backward, kernel 2: dW_hh = sum_k h_prev[k]^T dgh[k], a long-K product
-// (tensor cores, 3xTF32)
+// (wgmma, 3xTF32, fp32 stages by TMA)
 // ---------------------------------------------------------------------------
 
-constexpr int kDwK = 64;              // rows of k per staged chunk
-constexpr int kDwM = 64, kDwN = 192;  // a block's tile of dW_hh (H x 3H)
-constexpr int kDwHS = kDwM + 8;       // staged row strides, 8 mod 32: the
-constexpr int kDwGS = kDwN + 8;       // scalar fragment loads are conflict-free
-constexpr int kDwStage = kDwK * (kDwHS + kDwGS);
-constexpr int kDwStages = 3;          // chunks in flight: a ring of staged buffers
-constexpr size_t kDwSmem = kDwStages * kDwStage * sizeof(float);
+constexpr int kDwK = 32;                   // rows of k a stage: one 128-byte row of TF32 in B
+constexpr int kDwM = 128, kDwN = 192;      // a block's tile of dW_hh (H x 3H)
+constexpr int kDwBox = 32;                 // columns of a TMA box: 128 bytes, the swizzle's span
+constexpr int kDwBoxFloats = kDwK * kDwBox;             // 1024 floats, 4 KB
+constexpr int kDwHBoxes = kDwM / kDwBox, kDwGBoxes = kDwN / kDwBox;  // 4 + 6 boxes a stage
+constexpr int kDwStageFloats = (kDwHBoxes + kDwGBoxes) * kDwBoxFloats;
+constexpr int kDwStageBytes = kDwStageFloats * 4;      // 40 KB
+constexpr int kDwStages = 3;                           // the fp32 ring
+constexpr int kDwSplitFloats = kDwN * kDwK;            // one TF32 part of B: 192 rows n x 32 k
+constexpr int kDwConsumers = 256;                      // two warpgroups: 64 rows of the tile each
+constexpr int kDwThreads = kDwConsumers + 128;         // and a producer warpgroup (one thread issues)
+constexpr int kDwTasks = kDwN * kDwK / 4 / kDwConsumers;  // split tasks a thread: 6 (n, 4 k)
+constexpr size_t kDwBarOffset = (size_t)(kDwStages * kDwStageFloats + 4 * kDwSplitFloats) * 4;
+constexpr size_t kDwSmem = kDwBarOffset + 2 * kDwStages * 8 + 1024;  // + slack to align to 1024
 
-// grid (P, (H / kDwM) * (3H / kDwN), G), kFwdThreads threads, kDwSmem
-// bytes of dynamic shared memory. kHc: the hidden size fixed at compile
-// time (kH: the H=128 instance, whose index arithmetic folds to shifts),
-// or 0 to take it from h_size at run time (the wide sizes). Block (p, tile, g) sums rows [p * rows, (p + 1) * rows) of
-// k over T * B for its kDwM x kDwN tile of dW_hh[g], and writes them into
-// partials[g, p] (laid out [dW_hh (H x 3H) | db_hh (3H)]); the blocks of the
-// first row of tiles also sum db_hh over their columns. Row k of h_prev is
-// h0[g, k] for k < B, else row k - B of y[g] (time-major over (T, B)); row k
-// of dgh is [dgi[g, k, :2H] | dgh_n[g, k]].
-template <int kHc>
-__global__ void __launch_bounds__(kFwdThreads, 1)
-gru_dw_kernel(const float* __restrict__ h0, const float* __restrict__ y,
-              const float* __restrict__ dgi, const float* __restrict__ dgh_n,
-              float* __restrict__ partials, int T, int B, int h_size, int rows) {
-  extern __shared__ __align__(16) float smem[];
-  const int H = kHc ? kHc : h_size;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// wait until the phase of parity `parity` of the barrier has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// a box of a 3-d tensor map (coordinates innermost first) into shared
+// memory, completing on `bar`
+__device__ __forceinline__ void tma_load_3d(float* dst, const CUtensorMap* map, int c0, int c1, int c2,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], "
+      "[%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+// the wgmma descriptor of a K-major operand in 128-byte-swizzled rows (8-row
+// groups 1024 bytes apart), starting at `p`
+__device__ __forceinline__ uint64_t wgmma_desc_sw128(const void* p) {
+  return (uint64_t)((smem_u32(p) & 0x3ffff) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+// d (64 x 192, f32) += a (64 x 8, TF32, registers) * b (8 x 192, TF32,
+// K-major in shared memory at desc_b), one warpgroup
+__device__ __forceinline__ void wgmma_tf32_m64n192k8(float (&d)[96], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "{%96, %97, %98, %99}, %100, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+__device__ __forceinline__ void consumers_sync() { asm volatile("bar.sync 1, %0;\n" ::"n"(kDwConsumers) : "memory"); }
+
+// Offset (floats) of element (row k, column c) of a 32 x 32 TMA box under
+// CU_TENSOR_MAP_SWIZZLE_128B: 16-byte chunk c / 4 of row k sits at chunk
+// (c / 4) ^ (k % 8).
+__device__ __forceinline__ int dw_box_at(int k, int c) { return k * kDwBox + ((((c >> 2) ^ k) & 7) << 2) + (c & 3); }
+
+// A row of the tile (warpgroup wg, warp wi of it, fragment row gid + 8 *
+// half) -> its unit, 0..127. Fragment rows gid and gid + 4 land 16 units
+// apart, so the A-fragment reads (rows k = tig, tig + 4 of a box) are
+// conflict-free under the box's swizzle.
+__device__ __forceinline__ int dw_unit(int wg, int wi, int gid, int half) {
+  return 64 * wg + 32 * (wi >> 1) + (gid & 3) + 4 * (2 * half + (wi & 1)) + 16 * (gid >> 2);
+}
+
+// grid ((H / kDwM) * (3H / kDwN), P, G), kDwThreads threads, kDwSmem bytes
+// of dynamic shared memory. h_prev's rows come in two segments, h0[g] (B
+// rows) and y[g] rows 0 .. (T - 1)B - 1, each cut into stages of kDwK rows
+// (the last one of each ragged: the tensor maps end there and TMA fills the
+// rest with zeros); stage s of the ceil(B / kDwK) + ceil((T - 1)B / kDwK)
+// stages holds those rows of h_prev and the same rows of dgh = [dgi[..., :2H]
+// | dgh_n]. Block (tile, p, g) sums stages [p * spb, (p + 1) * spb) for its
+// kDwM x kDwN tile of dW_hh[g] and writes them into partials[g, p] (laid out
+// [dW_hh (H x 3H) | db_hh (3H)]); the blocks of the first row of tiles also
+// sum db_hh over their columns. The tiles run fastest in the grid, so the
+// blocks in flight together read the same rows of h_prev and dgh.
+__global__ void __launch_bounds__(kDwThreads, 1)
+gru_dw_kernel(const __grid_constant__ CUtensorMap h0_map, const __grid_constant__ CUtensorMap y_map,
+              const __grid_constant__ CUtensorMap dgi_map, const __grid_constant__ CUtensorMap dghn_map,
+              float* __restrict__ partials, int T, int B, int H, int spb) {
+  extern __shared__ uint8_t dw_smem_raw[];
+  float* smem = reinterpret_cast<float*>((reinterpret_cast<uintptr_t>(dw_smem_raw) + 1023) & ~(uintptr_t)1023);
+  float* ring = smem;                                      // kDwStages fp32 stages
+  float* split = smem + kDwStages * kDwStageFloats;        // [2 buffers][big, small]
+  uint64_t* full = reinterpret_cast<uint64_t*>(reinterpret_cast<uint8_t*>(smem) + kDwBarOffset);
+  uint64_t* empty = full + kDwStages;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int p = blockIdx.x, g = blockIdx.z;
+  const int p = blockIdx.y, g = blockIdx.z;
   const int H3 = 3 * H, tiles_n = H3 / kDwN;
-  const int m0 = (blockIdx.y / tiles_n) * kDwM, n0 = (blockIdx.y % tiles_n) * kDwN;
-  const int K = T * B;
-  const int k0 = p * rows, k1 = min(K, k0 + rows);
-  const int n_chunks = k1 > k0 ? (k1 - k0 + kDwK - 1) / kDwK : 0;
-  const float* h0g = h0 + (size_t)g * B * H;
-  const float* yg = y + (size_t)g * T * B * H;
-  const float* dgig = dgi + (size_t)g * K * H3;
-  const float* dgng = dgh_n + (size_t)g * K * H;
+  const int m0 = (blockIdx.x / tiles_n) * kDwM, n0 = (blockIdx.x % tiles_n) * kDwN;
+  const int s_h0 = (B + kDwK - 1) / kDwK, ky = (T - 1) * B;
+  const int n_stages = s_h0 + (ky + kDwK - 1) / kDwK;
+  const int s0 = p * spb, ns = max(0, min(n_stages, s0 + spb) - s0);
 
-  // chunk c (rows k0 + c * kDwK, ...) into buf: h_prev rows at stride kDwHS, then dgh rows
-  auto stage = [&](int c, float* buf) {
-    const int kc = k0 + c * kDwK;
-    for (int i = tid; i < kDwK * kDwM / 4; i += kFwdThreads) {
-      const int rr = i / (kDwM / 4), q = i % (kDwM / 4), k = kc + rr;
-      const bool ok = k < k1;
-      const float* row = k < B ? h0g + (size_t)k * H : yg + (size_t)(k - B) * H;
-      cp_async16(buf + rr * kDwHS + 4 * q, ok ? row + m0 + 4 * q : h0g, ok);
+  if (tid == 0) {
+    for (int i = 0; i < kDwStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], kDwConsumers / 32);
     }
-    float* gs = buf + kDwK * kDwHS;
-    for (int i = tid; i < kDwK * kDwN / 4; i += kFwdThreads) {
-      const int rr = i / (kDwN / 4), q = i % (kDwN / 4), k = kc + rr, col = n0 + 4 * q;
-      const bool ok = k < k1;
-      const float* src = col < 2 * H ? dgig + (size_t)k * H3 + col : dgng + (size_t)k * H + col - 2 * H;
-      cp_async16(gs + rr * kDwGS + 4 * q, ok ? src : dgig, ok);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kDwConsumers / 32) {
+    // producer: one thread issues every stage's 10 boxes; the warpgroup
+    // gives its registers to the consumers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == kDwConsumers) {
+      for (int s = 0; s < ns; ++s) {
+        const int slot = s % kDwStages;
+        if (s >= kDwStages) mbar_wait(&empty[slot], (s / kDwStages - 1) & 1);
+        mbar_expect_tx(&full[slot], kDwStageBytes);
+        const int gs = s0 + s;
+        const bool in_h0 = gs < s_h0;
+        const int row = in_h0 ? gs * kDwK : (gs - s_h0) * kDwK;  // row in its segment
+        const int drow = in_h0 ? row : B + row;                   // row of dgh
+        float* st = ring + slot * kDwStageFloats;
+#pragma unroll
+        for (int j = 0; j < kDwHBoxes; ++j)
+          tma_load_3d(st + j * kDwBoxFloats, in_h0 ? &h0_map : &y_map, m0 + kDwBox * j, row, g, &full[slot]);
+#pragma unroll
+        for (int j = 0; j < kDwGBoxes; ++j) {
+          const int col = n0 + kDwBox * j;
+          float* dst = st + (kDwHBoxes + j) * kDwBoxFloats;
+          if (col < 2 * H)
+            tma_load_3d(dst, &dgi_map, col, drow, g, &full[slot]);
+          else
+            tma_load_3d(dst, &dghn_map, col - 2 * H, drow, g, &full[slot]);
+        }
+      }
     }
+    return;
+  }
+
+  // consumers: warpgroup wg forms rows [64 wg, 64 wg + 64) of the tile
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int wg = warp >> 2, wi = warp & 3, gid = lane >> 2, tig = lane & 3;
+  // A-fragment offsets in a stage's h boxes, k8 step 0: a0 (row gid, k tig),
+  // a1 (row gid + 8, k tig), a2 (row gid, k tig + 4), a3 (row gid + 8, k tig + 4)
+  int a_off[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int u = dw_unit(wg, wi, gid, i & 1), k = tig + 4 * (i >> 1);
+    a_off[i] = (u / kDwBox) * kDwBoxFloats + dw_box_at(k, u % kDwBox);
+  }
+  float acc[96];
+#pragma unroll
+  for (int i = 0; i < 96; ++i) acc[i] = 0.f;
+  float db[kDwTasks];
+#pragma unroll
+  for (int i = 0; i < kDwTasks; ++i) db[i] = 0.f;
+
+  // the split pass of stage s: each fp32 dgh value of the stage is read once,
+  // split into its TF32 parts, and written K-major (row n, 32 k) with the
+  // 128-byte swizzle the wgmma descriptor names; task t of warp w covers
+  // column n = 32 (p / 8) + lane, rows 4 (p % 8) .. + 3, p = 6w + t. The
+  // column sums of the stage's valid rows go to db.
+  auto split_stage = [&](int s) {
+    const int slot = s % kDwStages;
+    mbar_wait(&full[slot], (s / kDwStages) & 1);
+    const int gs = s0 + s;
+    const int valid = gs < s_h0 ? min(kDwK, B - gs * kDwK) : min(kDwK, ky - (gs - s_h0) * kDwK);
+    const float* gsrc = ring + slot * kDwStageFloats + kDwHBoxes * kDwBoxFloats;
+    float* big = split + (s & 1) * 2 * kDwSplitFloats;
+    float* small = big + kDwSplitFloats;
+#pragma unroll
+    for (int t = 0; t < kDwTasks; ++t) {
+      const int task = kDwTasks * warp + t, cg = task >> 3, kq = task & 7, n = kDwBox * cg + lane;
+      float v[4];
+      uint32_t vb[4], vs[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int k = 4 * kq + e;
+        v[e] = gsrc[cg * kDwBoxFloats + dw_box_at(k, lane)];
+        db[t] += k < valid ? v[e] : 0.f;
+        split_tf32(v[e], vb[e], vs[e]);
+      }
+      const int at = n * kDwK + ((kq ^ (n & 7)) << 2);
+      *reinterpret_cast<uint4*>(big + at) = make_uint4(vb[0], vb[1], vb[2], vb[3]);
+      *reinterpret_cast<uint4*>(small + at) = make_uint4(vs[0], vs[1], vs[2], vs[3]);
+    }
+    // the generic-proxy writes become visible to wgmma's async proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   };
 
-  const int wm = warp / 4, wn = warp % 4;  // warp tile: 32 rows of m x 48 columns of n
-  const bool do_db = m0 == 0 && tid < kDwN;
-  float acc[2][6][4] = {};
-  float db = 0.f;  // column n0 + tid of db_hh
-  // a ring of kDwStages buffers: chunks c + 1 .. c + kDwStages - 1 load
-  // while chunk c is summed
+  // the A fragments of stage s (k8 steps 0..3), split into TF32 parts
+  using Frags = uint32_t[4][4];
+  auto load_a = [&](int s, Frags& ab, Frags& as) {
+    const float* hsrc = ring + (s % kDwStages) * kDwStageFloats;
 #pragma unroll
-  for (int c = 0; c < kDwStages - 1; ++c) {
-    if (c < n_chunks) stage(c, smem + c * kDwStage);
-    cp_async_commit();
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split_tf32(hsrc[a_off[i] + 8 * kDwBox * j], ab[j][i], as[j][i]);
+  };
+  // stage s's products from its A fragments (cur), while the next stage is
+  // split and its A fragments are read into nxt: the fp32 stage s + 1 is
+  // released as soon as it is read, and the products wait only on the
+  // barrier that hands over the split buffers
+  auto step = [&](int s, Frags& cur_b, Frags& cur_s, Frags& nxt_b, Frags& nxt_s) {
+    const float* big = split + (s & 1) * 2 * kDwSplitFloats;
+    const float* small = big + kDwSplitFloats;
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {  // k8 steps: 32 bytes along each 128-byte row
+      wgmma_tf32_m64n192k8(acc, cur_s[j], wgmma_desc_sw128(big + 8 * j));
+      wgmma_tf32_m64n192k8(acc, cur_b[j], wgmma_desc_sw128(small + 8 * j));
+      wgmma_tf32_m64n192k8(acc, cur_b[j], wgmma_desc_sw128(big + 8 * j));
+    }
+    wgmma_commit();
+    if (s + 1 < ns) {
+      split_stage(s + 1);
+      load_a(s + 1, nxt_b, nxt_s);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[(s + 1) % kDwStages]);
+    }
+    wgmma_wait_all();
+    // the A fragments stay live (unchanged) until the products that read them are done
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      asm volatile("" ::"r"(cur_b[j][0]), "r"(cur_b[j][1]), "r"(cur_b[j][2]), "r"(cur_b[j][3]), "r"(cur_s[j][0]),
+                   "r"(cur_s[j][1]), "r"(cur_s[j][2]), "r"(cur_s[j][3]));
+    consumers_sync();  // both warpgroups are done with buffer s & 1 and have split s + 1
+  };
+
+  uint32_t ab0[4][4], as0[4][4], ab1[4][4], as1[4][4];
+  if (ns > 0) {
+    split_stage(0);
+    load_a(0, ab0, as0);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[0]);
   }
-  for (int c = 0; c < n_chunks; ++c) {
-    cp_async_wait<kDwStages - 2>();
-    __syncthreads();  // chunk c has landed; every warp is done with chunk c - 1
-    const int cn = c + kDwStages - 1;
-    if (cn < n_chunks) stage(cn, smem + (cn % kDwStages) * kDwStage);
-    cp_async_commit();
-    const float* hsb = smem + (c % kDwStages) * kDwStage;
-    const float* gsb = hsb + kDwK * kDwHS;
-    // each 16-deep slice of k in a fresh accumulator, added to acc in f32
-#pragma unroll
-    for (int sl = 0; sl < kDwK / 16; ++sl) {
-      float part[2][6][4] = {};
-#pragma unroll
-      for (int ks = 0; ks < 2; ++ks) {
-        const int kk = sl * 16 + ks * 8;
-        // A = h_prev^T: a0 (m gid, k tig), a1 (m gid + 8, k tig), a2/a3 at k tig + 4
-        uint32_t ab[2][4], as[2][4];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          const float* a = hsb + (kk + tig) * kDwHS + wm * 32 + mi * 16 + gid;
-          split_tf32(a[0], ab[mi][0], as[mi][0]);
-          split_tf32(a[8], ab[mi][1], as[mi][1]);
-          split_tf32(a[4 * kDwHS], ab[mi][2], as[mi][2]);
-          split_tf32(a[4 * kDwHS + 8], ab[mi][3], as[mi][3]);
-        }
-        // B = dgh: b0 (k tig, n gid), b1 (k tig + 4, n gid)
-        uint32_t bb[6][2], bs[6][2];
-#pragma unroll
-        for (int ni = 0; ni < 6; ++ni) {
-          const float* b = gsb + (kk + tig) * kDwGS + wn * 48 + ni * 8 + gid;
-          split_tf32(b[0], bb[ni][0], bs[ni][0]);
-          split_tf32(b[4 * kDwGS], bb[ni][1], bs[ni][1]);
-        }
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int ni = 0; ni < 6; ++ni) {
-            mma_tf32(part[mi][ni], as[mi], bb[ni]);
-            mma_tf32(part[mi][ni], ab[mi], bs[ni]);
-            mma_tf32(part[mi][ni], ab[mi], bb[ni]);
-          }
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 6; ++ni)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[mi][ni][i] += part[mi][ni][i];
-    }
-    if (do_db) {
-#pragma unroll 8
-      for (int rr = 0; rr < kDwK; ++rr) db += gsb[rr * kDwGS + tid];
-    }
+  consumers_sync();
+  for (int s = 0; s < ns; s += 2) {  // two stages a turn: the fragment sets swap by name, not by index
+    step(s, ab0, as0, ab1, as1);
+    if (s + 1 < ns) step(s + 1, ab1, as1, ab0, as0);
   }
 
-  float* out = partials + ((size_t)g * gridDim.x + p) * ((size_t)H * H3 + H3);
+  float* out = partials + ((size_t)g * gridDim.y + p) * ((size_t)H * H3 + H3);
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+  for (int half = 0; half < 2; ++half) {
+    float* row = out + (size_t)(m0 + dw_unit(wg, wi, gid, half)) * H3 + n0 + 2 * tig;
 #pragma unroll
-    for (int ni = 0; ni < 6; ++ni) {
-      const int m = m0 + wm * 32 + mi * 16 + gid, n = n0 + wn * 48 + ni * 8 + 2 * tig;
-      *reinterpret_cast<float2*>(out + (size_t)m * H3 + n) = make_float2(acc[mi][ni][0], acc[mi][ni][1]);
-      *reinterpret_cast<float2*>(out + (size_t)(m + 8) * H3 + n) = make_float2(acc[mi][ni][2], acc[mi][ni][3]);
+    for (int j = 0; j < 24; ++j)
+      *reinterpret_cast<float2*>(row + 8 * j) = make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+  }
+  if (m0 == 0) {  // db_hh: the tasks' sums, added in a fixed order (k quads 0..7)
+    float* dbs = split;  // no wgmma reads the split buffers any more
+#pragma unroll
+    for (int t = 0; t < kDwTasks; ++t) dbs[(kDwTasks * warp + t) * 32 + lane] = db[t];
+    consumers_sync();
+    if (tid < kDwN) {
+      float sum = 0.f;
+#pragma unroll
+      for (int kq = 0; kq < 8; ++kq) sum += dbs[((tid >> 5) * 8 + kq) * 32 + (tid & 31)];
+      out[(size_t)H * H3 + n0 + tid] = sum;
     }
-  if (do_db) out[(size_t)H * H3 + n0 + tid] = db;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1612,19 +1800,64 @@ int gru_bwd_wide(const float* gi, const float* w_hh, const float* b_hh, const fl
   return (int)cudaGetLastError();
 }
 
-// P blocks per tile of dW_hh, each summing `rows` rows of k (a multiple of
-// gru_dw_chunk()); partials (G, P, H * 3H + 3H)
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point
+// query (no link against libcuda); null where it is missing
+static PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  return fn;
+}
+
+// a (G, rows, cols) f32 tensor whose groups lie group_stride floats apart,
+// read in 32 x 32 boxes under the 128-byte swizzle; rows past `rows` and
+// columns past `cols` read as zeros
+static bool dw_tensor_map(CUtensorMap* map, const float* base, int cols, int rows, int G, long long group_stride) {
+  auto encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)G};
+  cuuint64_t strides[2] = {(cuuint64_t)cols * 4, (cuuint64_t)group_stride * 4};
+  cuuint32_t box[3] = {kDwBox, kDwK, 1}, elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int gru_dw_smem() { return (int)kDwSmem; }
+
+// the weight gradient's stages of kDwK rows over K = T * B: those of h0's
+// rows, then those of y's first (T - 1) * B
+int gru_dw_stages(int T, int B) { return (B + kDwK - 1) / kDwK + ((T - 1) * B + kDwK - 1) / kDwK; }
+
+// P blocks per tile of dW_hh, each summing `rows` / gru_dw_chunk() stages
+// (rows a multiple of gru_dw_chunk(), no block without one); partials (G,
+// P, H * 3H + 3H)
 int gru_dw(const float* h0, const float* y, const float* dgi, const float* dgh_n, float* partials,
            int G, int T, int B, int H, int P, int rows, void* stream) {
-  if (!(H == kH || wide_hidden(H)) || G < 1 || T < 1 || B < 1 || P < 1 || rows < 1 || rows % kDwK ||
-      (long long)P * rows < (long long)T * B)
+  if (!(H == kH || wide_hidden(H)) || G < 1 || T < 1 || B < 1 || P < 1 || rows < 1 || rows % kDwK)
     return (int)cudaErrorInvalidValue;
-  auto kernel = H == kH ? gru_dw_kernel<kH> : gru_dw_kernel<0>;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDwSmem);
+  const int spb = rows / kDwK, stages = gru_dw_stages(T, B);
+  if ((long long)P * spb < stages || (long long)(P - 1) * spb >= stages) return (int)cudaErrorInvalidValue;
+  CUtensorMap h0_map, y_map, dgi_map, dghn_map;
+  const long long K = (long long)T * B;
+  if (!dw_tensor_map(&h0_map, h0, H, B, G, (long long)B * H) ||
+      !dw_tensor_map(&y_map, y, H, T > 1 ? (T - 1) * B : 1, G, K * H) ||
+      !dw_tensor_map(&dgi_map, dgi, 3 * H, (int)K, G, K * 3 * H) ||
+      !dw_tensor_map(&dghn_map, dgh_n, H, (int)K, G, K * H))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(gru_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDwSmem);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  kernel<<<dim3(P, gru_dw_tiles(H), G), kFwdThreads, kDwSmem, s>>>(h0, y, dgi, dgh_n, partials, T, B, H,
-                                                                   rows);
+  gru_dw_kernel<<<dim3(gru_dw_tiles(H), P, G), kDwThreads, kDwSmem, s>>>(h0_map, y_map, dgi_map, dghn_map,
+                                                                         partials, T, B, H, spb);
   return (int)cudaGetLastError();
 }
 

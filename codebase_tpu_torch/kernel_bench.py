@@ -1,7 +1,7 @@
 """Paired device times of the GRU kernels of two checkouts on one card.
 
     python -m codebase_tpu_torch.kernel_bench [--base DIR] [--shapes a,b,...,x]
-        [--kernels fwd,bwd,dw,reduce] [--rounds 2] [--tilings]
+        [--kernels fwd,bwd,dw,reduce] [--rounds 2] [--tilings] [--dw-stages 8,32,128]
 
 Loads `codebase_tpu_torch/ops/fused_gru.py` of this checkout and, with
 `--base`, of another one (each builds its own `csrc/` into its own
@@ -18,6 +18,12 @@ and recurrence outputs are checked bitwise against the other's.
 unit split whose shared memory fits, and its wide backward recurrence at
 every row tile that fits, each held bitwise equal to the default tiling's
 output.
+
+`--dw-stages` times this checkout's weight gradient with each block summing
+each given number of stages (and the default, `dw_tiling`'s), on the
+recurrence kernel's outputs, with the reduction's time and the largest
+error of the summed partials against `gru_dw_plain`, relative to its
+largest entry: how the error grows with a block's accumulation length.
 
 Prints one JSON line a shape (the card, each kernel's times, their medians
 and the ratio this / base) and a last line with the ratios of all shapes.
@@ -112,6 +118,28 @@ def sweep_backward_tilings(fg, G, T, B, H, gi, w, b, h0, y, dy, dhT, time_ms) ->
     return out
 
 
+def sweep_dw_stages(fg, G, T, B, H, h0, y, dgi, dgh_n, counts, time_ms) -> list:
+    """This checkout's weight gradient at each count of stages a block sums
+    (those under the shape's total, and the default): ms, the reduction's
+    ms, and the error of the summed partials against `gru_dw_plain`."""
+    dw_ref, db_ref = fg.gru_dw_plain(h0, y, dgi, dgh_n)
+    total = fg.dw_stages(T, B)
+    default = fg.dw_tiling(G, T, B, H, torch.cuda.get_device_properties(0).multi_processor_count)["stages"]
+    out = []
+    for spb in sorted({default, *[c for c in counts if c < total]}):
+        partials = fg.gru_dw_cuda(h0, y, dgi, dgh_n, stages=spb)
+        sums = fg.reduce_partials_cuda(partials)
+        dw, db = sums[:, : H * 3 * H].reshape(dw_ref.shape), sums[:, H * 3 * H :]
+        out.append({
+            "stages": spb, "P": partials.shape[1], "default": spb == default,
+            "dW_hh_rel_err": ((dw - dw_ref).abs().max() / dw_ref.abs().max()).item(),
+            "db_hh_rel_err": ((db - db_ref).abs().max() / db_ref.abs().max()).item(),
+            "ms": time_ms(lambda: fg.gru_dw_cuda(h0, y, dgi, dgh_n, stages=spb)),
+            "reduce_ms": time_ms(lambda: fg.reduce_partials_cuda(partials)),
+        })
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--base", type=Path, default=None, help="another checkout to time in turns with this one")
@@ -119,6 +147,8 @@ def main(argv=None) -> None:
     ap.add_argument("--kernels", default="fwd,bwd,dw,reduce")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--tilings", action="store_true", help="sweep this checkout's wide kernels' tilings")
+    ap.add_argument("--dw-stages", default=None,
+                    help="comma-separated counts of stages a block of the weight gradient sums: time and error each")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("kernel_bench: torch.cuda.is_available() is false; it times kernels on a CUDA GPU")
@@ -155,7 +185,13 @@ def main(argv=None) -> None:
                     times[k][name].append(chip_smoke.time_ms(calls[name][k]))
         med = {k: {name: statistics.median(v) for name, v in t.items()} for k, t in times.items()}
         line = {"shape": key, "G": G, "T": T, "B": B, "H": H, "card": smi, "ms": times, "median_ms": med,
-                "outputs_bitwise_equal_to_this": same}
+                "outputs_bitwise_equal_to_this": same,
+                "dw_tiling": trees["this"].dw_tiling(G, T, B, H, sms)}
+        if args.dw_stages:
+            h0, (y, dgi) = data[3], outs["this"]
+            dgh_n = trees["this"].gru_bwd_cuda(*data[:4], y, *data[4:])[2]
+            line["dw_stages"] = sweep_dw_stages(trees["this"], G, T, B, H, h0, y, dgi, dgh_n,
+                                                [int(c) for c in args.dw_stages.split(",")], chip_smoke.time_ms)
         if H != 128:
             line["tiling"] = trees["this"].wide_forward_tiling(G, T, B, H, sms)
             line["backward_tiling"] = trees["this"].wide_backward_tiling(G, T, B, H, sms)

@@ -22,8 +22,9 @@ They take what the TPU kernel takes, H % 128 == 0, up to `MAX_HIDDEN`
   each step, here on a chain of T steps.
 - `gru_dw` (replaces `_bwd_kernel`'s `dW_hh`/`db_hh` products): the weight
   gradient, off the recurrence's chain, as one long-K product over the
-  T*B rows of `h_prev` and `dgh = [dgi_r, dgi_z, dgh_n]`, split over K into
-  per-block partial sums.
+  T*B rows of `h_prev` and `dgh = [dgi_r, dgi_z, dgh_n]`, on `wgmma` in
+  3xTF32 with its rows brought in by TMA, in tiles of 128 x 192 of dW_hh,
+  split over K into per-block partial sums (`dw_tiling`).
 - `gru_reduce` (replaces the in-order `dW_hh`/`db_hh` accumulation of
   `_bwd_kernel`): sums those partials. On the TPU the accumulation into one
   output block is race-free because grid steps run in order; GPU blocks
@@ -64,6 +65,7 @@ through the kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -108,6 +110,24 @@ WIDE_STAGE_COST = {16: 1.0, 32: 1.5, 64: 2.9}
 WIDE_BWD_DGH_STRIDE = 3 * WIDE_CHUNK + 16
 WIDE_BWD_BLOCKS_PER_SM = 1
 WIDE_BWD_COST = {16: 1.0, 32: 1.4}
+# the weight gradient (csrc/fused_gru.cu `gru_dw_kernel`): tiles of
+# DW_TILE_M x DW_TILE_N of dW_hh, stages of DW_CHUNK rows of h_prev and dgh
+# in a ring of DW_STAGES fp32 stages (40 KB each) beside two pairs of TF32
+# B buffers (24 KB each), mbarriers and 1 KB of alignment slack. dw_tiling's
+# cost model: DW_STAGE_US, a block's time for a stage; DW_BLOCK_US, a
+# block's fixed time (the ring's fill and the epilogue); and the rate at
+# which the partials are written and read again.
+DW_CHUNK = 32
+DW_TILE_M, DW_TILE_N = 128, 192
+DW_STAGES = 3
+DW_SMEM = DW_STAGES * 40_960 + 4 * 24_576 + 2 * DW_STAGES * 8 + 1024
+DW_STAGE_US = 2.2
+DW_BLOCK_US = 15.0
+# the most stages a block sums in one wgmma accumulator: its error grows
+# with the count (about 2.4e-7 of the largest entry a stage, measured on an
+# H100), 3.3e-5 at 128 stages (4096 rows), against the 1e-4 it is held to
+DW_MAX_STAGES = 128
+DW_PARTIAL_BYTES_PER_US = 2.2e6
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "fused_gru.cu"
@@ -268,10 +288,11 @@ def _library():
             lib.gru_dw.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
             lib.gru_reduce.argtypes = [p, p, i, i, i, p]
             lib.gru_dw_tiles.argtypes = [i]
-            sizes = (lib.gru_max_hidden, lib.gru_fwd_rows, lib.gru_dw_chunk)
+            lib.gru_dw_stages.argtypes = [i, i]
+            sizes = (lib.gru_max_hidden, lib.gru_fwd_rows, lib.gru_dw_chunk, lib.gru_dw_smem)
             for fn in (lib.gru_fwd, lib.gru_bwd, lib.gru_fwd_wide, lib.gru_fwd_wide_smem, lib.gru_bwd_wide,
                        lib.gru_bwd_wide_smem, lib.gru_bwd_wide_blocks_per_sm, lib.gru_dw, lib.gru_reduce,
-                       lib.gru_dw_tiles, *sizes):
+                       lib.gru_dw_tiles, lib.gru_dw_stages, *sizes):
                 fn.restype = i
             for fn in sizes:
                 fn.argtypes = []
@@ -283,6 +304,10 @@ def _library():
             if any(lib.gru_bwd_wide_smem(H, rows) != wide_backward_smem(H, rows)
                    for H in (256, MAX_HIDDEN) for rows in WIDE_BWD_COST):
                 raise RuntimeError("fused GRU library sizes the wide backward's shared memory otherwise")
+            if (lib.gru_dw_chunk(), lib.gru_dw_smem()) != (DW_CHUNK, DW_SMEM) or any(
+                    lib.gru_dw_tiles(H) != dw_tiles(H) or lib.gru_dw_stages(T, B) != dw_stages(T, B)
+                    for H in (RESIDENT_HIDDEN, 384, MAX_HIDDEN) for T, B in ((1, 100), (121, 256), (9, 77))):
+                raise RuntimeError("fused GRU library tiles the weight gradient otherwise")
             _lib = lib
         return _lib
 
@@ -483,20 +508,55 @@ def gru_bwd_cuda(gi, w_hh, b_hh, h0, y, dy, dhT, tiling=None):
     return dgi, dh0, dgh_n
 
 
-def dw_blocks_per_group(G: int, K: int, tiles: int, chunk: int) -> tuple:
-    """Split of the dW_hh product's K = T*B rows: (P, rows), P blocks per
-    tile of dW_hh, each summing `rows` rows (a multiple of `chunk`), about
-    one block per SM over all groups and tiles; P=1 (every row in one
-    block) once the tiles alone fill the card, as at H=512 G=10 (640 tiles)."""
-    rows = -(-K // max(1, _sms() // (G * tiles)))
-    rows = -(-rows // chunk) * chunk
-    return -(-K // rows), rows
+def dw_tiles(H: int) -> int:
+    """Tiles of DW_TILE_M x DW_TILE_N that cover dW_hh (H x 3H)."""
+    return (H // DW_TILE_M) * (3 * H // DW_TILE_N)
 
 
-def gru_dw_cuda(h0, y, dgi, dgh_n):
+def dw_stages(T: int, B: int) -> int:
+    """The weight gradient's stages of DW_CHUNK rows over K = T*B: those of
+    h0's B rows, then those of y's first (T - 1) * B (csrc/fused_gru.cu
+    `gru_dw_stages`; the last stage of each is ragged)."""
+    return -(-B // DW_CHUNK) + -(-(T - 1) * B // DW_CHUNK)
+
+
+@functools.lru_cache(maxsize=256)
+def dw_tiling(G: int, T: int, B: int, H: int, sms: int) -> dict:
+    """The weight gradient's launch for a shape on a card of `sms` SMs.
+
+    Each block forms one DW_TILE_M x DW_TILE_N tile of dW_hh[g] over `stages`
+    consecutive stages of DW_CHUNK rows, and P blocks share a tile's stages.
+    The cost of a split is its waves of blocks (one an SM) times a block's
+    time, `stages` * DW_STAGE_US + DW_BLOCK_US, plus the P partials written
+    and read again by the reduction (2 * 4 * G * (H*3H + 3H) bytes each at
+    DW_PARTIAL_BYTES_PER_US); the cheapest P wins, the smaller on a tie, so
+    the blocks fill whole waves where the stages allow. Returns {tile, tiles,
+    P, stages, rows (stages * DW_CHUNK), grid (tiles, P, G), waves, fill
+    (blocks over waves * sms), smem}."""
+    tiles = dw_tiles(H)
+    total = dw_stages(T, B)
+    partial_us = 8 * G * (H * 3 * H + 3 * H) / DW_PARTIAL_BYTES_PER_US
+    best, spb_seen = None, set()
+    for P in range(-(-total // DW_MAX_STAGES), min(total, 8 * sms + total // DW_MAX_STAGES) + 1):
+        spb = -(-total // P)
+        if spb in spb_seen:
+            continue
+        spb_seen.add(spb)
+        P = -(-total // spb)
+        blocks = P * tiles * G
+        waves = -(-blocks // sms)
+        cost = waves * (spb * DW_STAGE_US + DW_BLOCK_US) + P * partial_us
+        if best is None or cost < best[0]:
+            best = (cost, dict(tile=(DW_TILE_M, DW_TILE_N), tiles=tiles, P=P, stages=spb, rows=spb * DW_CHUNK,
+                               grid=(tiles, P, G), waves=waves, fill=blocks / (waves * sms), smem=DW_SMEM))
+    return best[1]
+
+
+def gru_dw_cuda(h0, y, dgi, dgh_n, stages=None):
     """Kernel 3, dW_hh and db_hh over K = T*B rows: partials (G, P, H*3H + 3H),
     where partials[g, p] holds the share of rows block p summed of
-    [dW_hh[g] | db_hh[g]]."""
+    [dW_hh[g] | db_hh[g]]. `stages` (a block's stages) replaces `dw_tiling`'s
+    choice (for measurements)."""
     global DW_LAUNCHES
     G, T, B, H = _dims(dgi)
     dev = dgi.device
@@ -506,7 +566,8 @@ def gru_dw_cuda(h0, y, dgi, dgh_n):
         dev,
     )
     lib = _library()
-    P, rows = dw_blocks_per_group(G, T * B, lib.gru_dw_tiles(H), lib.gru_dw_chunk())
+    spb = stages or dw_tiling(G, T, B, H, _sms())["stages"]
+    P, rows = -(-dw_stages(T, B) // spb), spb * DW_CHUNK
     partials = torch.empty((G, P, H * 3 * H + 3 * H), device=dev)
     with torch.cuda.device(dev):
         code = lib.gru_dw(

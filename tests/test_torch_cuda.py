@@ -240,12 +240,36 @@ def test_wide_backward_blocks_per_sm_are_the_runtimes(cuda_device):
 def test_backward_kernels_run_on_tensor_cores(cuda_device, kernel):
     """The backward's three products (h_prev @ W_hh and dgh @ W_hh^T in the
     recurrence, h_prev^T dgh in the weight gradient) are tensor-core MMA in
-    TF32, in kernels of this library (no cuBLAS). gru_dw_kernel has two
-    instances (H=128 and H at run time), gru_bwd_wide_kernel two (row tiles
-    of 16 and 32)."""
+    TF32, in kernels of this library (no cuBLAS): HMMA in the recurrences
+    (gru_bwd_wide_kernel has two instances, row tiles of 16 and 32), warpgroup
+    HGMMA in gru_dw_kernel, one instance for every H."""
     functions = _sass_functions(kernel)
-    assert len(functions) == (1 if kernel == "gru_bwd_kernel" else 2)
-    assert all(any("HMMA" in line and "TF32" in line for line in f.splitlines()) for f in functions)
+    assert len(functions) == (2 if kernel == "gru_bwd_wide_kernel" else 1)
+    op = "HGMMA" if kernel == "gru_dw_kernel" else "HMMA"
+    assert all(any(op in line and "TF32" in line for line in f.splitlines()) for f in functions)
+
+
+@pytest.mark.parametrize("G,T,B,hidden", [(10, 121, 256, 512), (3, 7, 1000, 256), (2, 9, 77, 896), (2, 26, 1024, 128)])
+def test_weight_gradient_is_deterministic_and_matches_its_plain_version(cuda_device, G, T, B, hidden):
+    """Two gru_dw calls (and their reductions) on the same inputs are
+    bitwise equal: no atomics, each partial summed in one fixed order. So is
+    a split into blocks of 16 stages against itself. Against gru_dw_plain:
+    dW_hh and db_hh within 1e-4 of the largest entry."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    h0 = torch.randn((G, B, hidden), device=cuda_device, generator=gen)
+    y = torch.randn((G, T, B, hidden), device=cuda_device, generator=gen)
+    dgi = torch.randn((G, T, B, 3 * hidden), device=cuda_device, generator=gen)
+    dgh_n = torch.randn((G, T, B, hidden), device=cuda_device, generator=gen)
+    first, second = fg.gru_dw_cuda(h0, y, dgi, dgh_n), fg.gru_dw_cuda(h0, y, dgi, dgh_n)
+    one, again = fg.gru_dw_cuda(h0, y, dgi, dgh_n, stages=16), fg.gru_dw_cuda(h0, y, dgi, dgh_n, stages=16)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second) and torch.equal(one, again)
+    dw_ref, db_ref = fg.gru_dw_plain(h0, y, dgi, dgh_n)
+    for partials in (first, one):
+        sums = fg.reduce_partials_cuda(partials)
+        torch.testing.assert_close(sums[:, : hidden * 3 * hidden].reshape(dw_ref.shape), dw_ref, rtol=0,
+                                   atol=1e-4 * dw_ref.abs().max().item())
+        torch.testing.assert_close(sums[:, hidden * 3 * hidden :], db_ref, rtol=0, atol=1e-4 * db_ref.abs().max().item())
 
 
 @pytest.mark.parametrize("kernel", ["gru_fwd_kernel", "gru_fwd_wide_kernel"])

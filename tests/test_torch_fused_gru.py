@@ -415,12 +415,6 @@ class _FakeLibrary:
     def gru_fwd_rows(self):
         return 16
 
-    def gru_dw_chunk(self):
-        return 64
-
-    def gru_dw_tiles(self, hidden):
-        return (hidden // 64) * (3 * hidden // 192)
-
     def gru_bwd(self, *args):
         self.calls["bwd"] = args[-2]
         return 0
@@ -442,9 +436,9 @@ class _FakeLibrary:
 def test_backward_grids_fill_the_card(monkeypatch, G, T, B):
     """The recurrence runs on the forward's persistent grid (one block per SM
     holds W_hh: 64 blocks of one 16-row tile per group at the update shape);
-    the weight gradient splits K = T*B into P blocks of `rows` rows (a
-    multiple of the 64-row chunk) per tile of dW_hh, about one block per SM
-    over groups and tiles, with no block left empty."""
+    the weight gradient splits its stages of 32 rows into P blocks of
+    `rows` rows per tile of dW_hh (`dw_tiling`), every block with at least
+    one stage, no more than DW_MAX_STAGES in one."""
     lib = _FakeLibrary()
     monkeypatch.setattr(fg, "_sms", lambda: 132)
     monkeypatch.setattr(fg, "_library", lambda: lib)
@@ -459,11 +453,12 @@ def test_backward_grids_fill_the_card(monkeypatch, G, T, B):
     partials = fg.gru_dw_cuda(h0, y, gi, y)
     assert lib.calls["bwd"] == fg.forward_blocks_per_group(G, B, 16)
     P, rows = lib.calls["dw"]
+    stages = fg.dw_stages(T, B)
     assert partials.shape == (G, P, H * 3 * H + 3 * H)
-    assert rows % 64 == 0 and (P - 1) * rows < T * B <= P * rows
-    assert P * G * 4 <= max(132, G * 4)
+    assert rows % 32 == 0 and (P - 1) * rows < 32 * stages <= P * rows <= 32 * (stages + P - 1)
+    assert rows <= 32 * fg.DW_MAX_STAGES
     if (G, T, B) == (2, 26, 1024):
-        assert (lib.calls["bwd"], P, rows) == (64, 16, 1664)
+        assert (lib.calls["bwd"], P, rows) == (64, 32, 832)
 
 
 @pytest.mark.parametrize("G,T,B,hidden", [WIDE_SHAPES["p"], WIDE_SHAPES["q"], WIDE_SHAPES["x"]])
@@ -600,13 +595,15 @@ def test_wide_plain_forward_and_backward_match_pallas_interpret(monkeypatch, hid
             np.testing.assert_allclose(g.numpy(), r, rtol=0, atol=1e-4 * np.abs(r).max(), err_msg=name)
 
 
-@pytest.mark.parametrize("G,T,B,H_,P", [(10, 121, 256, 512, 1), (3, 7, 1000, 256, 2), (1, 3, 5, 384, 1),
-                                        (2, 26, 1024, 128, 16)])
+@pytest.mark.parametrize("G,T,B,H_,P", [(10, 121, 256, 512, 9), (3, 7, 1000, 256, 5), (1, 3, 5, 384, 2),
+                                        (2, 26, 1024, 128, 32), (10, 120, 256, 512, 9), (3, 60, 8192, 128, 132),
+                                        (2, 9, 77, 896, 1)])
 def test_weight_gradient_split_at_every_hidden_size(monkeypatch, G, T, B, H_, P):
-    """`gru_dw` takes H at run time: (H / 64) * (3H / 192) tiles of dW_hh.
-    Once the tiles alone fill the card (640 at H=512 G=10, the MMM2 QMIX
-    update) every tile sums all T*B rows in one block (P=1), so the sum
-    has one fixed order: deterministic with no reduction across blocks."""
+    """`gru_dw` takes every H the kernels take: (H / 128) * (3H / 192) tiles
+    of dW_hh. At the MMM2 updates (q), (t) the 320 tiles take P = 9 blocks of
+    at most 108 stages each (22 waves, 99% full); at the SMAClite MAPPO
+    update (j) 132 blocks a tile; at (x) the 196 tiles alone fill two waves.
+    `stages` replaces the choice (for measurements)."""
     lib = _FakeLibrary()
     monkeypatch.setattr(fg, "_sms", lambda: 132)
     monkeypatch.setattr(fg, "_library", lambda: lib)
@@ -618,5 +615,254 @@ def test_weight_gradient_split_at_every_hidden_size(monkeypatch, G, T, B, H_, P)
     y, h0 = torch.empty((G, T, B, H_), device="meta"), torch.empty((G, B, H_), device="meta")
     partials = fg.gru_dw_cuda(h0, y, gi, y)
     got_P, rows = lib.calls["dw"]
+    stages = fg.dw_stages(T, B)
     assert got_P == P and partials.shape == (G, P, H_ * 3 * H_ + 3 * H_)
-    assert rows % 64 == 0 and (P - 1) * rows < T * B <= P * rows
+    assert rows == 32 * fg.dw_tiling(G, T, B, H_, 132)["stages"] and (P - 1) * rows < 32 * stages <= P * rows
+    partials = fg.gru_dw_cuda(h0, y, gi, y, stages=1)
+    assert lib.calls["dw"] == (stages, 32) and partials.shape[1] == stages
+
+
+DW_HIDDEN = range(128, fg.MAX_HIDDEN + 1, 128)
+
+
+@pytest.mark.parametrize("hidden", DW_HIDDEN)
+def test_weight_gradient_tiles_cover_dw_once_and_fit_shared_memory(hidden):
+    """At every H the kernels take: the tiles of 128 x 192 cover dW_hh (H x
+    3H) once; the shared memory asked for (a ring of three 40 KB fp32
+    stages, two pairs of 24 KB TF32 B buffers, the mbarriers and 1 KB of
+    alignment slack) fits a block's 232,448 bytes, at every shape of
+    chip_smoke.py."""
+    tiles_n = 3 * hidden // fg.DW_TILE_N
+    seen = np.zeros((hidden, 3 * hidden), dtype=np.int64)
+    tiles = fg.dw_tiles(hidden)
+    assert tiles == fg.dw_tiling(1, 2, 5, hidden, 132)["tiles"] == (hidden // 128) * (3 * hidden // 192)
+    for t in range(tiles):
+        m0, n0 = (t // tiles_n) * fg.DW_TILE_M, (t % tiles_n) * fg.DW_TILE_N
+        seen[m0 : m0 + fg.DW_TILE_M, n0 : n0 + fg.DW_TILE_N] += 1
+    assert (seen == 1).all()
+    assert fg.DW_SMEM == 3 * 40_960 + 4 * 24_576 + 48 + 1024 <= fg.SMEM_PER_BLOCK == 232_448
+    for G, T, B, _ in WIDE_SHAPES.values():
+        assert fg.dw_tiling(G, T, B, hidden, 132)["smem"] == fg.DW_SMEM
+
+
+def _dw_rows_of_stage(T, B, s):
+    """The rows of K = T*B (h_prev's and dgh's) that stage s holds."""
+    s_h0 = -(-B // 32)
+    if s < s_h0:
+        return range(32 * s, min(B, 32 * s + 32))
+    r = 32 * (s - s_h0)
+    return range(B + r, B + min((T - 1) * B, r + 32))
+
+
+@pytest.mark.parametrize("G,T,B,hidden", [*WIDE_SHAPES.values(), (2, 26, 1024, 128), (2, 1, 65536, 128),
+                                          (3, 61, 256, 128), (3, 60, 8192, 128), (2, 1, 100, 128), (1, 2, 33, 768),
+                                          (1, 1, 1, 256)])
+def test_weight_gradient_shares_cover_every_row_once(G, T, B, hidden):
+    """The P blocks' shares of the stages, and the stages' rows, cover all
+    T*B rows exactly once: h0's B rows, then y's first (T - 1) * B, each
+    segment ending in a ragged stage (the tensor map's edge zero-fills the
+    rest). No block is empty or sums more than DW_MAX_STAGES stages."""
+    tile = fg.dw_tiling(G, T, B, hidden, 132)
+    P, spb, total = tile["P"], tile["stages"], fg.dw_stages(T, B)
+    assert tile["grid"] == (tile["tiles"], P, G) and 1 <= spb <= fg.DW_MAX_STAGES
+    seen = np.zeros(T * B, dtype=np.int64)
+    for p in range(P):
+        block = range(p * spb, min(total, (p + 1) * spb))
+        assert len(block) >= 1
+        for s in block:
+            seen[list(_dw_rows_of_stage(T, B, s))] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+def test_weight_gradient_grids_fill_whole_waves(sms):
+    """Where the stages allow it, the K split fills whole waves: at every
+    update shape of chip_smoke.py ((b), (d), (f), (i), (j), (l), (m), (q),
+    (t), (u)) the last wave of blocks is at least 95% full on an H100 SXM
+    (132 SMs) and PCIe (114), and the split is the cheapest under the cost
+    model among all with at most DW_MAX_STAGES stages a block."""
+    updates = [(2, 26, 1024, 128), (3, 26, 512, 128), (2, 25, 8192, 128), (3, 61, 256, 128), (3, 60, 8192, 128),
+               (3, 61, 8192, 128), (2, 26, 8192, 128), WIDE_SHAPES["q"], WIDE_SHAPES["t"], WIDE_SHAPES["u"]]
+    for G, T, B, hidden in updates:
+        tile = fg.dw_tiling(G, T, B, hidden, sms)
+        blocks = tile["P"] * tile["tiles"] * G
+        assert tile["waves"] == -(-blocks // sms) and tile["fill"] == blocks / (tile["waves"] * sms)
+        assert tile["fill"] >= 0.95, (G, T, B, hidden, tile)
+        total, part = fg.dw_stages(T, B), 8 * G * (hidden * 3 * hidden + 3 * hidden) / fg.DW_PARTIAL_BYTES_PER_US
+
+        def cost(spb):
+            P = -(-total // spb)
+            return -(-(P * tile["tiles"] * G) // sms) * (spb * fg.DW_STAGE_US + fg.DW_BLOCK_US) + P * part
+
+        best = min(cost(spb) for spb in range(1, min(total, fg.DW_MAX_STAGES) + 1))
+        assert cost(tile["stages"]) == pytest.approx(best)
+
+
+# The weight gradient's layouts as csrc/fused_gru.cu lays them out
+# (`gru_dw_kernel`). A stage holds 32 rows k in TMA boxes of 32 x 32 floats
+# under the 128-byte swizzle (`dw_box_at`: 16-byte chunk c / 4 of row k at
+# chunk (c / 4) ^ (k % 8)): 4 boxes of h_prev's 128 units, then 6 of dgh's
+# 192 columns. The split pass writes each dgh value's TF32 parts K-major, row
+# n of 32 k (128 bytes), chunk k / 4 at (k / 4) ^ (n % 8), the layout the
+# wgmma descriptor names; task t of warp w (8 consumer warps) covers column
+# 32 (p // 8) + lane, rows 4 (p % 8) .. + 3, p = 6w + t. The A fragments of
+# warp wi of warpgroup wg: rows gid + 8 half (a0, a1 at k = tig; a2, a3 at k
+# = tig + 4) of unit `_dw_unit`.
+def _dw_box_at(k, c):
+    return k * 32 + ((((c >> 2) ^ k) & 7) << 2) + (c & 3)
+
+
+def _dw_split_at(n, k):
+    return n * 32 + (((k >> 2) ^ (n & 7)) << 2) + (k & 3)
+
+
+def _dw_unit(wg, wi, gid, half):
+    return 64 * wg + 32 * (wi >> 1) + (gid & 3) + 4 * (2 * half + (wi & 1)) + 16 * (gid >> 2)
+
+
+def _dw_a_reads(j=0):
+    """The A-fragment reads of k8 step j: for each (warpgroup, warp, lane,
+    register), (offset in the stage, unit, k)."""
+    out = {}
+    for wg, wi, lane, i in np.ndindex(2, 4, 32, 4):
+        gid, tig = lane >> 2, lane & 3
+        u, k = _dw_unit(wg, wi, gid, i & 1), 8 * j + tig + 4 * (i >> 1)
+        out[wg, wi, lane, i] = ((u // 32) * 1024 + _dw_box_at(k, u % 32), u, k)
+    return out
+
+
+def _dw_split_tasks():
+    """(warp, task, lane) -> (column n, first row k) of the split pass."""
+    return {(w, t, lane): (32 * ((6 * w + t) >> 3) + lane, 4 * ((6 * w + t) & 7))
+            for w, t, lane in np.ndindex(8, 6, 32)}
+
+
+def test_weight_gradient_layouts_are_in_range_one_to_one_and_conflict_free():
+    """The stage's boxes, the A-fragment reads, the split pass's reads and
+    its K-major writes: every index in range and one-to-one; each warp-wide
+    read on 32 banks; each quarter-warp of a 16-byte split write (8 lanes,
+    128 bytes) on 32 banks. The split tasks cover the stage's 192 x 32 dgh
+    values once, the A reads its 128 x 32 h values once."""
+    box = {_dw_box_at(k, c) for k in range(32) for c in range(32)}
+    assert box == set(range(1024))
+    split = {_dw_split_at(n, k) for n in range(192) for k in range(32)}
+    assert split == set(range(192 * 32))
+    # the wgmma descriptor's rows: 128 bytes each, 8-row groups 1024 bytes apart
+    assert all(_dw_split_at(n, k) // 32 == n for n in range(192) for k in range(32))
+    seen = {}
+    for j in range(4):
+        reads = _dw_a_reads(j)
+        for (wg, wi, lane, i), (off, u, k) in reads.items():
+            assert 0 <= off < 4 * 1024 and seen.setdefault((u, k), off) == off
+        for wg, wi, i in np.ndindex(2, 4, 4):
+            assert len({reads[wg, wi, lane, i][0] % 32 for lane in range(32)}) == 32
+    assert len(seen) == 128 * 32 and len(set(seen.values())) == 128 * 32
+    assert {(u, k) for u, k in seen} == {(u, k) for u in range(128) for k in range(32)}
+    tasks = _dw_split_tasks()
+    covered = {(n, k + e) for n, k in tasks.values() for e in range(4)}
+    assert covered == {(n, k) for n in range(192) for k in range(32)} and len(tasks) * 4 == len(covered)
+    for w, t in np.ndindex(8, 6):
+        cols = [tasks[w, t, lane] for lane in range(32)]
+        for e in range(4):  # the reads: row k + e of one box, 32 columns
+            offs = [(n // 32) * 1024 + _dw_box_at(k + e, n % 32) for n, k in cols]
+            assert len({o % 32 for o in offs}) == 32
+        for q in range(4):  # the float4 writes, a quarter-warp at a time
+            offs = [_dw_split_at(n, k) for n, k in cols[8 * q : 8 * q + 8]]
+            assert all(o % 4 == 0 for o in offs)
+            assert sorted(b for o in offs for b in range(o % 32, o % 32 + 4)) == list(range(32))
+
+
+def _tf32_np(x):
+    return ((x.view(np.int32) + 0x1000) & -0x2000).view(np.float32)
+
+
+def _emulate_gru_dw(h0, y, dgi, dgh_n, tile):
+    """gru_dw_kernel in numpy, block by block: the stage schedule, the TMA
+    boxes (zeros past each tensor map's edge), the split pass, the A reads,
+    the three products per k8 step in the kernel's order (small * big, big *
+    small, big * big, each product of TF32 values exact in f64 and summed in
+    f32) and the epilogue. Returns the partials (G, P, H*3H + 3H)."""
+    G, T, B, H = y.shape
+    H3, K = 3 * H, T * B
+    s_h0 = -(-B // 32)
+    n_stages = fg.dw_stages(T, B)
+    h0_seg, y_seg = h0, y.reshape(G, K, H)[:, : (T - 1) * B]
+    dgh = np.concatenate([dgi[..., : 2 * H], dgh_n], -1).reshape(G, K, H3)
+    P, spb, tiles_n = tile["P"], tile["stages"], H3 // 192
+    out = np.zeros((G, P, H * H3 + H3), np.float32)
+    reads = [_dw_a_reads(j) for j in range(4)]
+    tasks = _dw_split_tasks()
+
+    def box(src, row, col):  # a 32 x 32 TMA box, zero past the map's edge, in swizzled order
+        b = np.zeros((32, 32), np.float32)
+        part = src[row : row + 32, col : col + 32]
+        b[: part.shape[0], : part.shape[1]] = part
+        flat = np.empty(1024, np.float32)
+        for k in range(32):
+            for c in range(32):
+                flat[_dw_box_at(k, c)] = b[k, c]
+        return flat
+
+    for g, ty, p in np.ndindex(G, H // 128 * tiles_n, P):
+        m0, n0 = (ty // tiles_n) * 128, (ty % tiles_n) * 192
+        acc = np.zeros((2, 64, 192), np.float32)  # (warpgroup, fragment row, column)
+        db = {}
+        for gs in range(p * spb, min(n_stages, (p + 1) * spb)):
+            in_h0 = gs < s_h0
+            row = gs * 32 if in_h0 else (gs - s_h0) * 32
+            valid = min(32, B - row) if in_h0 else min(32, (T - 1) * B - row)
+            hsrc, drow = (h0_seg[g], row) if in_h0 else (y_seg[g], B + row)
+            stage = np.concatenate([box(hsrc, row, m0 + 32 * j) for j in range(4)]
+                                   + [box(dgh[g], drow, n0 + 32 * j) for j in range(6)])
+            big, small = np.zeros(192 * 32, np.float32), np.zeros(192 * 32, np.float32)
+            for (w, t, lane), (n, k) in tasks.items():
+                for e in range(4):
+                    v = stage[4096 + (n // 32) * 1024 + _dw_box_at(k + e, lane)]
+                    db[w, t, lane] = db.get((w, t, lane), np.float32(0)) + (v if k + e < valid else np.float32(0))
+                    b = _tf32_np(np.array([v], np.float32))[0]
+                    at = n * 32 + (((k >> 2) ^ (n & 7)) << 2) + e
+                    big[at], small[at] = b, np.float32(v - b)
+            bb = np.array([[big[_dw_split_at(n, k)] for n in range(192)] for k in range(32)])
+            bs = _tf32_truncated(torch.tensor(np.array([[small[_dw_split_at(n, k)] for n in range(192)]
+                                                         for k in range(32)]))).numpy()
+            for j in range(4):
+                a = np.zeros((2, 64, 8), np.float32)
+                for (wg, wi, lane, i), (off, u, k) in reads[j].items():
+                    a[wg, 16 * wi + (lane >> 2) + 8 * (i & 1), (lane & 3) + 4 * (i >> 1)] = stage[off]
+                ab = _tf32_np(a)
+                as_ = _tf32_truncated(torch.tensor(a - ab)).numpy()
+                kb = slice(8 * j, 8 * j + 8)
+                for x, z in ((as_, bb[kb]), (ab, bs[kb]), (ab, bb[kb])):
+                    acc = (acc.astype(np.float64) + x.astype(np.float64) @ z.astype(np.float64)).astype(np.float32)
+        dw = out[g, p, : H * H3].reshape(H, H3)
+        for wg, wi, gid, half in np.ndindex(2, 4, 8, 2):
+            dw[m0 + _dw_unit(wg, wi, gid, half), n0 : n0 + 192] = acc[wg, 16 * wi + gid + 8 * half]
+        if m0 == 0 and db:
+            sums = np.zeros((48, 32), np.float32)
+            for (w, t, lane), v in db.items():
+                sums[6 * w + t, lane] = v
+            for n in range(192):
+                out[g, p, H * H3 + n0 + n] = np.float32(sum(sums[(n >> 5) * 8 + kq, n & 31] for kq in range(8)))
+    return out
+
+
+@pytest.mark.parametrize("G,T,B,hidden", [(2, 3, 20, 256), (1, 2, 45, 128)])
+def test_weight_gradient_emulation_matches_the_plain_version(G, T, B, hidden):
+    """The kernel's index arithmetic and its three-product order, emulated
+    in numpy on the tiling `dw_tiling` gives this shape on 132 SMs (and on
+    a split into blocks of one stage), against `gru_dw_plain`: dW_hh and
+    db_hh within 1e-5 of their largest entry (the product is 3xTF32, the sums
+    in f32 in another order). The batches leave a ragged stage in both
+    segments (h0's rows and y's)."""
+    rng = np.random.default_rng(13)
+    h0 = rng.standard_normal((G, B, hidden)).astype(np.float32)
+    y = rng.standard_normal((G, T, B, hidden)).astype(np.float32)
+    dgi = rng.standard_normal((G, T, B, 3 * hidden)).astype(np.float32)
+    dgh_n = rng.standard_normal((G, T, B, hidden)).astype(np.float32)
+    dw_ref, db_ref = (r.numpy() for r in fg.gru_dw_plain(*(torch.tensor(a) for a in (h0, y, dgi, dgh_n))))
+    stages = fg.dw_stages(T, B)
+    for tile in (fg.dw_tiling(G, T, B, hidden, 132), dict(P=stages, stages=1)):
+        sums = _emulate_gru_dw(h0, y, dgi, dgh_n, tile).sum(1)
+        dw, db = sums[:, : hidden * 3 * hidden].reshape(dw_ref.shape), sums[:, hidden * 3 * hidden :]
+        np.testing.assert_allclose(dw, dw_ref, rtol=0, atol=1e-5 * np.abs(dw_ref).max())
+        np.testing.assert_allclose(db, db_ref, rtol=0, atol=1e-5 * np.abs(db_ref).max())
