@@ -23,8 +23,9 @@ exits non-zero:
              (t) T=120 B=256 and target critic (u) T=121 B=256, and three
              ragged shapes (v) G=3 T=7 B=1000 H=256, (w) G=3 T=5 B=333
              H=384 and (x) G=2 T=9 B=77 H=896, the largest H, where shared
-             memory leaves the wide forward's tiling the least room (every
-             shape a train phase below gives the kernels): the
+             memory leaves the wide forward's tiling the least room, and the
+             video's policy step of one env (y) G=2 T=1 B=1 (every
+             shape a phase below gives the kernels): the
              forward against `gru_sequence_plain`, the whole backward (recurrence, weight
              gradient, reduction) against `gru_backward_plain`, the weight
              gradient alone against `gru_dw_plain` on the recurrence
@@ -102,7 +103,27 @@ The SMAClite phases count, on the card, the actions their rollouts took
 that the step's mask forbade (it must be 0), the valid actions per step,
 the mean episode length, the steps the last rollout took and whether the
 early exit was on, and check that QMIX's replay stores f32 obs and
-the masks. Then the kernel summary line and, last, the device line.
+the masks. Then checkpoint, resume, eval, video and preemption:
+16. resume_idqn  — the train phase's run (65536 envs, a replay of 131072
+                 episodes) with a checkpoint after iteration 2 and one at the
+                 end, then a second run that resumes from the first
+                 checkpoint and trains iteration 3 again (the GRU kernels at
+                 (a) and (b)): counters, replay with `pos` and generator
+                 state equal exactly, the last row's loss, the eval returns
+                 of both final states ((o)) and every other leaf of the state
+                 to rtol 1e-6; prints the largest difference, whether the two
+                 are bitwise equal, and the bytes, save and load seconds of
+                 a full-width checkpoint.
+17. resume_mappo — the same on train_mappo's run (8192 envs).
+18. eval_cli     — `codebase_tpu_torch.eval.main` on resume_idqn's run: 100
+                 episodes, exactly 25 forward launches at (o).
+19. video        — the same with `video_frames=50`: 50 more at (y), and a
+                 file of 50 frames of 128x128x3 uint8.
+20. preemption   — `python -m codebase_tpu_torch.run ... resume=auto` in a
+                 subprocess: SIGTERM after the first results.csv row gives
+                 rc 0, the log line and a checkpoint; the relaunch resumes
+                 from its step and exits 0.
+Then the kernel summary line and, last, the device line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -112,23 +133,29 @@ from __future__ import annotations
 import itertools
 import json
 import math
+import os
+import signal
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
+import numpy as np
 import torch
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: torch.cuda.is_available() is false; this smoke run needs a CUDA GPU")
 
+from codebase_tpu_torch import eval as port_eval  # noqa: E402
 from codebase_tpu_torch import run as port_run  # noqa: E402
 from codebase_tpu_torch.algos import ac as port_ac  # noqa: E402
 from codebase_tpu_torch.algos import dqn as port_dqn  # noqa: E402
 from codebase_tpu_torch.config import load_config  # noqa: E402
 from codebase_tpu_torch.envs import vector as port_vector  # noqa: E402
 from codebase_tpu_torch.ops import fused_gru as fg  # noqa: E402
+from codebase_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
 from codebase_tpu_torch.utils.device import resolve_device  # noqa: E402
 
 SHAPES = {
@@ -158,6 +185,7 @@ SHAPES = {
     "v": dict(G=3, T=7, B=1000, H=256, role="ragged at H=256"),
     "w": dict(G=3, T=5, B=333, H=384, role="ragged at H=384"),
     "x": dict(G=2, T=9, B=77, H=896, role="ragged at H=896, the largest H: the least shared memory for the tiling"),
+    "y": dict(G=2, T=1, B=1, role="video: the IDQN policy step of the one env a video records"),
 }
 for _shape in SHAPES.values():
     _shape.setdefault("H", 128)
@@ -583,6 +611,229 @@ def check_target_refresh(state, tau=200) -> None:
           "steps_per_iteration": [n for n, _ in state.timings]})
 
 
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        return {k2: v2 for k, v in tree.items() for k2, v2 in _flat(v, f"{prefix}/{k}").items()}
+    return {prefix: tree}
+
+
+def _equal(x, y) -> bool:
+    if x is None or isinstance(x, str):
+        return x == y
+    return torch.equal(torch.as_tensor(x), torch.as_tensor(y))
+
+
+def _policy_and_carry(state, acfg, n):
+    """The evaluation policy of a train state and its initial carry for n
+    envs: epsilon-greedy at eps_evaluation (DQN family), else the actor."""
+    if hasattr(state, "buffer"):
+        return state.model.policy(float(acfg.eps_evaluation)), state.model.critic.init_hiddens(n)
+    return state.model.policy(), state.model.actor.init_hiddens(n)
+
+
+def eval_returns(env, state, acfg, T, n=100, seed=1):
+    """(n, N) returns of n episodes of the state's evaluation policy from a
+    generator seeded `seed`: the eval of 100 episodes, the GRU at (o)."""
+    policy, carry = _policy_and_carry(state, acfg, n)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rollout, _ = port_vector.collect_episodes(env, policy, carry, gen, n, T)
+    return rollout.episode_returns
+
+
+def resume_phase(phase, smi, argv, E, per_iteration, run_dir, T=25, rtol=1e-6):
+    """Run A trains at full width through `run.main` for 3 iterations,
+    with a checkpoint after the second (save_interval = 1.5*E*T) and one at
+    the end;
+    run B (another run dir) resumes from A's first checkpoint and trains on
+    to the same end, with the launch counters set to 0 just before and read
+    just after. Fails unless the counters, the replay with `pos` and the
+    generator state are equal exactly, and the last results.csv row's loss,
+    the eval returns of both final states and every other float leaf of the
+    state (parameters, target, Adam moments, moments) agree to rtol 1e-6
+    (tests/test_infra.py:111); prints the largest difference and whether the
+    two states are bitwise equal. Then times a save and a load of B's state
+    at full width. Returns (run A's dir, B's launch counts)."""
+    common = argv + [
+        f"env.time_limit={T}", f"env.parallel_envs={E}", f"algorithm.total_steps={2 * E * T}",
+        # a row after every iteration (episodes that end early leave an
+        # iteration short of E*T steps)
+        f"algorithm.eval_interval={2 * E * T}", f"algorithm.log_interval={E * T // 2}",
+        # iterations of at most E*T (filled) env steps: a save once 1.5*E*T
+        # steps have passed falls after iteration 2, and iteration 3 alone
+        # does not reach the next, so the run ends with its final save
+        f"algorithm.save_interval={3 * E * T // 2}", "seed=0", "device=cuda",
+    ]
+    a_dir, b_dir = run_dir / f"{phase}_a", run_dir / f"{phase}_b"
+    rows_a, state_a = port_run.main(common + [f"run_dir={a_dir}"])
+    saved = sorted(a_dir.glob("checkpoints/model_s*.msgpack"), key=lambda p: int(p.stem.split("_s")[-1]))
+    first = int(saved[0].stem.split("_s")[-1])
+    if first != sum(n for n, _ in state_a.timings[:2]) or len(saved) != 2:
+        raise AssertionError(f"{phase}: checkpoints {[p.name for p in saved]}; expected one after iteration 2 "
+                             f"({sum(n for n, _ in state_a.timings[:2])} steps) and one at the end")
+    torch.cuda.synchronize()
+    fg.reset_launch_counts()
+    rows_b, state_b = port_run.main(common + [f"run_dir={b_dir}", f"resume={saved[0]}"])
+    counts = fg.launch_counts()
+    torch.cuda.synchronize()
+    ran = len(state_b.timings)
+    for k, v in counts.items():
+        if v < per_iteration.get(k, 0) * ran or (k not in per_iteration and v):
+            raise AssertionError(f"{phase}: resumed launches {counts} over {ran} iterations; expected {per_iteration}")
+
+    fa, fb = _flat(state_a.state_dict()), _flat(state_b.state_dict())
+    exact = [k for k in fa if k.startswith(("/buffer", "/generator")) or k in (
+        "/env_steps", "/updates", "/last_target_update", "/opt_state/count")]
+    unequal = [k for k in exact if not _equal(fa[k], fb[k])]
+    diffs, outside, bitwise = {}, [], True
+    for k in fa:
+        if k in exact or fa[k] is None:
+            continue
+        x, y = fa[k].double(), fb[k].double()
+        diffs[k] = (x - y).abs().max().item() if x.numel() else 0.0
+        bitwise &= torch.equal(fa[k], fb[k])
+        if not torch.allclose(y, x, rtol=rtol, atol=0.0):
+            outside.append(k)
+    env, _ = port_run.build_envs(load_config(common))
+    acfg = load_config(common).algorithm
+    ret_a = eval_returns(env, state_a, acfg, T)
+    torch.cuda.synchronize()
+    fg.reset_launch_counts()
+    ret_b = eval_returns(env, state_b, acfg, T)
+    eval_counts = fg.launch_counts()
+    if eval_counts["fwd"] != 25 or sum(eval_counts.values()) != 25:
+        raise AssertionError(f"{phase}: the eval of 100 episodes launched {eval_counts}; expected 25 forwards at (o)")
+    loss_a, loss_b = float(rows_a[-1]["loss"]), float(rows_b[-1]["loss"])
+    bitwise &= torch.equal(ret_a, ret_b) and loss_a == loss_b
+    if (unequal or outside or not torch.allclose(ret_b, ret_a, rtol=rtol, atol=0.0)
+            or abs(loss_b - loss_a) > rtol * abs(loss_a) or rows_a[-1]["environment_steps"] != rows_b[-1]["environment_steps"]):
+        raise AssertionError(f"{phase}: resumed run differs: exact fields {unequal}, outside rtol {rtol}: {outside}, "
+                             f"loss {loss_a} / {loss_b}, eval returns equal {torch.equal(ret_a, ret_b)}")
+
+    # a save and a load of the resumed state at full width, timed
+    before = {k: v.clone() if isinstance(v, torch.Tensor) else v for k, v in fb.items()}
+    path = run_dir / f"{phase}_timed.msgpack"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nbytes = save_checkpoint(path, state_b.state_dict())
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state_b.load_state_dict(load_checkpoint(path), path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    after = _flat(state_b.state_dict())
+    if not all(_equal(v, after[k]) for k, v in before.items()):
+        raise AssertionError(f"{phase}: a save and load of the state changed it")
+    path.unlink()
+    emit({
+        "phase": phase, "card": smi, "argv": common, "resumed_from": saved[0].name, "resumed_at_step": first,
+        "final_step": state_b.env_steps, "updates": state_b.updates, "iterations_after_resume": ran,
+        "launches_resumed_iterations": counts, "launches_eval": eval_counts,
+        "exact_fields_equal": len(exact), "float_leaves_within_rtol": len(diffs), "rtol": rtol,
+        "max_abs_diff": max(diffs.values()), "max_abs_diff_leaf": max(diffs, key=diffs.get),
+        "bitwise_equal": bitwise, "last_row_loss": [loss_a, loss_b],
+        "eval_mean_return": [ret_a.sum(-1).mean().item(), ret_b.sum(-1).mean().item()],
+        "checkpoint_bytes": nbytes, "save_seconds": save_s, "load_seconds": load_s,
+        "replay_bytes": sum(v.numel() * v.element_size() for k, v in fb.items()
+                            if k.startswith("/buffer") and isinstance(v, torch.Tensor)),
+    })
+    del state_a, state_b
+    return a_dir, counts
+
+
+def eval_phase(phase, smi, run_dir, out_dir, video_frames=0):
+    """`codebase_tpu_torch.eval.main` on a run's directory, on the card,
+    with the launch counters set to 0 before and read after: 100 episodes
+    of T=25 take exactly 25 forward launches at (o), and a video of
+    `video_frames` frames one more each at (y). With a video, fails unless
+    the file exists and its frames are 128x128x3 uint8 (LBF 8x8, 16-pixel
+    cells). Returns the launch counts."""
+    argv = [f"path={run_dir}", "device=cuda"]
+    if video_frames:
+        argv += [f"video_frames={video_frames}", f"video_path={out_dir / 'eval.mp4'}"]
+    torch.cuda.synchronize()
+    fg.reset_launch_counts()
+    t0 = time.perf_counter()
+    returns = port_eval.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = fg.launch_counts()
+    expected = {"fwd": 25 + video_frames}
+    if any(counts[k] != expected.get(k, 0) for k in counts) or returns.shape != (100, 2) \
+            or not math.isfinite(float(returns.sum())):
+        raise AssertionError(f"{phase}: launches {counts} (expected {expected}), returns {returns.shape}")
+    out = {"phase": phase, "card": smi, "argv": argv, "episodes": returns.shape[0], "launches": counts,
+           "mean_return": float(returns.sum(-1).mean()), "std_return": float(returns.sum(-1).std()),
+           "seconds": seconds}
+    if video_frames:
+        written = [p for p in (out_dir / f"eval{ext}" for ext in (".mp4", ".gif", ".npz")) if p.exists()]
+        if len(written) != 1:
+            raise AssertionError(f"{phase}: expected one video file, found {written}")
+        if written[0].suffix == ".npz":
+            frames = np.load(written[0])["frames"]
+            shape, dtype = frames.shape, str(frames.dtype)
+        else:  # encoded by imageio: the frames are those of render_frame
+            env, _ = port_run.build_envs(load_config(["env.name=lbforaging:Foraging-8x8-2p-3f-v3", "env.time_limit=25"]))
+            frame = env.render_frame(env.reset_batch(torch.Generator(device="cuda"), 1)[0], 0)
+            shape, dtype = (video_frames,) + frame.shape, str(frame.dtype)
+        if shape != (video_frames, 128, 128, 3) or dtype != "uint8":
+            raise AssertionError(f"{phase}: frames {shape} {dtype}; expected ({video_frames}, 128, 128, 3) uint8")
+        out.update({"file": written[0].name, "encoding": written[0].suffix[1:], "bytes": written[0].stat().st_size,
+                    "frames": list(shape), "frame_dtype": dtype, "video_launches_at_y": counts["fwd"] - 25})
+    emit(out)
+    return counts
+
+
+def preemption_phase(phase, smi, run_dir):
+    """`python -m codebase_tpu_torch.run ... device=cuda resume=auto` in a
+    subprocess on a small LBF config (recurrent IDQN, 256 envs): SIGTERM
+    after the first results.csv row must give rc 0, the log line and a
+    checkpoint; the relaunch must log `Resumed from ... at step {saved}`
+    and exit 0. Every process it starts is stopped."""
+    run_dir.mkdir(parents=True)
+    argv = ["+algorithm=idqn", "env.name=lbforaging:Foraging-8x8-2p-3f-v3", "env.time_limit=25",
+            "env.parallel_envs=256", "algorithm.model.use_rnn=true", "algorithm.batch_size=64",
+            "algorithm.buffer_size=1024", *DQN_ARGV, "algorithm.log_interval=6400", "algorithm.eval_interval=6400",
+            "seed=0", "device=cuda", "resume=auto", f"run_dir={run_dir}"]
+    env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent)}
+
+    def launch(total_steps):
+        return subprocess.Popen([sys.executable, "-m", "codebase_tpu_torch.run", *argv,
+                                 f"algorithm.total_steps={total_steps}"], env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True, cwd=run_dir)
+
+    t0 = time.perf_counter()
+    p = launch(10**9)
+    try:
+        while not (run_dir / "results.csv").exists():
+            if p.poll() is not None or time.perf_counter() - t0 > 300:
+                raise AssertionError(f"{phase}: the run wrote no results.csv row: {p.communicate()[0][-3000:]}")
+            time.sleep(0.2)
+        p.send_signal(signal.SIGTERM)
+        out, _ = p.communicate(timeout=300)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    ckpts = sorted(run_dir.glob("checkpoints/model_s*.msgpack"))
+    if p.returncode != 0 or "SIGTERM received: checkpointing at step" not in out or not ckpts:
+        raise AssertionError(f"{phase}: rc {p.returncode}, checkpoints {ckpts}: {out[-3000:]}")
+    saved = max(int(c.stem.split("_s")[-1]) for c in ckpts)
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    p = launch(saved + 6400)
+    try:
+        out2, _ = p.communicate(timeout=300)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    line = f"Resumed from {run_dir}/checkpoints/model_s{saved}.msgpack at step {saved}"
+    if p.returncode != 0 or line not in out2:
+        raise AssertionError(f"{phase}: relaunch rc {p.returncode}, expected {line!r}: {out2[-3000:]}")
+    emit({"phase": phase, "card": smi, "argv": argv, "saved_step": saved, "sigterm_rc": 0, "relaunch_rc": 0,
+          "resumed": line, "first_run_seconds": first_s, "relaunch_seconds": time.perf_counter() - t0})
+
+
 def main() -> None:
     # --- 1. device
     dev = resolve_device("cuda")  # also pins f32 matmuls (allow_tf32 = False)
@@ -758,6 +1009,31 @@ def main() -> None:
     mmm2_report(state, [state.model.actor, state.model.critic])
     del state
 
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # --- 16. resume_idqn: the train phase's run at full width, saved
+        # after iteration 2 and resumed from there in another run dir
+        idqn_dir, resume_idqn_counts = resume_phase("resume_idqn", smi, [
+            "+algorithm=idqn", "env.name=lbforaging:Foraging-8x8-2p-3f-v3", "algorithm.model.use_rnn=true",
+            "algorithm.model.layers=[128,128]", "algorithm.batch_size=1024", "algorithm.buffer_size=131072",
+            *DQN_ARGV,
+        ], E=65536, per_iteration={"fwd": 25, "bwd": 8, "dw": 8, "reduce": 8}, run_dir=tmp)
+        torch.cuda.empty_cache()
+        # --- 17. resume_mappo: the same on train_mappo's run (no replay; a
+        # target critic, a recurrent actor and critic)
+        _, resume_mappo_counts = resume_phase("resume_mappo", smi, [
+            "+algorithm=mappo", "env.name=lbforaging:Foraging-8x8-2p-3f-v3",
+            "algorithm.model.actor.use_rnn=true", "algorithm.model.critic.use_rnn=true",
+        ], E=8192, per_iteration={"fwd": 35, "bwd": 8, "dw": 8, "reduce": 8}, run_dir=tmp)
+        torch.cuda.empty_cache()
+        # --- 18. eval_cli and 19. video: the eval CLI on resume_idqn's run,
+        # the GRU at (o), and with a video at (y)
+        eval_counts = eval_phase("eval_cli", smi, idqn_dir, tmp)
+        video_counts = eval_phase("video", smi, idqn_dir, tmp, video_frames=50)
+        video_counts = {k: v - eval_counts[k] for k, v in video_counts.items()}  # the video's own
+        # --- 20. preemption: SIGTERM, then resume=auto, in subprocesses
+        preemption_phase("preemption", smi, tmp / "preemption")
+
     sources = {
         "gru_fwd": "codebase_tpu/ops/fused_gru.py:80 (_fwd_kernel, pallas_call at :238)",
         "gru_bwd": "codebase_tpu/ops/fused_gru.py:105 (_bwd_kernel, pallas_call at :299)",
@@ -769,13 +1045,14 @@ def main() -> None:
              "j": "smaclite_mappo_update", "k": "smaclite_mappo_rollout", "l": "smaclite_mappo_target",
              "m": "ac_target", "n": "qmix_eval", "o": "idqn_eval", "p": "mmm2_qmix_rollout",
              "q": "mmm2_qmix_update", "r": "mmm2_qmix_eval", "s": "mmm2_mappo_rollout", "t": "mmm2_mappo_update",
-             "u": "mmm2_mappo_target", "v": "ragged_h256", "w": "ragged_h384", "x": "ragged_h896"}
+             "u": "mmm2_mappo_target", "v": "ragged_h256", "w": "ragged_h384", "x": "ragged_h896", "y": "video"}
     resident = [k for k in SHAPES if SHAPES[k]["H"] == 128]
     wide = [k for k in SHAPES if SHAPES[k]["H"] != 128]
     phases = {"train": counts, "train_qmix": qmix_counts, "train_mappo": mappo_counts,
               "train_qmix_smaclite": smac_qmix_counts, "train_mappo_smaclite": smac_mappo_counts,
               "train_qmix_rware": rware_counts, "train_qmix_mmm2": mmm2_qmix_counts,
-              "train_mappo_mmm2": mmm2_mappo_counts}
+              "train_mappo_mmm2": mmm2_mappo_counts, "resume_idqn": resume_idqn_counts,
+              "resume_mappo": resume_mappo_counts, "eval_cli": eval_counts, "video": video_counts}
     summary = []
     # (name, counter, the kernel's key in the per-shape results, the shapes
     # it takes, the shape it is timed at and the phase its launches are from)

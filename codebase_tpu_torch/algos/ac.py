@@ -49,6 +49,7 @@ from codebase_tpu_torch.models.multi_agent import MultiAgentNetwork
 from codebase_tpu_torch.ops.returns import nstep_returns
 from codebase_tpu_torch.ops.reward_stream import RewardStream, apply_plan
 from codebase_tpu_torch.ops.running_stats import RunningMeanStd
+from codebase_tpu_torch.utils import checkpoint as ckpt
 from codebase_tpu_torch.utils.params import load_tree, params_from_numpy, tree_leaves
 
 METRICS = ("loss", "actor_loss", "value_loss", "entropy")
@@ -258,6 +259,39 @@ class ACTrainState:
     # (env steps, seconds) of each train iteration, host clock around work
     # that ends in a device sync
     timings: list = field(default_factory=list)
+
+    def state_dict(self) -> dict:
+        """The checkpoint's state, keyed by the JAX package's `ACTrainState`
+        fields: `params` ({"actor", "critic"}) and `target_critic` in flax's
+        state-dict form, the Adam moments in their nesting, the moments,
+        0-d int32 counters and the generator state in place of the
+        threefry `key`. `timings` is not saved."""
+        return {
+            "params": ckpt.params_state_dict(self.model.param_tree()),
+            "target_critic": ckpt.params_state_dict(self.target_critic.param_tree()),
+            "opt_state": ckpt.adam_state_dict(self.opt, self.model.param_tree()),
+            "ret_rms": ckpt.dataclass_state_dict(self.ret_rms),
+            "reward_stream": ckpt.dataclass_state_dict(self.reward_stream),
+            "env_steps": ckpt.counter(self.env_steps),
+            "updates": ckpt.counter(self.updates),
+            **ckpt.generator_state_dict(self.generator),
+        }
+
+    def load_state_dict(self, state_dict: dict, path="checkpoint") -> None:
+        """Restore a `state_dict()` in place, on this state's device.
+        Raises ValueError (and changes nothing) when its generator state
+        is missing or of another device type, or its structure differs."""
+        ckpt.check_generator(state_dict, self.generator)
+        ckpt.check_structure(self.state_dict(), state_dict, path)
+        device = self.ret_rms.mean.device
+        ckpt.load_params_state_dict(self.model.param_tree(), state_dict["params"])
+        ckpt.load_params_state_dict(self.target_critic.param_tree(), state_dict["target_critic"])
+        ckpt.load_adam(self.opt, self.model.param_tree(), state_dict["opt_state"])
+        self.ret_rms = ckpt.load_dataclass(RunningMeanStd, state_dict["ret_rms"], device)
+        self.reward_stream = ckpt.load_dataclass(RewardStream, state_dict["reward_stream"], device)
+        self.env_steps = int(state_dict["env_steps"])
+        self.updates = int(state_dict["updates"])
+        ckpt.load_generator(self.generator, state_dict)
 
 
 def build_train_functions(env: Environment, eval_env: Environment, cfg, time_limit: int, device):

@@ -49,6 +49,7 @@ from codebase_tpu_torch.ops.replay import (
 from codebase_tpu_torch.ops.reward_stream import RewardStream, apply_plan
 from codebase_tpu_torch.ops.running_stats import RunningMeanStd
 from codebase_tpu_torch.ops.schedules import epsilon_schedule
+from codebase_tpu_torch.utils import checkpoint as ckpt
 from codebase_tpu_torch.utils.params import load_tree, params_from_numpy, tree_leaves, tree_map
 
 MIXER_TYPES = {"qnetwork": "none", "vdn": "vdn", "qmix": "qmix"}
@@ -253,6 +254,54 @@ class DQNTrainState:
     # (env steps, seconds) of each train iteration, host clock around work
     # that ends in a device sync
     timings: list = field(default_factory=list)
+
+    def state_dict(self) -> dict:
+        """The checkpoint's state, keyed by the JAX package's
+        `DQNTrainState` fields: `params` and `target_params` in flax's
+        state-dict form, the Adam moments in their nesting, every replay
+        field with `pos`, the moments, 0-d int32 counters and the generator
+        state in place of the threefry `key`. Tensors stay where they are
+        (the codec moves each to the host as it writes it); `timings` is
+        not saved."""
+        buf = self.buffer
+        return {
+            "params": ckpt.params_state_dict(self.model.param_tree()),
+            "target_params": ckpt.params_state_dict(self.target.param_tree()),
+            "opt_state": ckpt.adam_state_dict(self.opt, self.model.param_tree()),
+            "buffer": {
+                "obs": buf.obs, "actions": buf.actions.to(torch.int32), "rewards": buf.rewards,
+                "dones": buf.dones, "filled": buf.filled, "action_mask": buf.action_mask,
+                "pos": ckpt.counter(buf.pos),
+            },
+            "ret_rms": ckpt.dataclass_state_dict(self.ret_rms),
+            "reward_stream": ckpt.dataclass_state_dict(self.reward_stream),
+            "env_steps": ckpt.counter(self.env_steps),
+            "updates": ckpt.counter(self.updates),
+            "last_target_update": ckpt.counter(self.last_target_update),
+            **ckpt.generator_state_dict(self.generator),
+        }
+
+    def load_state_dict(self, state_dict: dict, path="checkpoint") -> None:
+        """Restore a `state_dict()` in place, on this state's device.
+        Raises ValueError (and changes nothing) when its generator state
+        is missing or of another device type, or its structure differs."""
+        ckpt.check_generator(state_dict, self.generator)
+        ckpt.check_structure(self.state_dict(), state_dict, path)
+        device = self.buffer.obs.device
+        ckpt.load_params_state_dict(self.model.param_tree(), state_dict["params"])
+        ckpt.load_params_state_dict(self.target.param_tree(), state_dict["target_params"])
+        ckpt.load_adam(self.opt, self.model.param_tree(), state_dict["opt_state"])
+        buf = state_dict["buffer"]
+        names = ("obs", "actions", "rewards", "dones", "filled", "action_mask")
+        ckpt.load_leaves([getattr(self.buffer, k) for k in names if buf[k] is not None],
+                         [buf[k] for k in names if buf[k] is not None])
+        self.buffer.pos = int(buf["pos"])
+        self.ret_rms = ckpt.load_dataclass(RunningMeanStd, state_dict["ret_rms"], device)
+        self.reward_stream = ckpt.load_dataclass(RewardStream, state_dict["reward_stream"], device)
+        self.env_steps = int(state_dict["env_steps"])
+        self.updates = int(state_dict["updates"])
+        self.last_target_update = int(state_dict["last_target_update"])
+        ckpt.load_generator(self.generator, state_dict)
 
 
 def build_train_functions(env: Environment, eval_env: Environment, cfg, time_limit: int, device):

@@ -78,6 +78,16 @@ class Environment:
         use it to skip recomputing availability, it never changes results."""
         raise NotImplementedError
 
+    def render_frame(self, state, index: int = 0) -> "np.ndarray":  # noqa: F821
+        """Host-side RGB frame (uint8, H x W x 3) of env `index` of a
+        batched state."""
+        raise NotImplementedError(f"{type(self).__name__} does not support rendering")
+
+    def inner_state(self, state):
+        """The base env's state inside a (possibly wrapper-nested) state;
+        the identity for base envs, overridden by stateful wrappers."""
+        return state
+
     @property
     def integer_valued_obs(self) -> bool:
         """True when every observation entry is a small integer, so bf16

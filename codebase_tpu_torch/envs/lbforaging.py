@@ -19,6 +19,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass, replace
 
+import numpy as np
 import torch
 import torch.nn.functional as Fnn
 
@@ -361,6 +362,27 @@ class LevelBasedForaging(Environment):
             [food_feats.reshape(N, 3 * F, E), player_feats.reshape(N, 3 * N, E)], dim=1
         ).float()  # (N, D, E)
         return obs.permute(2, 0, 1).contiguous()  # (E, N, D)
+
+    # ---------------------------------------------------------------- render
+
+    def render_frame(self, state: LBFBatchState, index: int = 0) -> np.ndarray:
+        """The JAX package's frame of env `index`: agents blue, food green,
+        brightness by level, 16-pixel cells."""
+        one = {k: v[..., index].cpu().numpy() for k, v in vars(state).items()}
+        cell = 16
+        img = np.full((self.rows * cell, self.cols * cell, 3), 30, np.uint8)
+        img[::cell, :, :] = 60
+        img[:, ::cell, :] = 60
+        for f in range(self.max_food):
+            if one["food_active"][f]:
+                r, c = one["food_r"][f], one["food_c"][f]
+                shade = min(255, 90 + 50 * int(one["food_level"][f]))
+                img[r * cell + 3 : (r + 1) * cell - 3, c * cell + 3 : (c + 1) * cell - 3] = (0, shade, 0)
+        for a in range(self.num_agents):
+            r, c = one["agent_r"][a], one["agent_c"][a]
+            shade = min(255, 90 + 50 * int(one["agent_level"][a]))
+            img[r * cell + 2 : (r + 1) * cell - 2, c * cell + 2 : (c + 1) * cell - 2] = (40, 40, shade)
+        return img
 
 
 def parse_lbf_name(name: str) -> LevelBasedForaging:

@@ -318,6 +318,32 @@ class RWARE(Environment):
         obs = torch.cat([self_feats, cells.reshape(N, -1, E), shelves.reshape(N, -1, E)], dim=1)  # (N, D, E)
         return obs.permute(2, 0, 1).contiguous()
 
+    # ---------------------------------------------------------------- render
+
+    def render_frame(self, state: RWAREBatchState, index: int = 0) -> np.ndarray:
+        """The JAX package's frame of env `index`: storage, goals, shelves
+        (requested green) and agents (loaded orange), 12-pixel cells."""
+        one = {k: v[..., index].cpu().numpy() for k, v in vars(state).items()}
+        cell = 12
+        img = np.full((self.rows * cell, self.cols * cell, 3), 25, np.uint8)
+        storage = self._storage_grid()
+        for r in range(self.rows):
+            for c in range(self.cols):
+                if storage[r, c]:
+                    img[r * cell : (r + 1) * cell, c * cell : (c + 1) * cell] = (45, 45, 45)
+        for g in self._goal_cells():
+            img[g[0] * cell : (g[0] + 1) * cell, g[1] * cell : (g[1] + 1) * cell] = (90, 60, 0)
+        for s in range(self.n_shelves):
+            if not one["shelf_carried"][s]:
+                r, c = one["shelf_r"][s], one["shelf_c"][s]
+                color = (0, 160, 0) if one["requested"][s] else (0, 80, 120)
+                img[r * cell + 2 : (r + 1) * cell - 2, c * cell + 2 : (c + 1) * cell - 2] = color
+        for a in range(self.num_agents):
+            r, c = one["agent_r"][a], one["agent_c"][a]
+            color = (220, 120, 0) if one["carrying"][a] >= 0 else (200, 200, 200)
+            img[r * cell + 3 : (r + 1) * cell - 3, c * cell + 3 : (c + 1) * cell - 3] = color
+        return img
+
 
 def parse_rware_name(name: str) -> RWARE:
     """`rware[:rware]-{size}-{N}ag[-easy|-hard]-v{K}`, e.g.

@@ -34,6 +34,7 @@ from dataclasses import dataclass
 from types import SimpleNamespace
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from codebase_tpu_torch.envs.api import Environment, TimeStep
@@ -433,6 +434,30 @@ class SmacLiteCombat(Environment):
             action_mask=next_mask,
         )
         return new_state, ts
+
+    # ---------------------------------------------------------------- render
+
+    def render_frame(self, state: CombatBatchState, index: int = 0) -> np.ndarray:
+        """The JAX package's frame of env `index`: living allies blue and
+        enemies red, brightness by hp, 10-pixel cells."""
+        one = {k: v[..., index].cpu().numpy() for k, v in vars(state).items()}
+        cell = 10
+        img = np.full((self.rows * cell, self.cols * cell, 3), 20, np.uint8)
+        a_maxhp = np.asarray(self._stats(self.a_types, 0))
+        e_maxhp = np.asarray(self._stats(self.e_types, 0))
+        for i in range(self.n_agents):
+            if one["ally_hp"][i] > 0:
+                r, c = one["ally_r"][i], one["ally_c"][i]
+                img[r * cell + 2 : (r + 1) * cell - 2, c * cell + 2 : (c + 1) * cell - 2] = (
+                    0, 80 + int(170 * one["ally_hp"][i] / a_maxhp[i]), 220,
+                )
+        for j in range(self._n_e):
+            if one["enemy_hp"][j] > 0:
+                r, c = one["enemy_r"][j], one["enemy_c"][j]
+                img[r * cell + 2 : (r + 1) * cell - 2, c * cell + 2 : (c + 1) * cell - 2] = (
+                    220, 80 + int(170 * one["enemy_hp"][j] / e_maxhp[j]), 0,
+                )
+        return img
 
 
 _UNIT_LETTERS = {"m": "marine", "s": "stalker", "z": "zealot", "r": "marauder", "d": "medivac"}

@@ -57,6 +57,20 @@ class WrapperBase(Environment):
     def step_batch(self, state, actions, generator=None, current_mask=None):
         return self.env.step_batch(state, actions, generator, current_mask)
 
+    @property
+    def base_env(self):
+        env = self.env
+        while isinstance(env, WrapperBase):
+            env = env.env
+        return env
+
+    def render_frame(self, state, index: int = 0):
+        return self.base_env.render_frame(self.inner_state(state), index)
+
+    def inner_state(self, state):
+        """This wrapper adds no state of its own: recurse unchanged."""
+        return self.env.inner_state(state)
+
 
 @dataclass
 class TimeLimitState:
@@ -80,6 +94,9 @@ class TimeLimit(WrapperBase):
         t = state.t + 1
         truncated = ts.truncated | (t >= self.limit)
         return TimeLimitState(inner=s, t=t), replace(ts, truncated=truncated)
+
+    def inner_state(self, state):
+        return self.env.inner_state(state.inner)
 
 
 @dataclass(frozen=True)

@@ -3,7 +3,11 @@
 The same override surface as the JAX package's `run.py`. Runs on the GPU
 (`device: cuda` in `configs/default.yaml`) unless `device=cpu` is given;
 `device=cuda` without a GPU raises. Run directories default to
-`outputs/{env.name}/{algorithm.name}/{random tag}`.
+`outputs/{env.name}/{algorithm.name}/{random tag}`. `algorithm.save_interval`
+writes full-state checkpoints to `<run_dir>/checkpoints/`, `resume=<path>`
+or `resume=auto` continues a run from one, and SIGTERM checkpoints and
+exits cleanly; `python -m codebase_tpu_torch.eval path=<run_dir>`
+evaluates a run from its checkpoint.
 """
 
 from __future__ import annotations
@@ -24,7 +28,6 @@ from codebase_tpu_torch.utils.loggers import make_logger
 # or null counts as the default) and the ROADMAP.md item that ports it: a run
 # that sets one is refused before anything is built
 NOT_PORTED = {
-    "resume": (None, "Queue 1 item 4, checkpoint and resume"),
     "trace_dir": (None, "Queue 1 item 7, tooling (a torch.profiler trace)"),
     "debug": (False, "Queue 1 item 7, tooling (NaN and anomaly checks)"),
     "distributed.devices": (None, "Queue 1 item 6, multi-GPU"),

@@ -31,6 +31,22 @@ def test_port_imports_nothing_of_jax():
     assert not bad, bad
 
 
+def test_port_needs_no_msgpack_and_imports_imageio_only_in_the_video_encoder():
+    """A GPU host need not have either package: the port writes msgpack with
+    its own codec and imports imageio lazily, inside `VideoRecorder.save`."""
+    files = sorted((ROOT / "codebase_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    bad = [f"{p.relative_to(ROOT)}: {m}" for p in files for m in _imported_modules(p) if m.split(".")[0] == "msgpack"]
+    assert not bad, bad
+    for path in files:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in tree.body:  # module level
+            names = [a.name for a in node.names] if isinstance(node, ast.Import) else (
+                [node.module] if isinstance(node, ast.ImportFrom) and node.module else [])
+            assert not any(n.split(".")[0] == "imageio" for n in names), f"{path.relative_to(ROOT)} imports imageio"
+    video = (ROOT / "codebase_tpu_torch" / "utils" / "video.py").read_text()
+    assert "import imageio" in video
+
+
 def test_package_imports_and_runs_on_cpu_without_triton_or_nvcc(tmp_path):
     """In a fresh interpreter where `triton` and `jax` cannot be imported and
     no nvcc is on PATH: import every module and run a CPU GRU forward."""
@@ -38,7 +54,7 @@ def test_package_imports_and_runs_on_cpu_without_triton_or_nvcc(tmp_path):
 import importlib, pkgutil, sys
 class Block:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("triton", "jax", "jaxlib", "flax", "optax") or name == "codebase_tpu" or name.startswith("codebase_tpu."):
+        if name.split(".")[0] in ("triton", "jax", "jaxlib", "flax", "optax", "msgpack", "imageio") or name == "codebase_tpu" or name.startswith("codebase_tpu."):
             raise ImportError("blocked: " + name)
 sys.meta_path.insert(0, Block())
 sys.path.insert(0, {str(ROOT)!r})

@@ -72,13 +72,18 @@ def test_entry_point_refuses_what_it_cannot_do(tmp_path, monkeypatch):
     # JAX-package keys the port does not do yet are refused, not ignored;
     # their defaults still run (test_cpu_run_writes_results_with_the_jax_schema
     # passes them explicitly)
-    for key, value in (("resume", "auto"), ("debug", "true"), ("distributed.devices", "2"),
+    for key, value in (("debug", "true"), ("distributed.devices", "2"),
                        ("distributed.initialize", "always"), ("trace_dir", "traces"),
                        ("algorithm.entry", "my_pkg.algo:main")):
         with pytest.raises(NotImplementedError, match=rf"{key} is not ported yet \(ROADMAP.md Queue 1 item"):
             run.main(ARGV + ["device=cpu", f"{key}={value}", f"run_dir={tmp_path}"])
     with pytest.raises(ValueError, match=r"unknown config keys \['distributed.hosts'\]"):
         run.main(ARGV + ["device=cpu", "distributed.hosts=4", f"run_dir={tmp_path}"])
+    # checkpoints and videos are ported: both intervals run on the CPU
+    run.main(ARGV + ["device=cpu", "algorithm.total_steps=100", "algorithm.save_interval=50",
+                     "algorithm.video_interval=50", "algorithm.video_frames=4", f"run_dir={tmp_path / 'saved'}"])
+    assert sorted((tmp_path / "saved" / "checkpoints").glob("model_s*.msgpack"))
+    assert sorted((tmp_path / "saved" / "videos").glob("step-*"))
 
 
 def test_cpu_qmix_run_with_standardisation_writes_the_jax_schema(tmp_path):
