@@ -24,7 +24,11 @@ exits non-zero:
              ragged shapes (v) G=3 T=7 B=1000 H=256, (w) G=3 T=5 B=333
              H=384 and (x) G=2 T=9 B=77 H=896, the largest H, where shared
              memory leaves the wide forward's tiling the least room, and the
-             video's policy step of one env (y) G=2 T=1 B=1 (every
+             video's policy step of one env (y) G=2 T=1 B=1, and a sweep
+             group's 32 units x 2 agents: recurrent IDQN's rollout (z1)
+             G=64 T=1 B=32, updates (z2) T=26 B=32 and (z3) T=26 B=64 and
+             eval (z4) T=1 B=100, MAPPO's rollout (z5) T=1 B=10, update
+             (z6) T=25 B=10 and target critic (z7) T=26 B=10 (every
              shape a phase below gives the kernels): the
              forward against `gru_sequence_plain`, the whole backward (recurrence, weight
              gradient, reduction) against `gru_backward_plain`, the weight
@@ -123,6 +127,38 @@ the masks. Then checkpoint, resume, eval, video and preemption:
                  subprocess: SIGTERM after the first results.csv row gives
                  rc 0, the log line and a checkpoint; the relaunch resumes
                  from its step and exits 0.
+Then the sweeps, through `codebase_tpu_torch.search` in this process
+(`run --config <spec> --seeds N vmapped --yes`), each group's launch
+counters set to 0 just before it and read just after:
+21. sweep_idqn_rnn — recurrent IDQN on Foraging-8x8-2p-3f-v3 at the
+                 preset's 32 envs, replay of 10000 episodes and 32 updates
+                 a collect, lr [3e-4, 1e-3] x 16 seeds (32 units a group) x
+                 batch [32, 64] (two groups), 3-4 iterations with a row
+                 each: per unit a config.yaml with its seed and lr and a
+                 results.csv with finite losses; a group's launches per
+                 iteration are one unit's (25 forwards at z1, 64 at z2 or
+                 z3 and 32 of each backward kernel; 25 forwards at z4 an
+                 eval); then one unit through `run.main` with the same
+                 settings, its launches by the same rule and its env-steps/s
+                 beside the group's (summed over units).
+22. sweep_unit_parity — units 0 and 31 of the batch-32 group rebuilt as
+                 one-unit states from their slices: one update on the same
+                 sampled batch both ways; loss and gradients to rtol 2e-4,
+                 params after the Adam step too.
+23. sweep_mappo_rnn — MAPPO, recurrent actor and centralised critic,
+                 gamma [0.99, 0.95] x 16 seeds at 10 envs a unit (z5, z6,
+                 z7): one unit's 35 forwards and 8 of each backward kernel
+                 an iteration.
+24. sweep_qmix   — QMIX (MLP [64, 64]) with return standardisation, tau
+                 [100, 200] x 4 seeds: the mixer's unit axis and the
+                 per-unit return moments on the card; one update a collect
+                 (the fixed target's standardised returns grow
+                 geometrically, the reference's semantics); then
+                 sweep_qmix_unit_parity on its units 0 and 7.
+25. search_cli   — `python -m codebase_tpu_torch.search` subprocesses:
+                 `dry_run` on configs/sweeps/sample.yaml, `bayes --budget
+                 2` and `locally --workers 2` on tiny specs, sharing the
+                 card.
 Then the kernel summary line and, last, the device line.
 
 Imports nothing of JAX or of the JAX package.
@@ -130,6 +166,7 @@ Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import csv
 import itertools
 import json
 import math
@@ -144,17 +181,23 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import yaml
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: torch.cuda.is_available() is false; this smoke run needs a CUDA GPU")
 
 from codebase_tpu_torch import eval as port_eval  # noqa: E402
 from codebase_tpu_torch import run as port_run  # noqa: E402
+from codebase_tpu_torch import search as port_search  # noqa: E402
+from codebase_tpu_torch import sweep as port_sweep  # noqa: E402
 from codebase_tpu_torch.algos import ac as port_ac  # noqa: E402
 from codebase_tpu_torch.algos import dqn as port_dqn  # noqa: E402
 from codebase_tpu_torch.config import load_config  # noqa: E402
+from codebase_tpu_torch.algos.common import unit_values  # noqa: E402
 from codebase_tpu_torch.envs import vector as port_vector  # noqa: E402
 from codebase_tpu_torch.ops import fused_gru as fg  # noqa: E402
+from codebase_tpu_torch.ops.replay import batch_to_reference_layout, replay_sample_many  # noqa: E402
+from codebase_tpu_torch.ops.running_stats import RunningMeanStd  # noqa: E402
 from codebase_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
 from codebase_tpu_torch.utils.device import resolve_device  # noqa: E402
 
@@ -186,6 +229,14 @@ SHAPES = {
     "w": dict(G=3, T=5, B=333, H=384, role="ragged at H=384"),
     "x": dict(G=2, T=9, B=77, H=896, role="ragged at H=896, the largest H: the least shared memory for the tiling"),
     "y": dict(G=2, T=1, B=1, role="video: the IDQN policy step of the one env a video records"),
+    # a sweep group's units folded into the group axis: 32 units x 2 agents
+    "z1": dict(G=64, T=1, B=32, role="IDQN sweep rollout: 32 units' policy step over each unit's 32 envs"),
+    "z2": dict(G=64, T=26, B=32, role="IDQN sweep update, batch 32: 32 units' online/target nets over T+1=26 steps"),
+    "z3": dict(G=64, T=26, B=64, role="IDQN sweep update, batch 64"),
+    "z4": dict(G=64, T=1, B=100, role="IDQN sweep eval: policy step over 100 episodes a unit"),
+    "z5": dict(G=64, T=1, B=10, role="MAPPO sweep rollout: 32 units' actors over each unit's 10 envs"),
+    "z6": dict(G=64, T=25, B=10, role="MAPPO sweep update: actor and critic over the rollout, T=25"),
+    "z7": dict(G=64, T=26, B=10, role="MAPPO sweep target critic: bootstrap values over T+1=26 steps"),
 }
 for _shape in SHAPES.values():
     _shape.setdefault("H", 128)
@@ -833,6 +884,295 @@ def preemption_phase(phase, smi, run_dir):
     emit({"phase": phase, "card": smi, "argv": argv, "saved_step": saved, "sigterm_rc": 0, "relaunch_rc": 0,
           "resumed": line, "first_run_seconds": first_s, "relaunch_seconds": time.perf_counter() - t0})
 
+class GroupWatch:
+    """While the search CLI runs in this process: for each group that
+    `sweep.run_vmapped_multiseed` trains, the launch counts (set to 0 just
+    before the group and read just after), its config, units and variants,
+    its unit dirs, the final train state (from `sweep.build_group`) and its
+    seconds."""
+
+    def __enter__(self):
+        self.groups, self._run, self._build = [], port_sweep.run_vmapped_multiseed, port_sweep.build_group
+        port_sweep.run_vmapped_multiseed, port_sweep.build_group = self.run, self.build
+        return self
+
+    def __exit__(self, *exc):
+        port_sweep.run_vmapped_multiseed, port_sweep.build_group = self._run, self._build
+
+    def build(self, cfg, seeds, hyper_variants=None):
+        self.built = self._build(cfg, seeds, hyper_variants)
+        return self.built
+
+    def run(self, cfg, seeds, run_dir, hyper_variants=None):
+        torch.cuda.synchronize()
+        fg.reset_launch_counts()
+        t0 = time.perf_counter()
+        dirs = self._run(cfg, seeds, run_dir, hyper_variants)
+        torch.cuda.synchronize()
+        self.groups.append({"cfg": cfg, "units": self.built[0], "state": self.built[1], "dirs": dirs,
+                            "variants": hyper_variants or [{}], "counts": fg.launch_counts(),
+                            "seconds": time.perf_counter() - t0})
+        return dirs
+
+
+def check_units(phase, group, key, expected_counts) -> dict:
+    """One group of a sweep: a `config.yaml` per unit whose `seed` and
+    `algorithm.<key>` are the unit's, a results.csv with a row after every
+    chunk and finite losses, finite parameters, and launch counts equal to
+    `expected_counts(iterations, rows)` (a one-unit run's at any U).
+    Returns the group's report."""
+    state, units, variants = group["state"], group["units"], group["variants"]
+    U = len(units)
+    if len(group["dirs"]) != U:
+        raise AssertionError(f"{phase}: {len(group['dirs'])} unit dirs for {U} units")
+    rows = []
+    for (vi, seed), d in zip(units, group["dirs"]):
+        cfg = yaml.safe_load((d / "config.yaml").read_text())
+        want = variants[vi].get(port_sweep.VMAPPABLE_KEYS[key])
+        got = cfg
+        for part in key.split("."):
+            got = got[part]
+        if cfg["seed"] != seed or (want is not None and float(got) != want):
+            raise AssertionError(f"{phase}: {d}/config.yaml has seed {cfg['seed']} and {key} {got}; unit is "
+                                 f"seed {seed}, {variants[vi]}")
+        with open(d / "results.csv") as f:
+            unit_rows = list(csv.DictReader(f))
+        losses = [float(r["loss"]) for r in unit_rows if r.get("loss")]
+        if not unit_rows or not losses or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{phase}: {d}/results.csv rows {len(unit_rows)}, losses {losses}")
+        rows.append(len(unit_rows))
+    if len(set(rows)) != 1:
+        raise AssertionError(f"{phase}: units wrote different row counts {rows}")
+    if not all(torch.isfinite(p).all() for p in state.model.param_leaves()):
+        raise AssertionError(f"{phase}: parameters not finite after training")
+    iters = len(state.timings)
+    expected = expected_counts(iters, rows[0])
+    if any(group["counts"][k] != expected.get(k, 0) for k in group["counts"]):
+        raise AssertionError(f"{phase}: launches {group['counts']} over {iters} iterations and {rows[0]} rows; "
+                             f"expected {expected}")
+    steady = state.timings[1:]
+    return {"units": U, "iterations": iters, "rows_per_unit": rows[0], "launches": group["counts"],
+            "env_steps_per_unit": unit_values(state.env_steps, U).tolist()[:4] + ["..."],
+            "iteration_seconds": [t for _, t in state.timings],
+            "env_steps_per_s_summed_over_units_after_first": sum(n for n, _ in steady) / sum(t for _, t in steady),
+            "seconds": group["seconds"]}
+
+
+def run_search(argv, spec, out_dir) -> list:
+    """`search.main` in this process (the `vmapped` mode) on a spec written
+    to `out_dir`, under a `GroupWatch`; returns the groups."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "spec.yaml").write_text(yaml.safe_dump(spec, sort_keys=False))
+    with GroupWatch() as watch:
+        port_search.main(["run", "--config", str(out_dir / "spec.yaml"), *argv, "--output", str(out_dir / "out"),
+                          "--yes"])
+    return watch.groups
+
+
+def sweep_idqn_phase(phase, smi, out_dir):
+    """The slice's path: `search run --seeds 16 vmapped --yes` on recurrent
+    IDQN (the preset's 32 envs, replay of 10000 episodes and 32 updates a
+    collect) on Foraging-8x8-2p-3f-v3, lr [3e-4, 1e-3] x 16 seeds (32 units,
+    one group) x batch size [32, 64] (two groups), training_start 0, a row
+    after every iteration and 3-4 iterations. Each group must launch, per
+    train iteration, what one unit's run launches: 25 forwards (rollout, at
+    z1), 2 x 32 in the updates (z2 or z3) and 32 of each backward kernel, the
+    batch-64 group from its second iteration (the replay holds 32 episodes
+    a unit after the first), and 25 forwards (z4) an eval of 100 episodes a
+    unit. Then one unit's `run.main` with the same settings (seed 0, lr
+    3e-4, batch 32): its launches follow the same rule, and its env-steps/s
+    stands beside the group's. Returns (the groups, the first group's launch
+    counts)."""
+    E, T = 32, 25
+    spec = {"+algorithm": "idqn", "env.name": "lbforaging:Foraging-8x8-2p-3f-v3", "env.time_limit": T,
+            "algorithm.model.use_rnn": True, "algorithm.training_start": 0,
+            "algorithm.total_steps": 1800, "algorithm.eval_interval": 400, "device": "cuda",
+            "algorithm.lr": [3.0e-4, 1.0e-3], "algorithm.batch_size": [32, 64]}
+
+    def expected(B):
+        def counts(iters, rows):
+            trained = sum(1 for i in range(1, iters + 1) if E * i >= B)
+            n = 32 * trained
+            return {"fwd": T * iters + 2 * n + 25 * rows, "bwd": n, "dw": n, "reduce": n}
+        return counts
+
+    groups = run_search(["--seeds", "16", "vmapped"], spec, out_dir)
+    if len(groups) != 2:
+        raise AssertionError(f"{phase}: {len(groups)} groups; expected 2 (batch 32 and 64)")
+    reports = {}
+    for g in groups:
+        B = int(g["cfg"].algorithm.batch_size)
+        reports[f"batch_{B}"] = check_units(phase, g, "algorithm.lr", expected(B))
+    # one unit through run.main, the same settings
+    with tempfile.TemporaryDirectory() as run_dir:
+        argv = ["+algorithm=idqn", "env.name=lbforaging:Foraging-8x8-2p-3f-v3", f"env.time_limit={T}",
+                "algorithm.model.use_rnn=true", "algorithm.training_start=0", "algorithm.total_steps=1800",
+                "algorithm.eval_interval=400", "algorithm.log_interval=400", "algorithm.lr=3.0e-4",
+                "algorithm.batch_size=32", "seed=0", "device=cuda", f"run_dir={run_dir}"]
+        torch.cuda.synchronize()
+        fg.reset_launch_counts()
+        rows, solo = port_run.main(argv)
+        solo_counts = fg.launch_counts()
+    want = expected(32)(len(solo.timings), len(rows))
+    if any(solo_counts[k] != want.get(k, 0) for k in solo_counts):
+        raise AssertionError(f"{phase}: the one-unit run launched {solo_counts}; expected {want}")
+    steady = solo.timings[1:]
+    emit({"phase": phase, "card": smi, "spec": spec, "seeds": 16, "groups": reports,
+          "one_unit_run": {"argv": argv[:-1], "iterations": len(solo.timings), "rows": len(rows),
+                           "launches": solo_counts,
+                           "env_steps_per_s_after_first": sum(n for n, _ in steady) / sum(t for _, t in steady)}})
+    total = {k: sum(g["counts"][k] for g in groups) for k in groups[0]["counts"]}
+    return groups, total
+
+
+def unit_parity_phase(phase, smi, group, picks, family=port_dqn):
+    """Units `picks` of a sweep group's final state, each rebuilt as a
+    one-unit state from its slices (params, target, Adam moments and count,
+    counters, return moments): one update on the same sampled batch both
+    ways. Fails unless each unit's loss and every gradient agree to rtol
+    2e-4 (atol 1e-6 of the leaf's largest entry, at least 1e-6, as the CPU
+    parity tests hold gradients), and the
+    params after the Adam step to rtol 2e-4 (atol 5e-2 * lr: an entry whose
+    gradient cancels keeps only its leading digits, and Adam turns that into
+    a step of up to lr). The group's GRU runs at G = U*N, the one unit's at
+    G = N, so gradients are summed in another order."""
+    cfg, state, units, variants = group["cfg"], group["state"], group["units"], group["variants"]
+    U, acfg, T = len(units), cfg.algorithm, int(cfg.env.time_limit)
+    env, _ = port_run.build_envs(cfg)
+    B = int(acfg.batch_size)
+    one = {k: (v[0] if v is not None else None)
+           for k, v in replay_sample_many(state.buffer, torch.Generator(device="cuda").manual_seed(5), B, 1).items()}
+    params = state.model.param_leaves()
+    losses, _ = state.model.unit_losses(state.target, batch_to_reference_layout(one, U), state.ret_rms)
+    grads = torch.autograd.grad(losses.sum(), params)
+    solos = []
+    for u in picks:
+        vi, seed = units[u]
+        solo = family.build_train_functions(env, env, acfg, T, torch.device("cuda"), hypers=[variants[vi]])[0](seed)
+        with torch.no_grad():
+            for src_list, dst_list in ((params, solo.model.param_leaves()),
+                                       (state.target.param_leaves(), solo.target.param_leaves()),
+                                       (state.opt.mu, solo.opt.mu), (state.opt.nu, solo.opt.nu)):
+                for src, dst in zip(src_list, dst_list):
+                    dst.copy_(src.reshape(U, -1)[u].reshape(dst.shape))
+        solo.opt.count = int(unit_values(state.opt.count, U)[u])
+        for f in ("env_steps", "updates", "last_target_update"):
+            setattr(solo, f, int(unit_values(getattr(state, f), U)[u]))
+        rms = state.ret_rms
+        solo.ret_rms = RunningMeanStd(rms.mean[u].clone(), rms.var[u].clone(), rms.count[u].clone())
+        batch = batch_to_reference_layout({k: (v[u * B:(u + 1) * B] if v is not None else None)
+                                           for k, v in one.items()})
+        loss, _ = solo.model.unit_losses(solo.target, batch, solo.ret_rms)
+        solo_grads = torch.autograd.grad(loss.sum(), solo.model.param_leaves())
+        solos.append((u, solo, loss, solo_grads))
+    state.opt.step(grads)
+    report = {}
+    for u, solo, loss, solo_grads in solos:
+        solo.opt.step(solo_grads)
+        lr = float(unit_values(state.opt.lr, U, np.float64)[u])
+        g_diff, g_bad, p_diff, p_bad = 0.0, [], 0.0, []
+        for i, (g, sg, p, sp) in enumerate(zip(grads, solo_grads, params, solo.model.param_leaves())):
+            gu, pu = g.reshape(U, -1)[u], p.reshape(U, -1)[u]
+            g_diff = max(g_diff, (gu - sg.reshape(-1)).abs().max().item())
+            p_diff = max(p_diff, (pu - sp.reshape(-1)).abs().max().item())
+            if not torch.allclose(gu, sg.reshape(-1), rtol=2e-4, atol=1e-6 * max(1.0, sg.abs().max().item())):
+                g_bad.append(i)
+            if not torch.allclose(pu, sp.reshape(-1), rtol=2e-4, atol=5e-2 * lr):
+                p_bad.append(i)
+        l_group, l_solo = losses[u].item(), loss.item()
+        if g_bad or p_bad or abs(l_group - l_solo) > 2e-4 * abs(l_solo) or not math.isfinite(l_solo):
+            raise AssertionError(f"{phase}: unit {u} differs from its one-unit update: loss {l_group} / {l_solo}, "
+                                 f"gradient leaves outside {g_bad}, params after Adam outside {p_bad}")
+        report[f"unit_{u}"] = {"seed": units[u][1], "variant": variants[units[u][0]], "loss_group": l_group,
+                               "loss_one_unit": l_solo, "loss_rel_diff": abs(l_group - l_solo) / max(abs(l_solo), 1e-30),
+                               "max_abs_grad_diff": g_diff, "max_abs_param_diff_after_adam": p_diff}
+    emit({"phase": phase, "card": smi, "units": U, "batch_per_unit": B, "rtol": 2e-4, **report})
+
+
+def sweep_mappo_phase(phase, smi, out_dir):
+    """`vmapped` MAPPO with the actor and the critic recurrent on
+    Foraging-8x8-2p-3f-v3, gamma [0.99, 0.95] x 16 seeds (32 units, one
+    group) at the preset's 10 envs a unit: z5 in the rollout, z6 in the
+    update and z7 for the target critic; per iteration one unit's 35
+    forwards and 8 of each backward kernel (the rows log the training
+    rollout, no eval). Returns the group's launch counts."""
+    spec = {"+algorithm": "mappo", "env.name": "lbforaging:Foraging-8x8-2p-3f-v3", "env.time_limit": 25,
+            "algorithm.model.actor.use_rnn": True, "algorithm.model.critic.use_rnn": True,
+            "algorithm.total_steps": 500, "algorithm.eval_interval": 250, "device": "cuda",
+            "algorithm.gamma": [0.99, 0.95]}
+    (group,) = run_search(["--seeds", "16", "vmapped"], spec, out_dir)
+    report = check_units(phase, group, "algorithm.gamma",
+                         lambda iters, rows: {"fwd": 35 * iters, "bwd": 8 * iters, "dw": 8 * iters, "reduce": 8 * iters})
+    emit({"phase": phase, "card": smi, "spec": spec, "seeds": 16, **report})
+    return group["counts"]
+
+
+def sweep_qmix_phase(phase, smi, out_dir):
+    """`vmapped` QMIX (MLP [64, 64], no GRU launch) with return
+    standardisation, tau [100, 200] x 4 seeds (8 units, one group): the
+    mixer's unit axis and the per-unit return moments on the card. Returns
+    the group."""
+    spec = {"+algorithm": "qmix", "env.name": "lbforaging:Foraging-8x8-2p-3f-v3", "env.time_limit": 25,
+            "algorithm.model.layers": "[64,64]", "algorithm.standardise_returns": True,
+            "algorithm.training_start": 0, "algorithm.updates_per_collect": 1, "algorithm.buffer_size": 1000,
+            "algorithm.total_steps": 1800, "algorithm.eval_interval": 400, "device": "cuda",
+            "algorithm.target_update_interval_or_tau": [100, 200]}
+    (group,) = run_search(["--seeds", "4", "vmapped"], spec, out_dir)
+    report = check_units(phase, group, "algorithm.target_update_interval_or_tau", lambda iters, rows: {})
+    rms = group["state"].ret_rms
+    if tuple(rms.mean.shape) != (8, 1) or not torch.isfinite(rms.var).all():
+        raise AssertionError(f"{phase}: return moments {tuple(rms.mean.shape)}, var finite "
+                             f"{bool(torch.isfinite(rms.var).all())}")
+    emit({"phase": phase, "card": smi, "spec": spec, "seeds": 4, **report,
+          "return_moment_counts": rms.count.tolist()})
+    return group
+
+
+def search_cli_phase(phase, smi, out_dir):
+    """`python -m codebase_tpu_torch.search` in subprocesses, each with rc 0:
+    `dry_run` on configs/sweeps/sample.yaml (32 combinations at 2 seeds),
+    `bayes --budget 2` at a tiny width (MLP IDQN on Foraging-5x5, an lr
+    axis of 3), which must write bayes_result.json with the JAX package's
+    keys, and `locally --workers 2` on two tiny combinations that share the
+    card, each writing its results.csv."""
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(root)}
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tiny = {"+algorithm": "idqn", "env.name": "lbforaging:Foraging-5x5-2p-1f-v3", "env.time_limit": 10,
+            "env.parallel_envs": 16, "algorithm.model.layers": "[32,32]", "algorithm.training_start": 0,
+            "algorithm.batch_size": 8, "algorithm.buffer_size": 64, "algorithm.total_steps": 320,
+            "algorithm.eval_interval": 160, "algorithm.log_interval": 160, "algorithm.eval_episodes": 10,
+            "device": "cuda"}
+    timings = {}
+
+    def cli(name, spec_path, *args):
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", "codebase_tpu_torch.search", "run", "--config", str(spec_path),
+                            *args], env=env, cwd=out_dir, capture_output=True, text=True, timeout=600)
+        timings[name] = time.perf_counter() - t0
+        if p.returncode != 0:
+            raise AssertionError(f"{phase}: {name} rc {p.returncode}: {p.stdout[-2000:]} {p.stderr[-3000:]}")
+        return p.stdout
+
+    out = cli("dry_run", root / "codebase_tpu_torch/configs/sweeps/sample.yaml", "--seeds", "2", "dry_run")
+    first = out.splitlines()[0]
+    count = int(first.split()[2])
+    if first != "There are 32 configurations as shown below:" or len(out.splitlines()) != 33:
+        raise AssertionError(f"{phase}: dry_run printed {first!r} and {len(out.splitlines())} lines")
+    (out_dir / "bayes.yaml").write_text(yaml.safe_dump({**tiny, "algorithm.lr": [1.0e-4, 3.0e-4, 1.0e-3]}))
+    cli("bayes", out_dir / "bayes.yaml", "--seeds", "2", "bayes", "--budget", "2", "--output",
+        str(out_dir / "bayes"), "--yes")
+    result = json.loads((out_dir / "bayes" / "bayes_result.json").read_text())
+    if set(result) != {"best", "best_value", "evaluations", "candidates", "metric"} or result["evaluations"] != 2:
+        raise AssertionError(f"{phase}: bayes_result.json {result}")
+    (out_dir / "locally.yaml").write_text(yaml.safe_dump({**tiny, "algorithm.lr": [1.0e-4, 1.0e-3]}))
+    out = cli("locally", out_dir / "locally.yaml", "--seeds", "1", "locally", "--workers", "2", "--yes")
+    written = sorted(out_dir.glob("outputs/**/results.csv"))
+    if "done: 2/2 succeeded" not in out or len(written) != 2:
+        raise AssertionError(f"{phase}: locally printed {out[-500:]!r}; results {written}")
+    emit({"phase": phase, "card": smi, "dry_run_count": count, "bayes_result": result,
+          "locally_results": len(written), "seconds": timings})
+
 
 def main() -> None:
     # --- 1. device
@@ -1034,6 +1374,21 @@ def main() -> None:
         # --- 20. preemption: SIGTERM, then resume=auto, in subprocesses
         preemption_phase("preemption", smi, tmp / "preemption")
 
+    # --- 21-25. sweeps: the search CLI, the units of a group in one train
+    # state, each GRU launch serving all units of a group
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        torch.cuda.empty_cache()
+        idqn_groups, sweep_counts = sweep_idqn_phase("sweep_idqn_rnn", smi, tmp / "idqn")
+        unit_parity_phase("sweep_unit_parity", smi, idqn_groups[0], (0, 31))
+        del idqn_groups
+        torch.cuda.empty_cache()
+        sweep_mappo_counts = sweep_mappo_phase("sweep_mappo_rnn", smi, tmp / "mappo")
+        qmix_group = sweep_qmix_phase("sweep_qmix", smi, tmp / "qmix")
+        unit_parity_phase("sweep_qmix_unit_parity", smi, qmix_group, (0, 7))
+        del qmix_group
+        search_cli_phase("search_cli", smi, tmp / "cli")
+
     sources = {
         "gru_fwd": "codebase_tpu/ops/fused_gru.py:80 (_fwd_kernel, pallas_call at :238)",
         "gru_bwd": "codebase_tpu/ops/fused_gru.py:105 (_bwd_kernel, pallas_call at :299)",
@@ -1045,14 +1400,18 @@ def main() -> None:
              "j": "smaclite_mappo_update", "k": "smaclite_mappo_rollout", "l": "smaclite_mappo_target",
              "m": "ac_target", "n": "qmix_eval", "o": "idqn_eval", "p": "mmm2_qmix_rollout",
              "q": "mmm2_qmix_update", "r": "mmm2_qmix_eval", "s": "mmm2_mappo_rollout", "t": "mmm2_mappo_update",
-             "u": "mmm2_mappo_target", "v": "ragged_h256", "w": "ragged_h384", "x": "ragged_h896", "y": "video"}
+             "u": "mmm2_mappo_target", "v": "ragged_h256", "w": "ragged_h384", "x": "ragged_h896", "y": "video",
+             "z1": "sweep_idqn_rollout", "z2": "sweep_idqn_update_b32", "z3": "sweep_idqn_update_b64",
+             "z4": "sweep_idqn_eval", "z5": "sweep_mappo_rollout", "z6": "sweep_mappo_update",
+             "z7": "sweep_mappo_target"}
     resident = [k for k in SHAPES if SHAPES[k]["H"] == 128]
     wide = [k for k in SHAPES if SHAPES[k]["H"] != 128]
     phases = {"train": counts, "train_qmix": qmix_counts, "train_mappo": mappo_counts,
               "train_qmix_smaclite": smac_qmix_counts, "train_mappo_smaclite": smac_mappo_counts,
               "train_qmix_rware": rware_counts, "train_qmix_mmm2": mmm2_qmix_counts,
               "train_mappo_mmm2": mmm2_mappo_counts, "resume_idqn": resume_idqn_counts,
-              "resume_mappo": resume_mappo_counts, "eval_cli": eval_counts, "video": video_counts}
+              "resume_mappo": resume_mappo_counts, "eval_cli": eval_counts, "video": video_counts,
+              "sweep_idqn_rnn": sweep_counts, "sweep_mappo_rnn": sweep_mappo_counts}
     summary = []
     # (name, counter, the kernel's key in the per-shape results, the shapes
     # it takes, the shape it is timed at and the phase its launches are from)

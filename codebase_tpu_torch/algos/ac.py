@@ -25,7 +25,14 @@ The semantics are the JAX package's (`codebase_tpu/algos/ac.py`):
 - with an env that masks actions (SMAClite), masked logits take -1e8 in
   the sampling policy and in the loss's log-probs and entropy, each step
   with the mask of the observation the action was taken from.
-Sweeps' traced hyperparameters and the mesh wait for later slices
+
+`build_train_functions(..., hypers=[...])` trains the U units of a sweep
+as one state, as the value-based family does (`algos/dqn.py`): U*E
+unit-major envs, the units folded into the networks' agent axis, a leading
+unit axis on every per-unit tensor, and each unit's own losses, clip norm,
+Adam step, gamma, tau, return moments and env-step count (from its own
+longest episode). The centralised critic's input joins the agents of one
+unit. One unit is a plain run. The mesh waits for a later slice
 (ROADMAP.md Queue 1).
 """
 
@@ -40,9 +47,22 @@ import torch
 from torch import nn
 from torch.profiler import record_function
 
-from codebase_tpu_torch.algos.common import Adam, early_exit_option, hard_update, make_optimizer, soft_update
+import numpy as np
+
+from codebase_tpu_torch.algos.common import (
+    Adam,
+    early_exit_option,
+    hard_update,
+    make_optimizer,
+    pack_units,
+    soft_update,
+    unit_hypers,
+    unit_scalar,
+    unit_values,
+)
+from codebase_tpu_torch.algos.dqn import refuse_units, unit_agents
 from codebase_tpu_torch.envs.api import Environment
-from codebase_tpu_torch.envs.vector import Rollout, collect_episodes
+from codebase_tpu_torch.envs.vector import Rollout, collect_episodes, resolve_early_exit
 from codebase_tpu_torch.envs.wrappers import standardisation_plan
 from codebase_tpu_torch.models import distributions as D
 from codebase_tpu_torch.models.multi_agent import MultiAgentNetwork
@@ -59,14 +79,15 @@ class ACModel(nn.Module):
     """An actor and a critic, each a multi-agent network."""
 
     def __init__(self, actor: MultiAgentNetwork, critic: MultiAgentNetwork, centralised_critic: bool,
-                 ppo: bool, gamma: float, n_steps: int, entropy_coef: float, value_loss_coef: float,
+                 ppo: bool, gamma, n_steps: int, entropy_coef: float, value_loss_coef: float,
                  standardise_returns: bool, num_epochs: int, ppo_clip: float, use_action_masks: bool):
         super().__init__()
         self.actor = actor
         self.critic = critic
         self.centralised_critic = bool(centralised_critic)
         self.ppo = bool(ppo)
-        self.gamma = float(gamma)
+        # a float, or one per unit
+        self.gamma = pack_units(unit_values(gamma, actor.n_units, np.float64))
         self.n_steps = int(n_steps)
         self.entropy_coef = float(entropy_coef)
         self.value_loss_coef = float(value_loss_coef)
@@ -76,7 +97,9 @@ class ACModel(nn.Module):
         self.use_action_masks = bool(use_action_masks)
 
     @staticmethod
-    def create(env: Environment, model_cfg, algo_cfg, generator=None, device="cpu") -> "ACModel":
+    def create(env: Environment, model_cfg, algo_cfg, generator=None, device="cpu", gamma=None) -> "ACModel":
+        """`generator` may be a list, one per unit of a sweep, and `gamma`
+        then one value per unit (None: the config's)."""
         if generator is None:
             generator = torch.Generator().manual_seed(0)
 
@@ -102,7 +125,7 @@ class ACModel(nn.Module):
             critic=network(model_cfg.critic, critic_inputs, [1] * env.n_agents),
             centralised_critic=centralised,
             ppo=ppo,
-            gamma=float(algo_cfg.gamma),
+            gamma=float(algo_cfg.gamma) if gamma is None else gamma,
             n_steps=int(algo_cfg.n_steps),
             entropy_coef=float(algo_cfg.entropy_coef),
             value_loss_coef=float(algo_cfg.value_loss_coef),
@@ -115,6 +138,15 @@ class ACModel(nn.Module):
     @property
     def n_agents(self) -> int:
         return self.actor.n_agents
+
+    @property
+    def n_units(self) -> int:
+        return self.actor.n_units
+
+    @property
+    def _lead(self):
+        """The leading unit axis of per-unit tensors: none for one unit."""
+        return (self.n_units,) if self.n_units > 1 else ()
 
     def param_tree(self):
         """{"actor": ..., "critic": ...}, the JAX package's `init_params` tree."""
@@ -136,54 +168,68 @@ class ACModel(nn.Module):
         load_tree(dst, {k: params_from_numpy(tree[k], device, dtype) for k in dst})
 
     def init_rms(self, device="cpu") -> RunningMeanStd:
-        """Return moments, one per agent."""
-        return RunningMeanStd.init((self.n_agents,), device=device)
+        """Return moments, one per agent (and unit)."""
+        return RunningMeanStd.init((self.n_agents,), device=device, n_units=self.n_units)
 
     # ---------------------------------------------------------------- acting
 
     def policy(self):
         """Sampling rollout policy for `collect_episodes`: carry = the
         actor's RNN hiddens (N, L, E, C) or None; obs (E, N, D); mask (E, N,
-        A)."""
+        A). For U units the envs are unit-major (U*E) and the carry is
+        (U*N, L, E, C)."""
+        U = self.n_units
 
         @torch.no_grad()
         def act(carry, obs, mask, generator):
-            x = obs.transpose(0, 1).unsqueeze(1)  # (N, 1, E, D)
+            x = unit_agents(obs, U).unsqueeze(1)  # (U*N, 1, E, D)
             logits, carry = self.actor(x, carry)
-            logits = logits[:, 0]  # (N, E, A)
+            logits = logits[:, 0]  # (U*N, E, A)
             if self.use_action_masks:
-                logits = D.apply_mask(logits, mask.transpose(0, 1))
-            actions = D.sample(generator, logits)  # (N, E)
-            return carry, actions.T.contiguous()  # (E, N)
+                logits = D.apply_mask(logits, unit_agents(mask, U))
+            actions = D.sample(generator, logits)  # (U*N, E)
+            return carry, unit_agents(actions, U).contiguous()  # (U*E, N)
 
         return act
 
     # ------------------------------------------------------------- forwards
+    # Per-unit tensors carry a leading unit axis U (none for one unit);
+    # network inputs fold the units into the agent axis: (U*N, T, B, D).
 
     def _critic_inputs(self, obs_agents):
-        """obs_agents (N, T, B, D) -> the critic's inputs. Centralised: all
-        agents' obs concatenated in agent order, fed to every agent's
-        critic."""
+        """obs_agents (N, T, B, D) -> the critic's inputs. Centralised: the
+        obs of all agents of the unit concatenated in agent order, fed to
+        every agent's critic."""
         if not self.centralised_critic:
             return obs_agents
-        joint = torch.cat(list(obs_agents), dim=-1)
-        return joint.unsqueeze(0).expand((obs_agents.shape[0],) + joint.shape)
+        U, N = self.n_units, self.n_agents
+        x = obs_agents.reshape((U, N) + obs_agents.shape[1:])
+        joint = x.permute(0, 2, 3, 1, 4).reshape(x.shape[:1] + x.shape[2:4] + (-1,))  # (U, T, B, N*D)
+        return joint.unsqueeze(1).expand((U, N) + joint.shape[1:]).reshape((U * N,) + joint.shape[1:])
+
+    def _per_unit(self, x):
+        """(U*N, T, B) per agent -> (U, T, B, N)."""
+        return x.reshape((self.n_units, self.n_agents) + x.shape[1:]).permute(0, 2, 3, 1)
 
     def values(self, critic: MultiAgentNetwork, obs_agents):
         """(N, T, B, D) obs -> (T, B, N) state values of `critic` (this
         model's or a target)."""
         v, _ = critic(self._critic_inputs(obs_agents))
-        return v[..., 0].permute(1, 2, 0)
+        return self._per_unit(v[..., 0]).reshape(self._lead + v.shape[1:3] + (self.n_agents,))
 
     def log_probs_entropy(self, obs_agents, actions, amask=None):
         """obs_agents (N, T, B, D), actions (T, B, N), amask (N, T, B, A),
         used when the env masks actions -> (log-probs (T, B, N), entropy
         (T, B) summed over agents)."""
-        logits, _ = self.actor(obs_agents)  # (N, T, B, A)
+        U, N = self.n_units, self.n_agents
+        logits, _ = self.actor(obs_agents)  # (U*N, T, B, A)
         if self.use_action_masks:
             logits = D.apply_mask(logits, amask)
-        lp = D.log_prob(logits, actions.permute(2, 0, 1))  # (N, T, B)
-        return lp.permute(1, 2, 0), D.entropy(logits).sum(0)
+        T, B = logits.shape[1:3]
+        acts = actions.reshape(U, T, B, N).permute(0, 3, 1, 2).reshape(U * N, T, B)
+        lp = self._per_unit(D.log_prob(logits, acts))  # (U, T, B, N)
+        ent = D.entropy(logits).reshape(U, N, T, B).sum(1)
+        return lp.reshape(self._lead + (T, B, N)), ent.reshape(self._lead + (T, B))
 
     # ----------------------------------------------------------------- loss
 
@@ -197,31 +243,42 @@ class ACModel(nn.Module):
         with the moments as they were, the moments take the returns (every
         (t, b) cell, filled or not), and the returns are normalised with
         the updated moments."""
-        next_value = self.values(target_critic, rollout_obs)  # (T+1, B, N)
+        U, N = self.n_units, self.n_agents
+        next_value = self.values(target_critic, rollout_obs)
+        T1, B = next_value.shape[-3:-1]
+        next_value = next_value.reshape(U, T1, B, N)
         if self.standardise_returns:
             next_value = ret_rms.denormalise(next_value)
-        done_n = dones.unsqueeze(-1).expand(-1, -1, self.n_agents)
-        returns = nstep_returns(rewards, done_n, next_value, self.n_steps, self.gamma)
+        done_n = dones.reshape(U, T1, B, 1).expand(-1, -1, -1, N)
+        # time leads in nstep_returns: (T, U, B, N), gamma per unit over (U, B, N)
+        returns = nstep_returns(rewards.reshape(U, T1 - 1, B, N).transpose(0, 1), done_n.transpose(0, 1),
+                                next_value.transpose(0, 1), self.n_steps,
+                                unit_scalar(self.gamma, 3, rewards)).transpose(0, 1)
         if self.standardise_returns:
             ret_rms = ret_rms.update(returns)
             returns = ret_rms.normalise(returns)
-        return returns, ret_rms
+        return returns.reshape(self._lead + (T1 - 1, B, N)), ret_rms
 
     def _loss(self, objective, entropy, advantage, filled):
         """The actor's objective (T, B, N), summed over agents, with the
         entropy bonus, plus the value loss summed over agents; means over
-        the filled steps. Returns (loss, detached metrics)."""
-        fsum = filled.sum().clamp(min=1.0)
-        actor_loss = ((-objective.sum(-1) - self.entropy_coef * entropy) * filled).sum() / fsum
-        value_loss = ((advantage**2).sum(-1) * filled).sum() / fsum
+        the filled steps. Returns (loss, detached metrics): for U units the
+        sum of the units' losses, and (U,) metrics."""
+        U = self.n_units
+        T, B, N = objective.shape[-3:]
+        objective, advantage = objective.reshape(U, T, B, N), advantage.reshape(U, T, B, N)
+        entropy, filled = entropy.reshape(U, T, B), filled.reshape(U, T, B)
+        fsum = filled.sum((1, 2)).clamp(min=1.0)
+        actor_loss = ((-objective.sum(-1) - self.entropy_coef * entropy) * filled).sum((1, 2)) / fsum
+        value_loss = ((advantage**2).sum(-1) * filled).sum((1, 2)) / fsum
         loss = actor_loss + self.value_loss_coef * value_loss
         metrics = {
             "loss": loss.detach(),
             "actor_loss": actor_loss.detach(),
             "value_loss": value_loss.detach(),
-            "entropy": (entropy.detach() * filled).sum() / fsum,
+            "entropy": (entropy.detach() * filled).sum((1, 2)) / fsum,
         }
-        return loss, metrics
+        return loss.sum(), {k: v.reshape(self._lead) for k, v in metrics.items()}
 
     def a2c_loss(self, returns, obs_in, actions, filled, amask=None):
         """Advantage actor-critic loss. obs_in (N, T, B, D), returns and
@@ -254,6 +311,7 @@ class ACTrainState:
     # persistent per-env reward moments; None unless the env stack holds a
     # StandardiseReward marker (`ops/reward_stream.py`)
     reward_stream: Optional[RewardStream] = None
+    # counters: ints, or (U,) int64 arrays for U units
     env_steps: int = 0
     updates: int = 0
     # (env steps, seconds) of each train iteration, host clock around work
@@ -265,7 +323,9 @@ class ACTrainState:
         fields: `params` ({"actor", "critic"}) and `target_critic` in flax's
         state-dict form, the Adam moments in their nesting, the moments,
         0-d int32 counters and the generator state in place of the
-        threefry `key`. `timings` is not saved."""
+        threefry `key`. `timings` is not saved. A state of several units (a
+        sweep) raises, as `DQNTrainState.state_dict` does."""
+        refuse_units(self.model.n_units)
         return {
             "params": ckpt.params_state_dict(self.model.param_tree()),
             "target_critic": ckpt.params_state_dict(self.target_critic.param_tree()),
@@ -294,26 +354,38 @@ class ACTrainState:
         ckpt.load_generator(self.generator, state_dict)
 
 
-def build_train_functions(env: Environment, eval_env: Environment, cfg, time_limit: int, device):
+def build_train_functions(env: Environment, eval_env: Environment, cfg, time_limit: int, device, hypers=None):
     """Construct (init_state(seed), train_iteration(state), evaluate(state,
-    generator), update(state, rollout)). cfg is the `algorithm` config node."""
-    acfg = cfg
-    n_envs = int(acfg.get("parallel_envs", 1))
-    tau = float(acfg.target_update_interval_or_tau)
-    reward_plan = standardisation_plan(env)
-    early_exit = early_exit_option(acfg)
+    generator), update(state, rollout)). cfg is the `algorithm` config node.
 
-    def init_state(seed: int) -> ACTrainState:
-        init_gen = torch.Generator().manual_seed(int(seed))  # weights, made on the host
-        model = ACModel.create(env, acfg.model, acfg, generator=init_gen, device=device)
+    `hypers` makes a sweep group of one unit per {"lr"|"gamma"|"tau": value}
+    dict, with one seed per unit given to `init_state`, seeded as
+    `algos/dqn.py` seeds its units."""
+    acfg = cfg
+    lrs, gammas, taus = unit_hypers(acfg, hypers or [{}])
+    U = len(lrs)
+    n_envs = int(acfg.get("parallel_envs", 1))
+    tau = float(acfg.target_update_interval_or_tau)  # the regime; each unit's value is in taus
+    reward_plan = standardisation_plan(env)
+    early_exit = resolve_early_exit(early_exit_option(acfg), env, n_envs)
+
+    def init_state(seed) -> ACTrainState:
+        seeds = [int(s) for s in (seed if isinstance(seed, (list, tuple)) else [seed])]
+        if len(seeds) != U:
+            raise ValueError(f"init_state takes one seed per unit: {U} units, {len(seeds)} seeds")
+        init_gens = [torch.Generator().manual_seed(s) for s in seeds]  # weights, made on the host
+        model = ACModel.create(env, acfg.model, acfg, generator=init_gens, device=device, gamma=gammas)
+        zeros = pack_units(np.zeros(U, np.int64))
         return ACTrainState(
             model=model,
             target_critic=copy.deepcopy(model.critic).requires_grad_(False),
             # one Adam over the whole tree; a clip, if any, covers all of it
-            opt=make_optimizer(acfg.optimizer, model.param_leaves(), float(acfg.lr), acfg.grad_clip),
-            generator=torch.Generator(device=device).manual_seed(int(seed)),
+            opt=make_optimizer(acfg.optimizer, model.param_leaves(), pack_units(lrs), acfg.grad_clip, n_units=U),
+            generator=torch.Generator(device=device).manual_seed(seeds[0]),
             ret_rms=model.init_rms(device),
-            reward_stream=RewardStream.init(n_envs, env.n_agents, device) if reward_plan else None,
+            reward_stream=RewardStream.init(U * n_envs, env.n_agents, device) if reward_plan else None,
+            env_steps=zeros,
+            updates=zeros,
         )
 
     def update(state: ACTrainState, rollout: Rollout) -> dict:
@@ -321,34 +393,48 @@ def build_train_functions(env: Environment, eval_env: Environment, cfg, time_lim
         refresh. Leaves `env_steps` to the caller. Returns the metrics."""
         model = state.model
         params = model.param_leaves()
-        obs_agents = rollout.obs.permute(2, 0, 1, 3).contiguous()  # (N, T+1, E, D)
+        T1, E = rollout.obs.shape[:2]
+        E //= U
+        lead = (U,) if U > 1 else ()
+
+        def agents(x):  # (T', U*E, N, ...) -> (U*N, T', E, ...)
+            x = x.reshape((x.shape[0], U, E) + x.shape[2:]).permute((1, 3, 0, 2) + tuple(range(4, x.ndim + 1)))
+            return x.reshape((-1,) + x.shape[2:]).contiguous()
+
+        def units(x):  # (T', U*E, ...) -> (U, T', E, ...), no unit axis for one unit
+            x = x.reshape((x.shape[0], U, E) + x.shape[2:]).transpose(0, 1)
+            return x.reshape(lead + x.shape[1:])
+
+        obs_agents = agents(rollout.obs)  # (U*N, T+1, E, D)
         obs_in = obs_agents[:, :-1]
         # the mask of the observation each action was taken from
-        amask_in = rollout.action_mask.permute(2, 0, 1, 3)[:, :-1] if model.use_action_masks else None
+        amask_in = agents(rollout.action_mask)[:, :-1] if model.use_action_masks else None
+        actions, filled = units(rollout.actions), units(rollout.filled)
         with torch.no_grad():
             returns, state.ret_rms = model.compute_returns(
-                state.target_critic, obs_agents, rollout.rewards, rollout.dones, state.ret_rms
+                state.target_critic, obs_agents, units(rollout.rewards), units(rollout.dones), state.ret_rms
             )
         if not model.ppo:
-            loss, metrics = model.a2c_loss(returns, obs_in, rollout.actions, rollout.filled, amask_in)
+            loss, metrics = model.a2c_loss(returns, obs_in, actions, filled, amask_in)
             state.opt.step(torch.autograd.grad(loss, params))
         else:
             with torch.no_grad():
-                old_log_probs, _ = model.log_probs_entropy(obs_in, rollout.actions, amask_in)
+                old_log_probs, _ = model.log_probs_entropy(obs_in, actions, amask_in)
             epochs = []
             for _ in range(model.num_epochs):
-                loss, m = model.ppo_loss(returns, old_log_probs, obs_in, rollout.actions, rollout.filled, amask_in)
+                loss, m = model.ppo_loss(returns, old_log_probs, obs_in, actions, filled, amask_in)
                 state.opt.step(torch.autograd.grad(loss, params))
                 epochs.append(m)
-            metrics = {k: torch.stack([m[k] for m in epochs]).mean() for k in METRICS}
+            metrics = {k: torch.stack([m[k] for m in epochs]).mean(0) for k in METRICS}
         # the target critic, with the env-step count from before this
         # iteration's steps (the caller adds them after the update)
         if tau > 1.0:
-            if state.env_steps % int(tau) == 0:
-                hard_update(state.target_critic.param_leaves(), model.critic.param_leaves())
+            hard = unit_values(state.env_steps, U) % taus.astype(np.int64) == 0
+            hard_update(state.target_critic.param_leaves(), model.critic.param_leaves(), hard)
         elif tau < 1.0:
-            soft_update(state.target_critic.param_leaves(), model.critic.param_leaves(), tau)
-        state.updates += 1
+            soft_update(state.target_critic.param_leaves(), model.critic.param_leaves(),
+                        unit_scalar(taus, 2, params[0]))
+        state.updates = pack_units(unit_values(state.updates, U) + 1)
         return metrics
 
     def train_iteration(state: ACTrainState) -> dict:
@@ -359,7 +445,7 @@ def build_train_functions(env: Environment, eval_env: Environment, cfg, time_lim
                 state.model.policy(),
                 state.model.actor.init_hiddens(n_envs),
                 state.generator,
-                n_envs,
+                U * n_envs,
                 time_limit,
                 bool(acfg.use_proper_termination),
                 early_exit,
@@ -373,21 +459,24 @@ def build_train_functions(env: Environment, eval_env: Environment, cfg, time_lim
                 rollout = dataclasses.replace(rollout, rewards=rewards)
         with record_function("ac/update"):
             metrics = update(state, rollout)
-        # step accounting: the longest episode times the envs
-        state.env_steps += int(rollout.episode_lengths.max().item()) * n_envs
+        # step accounting: each unit's longest episode times its envs
+        t_max = rollout.episode_lengths.reshape(U, n_envs).amax(1).cpu().numpy().astype(np.int64)
+        state.env_steps = pack_units(unit_values(state.env_steps, U) + t_max * n_envs)
         return {
             **metrics,
-            "episode_returns": rollout.episode_returns,  # (E, N)
-            "episode_lengths": rollout.episode_lengths,  # (E,)
+            "episode_returns": rollout.episode_returns,  # (U*E, N)
+            "episode_lengths": rollout.episode_lengths,  # (U*E,)
         }
 
     def evaluate(state: ACTrainState, generator: torch.Generator) -> dict:
-        """Sampling-policy rollouts on the eval env. The training loop logs
-        its own rollouts' episodes, as the JAX package does; this is for
-        callers that want separate episodes."""
+        """Sampling-policy rollouts on the eval env, `eval_episodes` for
+        each unit (unit-major). The training loop logs its own rollouts'
+        episodes, as the JAX package does; this is for callers that want
+        separate episodes."""
         n = int(acfg.eval_episodes)
         rollout, _ = collect_episodes(
-            eval_env, state.model.policy(), state.model.actor.init_hiddens(n), generator, n, time_limit
+            eval_env, state.model.policy(), state.model.actor.init_hiddens(n), generator, U * n, time_limit,
+            early_exit=resolve_early_exit("auto", eval_env, n),
         )
         return {"episode_returns": rollout.episode_returns, "episode_lengths": rollout.episode_lengths}
 

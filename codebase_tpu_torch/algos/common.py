@@ -26,49 +26,135 @@ class Adam:
     The actor-critic family runs one Adam over the whole {"actor", "critic"}
     tree, and a clip there covers every leaf.
 
+    `n_units` > 1 runs one optimizer per unit of a sweep over parameters
+    whose leading axis is unit-major (`leaf.view(U, -1)` is unit u's row u):
+    `lr` may then be one value per unit, and the clip norm, the step count
+    and the bias corrections are each unit's own, as `jax.vmap` over optax
+    gives them. `step(grads, active)` moves only the active units (a unit
+    that may not train yet takes no step and keeps its count). One unit
+    keeps the scalar arithmetic, `lr` and `count` of a plain Adam.
+
     The clip decision stays on the device (`torch.where`), so a step never
     waits for the host. Parameters are updated in place.
     """
 
-    def __init__(self, params, lr: float, grad_clip=None, b1=0.9, b2=0.999, eps=1e-8, clip_mask=None):
+    def __init__(self, params, lr, grad_clip=None, b1=0.9, b2=0.999, eps=1e-8, clip_mask=None, n_units=1):
         self.params = list(params)
-        self.lr, self.b1, self.b2, self.eps = float(lr), b1, b2, eps
+        self.n_units = int(n_units)
+        self.lr = pack_units(unit_values(lr, self.n_units, np.float64))
+        self.b1, self.b2, self.eps = b1, b2, eps
         self.grad_clip = float(grad_clip) if grad_clip else None
         self.clip_mask = [True] * len(self.params) if clip_mask is None else [bool(m) for m in clip_mask]
         if len(self.clip_mask) != len(self.params):
             raise ValueError(f"clip_mask has {len(self.clip_mask)} entries for {len(self.params)} parameters")
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
-        self.count = 0
+        self.count = pack_units(np.zeros(self.n_units, np.int64))
 
     @torch.no_grad()
-    def step(self, grads) -> None:
-        grads = list(grads)
+    def step(self, grads, active=None) -> None:
+        U = self.n_units
+        active = np.ones(U, bool) if active is None else np.asarray(active, bool).reshape(U)
+        if not active.any():
+            return
+        grads = [g.reshape(U, -1) for g in grads]
         if self.grad_clip is not None:
-            g_norm = torch.sqrt(sum(torch.sum(g * g) for g, m in zip(grads, self.clip_mask) if m))
+            g_norm = torch.sqrt(sum(torch.sum(g * g, dim=1) for g, m in zip(grads, self.clip_mask) if m))[:, None]
             keep = g_norm < self.grad_clip
             grads = [
                 torch.where(keep, g, (g / g_norm) * self.grad_clip) if m else g
                 for g, m in zip(grads, self.clip_mask)
             ]
-        self.count += 1
+        counts = unit_values(self.count, U) + active
+        self.count = pack_units(counts)
         # optax forms the bias corrections in the default float type: 1 -
         # f32(b)**count for float32 parameters, float64 where JAX runs in
         # 64-bit mode
         f = np.float64 if self.params[0].dtype == torch.float64 else np.float32
-        bc1 = float(f(1.0) - f(self.b1) ** f(self.count))
-        bc2 = float(f(1.0) - f(self.b2) ** f(self.count))
+        bc1 = np.array([f(1.0) - f(self.b1) ** f(c) for c in counts])
+        bc2 = np.array([f(1.0) - f(self.b2) ** f(c) for c in counts])
+        lr = unit_values(self.lr, U, np.float64)
+        if U == 1:
+            bc1, bc2, neg_lr, live = float(bc1[0]), float(bc2[0]), -float(lr[0]), None
+        else:
+            device = self.params[0].device
+            bc1, bc2 = (torch.tensor(b, device=device)[:, None] for b in (bc1, bc2))
+            neg_lr = torch.tensor(-lr, dtype=self.params[0].dtype, device=device)[:, None]
+            live = None if active.all() else torch.tensor(active, device=device)[:, None]
         for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
-            mu.copy_((1.0 - self.b1) * g + self.b1 * mu)
-            nu.copy_((1.0 - self.b2) * (g * g) + self.b2 * nu)
-            p.add_((mu / bc1) / (torch.sqrt(nu / bc2) + self.eps), alpha=-self.lr)
+            p, mu, nu = p.view(U, -1), mu.view(U, -1), nu.view(U, -1)
+            new_mu = (1.0 - self.b1) * g + self.b1 * mu
+            new_nu = (1.0 - self.b2) * (g * g) + self.b2 * nu
+            upd = (new_mu / bc1) / (torch.sqrt(new_nu / bc2) + self.eps)
+            if U == 1:
+                mu.copy_(new_mu)
+                nu.copy_(new_nu)
+                p.add_(upd, alpha=neg_lr)
+            elif live is None:
+                mu.copy_(new_mu)
+                nu.copy_(new_nu)
+                p.add_(upd * neg_lr)
+            else:
+                mu.copy_(torch.where(live, new_mu, mu))
+                nu.copy_(torch.where(live, new_nu, nu))
+                p.copy_(torch.where(live, p + upd * neg_lr, p))
 
 
-def make_optimizer(name: str, params, lr: float, grad_clip=False, clip_mask=None) -> Adam:
+def make_optimizer(name: str, params, lr, grad_clip=False, clip_mask=None, n_units=1) -> Adam:
     """Only Adam (the presets' optimizer) is ported so far."""
     if str(name).lower() != "adam":
         raise NotImplementedError(f"optimizer {name!r} is not ported yet; use adam")
-    return Adam(params, lr, grad_clip, clip_mask=clip_mask)
+    return Adam(params, lr, grad_clip, clip_mask=clip_mask, n_units=n_units)
+
+
+# --------------------------------------------------------------- sweep units
+# The units of a sweep (one hyperparameter variant and seed each) train
+# together: every per-unit tensor carries a leading unit axis, folded into
+# the agent (group) axis for the networks. A state of one unit keeps the
+# layout of a plain run: scalar counters and hyperparameters, no unit axis.
+
+
+def unit_values(x, n_units: int, dtype=np.int64) -> np.ndarray:
+    """A counter or host hyperparameter as a (U,) array (a scalar is every
+    unit's)."""
+    return np.broadcast_to(np.asarray(x, dtype), (n_units,)).copy()
+
+
+def pack_units(values: np.ndarray):
+    """The inverse of `unit_values` for storage: a Python scalar for one
+    unit, the (U,) array otherwise."""
+    return values.item() if values.shape == (1,) else values
+
+
+def unit_scalar(values, ndim: int, like: torch.Tensor):
+    """Per-unit floats as an operand over tensors with a leading unit axis
+    of `ndim` dimensions: a Python float for one unit (the arithmetic of a
+    plain run), else a (U, 1, ..., 1) tensor of `like`'s dtype and device."""
+    values = np.asarray(values, np.float64).reshape(-1)
+    if values.size == 1:
+        return float(values[0])
+    return torch.tensor(values, dtype=like.dtype, device=like.device).reshape((-1,) + (1,) * (ndim - 1))
+
+
+def unit_hypers(acfg, hypers):
+    """The per-unit (U,) float64 arrays of lr, gamma and the target's tau,
+    from one {"lr"|"gamma"|"tau": value} dict per unit and the config's
+    defaults. The target regime (a hard copy every tau updates when the
+    config's tau > 1, a Polyak update when < 1) is the config's, so a tau
+    set must stay in it: ValueError otherwise, as the JAX sweep refuses."""
+    hypers = [dict(h) for h in hypers]
+    unknown = sorted({k for h in hypers for k in h} - {"lr", "gamma", "tau"})
+    if unknown:
+        raise ValueError(f"per-unit hyperparameters are lr, gamma and tau; got {unknown}")
+    defaults = {"lr": float(acfg.lr), "gamma": float(acfg.gamma), "tau": float(acfg.target_update_interval_or_tau)}
+    values = {k: np.array([float(h.get(k, d)) for h in hypers]) for k, d in defaults.items()}
+    hard = defaults["tau"] > 1.0
+    if any((t > 1.0) != hard for t in values["tau"]):
+        raise ValueError(
+            "swept tau values must share one regime (all hard-update intervals > 1 or all Polyak "
+            f"factors < 1), the config default's: got {values['tau'].tolist()} with default {defaults['tau']}"
+        )
+    return values["lr"], values["gamma"], values["tau"]
 
 
 def early_exit_option(acfg):
@@ -86,14 +172,42 @@ def early_exit_option(acfg):
     raise ValueError(f"rollout_early_exit must be auto/on/off, got {opt!r}")
 
 
-@torch.no_grad()
-def hard_update(target_params, source_params) -> None:
-    for t, s in zip(target_params, source_params):
-        t.copy_(s)
+def _live_units(units, like: torch.Tensor):
+    """None when every unit updates (`units` None or all True), else a
+    (U, 1) bool tensor of the units that do."""
+    if units is None or np.all(units):
+        return None
+    return torch.tensor(np.asarray(units, bool), device=like.device)[:, None]
 
 
 @torch.no_grad()
-def soft_update(target_params, source_params, tau: float) -> None:
-    """Polyak update: target <- (1 - tau) * target + tau * source."""
+def hard_update(target_params, source_params, units=None) -> None:
+    """target <- source; with `units` (a host bool per unit of a leading
+    unit axis), only the units marked True."""
+    if units is not None and not np.any(units):
+        return
+    live = _live_units(units, target_params[0])
     for t, s in zip(target_params, source_params):
-        t.copy_((1.0 - tau) * t + tau * s)
+        if live is None:
+            t.copy_(s)
+        else:
+            tv = t.view(len(live), -1)
+            tv.copy_(torch.where(live, s.view(len(live), -1), tv))
+
+
+@torch.no_grad()
+def soft_update(target_params, source_params, tau, units=None) -> None:
+    """Polyak update: target <- (1 - tau) * target + tau * source. `tau` is
+    a float, or a (U, 1) tensor of per-unit values over a leading unit
+    axis; `units` (host bools) limits the update to the units marked True."""
+    if units is not None and not np.any(units):
+        return
+    live = _live_units(units, target_params[0])
+    for t, s in zip(target_params, source_params):
+        if live is None and not isinstance(tau, torch.Tensor):
+            t.copy_((1.0 - tau) * t + tau * s)
+            continue
+        U = len(tau) if isinstance(tau, torch.Tensor) else len(live)
+        tv, sv = t.view(U, -1), s.view(U, -1)
+        new = (1.0 - tau) * tv + tau * sv
+        tv.copy_(new if live is None else torch.where(live, new, tv))

@@ -18,6 +18,18 @@ else a Polyak update. With an env that masks actions (SMAClite), the greedy
 action and the exploring draw take valid actions only, and the target
 side of the loss sees masked actions at -1e8 (the target Q, and under
 double Q the online Q before its argmax).
+
+`build_train_functions(..., hypers=[...])` trains the U units of a sweep
+(one {"lr"|"gamma"|"tau": value} dict each, seeds given to `init_state`)
+as one state: the U*E envs are unit-major, the networks fold the units into
+their agent axis (`models/multi_agent.py`), and every per-unit tensor
+(counters, moments, losses, dones and filled of a batch) carries a leading
+unit axis. Each unit keeps its own loss (a filled-masked mean), clip norm,
+Adam step, epsilon, counters, target maintenance, return moments and
+replay slots, as `jax.vmap` over the JAX package's iteration gives them,
+so one unit's numbers never depend on another's; they share the group's
+generator and every kernel launch. One unit is a plain run: scalar
+counters and hyperparameters, no unit axis.
 """
 
 from __future__ import annotations
@@ -32,9 +44,20 @@ import torch
 from torch import nn
 from torch.profiler import record_function
 
-from codebase_tpu_torch.algos.common import early_exit_option, hard_update, make_optimizer, soft_update
+import numpy as np
+
+from codebase_tpu_torch.algos.common import (
+    early_exit_option,
+    hard_update,
+    make_optimizer,
+    pack_units,
+    soft_update,
+    unit_hypers,
+    unit_scalar,
+    unit_values,
+)
 from codebase_tpu_torch.envs.api import Environment
-from codebase_tpu_torch.envs.vector import collect_episodes
+from codebase_tpu_torch.envs.vector import collect_episodes, resolve_early_exit
 from codebase_tpu_torch.envs.wrappers import standardisation_plan
 from codebase_tpu_torch.models import distributions as D
 from codebase_tpu_torch.models.mixers import QMixer
@@ -59,18 +82,21 @@ class DQNModel(nn.Module):
     """The value-based model: a multi-agent critic and, for QMIX, a mixer."""
 
     def __init__(self, critic: MultiAgentNetwork, mixer: Optional[QMixer], mixer_type: str,
-                 gamma: float, double_q: bool, standardise_returns: bool, use_action_masks: bool):
+                 gamma, double_q: bool, standardise_returns: bool, use_action_masks: bool):
         super().__init__()
         self.critic = critic
         self.mixer = mixer
         self.mixer_type = mixer_type
-        self.gamma = float(gamma)
+        # a float, or one per unit
+        self.gamma = pack_units(unit_values(gamma, critic.n_units, np.float64))
         self.double_q = bool(double_q)
         self.standardise_returns = bool(standardise_returns)
         self.use_action_masks = bool(use_action_masks)
 
     @staticmethod
-    def create(env: Environment, model_cfg, algo_cfg, generator=None, device="cpu") -> "DQNModel":
+    def create(env: Environment, model_cfg, algo_cfg, generator=None, device="cpu", gamma=None) -> "DQNModel":
+        """`generator` may be a list, one per unit of a sweep, and `gamma`
+        then one value per unit (None: the config's)."""
         name = model_cfg.get("name", "qnetwork")
         if name not in MIXER_TYPES:
             raise ValueError(f"model.name must be one of {sorted(MIXER_TYPES)}; got {name!r}")
@@ -101,8 +127,13 @@ class DQNModel(nn.Module):
                 generator=generator,
                 device=device,
             )
-        return DQNModel(critic, mixer, MIXER_TYPES[name], float(algo_cfg.gamma), bool(algo_cfg.double_q),
+        gamma = float(algo_cfg.gamma) if gamma is None else gamma
+        return DQNModel(critic, mixer, MIXER_TYPES[name], gamma, bool(algo_cfg.double_q),
                         bool(algo_cfg.get("standardise_returns", False)), env.has_action_mask)
+
+    @property
+    def n_units(self) -> int:
+        return self.critic.n_units
 
     def param_tree(self):
         """{"critic": ..., "mixer": ...} (the mixer only for QMIX), the JAX
@@ -135,37 +166,41 @@ class DQNModel(nn.Module):
         load_tree(dst, {k: params_from_numpy(tree[k], device) for k in dst})
 
     def init_rms(self, device="cpu") -> RunningMeanStd:
-        """Return moments: per agent for IDQN, one for the team otherwise."""
+        """Return moments: per agent for IDQN, one for the team otherwise
+        (each unit its own)."""
         shape = (self.critic.n_agents,) if self.mixer_type == "none" else (1,)
-        return RunningMeanStd.init(shape, device=device)
+        return RunningMeanStd.init(shape, device=device, n_units=self.n_units)
 
     # ---------------------------------------------------------------- acting
 
-    def policy(self, epsilon: float):
+    def policy(self, epsilon):
         """Epsilon-greedy rollout policy for `collect_episodes`.
 
         carry = RNN hiddens (N, L, E, C) or None; obs (E, N, D); mask (E, N,
         A). Joint exploration: one coin per env flips every agent to a
         uniform random action, uniform over the valid ones when the env masks
-        actions."""
+        actions. For U units the envs are unit-major (U*E of them), the
+        carry is (U*N, L, E, C) and `epsilon` may be one value per unit."""
+        U = self.n_units
 
         @torch.no_grad()
         def act(carry, obs, mask, generator):
-            x = obs.transpose(0, 1).unsqueeze(1)  # (N, 1, E, D)
+            E = obs.shape[0] // U
+            x = unit_agents(obs, U).unsqueeze(1)  # (U*N, 1, E, D)
             q, carry = self.critic(x, carry)
-            q = q[:, 0]  # (N, E, A)
+            q = q[:, 0]  # (U*N, E, A)
             if self.use_action_masks:
-                amask = mask.transpose(0, 1)  # (N, E, A)
+                amask = unit_agents(mask, U)  # (U*N, E, A)
                 q = D.apply_mask(q, amask)
-            greedy = q.argmax(-1)  # (N, E)
-            E = obs.shape[0]
-            explore = torch.rand((E,), generator=generator, device=obs.device) < epsilon
+            greedy = q.argmax(-1)  # (U*N, E)
+            eps = unit_scalar(epsilon, 3, obs)
+            explore = torch.rand((U * E,), generator=generator, device=obs.device).reshape(U, 1, E) < eps
             if self.use_action_masks:
                 rand = D.sample(generator, torch.where(amask > 0, 0.0, float("-inf")))
             else:
                 rand = torch.randint(0, q.shape[-1], greedy.shape, generator=generator, device=obs.device)
-            actions = torch.where(explore[None, :], rand, greedy)
-            return carry, actions.T.contiguous()  # (E, N)
+            actions = torch.where(explore, rand.reshape(U, -1, E), greedy.reshape(U, -1, E))
+            return carry, actions.transpose(1, 2).reshape(U * E, -1).contiguous()  # (U*E, N)
 
         return act
 
@@ -175,17 +210,28 @@ class DQNModel(nn.Module):
         """Episode double-Q TD loss on a reference-layout batch:
         obss (N, T+1, B, D), actions (N, T, B), rewards (N, T, B),
         dones (T+1, B), filled (T, B), action_mask (N, T+1, B, A) or None.
-        Returns (loss, new ret_rms).
+        Returns (loss, new ret_rms); for U units the sum of the units'
+        losses (see `unit_losses`)."""
+        losses, ret_rms = self.unit_losses(target, batch, ret_rms)
+        return losses.sum(), ret_rms
+
+    def unit_losses(self, target: "DQNModel", batch: dict, ret_rms: RunningMeanStd):
+        """`loss` per unit: (U,) losses and the new moments. For U units the
+        agents of the batch are U*N (unit-major) and dones and filled carry
+        a leading unit axis, as `batch_to_reference_layout` lays them out.
 
         With `standardise_returns` the target is denormalised with the
         moments as they were, the moments are updated with the returns
         (every (t, b) cell, filled or not, as the JAX package does), and the
         returns are normalised with the updated moments."""
+        U, N = self.n_units, self.critic.n_agents
         obss = batch["obss"]
         actions = batch["actions"]
-        q_all, _ = self.critic(obss)  # (N, T+1, B, A)
-        chosen = q_all[:, :-1].gather(-1, actions.unsqueeze(-1)).squeeze(-1)  # (N, T, B)
-        filled = batch["filled"]
+        T, B = actions.shape[-2:]
+        q_all, _ = self.critic(obss)  # (U*N, T+1, B, A)
+        chosen = q_all[:, :-1].gather(-1, actions.unsqueeze(-1)).squeeze(-1).reshape(U, N, T, B)
+        filled = batch["filled"].reshape(U, T, B)
+        dones = batch["dones"].reshape(U, T + 1, B)[:, 1:]  # (U, T, B)
         with torch.no_grad():
             tq_all, _ = target.critic(obss)
             tq = tq_all[:, 1:]
@@ -199,42 +245,52 @@ class DQNModel(nn.Module):
                 a_prime = qc.argmax(-1, keepdim=True)
                 target_qs = tq.gather(-1, a_prime).squeeze(-1)
             else:
-                target_qs = tq.amax(-1)  # (N, T, B)
+                target_qs = tq.amax(-1)
+            target_qs = target_qs.reshape(U, N, T, B)
 
         if self.mixer_type == "none":
+            gamma = unit_scalar(self.gamma, 4, obss)
             with torch.no_grad():
-                dones = batch["dones"][1:][None]  # (1, T, B)
                 if self.standardise_returns:
                     # moments over the trailing agent axis
-                    target_qs = ret_rms.denormalise(target_qs.permute(1, 2, 0)).permute(2, 0, 1)
-                returns = batch["rewards"] + self.gamma * target_qs * (1.0 - dones)
+                    target_qs = ret_rms.denormalise(target_qs.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+                returns = batch["rewards"].reshape(U, N, T, B) + gamma * target_qs * (1.0 - dones[:, None])
                 if self.standardise_returns:
-                    ret_rms = ret_rms.update(returns.permute(1, 2, 0))
-                    returns = ret_rms.normalise(returns.permute(1, 2, 0)).permute(2, 0, 1)
-            loss_tb = ((chosen - returns) ** 2).sum(0)  # sum over agents
+                    ret_rms = ret_rms.update(returns.permute(0, 2, 3, 1))
+                    returns = ret_rms.normalise(returns.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+            loss_tb = ((chosen - returns) ** 2).sum(1)  # sum over agents
         else:
+            gamma = unit_scalar(self.gamma, 3, obss)
             # cooperative: the team reward of agent 0
-            rewards = batch["rewards"][0]  # (T, B)
-            dones = batch["dones"][1:]  # (T, B)
+            rewards = batch["rewards"].reshape(U, N, T, B)[:, 0]  # (U, T, B)
             if self.mixer_type == "vdn":
-                chosen_tot = chosen.sum(0)  # (T, B)
-                target_tot = target_qs.sum(0)
+                chosen_tot = chosen.sum(1)  # (U, T, B)
+                target_tot = target_qs.sum(1)
             else:
-                # states: the agents' obs concatenated -> (T+1, B, N*D)
-                states = torch.cat(list(obss), dim=-1)
-                chosen_tot = self.mixer(chosen, states[:-1])
+                # states: each unit's agents' obs concatenated -> (U, T+1, B, N*D)
+                states = obss.reshape((U, N) + obss.shape[1:]).permute(0, 2, 3, 1, 4).reshape(U, T + 1, B, -1)
+                lead = (U,) if U > 1 else ()
+                chosen_tot = self.mixer(chosen.reshape(U * N, T, B), states[:, :-1].reshape(lead + (T, B, -1)))
+                chosen_tot = chosen_tot.reshape(U, T, B)
                 with torch.no_grad():
-                    target_tot = target.mixer(target_qs, states[1:])
+                    target_tot = target.mixer(target_qs.reshape(U * N, T, B),
+                                              states[:, 1:].reshape(lead + (T, B, -1))).reshape(U, T, B)
             with torch.no_grad():
                 if self.standardise_returns:
-                    target_tot = target_tot * torch.sqrt(ret_rms.var[0]) + ret_rms.mean[0]
-                returns = rewards + self.gamma * target_tot * (1.0 - dones)
+                    target_tot = ret_rms.denormalise(target_tot[..., None])[..., 0]
+                returns = rewards + gamma * target_tot * (1.0 - dones)
                 if self.standardise_returns:
-                    ret_rms = ret_rms.update(returns.reshape(-1, 1))
-                    returns = (returns - ret_rms.mean[0]) / torch.sqrt(ret_rms.var[0])
+                    ret_rms = ret_rms.update(returns)
+                    returns = ret_rms.normalise(returns[..., None])[..., 0]
             loss_tb = (chosen_tot - returns) ** 2
-        loss = (loss_tb * filled).sum() / filled.sum().clamp(min=1.0)
-        return loss, ret_rms
+        losses = (loss_tb * filled).sum((1, 2)) / filled.sum((1, 2)).clamp(min=1.0)
+        return losses, ret_rms
+
+
+def unit_agents(x, n_units: int):
+    """(U*E, N, ...) unit-major envs -> (U*N, E, ...) unit-major agents."""
+    x = x.reshape((n_units, -1) + x.shape[1:]).transpose(1, 2)
+    return x.reshape((-1,) + x.shape[2:])
 
 
 @dataclass
@@ -248,6 +304,7 @@ class DQNTrainState:
     # persistent per-env reward moments; None unless the env stack holds a
     # StandardiseReward marker (`ops/reward_stream.py`)
     reward_stream: Optional[RewardStream] = None
+    # counters: ints, or (U,) int64 arrays for U units
     env_steps: int = 0
     updates: int = 0
     last_target_update: int = 0
@@ -262,7 +319,9 @@ class DQNTrainState:
         field with `pos`, the moments, 0-d int32 counters and the generator
         state in place of the threefry `key`. Tensors stay where they are
         (the codec moves each to the host as it writes it); `timings` is
-        not saved."""
+        not saved. A state of several units (a sweep) raises: a sweep does
+        not checkpoint, as the JAX package's vmapped sweep does not."""
+        refuse_units(self.model.n_units)
         buf = self.buffer
         return {
             "params": ckpt.params_state_dict(self.model.param_tree()),
@@ -304,10 +363,31 @@ class DQNTrainState:
         ckpt.load_generator(self.generator, state_dict)
 
 
-def build_train_functions(env: Environment, eval_env: Environment, cfg, time_limit: int, device):
+def refuse_units(n_units: int) -> None:
+    if n_units > 1:
+        raise NotImplementedError(
+            f"a train state of {n_units} sweep units has no checkpoint: a sweep does not checkpoint "
+            "(neither does the JAX package's vmapped sweep); run one unit through codebase_tpu_torch.run"
+        )
+
+
+def build_train_functions(env: Environment, eval_env: Environment, cfg, time_limit: int, device, hypers=None):
     """Construct (init_state(seed), train_iteration(state), evaluate(state,
-    generator)). cfg is the `algorithm` config node."""
+    generator)). cfg is the `algorithm` config node. `train_iteration.update
+    (state, batch, active=None)` is one update on a reference-layout batch.
+
+    `hypers`, one {"lr"|"gamma"|"tau": value} dict per unit (None: one unit
+    with the config's values), makes a sweep group: `init_state(seeds)`
+    then takes one seed per unit. Each unit's weights come from a host
+    generator seeded with its seed, as a one-unit run's do; the group's
+    device generator (rollouts, exploration, replay sampling) is seeded
+    with the first unit's seed, so one unit reproduces a plain run and a
+    unit's draws do not depend on the other units' seeds. E is each unit's
+    env count, and `updates_per_collect: auto` is E."""
     acfg = cfg
+    lrs, gammas, taus = unit_hypers(acfg, hypers or [{}])
+    U = len(lrs)
+    lead = (U,) if U > 1 else ()
     n_envs = int(acfg.get("parallel_envs", 1))
     batch_size = int(acfg.batch_size)
     # round the episode capacity up to a multiple of the insert width, as
@@ -315,7 +395,7 @@ def build_train_functions(env: Environment, eval_env: Environment, cfg, time_lim
     buffer_size = -(-int(acfg.buffer_size) // n_envs) * n_envs
     updates_per_collect = acfg.get("updates_per_collect", "auto")
     n_updates = n_envs if updates_per_collect == "auto" else int(updates_per_collect)
-    tau = float(acfg.target_update_interval_or_tau)
+    tau = float(acfg.target_update_interval_or_tau)  # the regime; each unit's value is in taus
     slot_reuse = str(acfg.get("replay_slot_reuse", "reference"))
     eps_sched = epsilon_schedule(
         acfg.eps_decay_style,
@@ -329,52 +409,67 @@ def build_train_functions(env: Environment, eval_env: Environment, cfg, time_lim
         torch, str(acfg.get("replay_obs_dtype", "bfloat16" if env.integer_valued_obs else "float32"))
     )
     reward_plan = standardisation_plan(env)
-    early_exit = early_exit_option(acfg)
+    early_exit = resolve_early_exit(early_exit_option(acfg), env, n_envs)
 
-    def init_state(seed: int) -> DQNTrainState:
-        init_gen = torch.Generator().manual_seed(int(seed))  # weights, made on the host
-        model = DQNModel.create(env, acfg.model, acfg, generator=init_gen, device=device)
+    def init_state(seed) -> DQNTrainState:
+        seeds = [int(s) for s in (seed if isinstance(seed, (list, tuple)) else [seed])]
+        if len(seeds) != U:
+            raise ValueError(f"init_state takes one seed per unit: {U} units, {len(seeds)} seeds")
+        init_gens = [torch.Generator().manual_seed(s) for s in seeds]  # weights, made on the host
+        model = DQNModel.create(env, acfg.model, acfg, generator=init_gens, device=device, gamma=gammas)
         target = copy.deepcopy(model).requires_grad_(False)
+        zeros = pack_units(np.zeros(U, np.int64))
         return DQNTrainState(
             model=model,
             target=target,
-            opt=make_optimizer(acfg.optimizer, model.param_leaves(), float(acfg.lr), acfg.grad_clip,
-                               clip_mask=model.clip_mask()),
+            opt=make_optimizer(acfg.optimizer, model.param_leaves(), pack_units(lrs), acfg.grad_clip,
+                               clip_mask=model.clip_mask(), n_units=U),
             buffer=replay_init(
                 buffer_size, time_limit, env.n_agents, env.obs_dim, env.n_actions,
-                with_mask=env.has_action_mask, obs_dtype=obs_dtype, device=device,
+                with_mask=env.has_action_mask, obs_dtype=obs_dtype, device=device, n_units=U,
             ),
-            generator=torch.Generator(device=device).manual_seed(int(seed)),
+            generator=torch.Generator(device=device).manual_seed(seeds[0]),
             ret_rms=model.init_rms(device),
-            reward_stream=RewardStream.init(n_envs, env.n_agents, device) if reward_plan else None,
+            reward_stream=RewardStream.init(U * n_envs, env.n_agents, device) if reward_plan else None,
+            env_steps=zeros,
+            updates=zeros,
+            last_target_update=zeros,
         )
 
-    def update(state: DQNTrainState, batch: dict):
-        """One gradient update, then target maintenance."""
+    def update(state: DQNTrainState, batch: dict, active=None):
+        """One gradient update, then target maintenance, for the units
+        marked in `active` (host bools; None: all). The others keep their
+        params, moments, counters and target. Returns the (U,) losses."""
+        active = np.ones(U, bool) if active is None else np.asarray(active, bool)
         model = state.model
         params = model.param_leaves()
-        loss, state.ret_rms = model.loss(state.target, batch, state.ret_rms)
-        grads = torch.autograd.grad(loss, params)
-        state.opt.step(grads)
-        state.updates += 1
+        losses, ret_rms = model.unit_losses(state.target, batch, state.ret_rms)
+        grads = torch.autograd.grad(losses.sum(), params)
+        state.opt.step(grads, active)
+        state.ret_rms = ret_rms if active.all() else ret_rms.where(
+            torch.tensor(active, device=ret_rms.count.device), state.ret_rms)
+        updates = unit_values(state.updates, U) + active
+        state.updates = pack_units(updates)
         if tau > 1.0:
-            if state.updates - state.last_target_update >= tau:
-                hard_update(state.target.param_leaves(), params)
-                state.last_target_update = state.updates
+            last = unit_values(state.last_target_update, U)
+            hard = active & (updates - last >= taus)
+            hard_update(state.target.param_leaves(), params, hard)
+            state.last_target_update = pack_units(np.where(hard, updates, last))
         elif tau < 1.0:
-            soft_update(state.target.param_leaves(), params, tau)
-        return loss.detach()
+            soft_update(state.target.param_leaves(), params, unit_scalar(taus, 2, params[0]), active)
+        return losses.detach()
 
     def train_iteration(state: DQNTrainState) -> dict:
         # the named ranges below are what `codebase_tpu_torch.profile` reads
-        epsilon = eps_sched(state.env_steps)
+        env_steps = unit_values(state.env_steps, U)
+        epsilon = pack_units(np.array([eps_sched(s) for s in env_steps]))
         with record_function("dqn/rollout"):
             rollout, _ = collect_episodes(
                 env,
                 state.model.policy(epsilon),
                 state.model.critic.init_hiddens(n_envs),
                 state.generator,
-                n_envs,
+                U * n_envs,
                 time_limit,
                 bool(acfg.use_proper_termination),
                 early_exit,
@@ -388,39 +483,51 @@ def build_train_functions(env: Environment, eval_env: Environment, cfg, time_lim
                 rollout = dataclasses.replace(rollout, rewards=rewards)
         with record_function("dqn/replay_add"):
             replay_add(state.buffer, rollout, slot_reuse)
-            state.env_steps += int(rollout.env_steps.item())
+            env_steps = env_steps + rollout.filled.reshape(time_limit, U, n_envs).sum((0, 2)).cpu().numpy().astype(np.int64)
+            state.env_steps = pack_units(env_steps)
 
-        if state.env_steps > int(acfg.training_start) and state.buffer.can_sample(batch_size):
+        # each unit trains once it is past training_start (the group draws
+        # the batches when any unit does)
+        can_update = (env_steps > int(acfg.training_start)) & state.buffer.can_sample(batch_size)
+        if can_update.any():
             with record_function("dqn/updates"):
                 # ONE gather for all updates of this iteration
                 batches = replay_sample_many(state.buffer, state.generator, batch_size, n_updates)
                 losses = [
                     update(state, batch_to_reference_layout(
-                        {k: (v[u] if v is not None else None) for k, v in batches.items()}
-                    ))
+                        {k: (v[u] if v is not None else None) for k, v in batches.items()}, U
+                    ), can_update)
                     for u in range(n_updates)
                 ]
-                loss = torch.stack(losses).mean()
+                loss = torch.stack(losses).mean(0)
+                if not can_update.all():
+                    loss = torch.where(torch.tensor(can_update, device=loss.device), loss, math.nan)
+                loss = loss.reshape(lead)
         else:
-            loss = torch.tensor(math.nan)  # "no update happened" for the logger's nanmean
+            loss = torch.full(lead, math.nan)  # "no update happened" for the logger's nanmean
         return {
             "loss": loss,
             "epsilon": epsilon,
-            "episode_returns": rollout.episode_returns,  # (E, N)
-            "episode_lengths": rollout.episode_lengths,  # (E,)
+            "episode_returns": rollout.episode_returns,  # (U*E, N)
+            "episode_lengths": rollout.episode_lengths,  # (U*E,)
         }
 
     def evaluate(state: DQNTrainState, generator: torch.Generator) -> dict:
-        """Rollouts on the eval env at `eps_evaluation`."""
+        """Rollouts on the eval env at `eps_evaluation`, `eval_episodes` for
+        each unit (unit-major)."""
         n = int(acfg.eval_episodes)
         rollout, _ = collect_episodes(
             eval_env,
             state.model.policy(float(acfg.eps_evaluation)),
             state.model.critic.init_hiddens(n),
             generator,
-            n,
+            U * n,
             time_limit,
+            early_exit=resolve_early_exit("auto", eval_env, n),
         )
         return {"episode_returns": rollout.episode_returns, "episode_lengths": rollout.episode_lengths}
 
+    # the update on a given batch, for callers that lay out their own
+    # (the parity tests)
+    train_iteration.update = update
     return init_state, train_iteration, evaluate

@@ -58,6 +58,16 @@ class Rollout:
         return self.filled.sum()
 
 
+def resolve_early_exit(option, env: Environment, n_envs: int):
+    """An `early_exit` value for `n_envs` envs of `env`: "auto" is True for
+    E >= 512 when the env can end early (the JAX package's rule), else
+    `option` as given. A sweep decides on one unit's E, as the JAX rule
+    sees E under vmap."""
+    if option == "auto":
+        return n_envs >= 512 and env.early_termination_possible
+    return option
+
+
 def collect_episodes(
     env: Environment,
     policy: Callable,
@@ -77,8 +87,7 @@ def collect_episodes(
     that can end before its time limit, the JAX package's rule. Returns
     (Rollout, final carry).
     """
-    if early_exit == "auto":
-        early_exit = n_envs >= 512 and env.early_termination_possible
+    early_exit = resolve_early_exit(early_exit, env, n_envs)
     seed = torch.randint(2**62, (), generator=generator, device=generator.device)
     generator = torch.Generator(device=generator.device).manual_seed(int(seed))
     states, ts = env.reset_batch(generator, n_envs)

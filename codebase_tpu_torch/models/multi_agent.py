@@ -8,6 +8,12 @@ list of sharing indices), `per_agent_params` gathers them to (N, ...) with
 every layer is one batched matmul over the N agents; each GRU layer is one
 kernel launch over (agents, batch tiles).
 
+The units of a sweep fold into the same axis: given one generator per unit,
+the network holds U*G stacked groups (unit u's are u*G .. u*G + G-1, each
+unit's weights drawn from its own generator as a one-unit network draws
+them) and runs U*N agent rows, `agent_to_group[u*N + a] = u*G + sharing[a]`.
+Every layer, and every GRU kernel launch, then serves all units at once.
+
 Agents must have equal observation and action sizes; the pad-to-max path
 for heterogeneous agents waits for the environments that need it
 (ROADMAP.md Queue 1).
@@ -21,7 +27,7 @@ import torch
 from torch import nn
 
 from codebase_tpu_torch.models.networks import make_network_spec
-from codebase_tpu_torch.utils.params import load_tree, module_to_tree, tree_leaves, tree_map, tree_to_module
+from codebase_tpu_torch.utils.params import load_tree, module_to_tree, stack_trees, tree_leaves, tree_map, tree_to_module
 
 
 def resolve_sharing(sharing: Union[bool, Sequence[int]], n_agents: int) -> Tuple[int, ...]:
@@ -53,7 +59,9 @@ class MultiAgentNetwork(nn.Module):
     Parameters live in `self.params` with the JAX package's tree layout and
     a leading group axis on every leaf (`param_tree()` returns the plain
     nested dict). `forward(inputs (N, T, B, D), hiddens (N, L, B, C))` ->
-    (outputs (N, T, B, A), new hiddens or None)."""
+    (outputs (N, T, B, A), new hiddens or None). `generator` may be a list
+    of one generator per unit: the agent axis is then U*N and the group
+    axis U*G, unit-major."""
 
     def __init__(
         self,
@@ -77,17 +85,18 @@ class MultiAgentNetwork(nn.Module):
                 "agents with different obs/action sizes are not ported yet (ROADMAP.md Queue 1)"
             )
         self.sharing = resolve_sharing(parameter_sharing, n_agents)
-        self.n_agents = n_agents
-        self.n_groups = max(self.sharing) + 1
+        self.n_agents = n_agents  # of one unit
+        self.n_groups = max(self.sharing) + 1  # of one unit
         self.use_rnn = bool(use_rnn)
         dims = (int(input_sizes[0]),) + tuple(int(h) for h in hidden_dims) + (int(output_sizes[0]),)
         self.spec = make_network_spec(dims, use_rnn, use_orthogonal_init, compute_dtype, fused_rnn)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        self.params = tree_to_module(_stack([self.spec.init(generator) for _ in range(self.n_groups)]))
-        self.register_buffer(
-            "agent_to_group", torch.tensor(self.sharing, dtype=torch.long), persistent=False
-        )
+        generators = generator if isinstance(generator, (list, tuple)) else [generator]
+        self.n_units = len(generators)
+        self.params = tree_to_module(stack_trees([self.spec.init(g) for g in generators for _ in range(self.n_groups)]))
+        groups = [u * self.n_groups + s for u in range(self.n_units) for s in self.sharing]
+        self.register_buffer("agent_to_group", torch.tensor(groups, dtype=torch.long), persistent=False)
         self.to(device)
 
     def param_tree(self):
@@ -117,18 +126,9 @@ class MultiAgentNetwork(nn.Module):
         return outs, None
 
     def init_hiddens(self, batch_size: int):
-        """Zero hidden state (N, L, B, C), or None for MLP networks (C = H for
-        the GRU, 2H for the LSTM)."""
+        """Zero hidden state (U*N, L, B, C), or None for MLP networks (C = H
+        for the GRU, 2H for the LSTM)."""
         if not self.use_rnn:
             return None
-        return self.spec.init_hiddens(self.n_agents, batch_size, self.agent_to_group.device)
+        return self.spec.init_hiddens(self.n_units * self.n_agents, batch_size, self.agent_to_group.device)
 
-
-def _stack(trees):
-    """Stack same-shaped trees along a new leading (group) axis."""
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
-    if isinstance(first, list):
-        return [_stack([t[i] for t in trees]) for i in range(len(first))]
-    return torch.stack(trees)

@@ -12,6 +12,11 @@ insert would double its memory traffic) and returns the same state object.
 obs and action_mask are stored in `obs_dtype` and cast to float32 when a
 batch is laid out for the loss; `build_train_functions` picks bfloat16 when the env
 declares `integer_valued_obs`, which bf16 stores exactly.
+
+The units of a sweep share one buffer of U x S slots, unit u's are slots
+u*S .. u*S + S-1. Every unit inserts its E episodes per insert (the envs
+of a rollout are unit-major), so `pos` is common, and each unit samples
+from its own slots.
 """
 
 from __future__ import annotations
@@ -32,11 +37,13 @@ class ReplayState:
     dones: torch.Tensor  # (S, T+1)
     filled: torch.Tensor  # (S, T)
     action_mask: Optional[torch.Tensor]  # (S, T+1, N, A), None for maskless envs
-    pos: int = 0  # episodes ever added
+    pos: int = 0  # episodes ever added (by each unit)
+    n_units: int = 1  # U units of S slots each; the tensors hold U * S
 
     @property
     def size(self) -> int:
-        return self.obs.shape[0]
+        """Slots of one unit."""
+        return self.obs.shape[0] // self.n_units
 
     @property
     def num_stored(self) -> int:
@@ -55,8 +62,10 @@ def replay_init(
     with_mask: bool = True,
     obs_dtype=torch.float32,
     device="cpu",
+    n_units: int = 1,
 ) -> ReplayState:
-    S, T, N, D, A = size, time_limit, n_agents, obs_dim, n_actions
+    """`size` slots for each of `n_units` units."""
+    S, T, N, D, A = size * n_units, time_limit, n_agents, obs_dim, n_actions
     return ReplayState(
         obs=torch.zeros((S, T + 1, N, D), dtype=obs_dtype, device=device),
         actions=torch.zeros((S, T, N), dtype=torch.int64, device=device),
@@ -67,12 +76,14 @@ def replay_init(
             torch.ones((S, T + 1, N, A), dtype=obs_dtype, device=device) if with_mask else None
         ),
         pos=0,
+        n_units=n_units,
     )
 
 
 def replay_add(state: ReplayState, rollout: Rollout, slot_reuse: str = "reference") -> ReplayState:
     """Insert E padded episodes (time-major rollout -> episode-major slots),
-    in place.
+    in place; with U units, U*E unit-major episodes, E into each unit's
+    slots.
 
     slot_reuse — what happens to a slot's old contents past the new episode's
     end (`t > len`):
@@ -83,9 +94,10 @@ def replay_add(state: ReplayState, rollout: Rollout, slot_reuse: str = "referenc
     """
     if slot_reuse not in ("reference", "clear"):
         raise ValueError(f"slot_reuse must be 'reference' or 'clear'; got {slot_reuse!r}")
-    E = rollout.filled.shape[1]
-    S = state.size
-    slots = (state.pos + torch.arange(E, device=state.obs.device)) % S
+    U, S = state.n_units, state.size
+    E = rollout.filled.shape[1] // U
+    device = state.obs.device
+    slots = ((state.pos + torch.arange(E, device=device)) % S + S * torch.arange(U, device=device)[:, None]).reshape(-1)
 
     fil = rollout.filled.transpose(0, 1)  # (E, T)
     written_t = fil > 0
@@ -111,19 +123,24 @@ def replay_add(state: ReplayState, rollout: Rollout, slot_reuse: str = "referenc
 
 
 def replay_sample_many(state: ReplayState, generator: torch.Generator, batch_size: int, n: int):
-    """Draw `n` independent uniform batches (with replacement) in ONE gather.
+    """Draw `n` independent uniform batches (with replacement) in ONE gather,
+    each unit's from its own slots.
 
     Leaves keep the gathered slot-major layout with a leading n axis — obs
-    (n, B, T+1, N, D), actions (n, B, T, N), dones (n, B, T+1), ... — and
-    `batch_to_reference_layout` lays out one update's slice."""
-    idx = torch.randint(
-        0, state.num_stored, (n * batch_size,), generator=generator, device=state.obs.device
-    )
-    return gather_batches(state, idx, batch_size, n)
+    (n, U*B, T+1, N, D), actions (n, U*B, T, N), dones (n, U*B, T+1), ...,
+    the U units' B episodes unit-major — and `batch_to_reference_layout`
+    lays out one update's slice."""
+    U, device = state.n_units, state.obs.device
+    idx = torch.randint(0, state.num_stored, (U, n * batch_size), generator=generator, device=device)
+    if U > 1:
+        idx = idx + state.size * torch.arange(U, device=device)[:, None]
+        idx = idx.reshape(U, n, batch_size).transpose(0, 1)
+    return gather_batches(state, idx.reshape(-1), U * batch_size, n)
 
 
 def gather_batches(state: ReplayState, idx, batch_size: int, n: int):
-    """The gather of `replay_sample_many` on given slot indices (n*B,)."""
+    """The gather of `replay_sample_many` on given slot indices (n*B,), B
+    rows an update (U*B for U units)."""
 
     def take(buf):
         g = buf[idx]
@@ -139,17 +156,29 @@ def gather_batches(state: ReplayState, idx, batch_size: int, n: int):
     )
 
 
-def batch_to_reference_layout(b: dict) -> dict:
+def batch_to_reference_layout(b: dict, n_units: int = 1) -> dict:
     """One update's slot-major slice -> the reference `Batch` layout:
     obss (N, T+1, B, D), actions (N, T, B), rewards (N, T, B),
-    dones (T+1, B), filled (T, B), action_mask (N, T+1, B, A)."""
+    dones (T+1, B), filled (T, B), action_mask (N, T+1, B, A).
+
+    For U units (the slice holds U*B rows, unit-major) the units fold into
+    the agent axis, U*N, and dones and filled take a leading unit axis:
+    (U, T+1, B) and (U, T, B)."""
+    U = n_units
+    lead = (U,) if U > 1 else ()
+
+    def agents(x):  # (U*B, T', N, ...) -> (U*N, T', B, ...)
+        x = x.reshape((U, -1) + x.shape[1:]).transpose(1, 3)
+        return x.reshape((U * x.shape[1],) + x.shape[2:])
+
+    def steps(x):  # (U*B, T') -> (U, T', B)
+        return x.reshape(U, -1, x.shape[-1]).transpose(1, 2).reshape(lead + (x.shape[-1], -1))
+
     return dict(
-        obss=b["obss"].permute(2, 1, 0, 3).float(),
-        actions=b["actions"].permute(2, 1, 0),
-        rewards=b["rewards"].permute(2, 1, 0),
-        dones=b["dones"].permute(1, 0),
-        filled=b["filled"].permute(1, 0),
-        action_mask=(
-            b["action_mask"].permute(2, 1, 0, 3).float() if b["action_mask"] is not None else None
-        ),
+        obss=agents(b["obss"]).float(),
+        actions=agents(b["actions"]),
+        rewards=agents(b["rewards"]),
+        dones=steps(b["dones"]),
+        filled=steps(b["filled"]),
+        action_mask=agents(b["action_mask"]).float() if b["action_mask"] is not None else None,
     )

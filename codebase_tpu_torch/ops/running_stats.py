@@ -17,37 +17,57 @@ import torch
 
 @dataclass(frozen=True)
 class RunningMeanStd:
-    mean: torch.Tensor  # (D,)
-    var: torch.Tensor  # (D,)
-    count: torch.Tensor  # () float32
+    mean: torch.Tensor  # (D,), or (U, D) for U units
+    var: torch.Tensor  # (D,), or (U, D)
+    count: torch.Tensor  # () float32, or (U,)
 
     @staticmethod
-    def init(shape, epsilon: float = 1e-4, device="cpu") -> "RunningMeanStd":
+    def init(shape, epsilon: float = 1e-4, device="cpu", n_units: int = 1) -> "RunningMeanStd":
+        lead = (n_units,) if n_units > 1 else ()
         return RunningMeanStd(
-            mean=torch.zeros(shape, device=device),
-            var=torch.ones(shape, device=device),
-            count=torch.tensor(epsilon, dtype=torch.float32, device=device),
+            mean=torch.zeros(lead + tuple(shape), device=device),
+            var=torch.ones(lead + tuple(shape), device=device),
+            count=torch.full(lead, epsilon, dtype=torch.float32, device=device),
         )
 
+    @property
+    def n_units(self) -> int:
+        return self.count.numel()
+
     def update(self, arr: torch.Tensor) -> "RunningMeanStd":
-        """Merge a batch of samples; arr is reshaped to (-1, D)."""
-        arr = arr.reshape(-1, arr.shape[-1]).float()
-        batch_count = arr.shape[0]
-        batch_mean = arr.mean(0)
-        batch_var = arr.var(0, correction=1) if batch_count > 1 else torch.zeros_like(batch_mean)
+        """Merge a batch of samples; arr is reshaped to (-1, D), or to
+        (U, -1, D) for U units."""
+        U, D = self.n_units, self.mean.shape[-1]
+        arr = arr.reshape(U, -1, D).float()
+        batch_count = arr.shape[1]
+        batch_mean = arr.mean(1)
+        batch_var = arr.var(1, correction=1) if batch_count > 1 else torch.zeros_like(batch_mean)
         # a row count is exact in f32 up to 2**24, so the Python number
         # rounds as the JAX package's f32 array does
         batch_count = float(batch_count)
-        delta = batch_mean - self.mean
-        tot_count = self.count + batch_count
-        new_mean = self.mean + delta * batch_count / tot_count
-        m_a = self.var * self.count
+        mean, var, count = self.mean.reshape(U, D), self.var.reshape(U, D), self.count.reshape(U, 1)
+        delta = batch_mean - mean
+        tot_count = count + batch_count
+        new_mean = mean + delta * batch_count / tot_count
+        m_a = var * count
         m_b = batch_var * batch_count
-        m_2 = m_a + m_b + delta.square() * self.count * batch_count / tot_count
-        return RunningMeanStd(mean=new_mean, var=m_2 / tot_count, count=tot_count)
+        m_2 = m_a + m_b + delta.square() * count * batch_count / tot_count
+        return RunningMeanStd(mean=new_mean.reshape(self.mean.shape), var=(m_2 / tot_count).reshape(self.var.shape),
+                              count=tot_count.reshape(self.count.shape))
+
+    def where(self, units: torch.Tensor, other: "RunningMeanStd") -> "RunningMeanStd":
+        """These moments for the units marked True (a (U,) bool tensor),
+        `other`'s for the rest."""
+        return RunningMeanStd(*(torch.where(units.reshape((-1,) + (1,) * (a.ndim - 1)), a, b)
+                                for a, b in ((self.mean, other.mean), (self.var, other.var),
+                                             (self.count, other.count))))
+
+    def _over(self, t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """A (U, D) moment broadcast over x (U, ..., D)."""
+        return t if t.ndim == 1 else t.reshape(t.shape[:1] + (1,) * (x.ndim - 2) + t.shape[1:])
 
     def normalise(self, x: torch.Tensor) -> torch.Tensor:
-        return (x - self.mean) / torch.sqrt(self.var)
+        return (x - self._over(self.mean, x)) / torch.sqrt(self._over(self.var, x))
 
     def denormalise(self, x: torch.Tensor) -> torch.Tensor:
-        return x * torch.sqrt(self.var) + self.mean
+        return x * torch.sqrt(self._over(self.var, x)) + self._over(self.mean, x)

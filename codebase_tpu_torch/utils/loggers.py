@@ -125,30 +125,7 @@ class FileSystemLogger(Logger):
 
     def log_metrics(self, metrics: List[Dict]):
         d = squash_info(metrics)
-        cols = ["environment_steps"] + sorted(k for k in d if k != "environment_steps")
-        fresh = not self.results_path.exists() or self.results_path.stat().st_size == 0
-        if fresh:
-            self._columns = cols
-            with open(self.results_path, "w") as f:
-                f.write(",".join(cols) + "\n")
-        else:
-            if self._columns is None:  # appending to a pre-existing file
-                with open(self.results_path) as f:
-                    self._columns = f.readline().strip().split(",")
-            if any(c not in self._columns for c in cols):
-                # rows can carry different column sets when log_interval and
-                # eval_interval diverge: widen the csv to the union
-                self._columns = ["environment_steps"] + sorted(
-                    set(self._columns + cols) - {"environment_steps"}
-                )
-                with open(self.results_path, newline="") as f:
-                    rows = list(csv.DictReader(f))
-                with open(self.results_path, "w", newline="") as f:
-                    w = csv.DictWriter(f, fieldnames=self._columns, lineterminator="\n")
-                    w.writeheader()
-                    w.writerows(rows)
-        with open(self.results_path, "a") as f:
-            f.write(",".join(_fmt(d.get(c)) for c in self._columns) + "\n")
+        self._columns = append_results_row(self.results_path, d, self._columns)
         self.print_progress(
             d.get("updates", 0),
             d.get("environment_steps", 0),
@@ -163,6 +140,36 @@ class FileSystemLogger(Logger):
             return None
         with open(self.results_path, newline="") as f:
             return list(csv.DictReader(f))
+
+
+def append_results_row(path: Path, d: Dict, columns: List[str] | None = None) -> List[str]:
+    """Append the squashed row `d` to the results.csv at `path`: the header
+    (`environment_steps` first, the other keys sorted) when the file is new
+    or empty; a row with keys the header lacks widens the file to the union
+    of the columns (rows may carry different column sets when log_interval
+    and eval_interval diverge). `columns` is the file's header when the
+    caller knows it; returns the header after this row."""
+    cols = ["environment_steps"] + sorted(k for k in d if k != "environment_steps")
+    fresh = not path.exists() or path.stat().st_size == 0
+    if fresh:
+        columns = cols
+        with open(path, "w") as f:
+            f.write(",".join(cols) + "\n")
+    else:
+        if columns is None:  # appending to a pre-existing file
+            with open(path) as f:
+                columns = f.readline().strip().split(",")
+        if any(c not in columns for c in cols):
+            columns = ["environment_steps"] + sorted(set(columns + cols) - {"environment_steps"})
+            with open(path, newline="") as f:
+                rows = list(csv.DictReader(f))
+            with open(path, "w", newline="") as f:
+                w = csv.DictWriter(f, fieldnames=columns, lineterminator="\n")
+                w.writeheader()
+                w.writerows(rows)
+    with open(path, "a") as f:
+        f.write(",".join(_fmt(d.get(c)) for c in columns) + "\n")
+    return columns
 
 
 def _fmt(v) -> str:

@@ -51,6 +51,16 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def stack_trees(trees):
+    """Stack same-shaped trees along a new leading axis."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: stack_trees([t[k] for t in trees]) for k in first}
+    if isinstance(first, list):
+        return [stack_trees([t[i] for t in trees]) for i in range(len(first))]
+    return torch.stack(trees)
+
+
 @torch.no_grad()
 def load_tree(dst, src) -> None:
     """Copy the leaves of tree `src` into the same-shaped tree `dst`."""

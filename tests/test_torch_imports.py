@@ -47,6 +47,15 @@ def test_port_needs_no_msgpack_and_imports_imageio_only_in_the_video_encoder():
     assert "import imageio" in video
 
 
+def test_port_needs_no_click_or_pandas():
+    """The card's machine has neither: the search CLI parses with argparse
+    and reads results.csv with csv."""
+    files = sorted((ROOT / "codebase_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    bad = [f"{p.relative_to(ROOT)}: {m}" for p in files for m in _imported_modules(p)
+           if m.split(".")[0] in ("click", "pandas")]
+    assert not bad, bad
+
+
 def test_package_imports_and_runs_on_cpu_without_triton_or_nvcc(tmp_path):
     """In a fresh interpreter where `triton` and `jax` cannot be imported and
     no nvcc is on PATH: import every module and run a CPU GRU forward."""
@@ -54,7 +63,7 @@ def test_package_imports_and_runs_on_cpu_without_triton_or_nvcc(tmp_path):
 import importlib, pkgutil, sys
 class Block:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("triton", "jax", "jaxlib", "flax", "optax", "msgpack", "imageio") or name == "codebase_tpu" or name.startswith("codebase_tpu."):
+        if name.split(".")[0] in ("triton", "jax", "jaxlib", "flax", "optax", "msgpack", "imageio", "click", "pandas") or name == "codebase_tpu" or name.startswith("codebase_tpu."):
             raise ImportError("blocked: " + name)
 sys.meta_path.insert(0, Block())
 sys.path.insert(0, {str(ROOT)!r})
