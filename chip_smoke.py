@@ -28,8 +28,13 @@ exits non-zero:
              group's 32 units x 2 agents: recurrent IDQN's rollout (z1)
              G=64 T=1 B=32, updates (z2) T=26 B=32 and (z3) T=26 B=64 and
              eval (z4) T=1 B=100, MAPPO's rollout (z5) T=1 B=10, update
-             (z6) T=25 B=10 and target critic (z7) T=26 B=10 (every
-             shape a phase below gives the kernels): the
+             (z6) T=25 B=10 and target critic (z7) T=26 B=10, and a
+             rank's share of the two-rank phases: IDQN's rollout (z8)
+             G=2 T=1 B=32768 and update (z9) T=26 B=512, MAPPO's rollout
+             (z10) T=1 B=4096, update (z11) T=25 B=4096 and target (z12)
+             T=26 B=4096, a sweep rank's 16 units (G=32): rollout (z13)
+             T=1 B=32, update (z14) T=26 B=32 and eval (z15) T=1 B=100
+             (every shape a phase below gives the kernels): the
              forward against `gru_sequence_plain`, the whole backward (recurrence, weight
              gradient, reduction) against `gru_backward_plain`, the weight
              gradient alone against `gru_dw_plain` on the recurrence
@@ -159,6 +164,31 @@ counters set to 0 just before it and read just after:
                  `dry_run` on configs/sweeps/sample.yaml, `bayes --budget
                  2` and `locally --workers 2` on tiny specs, sharing the
                  card.
+Then data parallelism (`codebase_tpu_torch/parallel/mesh.py`). The two
+ranks share GPU 0 over gloo (NCCL refuses two ranks on one GPU); each rank's launch counters are set to 0 before and
+read after each run, and each collective and the draws are timed between
+device syncs (`mesh.collect_times`):
+26. dist_idqn_nccl — `run.main` on the train phase's argv plus
+                 `distributed.devices=1`: one NCCL rank; its rows are the
+                 train phase's to rtol 1e-6; the all-reduce and draw ms an
+                 iteration.
+27. dist_idqn_gloo2 — the same lane over two gloo ranks on GPU 0 (32768
+                 envs and 512 rows of each batch a rank, a row every
+                 iteration, checkpoints) against one rank of the same argv:
+                 equal steps and updates, losses to rtol 1e-4 / atol 1e-6,
+                 returns to atol 1e-6, params bitwise equal across the
+                 ranks, only rank 0 wrote files; each rank's launches and
+                 collective ms an iteration (gradient, batch, early-exit
+                 flag).
+28. dist_mappo_gloo2 — train_mappo's argv over two ranks, the same checks.
+29. dist_resume  — the two-rank run's checkpoint after iteration 2
+                 resumed at one rank: the rows and final state of the
+                 two-rank run.
+30. dist_sweep   — sweep_idqn_rnn's batch-32 group sharded over two ranks
+                 (16 units each): one unit's launches an iteration a rank;
+                 units 0 and 31 wrote the unsharded group's rows.
+31. dist_refusal — `distributed.devices` one more than the visible GPUs
+                 raises before any rank starts.
 Then the kernel summary line and, last, the device line.
 
 Imports nothing of JAX or of the JAX package.
@@ -198,6 +228,7 @@ from codebase_tpu_torch.envs import vector as port_vector  # noqa: E402
 from codebase_tpu_torch.ops import fused_gru as fg  # noqa: E402
 from codebase_tpu_torch.ops.replay import batch_to_reference_layout, replay_sample_many  # noqa: E402
 from codebase_tpu_torch.ops.running_stats import RunningMeanStd  # noqa: E402
+from codebase_tpu_torch.parallel import mesh  # noqa: E402
 from codebase_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
 from codebase_tpu_torch.utils.device import resolve_device  # noqa: E402
 
@@ -237,9 +268,22 @@ SHAPES = {
     "z5": dict(G=64, T=1, B=10, role="MAPPO sweep rollout: 32 units' actors over each unit's 10 envs"),
     "z6": dict(G=64, T=25, B=10, role="MAPPO sweep update: actor and critic over the rollout, T=25"),
     "z7": dict(G=64, T=26, B=10, role="MAPPO sweep target critic: bootstrap values over T+1=26 steps"),
+    # a rank's share of the data-parallel runs over two ranks: IDQN's 65536
+    # envs and batch 1024, MAPPO's 8192 envs, a sweep group's 32 units
+    "z8": dict(G=2, T=1, B=32768, role="IDQN over 2 ranks, a rank's rollout: policy step over its 32768 envs"),
+    "z9": dict(G=2, T=26, B=512, role="IDQN over 2 ranks, a rank's update: its 512 rows of the batch of 1024"),
+    "z10": dict(G=2, T=1, B=4096, role="MAPPO over 2 ranks, a rank's rollout: the actor over its 4096 envs"),
+    "z11": dict(G=2, T=25, B=4096, role="MAPPO over 2 ranks, a rank's update: actor and critic over its envs"),
+    "z12": dict(G=2, T=26, B=4096, role="MAPPO over 2 ranks, a rank's target critic over T+1=26 steps"),
+    "z13": dict(G=32, T=1, B=32, role="IDQN sweep over 2 ranks, a rank's 16 units' rollout"),
+    "z14": dict(G=32, T=26, B=32, role="IDQN sweep over 2 ranks, a rank's 16 units' update, batch 32"),
+    "z15": dict(G=32, T=1, B=100, role="IDQN sweep over 2 ranks, a rank's 16 units' eval of 100 episodes"),
 }
 for _shape in SHAPES.values():
     _shape.setdefault("H", 128)
+# each train phase's argv (without its run_dir) and results.csv rows, for
+# the data-parallel phases to repeat and compare
+RUNS = {}
 # the value-based phases' replay settings
 DQN_ARGV = ["algorithm.updates_per_collect=8", "algorithm.training_start=0", "algorithm.replay_slot_reuse=clear"]
 # published peaks, dense, no sparsity (NVIDIA data sheets): HBM bytes/s,
@@ -499,6 +543,7 @@ def train_phase(phase, smi, argv, E, iters, per_iteration, T=25):
         rows, state = port_run.main(argv)
         counts = fg.launch_counts()
         torch.cuda.synchronize()
+        RUNS[phase] = (argv[:-1], rows)
     ran = len(state.timings)
     if ran < iters:
         raise AssertionError(f"{phase}: expected at least {iters} train iterations, ran {ran}")
@@ -899,8 +944,8 @@ class GroupWatch:
     def __exit__(self, *exc):
         port_sweep.run_vmapped_multiseed, port_sweep.build_group = self._run, self._build
 
-    def build(self, cfg, seeds, hyper_variants=None):
-        self.built = self._build(cfg, seeds, hyper_variants)
+    def build(self, cfg, seeds, hyper_variants=None, shard=None):
+        self.built = self._build(cfg, seeds, hyper_variants, shard)
         return self.built
 
     def run(self, cfg, seeds, run_dir, hyper_variants=None):
@@ -909,7 +954,8 @@ class GroupWatch:
         t0 = time.perf_counter()
         dirs = self._run(cfg, seeds, run_dir, hyper_variants)
         torch.cuda.synchronize()
-        self.groups.append({"cfg": cfg, "units": self.built[0], "state": self.built[1], "dirs": dirs,
+        self.groups.append({"cfg": cfg, "seeds": list(seeds), "run_dir": Path(run_dir), "units": self.built[0],
+                            "state": self.built[1], "dirs": dirs,
                             "variants": hyper_variants or [{}], "counts": fg.launch_counts(),
                             "seconds": time.perf_counter() - t0})
         return dirs
@@ -1174,6 +1220,290 @@ def search_cli_phase(phase, smi, out_dir):
           "locally_results": len(written), "seconds": timings})
 
 
+# ------------------------------------------------------ data parallelism
+# With one GPU a run over two ranks puts both on it, over gloo (NCCL
+# refuses two ranks on one GPU); one rank runs over NCCL.
+
+
+# a recurrent IDQN and a MAPPO iteration's GRU launches, at least (the
+# evals add forwards)
+IDQN_LAUNCHES = {"fwd": 25, "bwd": 8, "dw": 8, "reduce": 8}
+MAPPO_LAUNCHES = {"fwd": 35, "bwd": 8, "dw": 8, "reduce": 8}
+
+
+def check_launches(phase, counts: dict, iters: int, per_iteration: dict) -> None:
+    """Fail unless each kernel in `per_iteration` launched at least that
+    often an iteration over `iters` iterations, and the others never."""
+    if any(v < per_iteration.get(k, 0) * iters or (k not in per_iteration and v) for k, v in counts.items()):
+        raise AssertionError(f"{phase}: launches {counts} over {iters} iterations; expected {per_iteration} each")
+
+
+def _per_iteration(times: dict, iters: int) -> dict:
+    """`parallel.mesh.collect_times` seconds as ms (and calls) an iteration."""
+    return {k: {"ms": s / iters * 1e3, "calls": n / iters} for k, (s, n) in sorted(times.items())}
+
+
+def compare_rows(phase, rows, ref, rtol=1e-4, atol=1e-6) -> float:
+    """A data-parallel run's results.csv rows against the one-rank run's:
+    the same columns, `environment_steps` and `updates` equal, episode
+    returns and lengths to `atol` (the JAX package's invariant), every other
+    column (losses, epsilon) to rtol and atol. Returns the largest relative
+    difference of those."""
+    if len(rows or []) != len(ref) or not ref:
+        raise AssertionError(f"{phase}: {len(rows or [])} rows; the one-rank run wrote {len(ref)}")
+    worst = 0.0
+    for i, (r, q) in enumerate(zip(rows, ref)):
+        if r.keys() != q.keys() or r["environment_steps"] != q["environment_steps"] or r["updates"] != q["updates"]:
+            raise AssertionError(f"{phase}: row {i} {r} differs from the one-rank run's {q}")
+        for k in r:
+            if not r[k] or not q[k] or k in ("environment_steps", "updates"):
+                continue
+            a, b = float(r[k]), float(q[k])
+            returns = "episode_returns" in k or "episode_length" in k
+            tol = atol if returns else atol + rtol * abs(b)
+            if not abs(a - b) <= tol:
+                raise AssertionError(f"{phase}: row {i} {k} {a} against the one-rank run's {b}")
+            if not returns and b:
+                worst = max(worst, abs(a - b) / abs(b))
+    return worst
+
+
+def params_digest(state) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for p in state.model.param_leaves():
+        h.update(p.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dist_nccl_phase(phase, smi) -> dict:
+    """`run.main` on the train phase's argv plus `distributed.devices=1`:
+    one NCCL rank on the card (a group of one in this process), every
+    collective and draw of the run timed between device syncs. Its rows
+    must be the train phase's to rtol 1e-6 (every all-reduce is the
+    identity at W=1, so bitwise is expected). Returns the launch counts."""
+    argv, ref = RUNS["train"]
+    shard = mesh.mesh_from_config({"devices": 1}, "cuda")  # the run joins this group
+    times = {}
+    mesh.collect_times(times)
+    try:
+        with tempfile.TemporaryDirectory() as run_dir:
+            torch.cuda.synchronize()
+            fg.reset_launch_counts()
+            rows, state = port_run.main(argv + ["distributed.devices=1", f"run_dir={run_dir}"])
+            counts = fg.launch_counts()
+        backend, world = torch.distributed.get_backend(), state.shard.world
+    finally:
+        mesh.collect_times(None)
+        mesh.release(shard)
+    if backend != "nccl" or world != 1:
+        raise AssertionError(f"{phase}: ran over {world} rank(s) on {backend}; expected one NCCL rank")
+    worst = compare_rows(phase, rows, ref, rtol=1e-6, atol=1e-6)
+    iters = len(state.timings)
+    check_launches(phase, counts, iters, IDQN_LAUNCHES)
+    emit({"phase": phase, "card": smi, "backend": backend, "world": world, "iterations": iters,
+          "rows_equal_bitwise": rows == ref, "max_rel_diff_vs_train": worst, "launches": counts,
+          "per_iteration_timed": _per_iteration(times, iters),
+          "note": "times of each collective and of the draws, each between device syncs (a timed pass)"})
+    return counts
+
+
+def dist_rank(jobs, base) -> dict:
+    """One rank of the two-rank phases (both ranks on GPU 0 over gloo): for
+    each job, the launch counters set to 0 just before and read just after,
+    the collectives and draws timed, then the rank's summary. A `run` job
+    trains through `run.main` in `<base>/<name>_rank<r>`; a `sweep` job
+    trains a sweep group through `sweep.run_vmapped_multiseed` (this rank's
+    units)."""
+    from codebase_tpu_torch.config import Config
+
+    rank = torch.distributed.get_rank()
+    out = {}
+    for name, kind, args in jobs:
+        times = {}
+        mesh.collect_times(times)
+        torch.cuda.synchronize()
+        fg.reset_launch_counts()
+        t0 = time.perf_counter()
+        if kind == "run":
+            run_dir = Path(base) / f"{name}_rank{rank}"
+            rows, state = port_run.main(args + [f"run_dir={run_dir}"])
+            summary = {"rows": rows, "iterations": len(state.timings), "env_steps": state.env_steps,
+                       "updates": state.updates, "params_sha256": params_digest(state),
+                       "iteration_seconds": [t for _, t in state.timings], "wrote_files": run_dir.exists()}
+        else:
+            cfg_dict, seeds, run_dir, variants = args
+            with GroupWatch() as watch:
+                port_sweep.run_vmapped_multiseed(Config(cfg_dict), seeds, run_dir, variants)
+            group = watch.groups[0]
+            summary = {"units": group["units"], "iterations": len(group["state"].timings),
+                       "dirs": [str(d) for d in group["dirs"]], "params_sha256": params_digest(group["state"])}
+            state = group["state"]
+        torch.cuda.synchronize()
+        summary.update(launches=fg.launch_counts(), seconds=time.perf_counter() - t0,
+                       per_iteration_timed=_per_iteration(times, len(state.timings)), rank=rank)
+        mesh.collect_times(None)
+        out[name] = summary
+        del state
+        torch.cuda.empty_cache()
+    return out
+
+
+def dist_gloo_phases(smi, tmp, sweep_ref) -> dict:
+    """Two gloo ranks on the card, against one rank, in one spawn
+    (`parallel.mesh.spawn`, GPUs [0, 0]):
+
+    - dist_idqn_gloo2: the train phase's lane (65536 envs, 32768 a rank,
+      batch 1024, 512 rows a rank), with a row after every iteration, a
+      checkpoint after iteration 2 and one at the end; against a one-rank
+      run of the same argv: equal steps and updates, losses to rtol 1e-4 /
+      atol 1e-6, returns to atol 1e-6; params bitwise equal across the
+      ranks; only rank 0 wrote files.
+    - dist_mappo_gloo2: the train_mappo phase's argv (8192 envs, 4096 a
+      rank), held against its rows in the same way.
+    - dist_resume: rank 0's checkpoint after iteration 2 resumed at W=1 in
+      this process: its rows are the W=2 run's, and its final state the W=2
+      final checkpoint's (counters, replay and generator exactly, params to
+      rtol 1e-4 / atol 1e-5).
+    - dist_sweep: sweep_idqn_rnn's batch-32 group (32 units) sharded over
+      the ranks, 16 units each: each rank launches per iteration what one
+      unit's run does; units 0 and 31 wrote the unsharded group's rows.
+    Returns the launch counts by phase."""
+    E, T = 65536, 25
+    train_argv, _ = RUNS["train"]
+    # a row after every iteration (episodes that end early leave an
+    # iteration short of E*T steps), a save after iteration 2 and at the end
+    idqn_argv = train_argv + [f"algorithm.log_interval={E * T // 2}", f"algorithm.save_interval={3 * E * T // 2}"]
+    ref_idqn, _ = port_run.main(idqn_argv + [f"run_dir={tmp / 'idqn_one_rank'}"])
+    mappo_argv, ref_mappo = RUNS["train_mappo"]
+    cfg_dict = sweep_ref["cfg"].to_dict()
+    cfg_dict["distributed"] = {"devices": 2, "initialize": "auto"}
+    jobs = [("idqn", "run", idqn_argv + ["distributed.devices=2"]),
+            ("mappo", "run", mappo_argv + ["distributed.devices=2"]),
+            ("sweep", "sweep", (cfg_dict, sweep_ref["seeds"], str(tmp / "dist_sweep"), sweep_ref["variants"]))]
+    t0 = time.perf_counter()
+    ranks = mesh.spawn(dist_rank, 2, "cuda", args=(jobs, str(tmp)), backend="gloo", device_ids=[0, 0])
+    spawn_s = time.perf_counter() - t0
+    counts = {}
+    for name, ref, phase, per_iteration in (("idqn", ref_idqn, "dist_idqn_gloo2", IDQN_LAUNCHES),
+                                            ("mappo", ref_mappo, "dist_mappo_gloo2", MAPPO_LAUNCHES)):
+        r0, r1 = ranks[0][name], ranks[1][name]
+        worst = compare_rows(phase, r0["rows"], ref)
+        if r1["rows"] is not None or r1["wrote_files"] or not r0["wrote_files"]:
+            raise AssertionError(f"{phase}: rank 1 wrote files or logged rows; only rank 0 may")
+        if r0["params_sha256"] != r1["params_sha256"]:
+            raise AssertionError(f"{phase}: params differ between the ranks after the last update")
+        for r in (r0, r1):
+            check_launches(f"{phase} rank {r['rank']}", r["launches"], r["iterations"], per_iteration)
+        counts[phase] = {k: r0["launches"][k] + r1["launches"][k] for k in r0["launches"]}
+        emit({"phase": phase, "card": smi, "backend": "gloo", "world": 2, "gpus": [0, 0],
+              "iterations": r0["iterations"], "env_steps": r0["env_steps"], "updates": r0["updates"],
+              "max_rel_diff_vs_one_rank": worst, "params_bitwise_equal_across_ranks": True,
+              "launches_per_rank": [r0["launches"], r1["launches"]],
+              "iteration_seconds_per_rank": [r0["iteration_seconds"], r1["iteration_seconds"]],
+              "per_iteration_timed_per_rank": [r0["per_iteration_timed"], r1["per_iteration_timed"]],
+              "seconds_per_rank": [r0["seconds"], r1["seconds"]], "spawn_seconds_all_jobs": spawn_s,
+              "note": "both ranks share one H100 over gloo: no multi-GPU speed"})
+
+    # dist_resume: W=2's checkpoint after iteration 2, resumed at W=1
+    saved = sorted((tmp / "idqn_rank0" / "checkpoints").glob("model_s*.msgpack"),
+                   key=lambda p: int(p.stem.split("_s")[-1]))
+    if len(saved) != 2:
+        raise AssertionError(f"dist_resume: the W=2 run saved {[p.name for p in saved]}; expected 2")
+    torch.cuda.synchronize()
+    fg.reset_launch_counts()
+    rows, state = port_run.main(idqn_argv + [f"run_dir={tmp / 'resume_w1'}", f"resume={saved[0]}"])
+    resume_counts = fg.launch_counts()
+    check_launches("dist_resume", resume_counts, len(state.timings), IDQN_LAUNCHES)
+    # the resumed run's rows (its cadences count from the resumed step) at
+    # the W=2 run's steps: the same updates, losses to rtol 1e-4 / atol 1e-6
+    w2_rows = {r["environment_steps"]: r for r in ranks[0]["idqn"]["rows"]}
+    worst = 0.0
+    for r in rows or []:
+        q = w2_rows.get(r["environment_steps"])
+        if q is None or r["updates"] != q["updates"] or not abs(float(r["loss"]) - float(q["loss"])) <= (
+                1e-6 + 1e-4 * abs(float(q["loss"]))):
+            raise AssertionError(f"dist_resume: resumed row {r} against the W=2 run's {q}")
+        worst = max(worst, abs(float(r["loss"]) - float(q["loss"])) / abs(float(q["loss"])))
+    if not rows:
+        raise AssertionError("dist_resume: the resumed run wrote no row")
+    final = load_checkpoint(saved[1])
+    got = state.state_dict()
+    exact = [k for k in ("env_steps", "updates", "last_target_update") if int(got[k]) != int(final[k])]
+    exact += [f"buffer/{k}" for k, v in final["buffer"].items()
+              if v is not None and not torch.equal(torch.as_tensor(got["buffer"][k]).cpu(), torch.as_tensor(v))]
+    if not np.array_equal(np.asarray(got["generator"]), np.asarray(final["generator"])):
+        exact.append("generator")
+    diffs = []
+    flat_final = _flat(final["params"])
+    for key, a in _flat(got["params"]).items():
+        a, b = a.detach().cpu().double(), torch.as_tensor(flat_final[key]).double()
+        diffs.append((a - b).abs().max().item())
+        if not torch.allclose(a, b, rtol=1e-4, atol=1e-5):
+            exact.append("params")
+    if exact:
+        raise AssertionError(f"dist_resume: the W=1 resume of the W=2 checkpoint differs in {exact}")
+    emit({"phase": "dist_resume", "card": smi, "saved_at_world": 2, "resumed_at_world": 1,
+          "resumed_from": saved[0].name, "rows_compared": len(rows), "max_rel_diff": worst,
+          "max_abs_param_diff": max(diffs), "launches": resume_counts})
+    counts["dist_resume"] = resume_counts
+    del state
+    torch.cuda.empty_cache()
+
+    # dist_sweep: the batch-32 group's units over two ranks
+    s0, s1 = ranks[0]["sweep"], ranks[1]["sweep"]
+    B = int(sweep_ref["cfg"].algorithm.batch_size)
+    for s in (s0, s1):
+        iters, rows = s["iterations"], len(_csv_rows(Path(s["dirs"][0]) / "results.csv"))
+        trained = sum(1 for i in range(1, iters + 1) if 32 * i >= B)
+        n = 32 * trained
+        want = {"fwd": T * iters + 2 * n + 25 * rows, "bwd": n, "dw": n, "reduce": n}
+        if any(s["launches"][k] != want.get(k, 0) for k in s["launches"]):
+            raise AssertionError(f"dist_sweep: rank {s['rank']} launched {s['launches']}; one unit's rule {want}")
+    split = [Path(d) for d in s0["dirs"] + s1["dirs"]]
+    if len(s0["units"]) != 16 or len(split) != len(sweep_ref["dirs"]):
+        raise AssertionError(f"dist_sweep: {len(s0['units'])} units on rank 0, {len(split)} unit dirs")
+    worst = 0.0
+    for u in (0, len(split) - 1):
+        if split[u].relative_to(tmp / "dist_sweep") != sweep_ref["dirs"][u].relative_to(sweep_ref["run_dir"]):
+            raise AssertionError(f"dist_sweep: unit {u} wrote {split[u]}, the group {sweep_ref['dirs'][u]}")
+        worst = max(worst, compare_rows(f"dist_sweep unit {u}", _csv_rows(split[u] / "results.csv"),
+                                        _csv_rows(sweep_ref["dirs"][u] / "results.csv")))
+    counts["dist_sweep"] = {k: s0["launches"][k] + s1["launches"][k] for k in s0["launches"]}
+    emit({"phase": "dist_sweep", "card": smi, "world": 2, "units_per_rank": [len(s0["units"]), len(s1["units"])],
+          "iterations": s0["iterations"], "launches_per_rank": [s0["launches"], s1["launches"]],
+          "units_compared": [0, len(split) - 1], "max_rel_diff_vs_unsharded": worst,
+          "seconds_per_rank": [s0["seconds"], s1["seconds"]],
+          "per_iteration_timed_per_rank": [s0["per_iteration_timed"], s1["per_iteration_timed"]]})
+    return counts
+
+
+def _csv_rows(path) -> list:
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f))
+
+
+def dist_refusal_phase(phase, smi, tmp) -> None:
+    """`distributed.devices` one more than the visible GPUs (2 on one GPU)
+    raises before any rank starts: no process spawned, no run dir made."""
+    n = torch.cuda.device_count()
+    spawned = []
+    spawn = mesh.spawn
+    mesh.spawn = lambda *a, **k: spawned.append(a) or spawn(*a, **k)
+    try:
+        port_run.main(RUNS["train"][0] + [f"distributed.devices={n + 1}", f"run_dir={tmp / 'refused'}"])
+    except ValueError as exc:
+        message = str(exc)
+    else:
+        raise AssertionError(f"{phase}: distributed.devices={n + 1} ran on {n} GPU(s)")
+    finally:
+        mesh.spawn = spawn
+    if spawned or (tmp / "refused").exists() or f"need {n + 1} devices, have {n}" not in message:
+        raise AssertionError(f"{phase}: spawned {len(spawned)}, run dir made {(tmp / 'refused').exists()}: {message}")
+    emit({"phase": phase, "card": smi, "gpus": torch.cuda.device_count(), "error": message})
+
+
 def main() -> None:
     # --- 1. device
     dev = resolve_device("cuda")  # also pins f32 matmuls (allow_tf32 = False)
@@ -1381,6 +1711,7 @@ def main() -> None:
         torch.cuda.empty_cache()
         idqn_groups, sweep_counts = sweep_idqn_phase("sweep_idqn_rnn", smi, tmp / "idqn")
         unit_parity_phase("sweep_unit_parity", smi, idqn_groups[0], (0, 31))
+        sweep_ref = {k: idqn_groups[0][k] for k in ("cfg", "seeds", "run_dir", "units", "dirs", "variants")}
         del idqn_groups
         torch.cuda.empty_cache()
         sweep_mappo_counts = sweep_mappo_phase("sweep_mappo_rnn", smi, tmp / "mappo")
@@ -1388,6 +1719,14 @@ def main() -> None:
         unit_parity_phase("sweep_qmix_unit_parity", smi, qmix_group, (0, 7))
         del qmix_group
         search_cli_phase("search_cli", smi, tmp / "cli")
+
+        # --- 26-31. data parallelism: one NCCL rank, two gloo ranks sharing
+        # the card against one rank, a checkpoint across world sizes, a
+        # sharded sweep group, and the refusal of two ranks on one GPU
+        torch.cuda.empty_cache()
+        dist_counts = {"dist_idqn_nccl": dist_nccl_phase("dist_idqn_nccl", smi)}
+        dist_counts.update(dist_gloo_phases(smi, tmp / "dist", sweep_ref))
+        dist_refusal_phase("dist_refusal", smi, tmp)
 
     sources = {
         "gru_fwd": "codebase_tpu/ops/fused_gru.py:80 (_fwd_kernel, pallas_call at :238)",
@@ -1403,7 +1742,9 @@ def main() -> None:
              "u": "mmm2_mappo_target", "v": "ragged_h256", "w": "ragged_h384", "x": "ragged_h896", "y": "video",
              "z1": "sweep_idqn_rollout", "z2": "sweep_idqn_update_b32", "z3": "sweep_idqn_update_b64",
              "z4": "sweep_idqn_eval", "z5": "sweep_mappo_rollout", "z6": "sweep_mappo_update",
-             "z7": "sweep_mappo_target"}
+             "z7": "sweep_mappo_target", "z8": "dist_idqn_rollout", "z9": "dist_idqn_update",
+             "z10": "dist_mappo_rollout", "z11": "dist_mappo_update", "z12": "dist_mappo_target",
+             "z13": "dist_sweep_rollout", "z14": "dist_sweep_update", "z15": "dist_sweep_eval"}
     resident = [k for k in SHAPES if SHAPES[k]["H"] == 128]
     wide = [k for k in SHAPES if SHAPES[k]["H"] != 128]
     phases = {"train": counts, "train_qmix": qmix_counts, "train_mappo": mappo_counts,
@@ -1411,7 +1752,7 @@ def main() -> None:
               "train_qmix_rware": rware_counts, "train_qmix_mmm2": mmm2_qmix_counts,
               "train_mappo_mmm2": mmm2_mappo_counts, "resume_idqn": resume_idqn_counts,
               "resume_mappo": resume_mappo_counts, "eval_cli": eval_counts, "video": video_counts,
-              "sweep_idqn_rnn": sweep_counts, "sweep_mappo_rnn": sweep_mappo_counts}
+              "sweep_idqn_rnn": sweep_counts, "sweep_mappo_rnn": sweep_mappo_counts, **dist_counts}
     summary = []
     # (name, counter, the kernel's key in the per-shape results, the shapes
     # it takes, the shape it is timed at and the phase its launches are from)

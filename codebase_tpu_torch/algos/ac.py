@@ -32,8 +32,8 @@ unit-major envs, the units folded into the networks' agent axis, a leading
 unit axis on every per-unit tensor, and each unit's own losses, clip norm,
 Adam step, gamma, tau, return moments and env-step count (from its own
 longest episode). The centralised critic's input joins the agents of one
-unit. One unit is a plain run. The mesh waits for a later slice
-(ROADMAP.md Queue 1).
+unit. One unit is a plain run. Over several ranks (`shard`,
+`parallel/mesh.py`) the envs, or a sweep's units, are split.
 """
 
 from __future__ import annotations
@@ -187,7 +187,7 @@ class ACModel(nn.Module):
             logits = logits[:, 0]  # (U*N, E, A)
             if self.use_action_masks:
                 logits = D.apply_mask(logits, unit_agents(mask, U))
-            actions = D.sample(generator, logits)  # (U*N, E)
+            actions = D.sample(generator, logits, env_dim=1, unit_dim=0)  # (U*N, E)
             return carry, unit_agents(actions, U).contiguous()  # (U*E, N)
 
         return act
@@ -234,7 +234,7 @@ class ACModel(nn.Module):
     # ----------------------------------------------------------------- loss
 
     def compute_returns(self, target_critic: MultiAgentNetwork, rollout_obs, rewards, dones,
-                        ret_rms: RunningMeanStd):
+                        ret_rms: RunningMeanStd, shard=None):
         """n-step returns from the target critic's bootstrap values.
         rollout_obs (N, T+1, B, D), rewards (T, B, N), dones (T+1, B).
         Returns ((T, B, N) returns, updated moments).
@@ -242,7 +242,8 @@ class ACModel(nn.Module):
         With `standardise_returns` the bootstrap values are denormalised
         with the moments as they were, the moments take the returns (every
         (t, b) cell, filled or not), and the returns are normalised with
-        the updated moments."""
+        the updated moments. With a `shard` that splits the envs, the
+        moments take the whole rollout's returns."""
         U, N = self.n_units, self.n_agents
         next_value = self.values(target_critic, rollout_obs)
         T1, B = next_value.shape[-3:-1]
@@ -255,20 +256,25 @@ class ACModel(nn.Module):
                                 next_value.transpose(0, 1), self.n_steps,
                                 unit_scalar(self.gamma, 3, rewards)).transpose(0, 1)
         if self.standardise_returns:
-            ret_rms = ret_rms.update(returns)
+            ret_rms = ret_rms.update(returns, shard)
             returns = ret_rms.normalise(returns)
         return returns.reshape(self._lead + (T1 - 1, B, N)), ret_rms
 
-    def _loss(self, objective, entropy, advantage, filled):
+    def _loss(self, objective, entropy, advantage, filled, shard=None):
         """The actor's objective (T, B, N), summed over agents, with the
         entropy bonus, plus the value loss summed over agents; means over
         the filled steps. Returns (loss, detached metrics): for U units the
-        sum of the units' losses, and (U,) metrics."""
+        sum of the units' losses, and (U,) metrics. With a `shard` that
+        splits the envs, the means divide by the whole rollout's filled
+        count, so the ranks' losses and metrics sum to the whole rollout's."""
         U = self.n_units
         T, B, N = objective.shape[-3:]
         objective, advantage = objective.reshape(U, T, B, N), advantage.reshape(U, T, B, N)
         entropy, filled = entropy.reshape(U, T, B), filled.reshape(U, T, B)
-        fsum = filled.sum((1, 2)).clamp(min=1.0)
+        fsum = filled.sum((1, 2))
+        if shard is not None:
+            fsum = shard.env_sum(fsum, "loss")
+        fsum = fsum.clamp(min=1.0)
         actor_loss = ((-objective.sum(-1) - self.entropy_coef * entropy) * filled).sum((1, 2)) / fsum
         value_loss = ((advantage**2).sum(-1) * filled).sum((1, 2)) / fsum
         loss = actor_loss + self.value_loss_coef * value_loss
@@ -280,16 +286,16 @@ class ACModel(nn.Module):
         }
         return loss.sum(), {k: v.reshape(self._lead) for k, v in metrics.items()}
 
-    def a2c_loss(self, returns, obs_in, actions, filled, amask=None):
+    def a2c_loss(self, returns, obs_in, actions, filled, amask=None, shard=None):
         """Advantage actor-critic loss. obs_in (N, T, B, D), returns and
         actions (T, B, N), filled (T, B), amask (N, T, B, A). Returns (loss,
         metrics)."""
         values = self.values(self.critic, obs_in)
         log_probs, entropy = self.log_probs_entropy(obs_in, actions, amask)
         advantage = returns - values
-        return self._loss(log_probs * advantage.detach(), entropy, advantage, filled)
+        return self._loss(log_probs * advantage.detach(), entropy, advantage, filled, shard)
 
-    def ppo_loss(self, returns, old_log_probs, obs_in, actions, filled, amask=None):
+    def ppo_loss(self, returns, old_log_probs, obs_in, actions, filled, amask=None, shard=None):
         """Clipped-surrogate loss of one epoch against the pre-update
         log-probs (T, B, N). Returns (loss, metrics)."""
         values = self.values(self.critic, obs_in)
@@ -298,7 +304,7 @@ class ACModel(nn.Module):
         adv = advantage.detach()
         ratio = torch.exp(log_probs - old_log_probs)
         clipped = torch.clamp(ratio, 1.0 - self.ppo_clip, 1.0 + self.ppo_clip)
-        return self._loss(torch.minimum(ratio * adv, clipped * adv), entropy, advantage, filled)
+        return self._loss(torch.minimum(ratio * adv, clipped * adv), entropy, advantage, filled, shard)
 
 
 @dataclass
@@ -317,6 +323,8 @@ class ACTrainState:
     # (env steps, seconds) of each train iteration, host clock around work
     # that ends in a device sync
     timings: list = field(default_factory=list)
+    # this rank's part of a data-parallel run (`parallel/mesh.py`), or None
+    shard: Optional[object] = None
 
     def state_dict(self) -> dict:
         """The checkpoint's state, keyed by the JAX package's `ACTrainState`
@@ -331,7 +339,8 @@ class ACTrainState:
             "target_critic": ckpt.params_state_dict(self.target_critic.param_tree()),
             "opt_state": ckpt.adam_state_dict(self.opt, self.model.param_tree()),
             "ret_rms": ckpt.dataclass_state_dict(self.ret_rms),
-            "reward_stream": ckpt.dataclass_state_dict(self.reward_stream),
+            # whole on every rank in a data-parallel run (a collective)
+            "reward_stream": ckpt.global_envs(ckpt.dataclass_state_dict(self.reward_stream), self.shard),
             "env_steps": ckpt.counter(self.env_steps),
             "updates": ckpt.counter(self.updates),
             **ckpt.generator_state_dict(self.generator),
@@ -348,28 +357,43 @@ class ACTrainState:
         ckpt.load_params_state_dict(self.target_critic.param_tree(), state_dict["target_critic"])
         ckpt.load_adam(self.opt, self.model.param_tree(), state_dict["opt_state"])
         self.ret_rms = ckpt.load_dataclass(RunningMeanStd, state_dict["ret_rms"], device)
-        self.reward_stream = ckpt.load_dataclass(RewardStream, state_dict["reward_stream"], device)
+        self.reward_stream = ckpt.load_dataclass(
+            RewardStream, ckpt.local_envs(state_dict["reward_stream"], self.shard, device), device)
         self.env_steps = int(state_dict["env_steps"])
         self.updates = int(state_dict["updates"])
         ckpt.load_generator(self.generator, state_dict)
 
 
-def build_train_functions(env: Environment, eval_env: Environment, cfg, time_limit: int, device, hypers=None):
+def build_train_functions(env: Environment, eval_env: Environment, cfg, time_limit: int, device, hypers=None,
+                          shard=None):
     """Construct (init_state(seed), train_iteration(state), evaluate(state,
     generator), update(state, rollout)). cfg is the `algorithm` config node.
 
     `hypers` makes a sweep group of one unit per {"lr"|"gamma"|"tau": value}
     dict, with one seed per unit given to `init_state`, seeded as
-    `algos/dqn.py` seeds its units."""
+    `algos/dqn.py` seeds its units.
+
+    `shard` (`parallel/mesh.py`) makes this one rank of a data-parallel
+    run, as in `algos/dqn.py`. Mode env: the rank collects its E/W of the
+    E envs and updates on its own rollout; the means divide by the whole
+    rollout's filled count, the return moments take the whole rollout's
+    returns, the gradients are summed over the ranks before each Adam step,
+    and metrics, t_max and the env steps are the whole run's. Mode unit:
+    this rank's units of a sweep."""
     acfg = cfg
     lrs, gammas, taus = unit_hypers(acfg, hypers or [{}])
     U = len(lrs)
     n_envs = int(acfg.get("parallel_envs", 1))
+    splits = shard is not None and shard.splits_envs
+    if splits and U > 1:
+        raise ValueError("a sweep group shards its units over the ranks (mode unit), not its envs")
+    local_envs = shard.local(n_envs, "parallel_envs") if splits else n_envs
+    eval_shard = shard if shard is not None and shard.mode == "unit" else None
     tau = float(acfg.target_update_interval_or_tau)  # the regime; each unit's value is in taus
     reward_plan = standardisation_plan(env)
     early_exit = resolve_early_exit(early_exit_option(acfg), env, n_envs)
 
-    def init_state(seed) -> ACTrainState:
+    def init_state(seed, generator_seed=None) -> ACTrainState:
         seeds = [int(s) for s in (seed if isinstance(seed, (list, tuple)) else [seed])]
         if len(seeds) != U:
             raise ValueError(f"init_state takes one seed per unit: {U} units, {len(seeds)} seeds")
@@ -381,11 +405,13 @@ def build_train_functions(env: Environment, eval_env: Environment, cfg, time_lim
             target_critic=copy.deepcopy(model.critic).requires_grad_(False),
             # one Adam over the whole tree; a clip, if any, covers all of it
             opt=make_optimizer(acfg.optimizer, model.param_leaves(), pack_units(lrs), acfg.grad_clip, n_units=U),
-            generator=torch.Generator(device=device).manual_seed(seeds[0]),
+            generator=torch.Generator(device=device).manual_seed(seeds[0] if generator_seed is None
+                                                                 else int(generator_seed)),
             ret_rms=model.init_rms(device),
-            reward_stream=RewardStream.init(U * n_envs, env.n_agents, device) if reward_plan else None,
+            reward_stream=RewardStream.init(U * local_envs, env.n_agents, device) if reward_plan else None,
             env_steps=zeros,
             updates=zeros,
+            shard=shard,
         )
 
     def update(state: ACTrainState, rollout: Rollout) -> dict:
@@ -412,20 +438,30 @@ def build_train_functions(env: Environment, eval_env: Environment, cfg, time_lim
         actions, filled = units(rollout.actions), units(rollout.filled)
         with torch.no_grad():
             returns, state.ret_rms = model.compute_returns(
-                state.target_critic, obs_agents, units(rollout.rewards), units(rollout.dones), state.ret_rms
+                state.target_critic, obs_agents, units(rollout.rewards), units(rollout.dones), state.ret_rms, shard
             )
+
+        def step(loss):
+            grads = torch.autograd.grad(loss, params)
+            # the whole rollout's gradient on every rank
+            state.opt.step(grads if shard is None else shard.sum_grads(grads))
+
         if not model.ppo:
-            loss, metrics = model.a2c_loss(returns, obs_in, actions, filled, amask_in)
-            state.opt.step(torch.autograd.grad(loss, params))
+            loss, metrics = model.a2c_loss(returns, obs_in, actions, filled, amask_in, shard)
+            step(loss)
         else:
             with torch.no_grad():
                 old_log_probs, _ = model.log_probs_entropy(obs_in, actions, amask_in)
             epochs = []
             for _ in range(model.num_epochs):
-                loss, m = model.ppo_loss(returns, old_log_probs, obs_in, actions, filled, amask_in)
-                state.opt.step(torch.autograd.grad(loss, params))
+                loss, m = model.ppo_loss(returns, old_log_probs, obs_in, actions, filled, amask_in, shard)
+                step(loss)
                 epochs.append(m)
             metrics = {k: torch.stack([m[k] for m in epochs]).mean(0) for k in METRICS}
+        if shard is not None and shard.splits_envs:
+            # the ranks' shares of each metric, summed in one all_reduce
+            summed = shard.env_sum(torch.stack([metrics[k] for k in METRICS]), "loss")
+            metrics = dict(zip(METRICS, summed))
         # the target critic, with the env-step count from before this
         # iteration's steps (the caller adds them after the update)
         if tau > 1.0:
@@ -443,12 +479,13 @@ def build_train_functions(env: Environment, eval_env: Environment, cfg, time_lim
             rollout, _ = collect_episodes(
                 env,
                 state.model.policy(),
-                state.model.actor.init_hiddens(n_envs),
+                state.model.actor.init_hiddens(local_envs),
                 state.generator,
-                U * n_envs,
+                U * local_envs,
                 time_limit,
                 bool(acfg.use_proper_termination),
                 early_exit,
+                shard,
             )
         if reward_plan is not None:
             with record_function("ac/reward_stream"):
@@ -460,10 +497,14 @@ def build_train_functions(env: Environment, eval_env: Environment, cfg, time_lim
         with record_function("ac/update"):
             metrics = update(state, rollout)
         # step accounting: each unit's longest episode times its envs
-        t_max = rollout.episode_lengths.reshape(U, n_envs).amax(1).cpu().numpy().astype(np.int64)
+        t_max = rollout.episode_lengths.reshape(U, local_envs).amax(1)
+        if shard is not None:
+            t_max = shard.env_max(t_max)  # the longest episode of any rank
+        t_max = t_max.cpu().numpy().astype(np.int64)
         state.env_steps = pack_units(unit_values(state.env_steps, U) + t_max * n_envs)
         return {
             **metrics,
+            # this rank's envs (`parallel.mesh.fetch_metrics` gathers them)
             "episode_returns": rollout.episode_returns,  # (U*E, N)
             "episode_lengths": rollout.episode_lengths,  # (U*E,)
         }
@@ -476,7 +517,7 @@ def build_train_functions(env: Environment, eval_env: Environment, cfg, time_lim
         n = int(acfg.eval_episodes)
         rollout, _ = collect_episodes(
             eval_env, state.model.policy(), state.model.actor.init_hiddens(n), generator, U * n, time_limit,
-            early_exit=resolve_early_exit("auto", eval_env, n),
+            early_exit=resolve_early_exit("auto", eval_env, n), shard=eval_shard,
         )
         return {"episode_returns": rollout.episode_returns, "episode_lengths": rollout.episode_lengths}
 

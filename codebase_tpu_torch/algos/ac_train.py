@@ -17,6 +17,9 @@ steps (`<run_dir>/videos/step-{step}.mp4`) and a checkpoint every
 `save_interval` (`<run_dir>/checkpoints/model_s{step}.msgpack`), plus one at
 the end; a SIGTERM makes the loop checkpoint after the chunk in flight and
 stop.
+
+A data-parallel run (`shard`) runs this loop in step on every rank, as
+`dqn_train.py` does; the logged episodes are gathered from all ranks.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from pathlib import Path
 import numpy as np
 
 from codebase_tpu_torch.algos.ac import METRICS, build_train_functions
+from codebase_tpu_torch.parallel import mesh
 from codebase_tpu_torch.utils.checkpoint import resume_train_state, save_train_state
 from codebase_tpu_torch.utils.device import sync
 from codebase_tpu_torch.utils.loggers import episode_infos
@@ -34,9 +38,9 @@ from codebase_tpu_torch.utils.preemption import PreemptionGuard
 from codebase_tpu_torch.utils.video import record_episodes
 
 
-def main(env, eval_env, logger, time_limit, cfg, device):
+def main(env, eval_env, logger, time_limit, cfg, device, shard=None):
     acfg = cfg.algorithm
-    init_state, train_iteration, _, _ = build_train_functions(env, eval_env, acfg, time_limit, device)
+    init_state, train_iteration, _, _ = build_train_functions(env, eval_env, acfg, time_limit, device, shard=shard)
     seed = cfg.get("seed")
     seed = int(seed) if seed is not None else int(np.random.randint(2**31 - 1))
     state = init_state(seed)
@@ -71,20 +75,21 @@ def main(env, eval_env, logger, time_limit, cfg, device):
                 losses = {k: float(metrics[k]) for k in METRICS}  # waits for the update
                 state.timings.append((state.env_steps - step, time.perf_counter() - t0))
                 step = state.env_steps
-            preempt = guard.triggered
+            preempt = mesh.sync_flag(guard.triggered)  # every rank saves and stops together
 
             if log_interval and (step - last_log) >= log_interval:
-                infos = episode_infos(metrics)
+                infos = episode_infos(mesh.fetch_metrics(metrics, shard))  # every rank's envs
                 infos.append(losses)
                 infos.append({"updates": state.updates, "environment_steps": step})
                 logger.log_metrics(infos)
                 last_log = step
 
             if video_interval and (step - last_video) >= video_interval:
-                record_episodes(
-                    eval_env, state.model.policy(), state.model.actor.init_hiddens(1),
-                    int(acfg.video_frames), run_dir / "videos" / f"step-{step}.mp4", device,
-                )
+                if mesh.is_coordinator():
+                    record_episodes(
+                        eval_env, state.model.policy(), state.model.actor.init_hiddens(1),
+                        int(acfg.video_frames), run_dir / "videos" / f"step-{step}.mp4", device,
+                    )
                 last_video = step
 
             do_save = save_interval and (step - last_save) >= save_interval

@@ -72,6 +72,7 @@ from codebase_tpu_torch.ops.replay import (
 from codebase_tpu_torch.ops.reward_stream import RewardStream, apply_plan
 from codebase_tpu_torch.ops.running_stats import RunningMeanStd
 from codebase_tpu_torch.ops.schedules import epsilon_schedule
+from codebase_tpu_torch.parallel import mesh
 from codebase_tpu_torch.utils import checkpoint as ckpt
 from codebase_tpu_torch.utils.params import load_tree, params_from_numpy, tree_leaves, tree_map
 
@@ -194,11 +195,14 @@ class DQNModel(nn.Module):
                 q = D.apply_mask(q, amask)
             greedy = q.argmax(-1)  # (U*N, E)
             eps = unit_scalar(epsilon, 3, obs)
-            explore = torch.rand((U * E,), generator=generator, device=obs.device).reshape(U, 1, E) < eps
+            # each draw at the global shape, this rank's envs (or units) kept
+            explore = mesh.draw(lambda s: torch.rand(s, generator=generator, device=obs.device),
+                                (U * E,), 0).reshape(U, 1, E) < eps
             if self.use_action_masks:
-                rand = D.sample(generator, torch.where(amask > 0, 0.0, float("-inf")))
+                rand = D.sample(generator, torch.where(amask > 0, 0.0, float("-inf")), env_dim=1, unit_dim=0)
             else:
-                rand = torch.randint(0, q.shape[-1], greedy.shape, generator=generator, device=obs.device)
+                rand = mesh.draw(lambda s: torch.randint(0, q.shape[-1], s, generator=generator, device=obs.device),
+                                 greedy.shape, 1, 0)
             actions = torch.where(explore, rand.reshape(U, -1, E), greedy.reshape(U, -1, E))
             return carry, actions.transpose(1, 2).reshape(U * E, -1).contiguous()  # (U*E, N)
 
@@ -206,16 +210,16 @@ class DQNModel(nn.Module):
 
     # ------------------------------------------------------------------ loss
 
-    def loss(self, target: "DQNModel", batch: dict, ret_rms: RunningMeanStd):
+    def loss(self, target: "DQNModel", batch: dict, ret_rms: RunningMeanStd, shard=None):
         """Episode double-Q TD loss on a reference-layout batch:
         obss (N, T+1, B, D), actions (N, T, B), rewards (N, T, B),
         dones (T+1, B), filled (T, B), action_mask (N, T+1, B, A) or None.
         Returns (loss, new ret_rms); for U units the sum of the units'
         losses (see `unit_losses`)."""
-        losses, ret_rms = self.unit_losses(target, batch, ret_rms)
+        losses, ret_rms = self.unit_losses(target, batch, ret_rms, shard)
         return losses.sum(), ret_rms
 
-    def unit_losses(self, target: "DQNModel", batch: dict, ret_rms: RunningMeanStd):
+    def unit_losses(self, target: "DQNModel", batch: dict, ret_rms: RunningMeanStd, shard=None):
         """`loss` per unit: (U,) losses and the new moments. For U units the
         agents of the batch are U*N (unit-major) and dones and filled carry
         a leading unit axis, as `batch_to_reference_layout` lays them out.
@@ -223,8 +227,19 @@ class DQNModel(nn.Module):
         With `standardise_returns` the target is denormalised with the
         moments as they were, the moments are updated with the returns
         (every (t, b) cell, filled or not, as the JAX package does), and the
-        returns are normalised with the updated moments."""
+        returns are normalised with the updated moments.
+
+        With a `shard` that splits the envs over W ranks, every rank holds
+        the whole batch and takes the loss of its B/W rows: the mean's
+        denominator counts the whole batch's filled cells and the return
+        moments take the whole batch's returns, so the ranks' losses sum to
+        the whole batch's loss (and their gradients to its gradient)."""
         U, N = self.n_units, self.critic.n_agents
+        fsum = batch["filled"].reshape((U,) + batch["actions"].shape[-2:]).sum((1, 2)).clamp(min=1.0)
+        if shard is not None:
+            # this rank's rows: B is axis 2 of the per-agent leaves, the last of dones and filled
+            batch = {k: v if v is None else shard.part(v, v.ndim - 1 if k in ("dones", "filled") else 2)
+                     for k, v in batch.items()}
         obss = batch["obss"]
         actions = batch["actions"]
         T, B = actions.shape[-2:]
@@ -256,7 +271,7 @@ class DQNModel(nn.Module):
                     target_qs = ret_rms.denormalise(target_qs.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
                 returns = batch["rewards"].reshape(U, N, T, B) + gamma * target_qs * (1.0 - dones[:, None])
                 if self.standardise_returns:
-                    ret_rms = ret_rms.update(returns.permute(0, 2, 3, 1))
+                    ret_rms = ret_rms.update(returns.permute(0, 2, 3, 1), shard)
                     returns = ret_rms.normalise(returns.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
             loss_tb = ((chosen - returns) ** 2).sum(1)  # sum over agents
         else:
@@ -280,10 +295,10 @@ class DQNModel(nn.Module):
                     target_tot = ret_rms.denormalise(target_tot[..., None])[..., 0]
                 returns = rewards + gamma * target_tot * (1.0 - dones)
                 if self.standardise_returns:
-                    ret_rms = ret_rms.update(returns)
+                    ret_rms = ret_rms.update(returns, shard)
                     returns = ret_rms.normalise(returns[..., None])[..., 0]
             loss_tb = (chosen_tot - returns) ** 2
-        losses = (loss_tb * filled).sum((1, 2)) / filled.sum((1, 2)).clamp(min=1.0)
+        losses = (loss_tb * filled).sum((1, 2)) / fsum
         return losses, ret_rms
 
 
@@ -311,6 +326,8 @@ class DQNTrainState:
     # (env steps, seconds) of each train iteration, host clock around work
     # that ends in a device sync
     timings: list = field(default_factory=list)
+    # this rank's part of a data-parallel run (`parallel/mesh.py`), or None
+    shard: Optional[object] = None
 
     def state_dict(self) -> dict:
         """The checkpoint's state, keyed by the JAX package's
@@ -320,20 +337,28 @@ class DQNTrainState:
         state in place of the threefry `key`. Tensors stay where they are
         (the codec moves each to the host as it writes it); `timings` is
         not saved. A state of several units (a sweep) raises: a sweep does
-        not checkpoint, as the JAX package's vmapped sweep does not."""
+        not checkpoint, as the JAX package's vmapped sweep does not.
+
+        Over W ranks the replay slots and the reward streams are assembled
+        in the one-rank run's global layout on every rank (a collective),
+        so a checkpoint moves between world sizes."""
         refuse_units(self.model.n_units)
         buf = self.buffer
+
+        def slots(t):
+            return None if t is None else ckpt.global_slots(t, self.shard, buf.n_envs)
+
         return {
             "params": ckpt.params_state_dict(self.model.param_tree()),
             "target_params": ckpt.params_state_dict(self.target.param_tree()),
             "opt_state": ckpt.adam_state_dict(self.opt, self.model.param_tree()),
             "buffer": {
-                "obs": buf.obs, "actions": buf.actions.to(torch.int32), "rewards": buf.rewards,
-                "dones": buf.dones, "filled": buf.filled, "action_mask": buf.action_mask,
+                "obs": slots(buf.obs), "actions": slots(buf.actions.to(torch.int32)), "rewards": slots(buf.rewards),
+                "dones": slots(buf.dones), "filled": slots(buf.filled), "action_mask": slots(buf.action_mask),
                 "pos": ckpt.counter(buf.pos),
             },
             "ret_rms": ckpt.dataclass_state_dict(self.ret_rms),
-            "reward_stream": ckpt.dataclass_state_dict(self.reward_stream),
+            "reward_stream": ckpt.global_envs(ckpt.dataclass_state_dict(self.reward_stream), self.shard),
             "env_steps": ckpt.counter(self.env_steps),
             "updates": ckpt.counter(self.updates),
             "last_target_update": ckpt.counter(self.last_target_update),
@@ -353,10 +378,12 @@ class DQNTrainState:
         buf = state_dict["buffer"]
         names = ("obs", "actions", "rewards", "dones", "filled", "action_mask")
         ckpt.load_leaves([getattr(self.buffer, k) for k in names if buf[k] is not None],
-                         [buf[k] for k in names if buf[k] is not None])
+                         [ckpt.local_slots(buf[k], self.shard, self.buffer.n_envs, device)
+                          for k in names if buf[k] is not None])
         self.buffer.pos = int(buf["pos"])
         self.ret_rms = ckpt.load_dataclass(RunningMeanStd, state_dict["ret_rms"], device)
-        self.reward_stream = ckpt.load_dataclass(RewardStream, state_dict["reward_stream"], device)
+        self.reward_stream = ckpt.load_dataclass(
+            RewardStream, ckpt.local_envs(state_dict["reward_stream"], self.shard, device), device)
         self.env_steps = int(state_dict["env_steps"])
         self.updates = int(state_dict["updates"])
         self.last_target_update = int(state_dict["last_target_update"])
@@ -371,7 +398,8 @@ def refuse_units(n_units: int) -> None:
         )
 
 
-def build_train_functions(env: Environment, eval_env: Environment, cfg, time_limit: int, device, hypers=None):
+def build_train_functions(env: Environment, eval_env: Environment, cfg, time_limit: int, device, hypers=None,
+                          shard=None):
     """Construct (init_state(seed), train_iteration(state), evaluate(state,
     generator)). cfg is the `algorithm` config node. `train_iteration.update
     (state, batch, active=None)` is one update on a reference-layout batch.
@@ -383,13 +411,29 @@ def build_train_functions(env: Environment, eval_env: Environment, cfg, time_lim
     device generator (rollouts, exploration, replay sampling) is seeded
     with the first unit's seed, so one unit reproduces a plain run and a
     unit's draws do not depend on the other units' seeds. E is each unit's
-    env count, and `updates_per_collect: auto` is E."""
+    env count, and `updates_per_collect: auto` is E.
+
+    `shard` (`parallel/mesh.py`) makes this one rank of a data-parallel
+    run. Mode env: the rank steps its E/W of the E envs (`parallel_envs`),
+    keeps its replay slots, takes the loss of its B/W rows of each update
+    and sums the gradients over the ranks; losses and env steps are the
+    whole run's on every rank, and evals run whole on every rank. Mode unit
+    (a sweep over ranks): `hypers` are this rank's units and
+    `init_state(seeds, generator_seed)` takes the whole group's first
+    seed; the draws and the host decisions are the whole group's."""
     acfg = cfg
     lrs, gammas, taus = unit_hypers(acfg, hypers or [{}])
     U = len(lrs)
     lead = (U,) if U > 1 else ()
     n_envs = int(acfg.get("parallel_envs", 1))
     batch_size = int(acfg.batch_size)
+    splits = shard is not None and shard.splits_envs
+    if splits and U > 1:
+        raise ValueError("a sweep group shards its units over the ranks (mode unit), not its envs")
+    local_envs = shard.local(n_envs, "parallel_envs") if splits else n_envs
+    if splits:
+        shard.local(batch_size, "batch_size")
+    eval_shard = shard if shard is not None and shard.mode == "unit" else None
     # round the episode capacity up to a multiple of the insert width, as
     # the JAX package does
     buffer_size = -(-int(acfg.buffer_size) // n_envs) * n_envs
@@ -411,7 +455,7 @@ def build_train_functions(env: Environment, eval_env: Environment, cfg, time_lim
     reward_plan = standardisation_plan(env)
     early_exit = resolve_early_exit(early_exit_option(acfg), env, n_envs)
 
-    def init_state(seed) -> DQNTrainState:
+    def init_state(seed, generator_seed=None) -> DQNTrainState:
         seeds = [int(s) for s in (seed if isinstance(seed, (list, tuple)) else [seed])]
         if len(seeds) != U:
             raise ValueError(f"init_state takes one seed per unit: {U} units, {len(seeds)} seeds")
@@ -427,13 +471,16 @@ def build_train_functions(env: Environment, eval_env: Environment, cfg, time_lim
             buffer=replay_init(
                 buffer_size, time_limit, env.n_agents, env.obs_dim, env.n_actions,
                 with_mask=env.has_action_mask, obs_dtype=obs_dtype, device=device, n_units=U,
+                shard=shard, n_envs=n_envs,
             ),
-            generator=torch.Generator(device=device).manual_seed(seeds[0]),
+            generator=torch.Generator(device=device).manual_seed(seeds[0] if generator_seed is None
+                                                                 else int(generator_seed)),
             ret_rms=model.init_rms(device),
-            reward_stream=RewardStream.init(U * n_envs, env.n_agents, device) if reward_plan else None,
+            reward_stream=RewardStream.init(U * local_envs, env.n_agents, device) if reward_plan else None,
             env_steps=zeros,
             updates=zeros,
             last_target_update=zeros,
+            shard=shard,
         )
 
     def update(state: DQNTrainState, batch: dict, active=None):
@@ -443,8 +490,10 @@ def build_train_functions(env: Environment, eval_env: Environment, cfg, time_lim
         active = np.ones(U, bool) if active is None else np.asarray(active, bool)
         model = state.model
         params = model.param_leaves()
-        losses, ret_rms = model.unit_losses(state.target, batch, state.ret_rms)
+        losses, ret_rms = model.unit_losses(state.target, batch, state.ret_rms, shard)
         grads = torch.autograd.grad(losses.sum(), params)
+        if shard is not None:
+            grads = shard.sum_grads(grads)  # the whole batch's gradient on every rank
         state.opt.step(grads, active)
         state.ret_rms = ret_rms if active.all() else ret_rms.where(
             torch.tensor(active, device=ret_rms.count.device), state.ret_rms)
@@ -467,12 +516,13 @@ def build_train_functions(env: Environment, eval_env: Environment, cfg, time_lim
             rollout, _ = collect_episodes(
                 env,
                 state.model.policy(epsilon),
-                state.model.critic.init_hiddens(n_envs),
+                state.model.critic.init_hiddens(local_envs),
                 state.generator,
-                U * n_envs,
+                U * local_envs,
                 time_limit,
                 bool(acfg.use_proper_termination),
                 early_exit,
+                shard,
             )
         if reward_plan is not None:
             with record_function("dqn/reward_stream"):
@@ -483,16 +533,22 @@ def build_train_functions(env: Environment, eval_env: Environment, cfg, time_lim
                 rollout = dataclasses.replace(rollout, rewards=rewards)
         with record_function("dqn/replay_add"):
             replay_add(state.buffer, rollout, slot_reuse)
-            env_steps = env_steps + rollout.filled.reshape(time_limit, U, n_envs).sum((0, 2)).cpu().numpy().astype(np.int64)
+            filled = rollout.filled.reshape(time_limit, U, local_envs).sum((0, 2))
+            if shard is not None:
+                filled = shard.env_sum(filled)  # the whole run's steps
+            env_steps = env_steps + filled.cpu().numpy().astype(np.int64)
             state.env_steps = pack_units(env_steps)
 
         # each unit trains once it is past training_start (the group draws
-        # the batches when any unit does)
+        # the batches when any unit does, of any rank)
         can_update = (env_steps > int(acfg.training_start)) & state.buffer.can_sample(batch_size)
-        if can_update.any():
+        any_update = bool(can_update.any())
+        if shard is not None:
+            any_update = shard.any(any_update)
+        if any_update:
             with record_function("dqn/updates"):
                 # ONE gather for all updates of this iteration
-                batches = replay_sample_many(state.buffer, state.generator, batch_size, n_updates)
+                batches = replay_sample_many(state.buffer, state.generator, batch_size, n_updates, shard)
                 losses = [
                     update(state, batch_to_reference_layout(
                         {k: (v[u] if v is not None else None) for k, v in batches.items()}, U
@@ -500,6 +556,8 @@ def build_train_functions(env: Environment, eval_env: Environment, cfg, time_lim
                     for u in range(n_updates)
                 ]
                 loss = torch.stack(losses).mean(0)
+                if shard is not None:
+                    loss = shard.env_sum(loss, "loss")  # the ranks' rows' shares
                 if not can_update.all():
                     loss = torch.where(torch.tensor(can_update, device=loss.device), loss, math.nan)
                 loss = loss.reshape(lead)
@@ -508,13 +566,15 @@ def build_train_functions(env: Environment, eval_env: Environment, cfg, time_lim
         return {
             "loss": loss,
             "epsilon": epsilon,
+            # this rank's envs (`parallel.mesh.fetch_metrics` gathers them)
             "episode_returns": rollout.episode_returns,  # (U*E, N)
             "episode_lengths": rollout.episode_lengths,  # (U*E,)
         }
 
     def evaluate(state: DQNTrainState, generator: torch.Generator) -> dict:
         """Rollouts on the eval env at `eps_evaluation`, `eval_episodes` for
-        each unit (unit-major)."""
+        each unit (unit-major). A data-parallel run evaluates whole on every
+        rank; a sweep's rank its own units."""
         n = int(acfg.eval_episodes)
         rollout, _ = collect_episodes(
             eval_env,
@@ -524,6 +584,7 @@ def build_train_functions(env: Environment, eval_env: Environment, cfg, time_lim
             U * n,
             time_limit,
             early_exit=resolve_early_exit("auto", eval_env, n),
+            shard=eval_shard,
         )
         return {"episode_returns": rollout.episode_returns, "episode_lengths": rollout.episode_lengths}
 

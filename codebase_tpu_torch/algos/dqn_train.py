@@ -16,6 +16,12 @@ after each chunk, a video every `video_interval` steps
 SIGTERM makes the loop checkpoint after the chunk in flight and stop. The
 eval generator is seeded from `seed + 1` whether or not the run resumed
 (the JAX package's eval key comes from the seed, not the checkpoint).
+
+In a data-parallel run (`shard`, `parallel/mesh.py`) every rank runs this
+loop in step: the losses and env steps are the whole run's on every rank,
+the eval runs whole on every rank, the ranks agree on the preemption flag
+at every chunk boundary (`sync_flag`) and on the checkpoint they resume
+from, and only rank 0 writes (`results.csv`, checkpoints, videos).
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import torch
 
 from codebase_tpu_torch.algos.dqn import build_train_functions
 from codebase_tpu_torch.ops.schedules import epsilon_schedule
+from codebase_tpu_torch.parallel import mesh
 from codebase_tpu_torch.utils.checkpoint import resume_train_state, save_train_state
 from codebase_tpu_torch.utils.device import sync
 from codebase_tpu_torch.utils.loggers import episode_infos
@@ -35,10 +42,10 @@ from codebase_tpu_torch.utils.preemption import PreemptionGuard
 from codebase_tpu_torch.utils.video import record_episodes
 
 
-def main(env, eval_env, logger, time_limit, cfg, device):
+def main(env, eval_env, logger, time_limit, cfg, device, shard=None):
     acfg = cfg.algorithm
     init_state, train_iteration, evaluate = build_train_functions(
-        env, eval_env, acfg, time_limit, device
+        env, eval_env, acfg, time_limit, device, shard=shard
     )
     seed = cfg.get("seed")
     seed = int(seed) if seed is not None else int(np.random.randint(2**31 - 1))
@@ -85,7 +92,7 @@ def main(env, eval_env, logger, time_limit, cfg, device):
                 losses.append(float(metrics["loss"]))  # waits for the iteration's updates
                 state.timings.append((state.env_steps - step, time.perf_counter() - t0))
                 step = state.env_steps
-            preempt = guard.triggered
+            preempt = mesh.sync_flag(guard.triggered)  # every rank saves and stops together
 
             # eval rollouts and training metrics merge into ONE results.csv
             # row when their cadences coincide
@@ -108,10 +115,11 @@ def main(env, eval_env, logger, time_limit, cfg, device):
                 logger.log_metrics(infos)
 
             if video_interval and (step - last_video) >= video_interval:
-                record_episodes(
-                    eval_env, state.model.policy(float(acfg.eps_evaluation)), state.model.critic.init_hiddens(1),
-                    int(acfg.video_frames), run_dir / "videos" / f"step-{step}.mp4", device,
-                )
+                if mesh.is_coordinator():
+                    record_episodes(
+                        eval_env, state.model.policy(float(acfg.eps_evaluation)), state.model.critic.init_hiddens(1),
+                        int(acfg.video_frames), run_dir / "videos" / f"step-{step}.mp4", device,
+                    )
                 last_video = step
 
             do_save = save_interval and (step - last_save) >= save_interval

@@ -1,5 +1,6 @@
 """Algorithm registry: name -> train entry point
-`main(env, eval_env, logger, time_limit, cfg, device) -> final state`.
+`main(env, eval_env, logger, time_limit, cfg, device, shard=None) -> final
+state`, `shard` this rank's part of a data-parallel run (`parallel/mesh.py`).
 
 Both families of the JAX package are ported: the value-based (IDQN, VDN,
 QMIX) and the actor-critic (IA2C, MAA2C, IPPO, MAPPO)."""
@@ -7,16 +8,16 @@ QMIX) and the actor-critic (IA2C, MAA2C, IPPO, MAPPO)."""
 from __future__ import annotations
 
 
-def _dqn(env, eval_env, logger, time_limit, cfg, device):
+def _dqn(env, eval_env, logger, time_limit, cfg, device, shard=None):
     from codebase_tpu_torch.algos.dqn_train import main
 
-    return main(env, eval_env, logger, time_limit, cfg, device)
+    return main(env, eval_env, logger, time_limit, cfg, device, shard)
 
 
-def _ac(env, eval_env, logger, time_limit, cfg, device):
+def _ac(env, eval_env, logger, time_limit, cfg, device, shard=None):
     from codebase_tpu_torch.algos.ac_train import main
 
-    return main(env, eval_env, logger, time_limit, cfg, device)
+    return main(env, eval_env, logger, time_limit, cfg, device, shard)
 
 
 ALGORITHMS = {

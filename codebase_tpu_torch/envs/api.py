@@ -15,7 +15,10 @@ Conventions (E envs, N agents), as in the JAX package's batched interface:
 - `TimeStep.action_mask`: (E, N, n_actions) float32; all ones when the env
   does not mask (`has_action_mask`).
 The batched `state` is an object the env chooses (LBF keeps it env-axis-last).
-Random draws come from an explicit `torch.Generator` on the env's device.
+Random draws come from an explicit `torch.Generator` on the env's device,
+each made through `parallel.mesh.draw` with its env axis, so that a rank of
+a data-parallel run draws at the global batch's shape and keeps its envs'
+slice.
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ from dataclasses import dataclass
 from typing import Tuple
 
 import torch
+
+from codebase_tpu_torch.parallel.mesh import draw
 
 
 @dataclass
@@ -106,5 +111,6 @@ class Environment:
 def gumbel_argmax(allowed: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     """Uniform choice among the allowed rows of each column: argmax of
     Gumbel noise over the allowed cells. allowed (K, E) bool -> (E,) int64."""
-    g = -torch.log(torch.empty(allowed.shape, device=allowed.device).exponential_(generator=generator))
+    e = draw(lambda s: torch.empty(s, device=allowed.device).exponential_(generator=generator), allowed.shape, -1)
+    g = -torch.log(e)
     return torch.where(allowed, g, float("-inf")).argmax(0)

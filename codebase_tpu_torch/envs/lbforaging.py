@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as Fnn
 
 from codebase_tpu_torch.envs.api import Environment, TimeStep, gumbel_argmax
+from codebase_tpu_torch.parallel.mesh import draw
 
 NONE, NORTH, SOUTH, WEST, EAST, LOAD = range(6)
 
@@ -111,10 +112,9 @@ class LevelBasedForaging(Environment):
             player_cells.append(cell)
             occ = occ | (cell_iota == cell[None, :])
         player_cells = torch.stack(player_cells)  # (N, E)
-        agent_level = torch.randint(
-            self.min_player_level, self.max_player_level + 1, (N, E),
-            generator=generator, device=dev, dtype=i32,
-        )
+        agent_level = draw(lambda s: torch.randint(
+            self.min_player_level, self.max_player_level + 1, s, generator=generator, device=dev, dtype=i32,
+        ), (N, E), 1)
 
         # --- foods: interior cells, empty, no food in the 8-neighbourhood
         rr = torch.arange(R, device=dev)[:, None]
@@ -150,7 +150,7 @@ class LevelBasedForaging(Environment):
         else:
             lo = self.min_food_level
             hi = max_level.clamp(min=lo + 1)  # (E,)
-            u = torch.rand((F, E), generator=generator, device=dev)
+            u = draw(lambda s: torch.rand(s, generator=generator, device=dev), (F, E), 1)
             food_level = lo + torch.minimum(
                 (u * (hi - lo)[None, :]).floor().to(i32), (hi - lo - 1)[None, :].to(i32)
             )

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from codebase_tpu_torch.envs.api import Environment, TimeStep, gumbel_argmax
+from codebase_tpu_torch.parallel.mesh import draw
 
 NOOP, FORWARD, LEFT, RIGHT, TOGGLE_LOAD = range(5)
 
@@ -138,9 +139,12 @@ class RWARE(Environment):
         dev = generator.device
         i32 = torch.int32
         # the top-k of iid uniforms: a uniform ordered draw without replacement
-        cells = torch.rand((self.rows * self.cols, n), generator=generator, device=dev).topk(N, dim=0).indices
-        agent_dir = torch.randint(0, 4, (N, n), generator=generator, device=dev, dtype=i32)
-        req = torch.rand((S, n), generator=generator, device=dev).topk(self.request_queue_size, dim=0).indices
+        def rand(shape):
+            return torch.rand(shape, generator=generator, device=dev)
+
+        cells = draw(rand, (self.rows * self.cols, n), 1).topk(N, dim=0).indices
+        agent_dir = draw(lambda s: torch.randint(0, 4, s, generator=generator, device=dev, dtype=i32), (N, n), 1)
+        req = draw(rand, (S, n), 1).topk(self.request_queue_size, dim=0).indices
         requested = torch.zeros((S, n), dtype=torch.bool, device=dev).scatter_(0, req, True)
         home = torch.as_tensor(np.argwhere(self._storage_grid()).astype(np.int32)).to(dev)  # (S, 2) row-major
         state = RWAREBatchState(

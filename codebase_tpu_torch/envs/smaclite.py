@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from codebase_tpu_torch.envs.api import Environment, TimeStep
+from codebase_tpu_torch.parallel import mesh
 
 NOOP, STOP, MOVE_N, MOVE_S, MOVE_W, MOVE_E = range(6)
 
@@ -196,7 +197,8 @@ class SmacLiteCombat(Environment):
         i32 = torch.int32
 
         def draw(lo, hi, units):
-            return torch.randint(lo, hi, (units, n), generator=generator, device=dev, dtype=i32)
+            return mesh.draw(lambda s: torch.randint(lo, hi, s, generator=generator, device=dev, dtype=i32),
+                             (units, n), 1)
 
         k = self._consts(dev)
         state = CombatBatchState(

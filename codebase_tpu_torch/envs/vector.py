@@ -28,6 +28,7 @@ import torch
 from torch.profiler import record_function
 
 from codebase_tpu_torch.envs.api import Environment
+from codebase_tpu_torch.parallel import mesh
 
 
 @dataclass
@@ -77,6 +78,7 @@ def collect_episodes(
     time_limit: int,
     use_proper_termination: bool = False,
     early_exit="auto",
+    shard=None,
 ):
     """Collect one full (padded) episode from each of `n_envs` instances.
 
@@ -86,17 +88,27 @@ def collect_episodes(
     "auto", which stops early only for wide batches (E >= 512) of an env
     that can end before its time limit, the JAX package's rule. Returns
     (Rollout, final carry).
+
+    `shard` (a `parallel.mesh.Shard`) makes this the rank's part of a
+    data-parallel rollout: `n_envs` are the rank's envs, every draw inside
+    is made at the global shape and sliced (`parallel.mesh.draw`), and the
+    early exit stops when no env of any rank runs (one `all_reduce` a
+    step), so every rank's generators stay in step.
     """
-    early_exit = resolve_early_exit(early_exit, env, n_envs)
+    with mesh.drawing(shard) as shard:
+        return _collect(env, policy, policy_carry, generator, n_envs, time_limit, use_proper_termination,
+                        resolve_early_exit(early_exit, env, n_envs), shard)
+
+
+def _collect(env, policy, carry, generator, n_envs, time_limit, use_proper_termination, early_exit, shard):
     seed = torch.randint(2**62, (), generator=generator, device=generator.device)
     generator = torch.Generator(device=generator.device).manual_seed(int(seed))
     states, ts = env.reset_batch(generator, n_envs)
     obs0, mask0 = ts.obs, ts.action_mask
     running = torch.ones((n_envs,), dtype=torch.bool, device=ts.obs.device)
-    carry = policy_carry
     out = {k: [] for k in ("obs", "actions", "rewards", "stat_rewards", "dones", "filled", "action_mask")}
     for _ in range(time_limit):
-        if early_exit and not bool(running.any()):
+        if early_exit and not shard.any(running):
             break
         carry, actions = policy(carry, ts.obs, ts.action_mask, generator)
         with record_function("env/step"):  # read by `codebase_tpu_torch.profile`

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from codebase_tpu_torch.parallel.mesh import draw
+
 MASK_NEG = -1e8
 
 
@@ -19,10 +21,14 @@ def apply_mask(logits: torch.Tensor, mask) -> torch.Tensor:
     return logits * mask + (1.0 - mask) * MASK_NEG
 
 
-def sample(generator: torch.Generator, logits: torch.Tensor) -> torch.Tensor:
+def sample(generator: torch.Generator, logits: torch.Tensor, env_dim=None, unit_dim=None) -> torch.Tensor:
     """Sample actions, (..., A) logits -> (...) int64, by Gumbel-max (the
-    rule of `jax.random.categorical`): argmax of logits + Gumbel noise."""
-    u = torch.rand(logits.shape, generator=generator, device=logits.device, dtype=logits.dtype)
+    rule of `jax.random.categorical`): argmax of logits + Gumbel noise.
+    `env_dim` and `unit_dim` name the env and sweep-unit axes of the logits
+    for a rank's draw (`parallel.mesh.draw`); None draws the logits' shape
+    as it is."""
+    u = draw(lambda s: torch.rand(s, generator=generator, device=logits.device, dtype=logits.dtype),
+             logits.shape, env_dim, unit_dim)
     return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
 
 

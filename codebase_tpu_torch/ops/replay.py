@@ -17,6 +17,16 @@ The units of a sweep share one buffer of U x S slots, unit u's are slots
 u*S .. u*S + S-1. Every unit inserts its E episodes per insert (the envs
 of a rollout are unit-major), so `pos` is common, and each unit samples
 from its own slots.
+
+Over W ranks of a data-parallel run (`parallel/mesh.py`) the slots are
+sharded by env slice: an insert of the E global envs fills global slots
+`pos % S .. + E-1` (S a multiple of E), so global slot g holds env g % E,
+and rank r keeps the S/W slots of its envs `[r*E/W, (r+1)*E/W)`: global
+slot g lives on rank `(g % E) // (E/W)` at local slot
+`(g // E) * (E/W) + g % (E/W)`. `replay_add` stays local. `pos` counts
+the global episodes, so every rank samples the same global indices; each
+gathers the rows it owns into a zero-filled batch and one `all_reduce`
+of each field hands every rank the whole batch.
 """
 
 from __future__ import annotations
@@ -37,13 +47,18 @@ class ReplayState:
     dones: torch.Tensor  # (S, T+1)
     filled: torch.Tensor  # (S, T)
     action_mask: Optional[torch.Tensor]  # (S, T+1, N, A), None for maskless envs
-    pos: int = 0  # episodes ever added (by each unit)
+    pos: int = 0  # episodes ever added (by each unit), over all ranks
     n_units: int = 1  # U units of S slots each; the tensors hold U * S
+    # the ranks the slots are sharded over, this one, and the global envs
+    # an insert adds (W > 1 only)
+    world: int = 1
+    rank: int = 0
+    n_envs: int = 0
 
     @property
     def size(self) -> int:
-        """Slots of one unit."""
-        return self.obs.shape[0] // self.n_units
+        """Slots of one unit, over all ranks."""
+        return self.obs.shape[0] // self.n_units * self.world
 
     @property
     def num_stored(self) -> int:
@@ -63,9 +78,18 @@ def replay_init(
     obs_dtype=torch.float32,
     device="cpu",
     n_units: int = 1,
+    shard=None,
+    n_envs: int = 0,
 ) -> ReplayState:
-    """`size` slots for each of `n_units` units."""
-    S, T, N, D, A = size * n_units, time_limit, n_agents, obs_dim, n_actions
+    """`size` slots for each of `n_units` units; with a `shard` that splits
+    the envs, this rank's `size / W` of them, for inserts of `n_envs`
+    global envs (a multiple of W dividing `size`)."""
+    world = shard.world if shard is not None and shard.splits_envs else 1
+    if world > 1:
+        shard.local(n_envs, "parallel_envs")
+        if size % n_envs:
+            raise ValueError(f"replay of {size} episodes is not a multiple of the {n_envs} envs an insert adds")
+    S, T, N, D, A = size // world * n_units, time_limit, n_agents, obs_dim, n_actions
     return ReplayState(
         obs=torch.zeros((S, T + 1, N, D), dtype=obs_dtype, device=device),
         actions=torch.zeros((S, T, N), dtype=torch.int64, device=device),
@@ -77,13 +101,17 @@ def replay_init(
         ),
         pos=0,
         n_units=n_units,
+        world=world,
+        rank=shard.rank if world > 1 else 0,
+        n_envs=n_envs if world > 1 else 0,
     )
 
 
 def replay_add(state: ReplayState, rollout: Rollout, slot_reuse: str = "reference") -> ReplayState:
     """Insert E padded episodes (time-major rollout -> episode-major slots),
     in place; with U units, U*E unit-major episodes, E into each unit's
-    slots.
+    slots. Over W ranks the rollout is this rank's E/W envs, written to its
+    own slots.
 
     slot_reuse — what happens to a slot's old contents past the new episode's
     end (`t > len`):
@@ -94,10 +122,13 @@ def replay_add(state: ReplayState, rollout: Rollout, slot_reuse: str = "referenc
     """
     if slot_reuse not in ("reference", "clear"):
         raise ValueError(f"slot_reuse must be 'reference' or 'clear'; got {slot_reuse!r}")
-    U, S = state.n_units, state.size
-    E = rollout.filled.shape[1] // U
+    U, W = state.n_units, state.world
+    S = state.size // W  # this rank's slots of a unit
+    E = rollout.filled.shape[1] // U  # this rank's envs of a unit
     device = state.obs.device
-    slots = ((state.pos + torch.arange(E, device=device)) % S + S * torch.arange(U, device=device)[:, None]).reshape(-1)
+    # `pos` is a multiple of the global E, so pos / W is this rank's cursor
+    slots = ((state.pos // W + torch.arange(E, device=device)) % S
+             + S * torch.arange(U, device=device)[:, None]).reshape(-1)
 
     fil = rollout.filled.transpose(0, 1)  # (E, T)
     written_t = fil > 0
@@ -118,24 +149,55 @@ def replay_add(state: ReplayState, rollout: Rollout, slot_reuse: str = "referenc
     ins(state.filled, rollout.filled)
     if state.action_mask is not None:
         ins(state.action_mask, rollout.action_mask)
-    state.pos += E
+    state.pos += E * W
     return state
 
 
-def replay_sample_many(state: ReplayState, generator: torch.Generator, batch_size: int, n: int):
+def replay_sample_many(state: ReplayState, generator: torch.Generator, batch_size: int, n: int, shard=None):
     """Draw `n` independent uniform batches (with replacement) in ONE gather,
     each unit's from its own slots.
 
     Leaves keep the gathered slot-major layout with a leading n axis — obs
     (n, U*B, T+1, N, D), actions (n, U*B, T, N), dones (n, U*B, T+1), ...,
     the U units' B episodes unit-major — and `batch_to_reference_layout`
-    lays out one update's slice."""
+    lays out one update's slice.
+
+    With a `shard` the indices are drawn at the global shape (the same on
+    every rank when the envs are split; a sweep rank's units' rows of the
+    whole group's draw when the units are), and over W ranks the batch is
+    gathered from the ranks that own its slots: every rank gets the whole
+    batch."""
     U, device = state.n_units, state.obs.device
-    idx = torch.randint(0, state.num_stored, (U, n * batch_size), generator=generator, device=device)
+
+    def randint(shape):
+        return torch.randint(0, state.num_stored, shape, generator=generator, device=device)
+
+    idx = randint((U, n * batch_size)) if shard is None else shard.draw(randint, (U, n * batch_size), None, 0)
     if U > 1:
         idx = idx + state.size * torch.arange(U, device=device)[:, None]
         idx = idx.reshape(U, n, batch_size).transpose(0, 1)
+    if state.world > 1:
+        return gather_sharded(state, idx.reshape(-1), batch_size, n, shard)
     return gather_batches(state, idx.reshape(-1), U * batch_size, n)
+
+
+def gather_sharded(state: ReplayState, idx, batch_size: int, n: int, shard):
+    """`gather_batches` of global slot indices over W ranks: each rank
+    gathers the rows whose slots it owns into a zero-filled batch, and one
+    `all_reduce` of each field sums them (adding zeros is exact)."""
+    E, W = state.n_envs, state.world
+    El = E // W
+    env = idx % E
+    own = env // El == state.rank
+    local = torch.where(own, idx // E * El + env % El, 0)
+    out = gather_batches(state, local, batch_size, n)
+    own = own.reshape(n, batch_size)
+    for k, v in out.items():
+        if v is not None:
+            keep = own.reshape(own.shape + (1,) * (v.ndim - 2))
+            out[k] = shard.all_reduce(torch.where(keep, v, torch.zeros((), dtype=v.dtype, device=v.device)),
+                                      kind="batch")
+    return out
 
 
 def gather_batches(state: ReplayState, idx, batch_size: int, n: int):

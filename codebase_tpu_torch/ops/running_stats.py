@@ -34,14 +34,23 @@ class RunningMeanStd:
     def n_units(self) -> int:
         return self.count.numel()
 
-    def update(self, arr: torch.Tensor) -> "RunningMeanStd":
+    def update(self, arr: torch.Tensor, shard=None) -> "RunningMeanStd":
         """Merge a batch of samples; arr is reshaped to (-1, D), or to
-        (U, -1, D) for U units."""
+        (U, -1, D) for U units. With a `shard` that splits the envs over W
+        ranks, `arr` is this rank's equal share of the batch, and the
+        batch's mean and variance are the whole batch's (two `all_reduce`s:
+        the sum, then the squared deviations from the mean)."""
         U, D = self.n_units, self.mean.shape[-1]
         arr = arr.reshape(U, -1, D).float()
-        batch_count = arr.shape[1]
-        batch_mean = arr.mean(1)
-        batch_var = arr.var(1, correction=1) if batch_count > 1 else torch.zeros_like(batch_mean)
+        if shard is not None and shard.splits_envs and shard.world > 1:
+            batch_count = arr.shape[1] * shard.world
+            batch_mean = shard.all_reduce(arr.sum(1), kind="moments") / batch_count
+            sq = shard.all_reduce((arr - batch_mean[:, None]).square().sum(1), kind="moments")
+            batch_var = sq / (batch_count - 1)
+        else:
+            batch_count = arr.shape[1]
+            batch_mean = arr.mean(1)
+            batch_var = arr.var(1, correction=1) if batch_count > 1 else torch.zeros_like(batch_mean)
         # a row count is exact in f32 up to 2**24, so the Python number
         # rounds as the JAX package's f32 array does
         batch_count = float(batch_count)

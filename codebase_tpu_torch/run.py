@@ -8,6 +8,14 @@ writes full-state checkpoints to `<run_dir>/checkpoints/`, `resume=<path>`
 or `resume=auto` continues a run from one, and SIGTERM checkpoints and
 exits cleanly; `python -m codebase_tpu_torch.eval path=<run_dir>`
 evaluates a run from its checkpoint.
+
+`distributed.devices=N` trains data-parallel over N ranks, one process per
+GPU (`parallel/mesh.py`): the env batch and replay are sharded, params are
+replicated and gradients summed, and only rank 0 writes files. The CLI
+spawns the ranks itself (`distributed.devices=1` runs one rank in this
+process, `all` one per visible GPU; `device=cpu` spawns CPU ranks over
+gloo); under torchrun's variables `distributed.initialize` `auto` or
+`always` joins that job's group instead.
 """
 
 from __future__ import annotations
@@ -20,8 +28,9 @@ from pathlib import Path
 from codebase_tpu_torch.algos.registry import get_algorithm
 from codebase_tpu_torch.config import load_config
 from codebase_tpu_torch.envs.factory import make_env
+from codebase_tpu_torch.parallel import mesh
 from codebase_tpu_torch.utils.device import resolve_device
-from codebase_tpu_torch.utils.loggers import make_logger
+from codebase_tpu_torch.utils.loggers import Logger, make_logger
 
 
 # JAX-package keys the port does not do yet, each with its default (absent
@@ -30,8 +39,6 @@ from codebase_tpu_torch.utils.loggers import make_logger
 NOT_PORTED = {
     "trace_dir": (None, "Queue 1 item 7, tooling (a torch.profiler trace)"),
     "debug": (False, "Queue 1 item 7, tooling (NaN and anomaly checks)"),
-    "distributed.devices": (None, "Queue 1 item 6, multi-GPU"),
-    "distributed.initialize": ("auto", "Queue 1 item 6, multi-GPU"),
     "algorithm.entry": (None, "Queue 1 item 7, tooling (algorithm.entry and register_algorithm)"),
 }
 
@@ -42,13 +49,17 @@ def _lookup(data: dict, key: str):
     return data
 
 
+# the keys of the `distributed` node, the JAX package's
+DISTRIBUTED_KEYS = ("devices", "initialize")
+
+
 def refuse_unported(cfg) -> None:
     """Raise NotImplementedError, naming the ROADMAP.md item of each, on any
     `NOT_PORTED` key set off its default; ValueError on a `distributed` key
     the JAX package does not have."""
     data = cfg.to_dict()
     dist = data.get("distributed") or {}
-    unknown = sorted(f"distributed.{k}" for k in dist if f"distributed.{k}" not in NOT_PORTED) \
+    unknown = sorted(f"distributed.{k}" for k in dist if k not in DISTRIBUTED_KEYS) \
         if isinstance(dist, dict) else ["distributed"]
     if unknown:
         raise ValueError(f"unknown config keys {unknown}; `distributed` takes `devices` and `initialize`")
@@ -67,10 +78,21 @@ def build_envs(cfg):
     return env, env
 
 
+def check_divides(cfg, world: int) -> None:
+    """Raise ValueError unless the env batch (and a replay batch) divides
+    over `world` ranks."""
+    shard = mesh.Shard(world=world)
+    shard.local(int(cfg.env.get("parallel_envs", cfg.algorithm.get("parallel_envs", 1))), "env.parallel_envs")
+    if "batch_size" in cfg.algorithm:
+        shard.local(int(cfg.algorithm.batch_size), "algorithm.batch_size")
+
+
 def main(argv=None):
-    """Train; returns (results.csv rows as dicts, final train state)."""
+    """Train; returns (results.csv rows as dicts, final train state). A run
+    that spawns its ranks returns rank 0's rows and no state."""
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
-    cfg = load_config(argv if argv is not None else sys.argv[1:])
+    argv = list(argv if argv is not None else sys.argv[1:])
+    cfg = load_config(argv)
     refuse_unported(cfg)
     if not cfg.env.get("name"):
         raise ValueError("env.name must be set")
@@ -78,7 +100,29 @@ def main(argv=None):
         raise ValueError("Time limit must be set.")
     if "name" not in cfg.algorithm:
         raise ValueError("select an algorithm with +algorithm=<name>")
-    # full-f32 matmuls (allow_tf32 = False) are set here for the whole run
+    device_name = cfg.get("device", "cuda")
+    n_ranks = mesh.ranks_to_spawn(cfg.get("distributed"), device_name)
+    if n_ranks:
+        check_divides(cfg, n_ranks)
+        return mesh.spawn(_rank_main, n_ranks, device_name, args=(argv,))[0], None
+    shard = mesh.mesh_from_config(cfg.get("distributed"), device_name)
+    try:
+        if shard is not None:
+            check_divides(cfg, shard.world)
+        return _train(cfg, shard)
+    finally:
+        mesh.release(shard)
+
+
+def _rank_main(argv):
+    """One spawned rank: trains its share and returns its rows (rank 0's
+    are the run's)."""
+    return main(argv)[0]
+
+
+def _train(cfg, shard):
+    # full-f32 matmuls (allow_tf32 = False) are set here for the whole run,
+    # on this rank's GPU
     device = resolve_device(cfg.get("device", "cuda"))
     algo = get_algorithm(cfg.algorithm.name)
 
@@ -87,15 +131,20 @@ def main(argv=None):
         tag = os.urandom(4).hex()
         run_dir = Path("outputs") / str(cfg.env.name).replace(":", "_") / cfg.algorithm.name / tag
     run_dir = Path(run_dir)
-    run_dir.mkdir(parents=True, exist_ok=True)
-    logger = make_logger(cfg, run_dir)
+    if mesh.is_coordinator():
+        run_dir.mkdir(parents=True, exist_ok=True)
+        logger = make_logger(cfg, run_dir)
+    else:
+        # another rank writes nothing: results.csv, config.yaml, checkpoints
+        # and videos are rank 0's
+        logger = Logger(cfg.get("project_name", "codebase_tpu_torch"), cfg, run_dir)
     env, eval_env = build_envs(cfg)
     if cfg.get("seed") is None:
         logger.warning("No seed has been set.")
     if "parallel_envs" in cfg.env:
         cfg.algorithm.parallel_envs = int(cfg.env.parallel_envs)
 
-    state = algo(env, eval_env, logger, int(cfg.env.time_limit), cfg, device)
+    state = algo(env, eval_env, logger, int(cfg.env.time_limit), cfg, device, shard)
     return logger.get_state(), state
 
 

@@ -24,8 +24,16 @@ actor-critic family's last training rollout, with `updates`,
 `environment_steps` and the chunk's nan-mean `loss`. Each unit writes its
 own `config.yaml` and `results.csv` under `run_dir[/<variant>]/seed_<s>/`,
 so the analysis tools read it as an ordinary run. A sweep does not
-checkpoint, as the JAX one does not. Units over several GPUs (the JAX
-package's mesh) wait for ROADMAP.md Queue 1 item 6.
+checkpoint, as the JAX one does not.
+
+`distributed.devices=N` shards a group's units over N ranks, as the JAX
+sweep shards its vmapped unit axis over the mesh: rank r trains units
+`[r*U/N, (r+1)*U/N)` as one train state and writes their directories (U
+must divide over N: ValueError naming "divide"). Each unit's rows are what
+the unsharded group writes: the ranks seed the group's generator with the
+whole group's first seed and draw at the whole group's shape
+(`parallel/mesh.py`, mode unit), and agree on the host decisions (the
+slowest unit's steps, the early exit, "any unit can update").
 """
 
 from __future__ import annotations
@@ -37,9 +45,12 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import yaml
 
 from codebase_tpu_torch.algos.common import unit_values
+from codebase_tpu_torch.config import Config
+from codebase_tpu_torch.parallel import mesh
 from codebase_tpu_torch.run import build_envs, refuse_unported
 from codebase_tpu_torch.utils.device import resolve_device, sync
 from codebase_tpu_torch.utils.loggers import append_results_row, episode_infos, squash_info
@@ -60,11 +71,18 @@ def _variant_label(variant: Dict[str, float]) -> str:
     return ",".join(f"{k}={v:g}" for k, v in sorted(variant.items()))
 
 
-def build_group(cfg, seeds: Sequence[int], hyper_variants: Optional[List[Dict[str, float]]] = None):
+def group_units(seeds: Sequence[int], hyper_variants=None) -> list:
+    """The (variant index, seed) units of a group, variant-major,
+    seed-minor, as the JAX sweep orders them."""
+    return [(vi, int(s)) for vi in range(len(hyper_variants or [{}])) for s in seeds]
+
+
+def build_group(cfg, seeds: Sequence[int], hyper_variants: Optional[List[Dict[str, float]]] = None, shard=None):
     """The train functions and initial state of one group: (units, state,
     train_iteration, evaluate), the units (variant index, seed)
-    variant-major, seed-minor, as the JAX sweep orders them. Refuses the
-    keys the port has not ported (`run.refuse_unported`)."""
+    variant-major, seed-minor, as the JAX sweep orders them. With a `shard`
+    (mode unit) only this rank's units. Refuses the keys the port has not
+    ported (`run.refuse_unported`)."""
     refuse_unported(cfg)
     device = resolve_device(cfg.get("device", "cuda"))
     env, eval_env = build_envs(cfg)
@@ -72,16 +90,29 @@ def build_group(cfg, seeds: Sequence[int], hyper_variants: Optional[List[Dict[st
     if "parallel_envs" in cfg.env:
         cfg.algorithm.parallel_envs = int(cfg.env.parallel_envs)
     variants = hyper_variants or [{}]
-    units = [(vi, int(s)) for vi in range(len(variants)) for s in seeds]
+    units = group_units(seeds, hyper_variants)
+    first_seed = units[0][1]  # the group's generator seed, whatever the rank
+    if shard is not None:
+        n = shard.local(len(units), "the number of (variant x seed) units")
+        units = units[shard.rank * n:(shard.rank + 1) * n]
     if cfg.algorithm.name in DQN_FAMILY:
         from codebase_tpu_torch.algos.dqn import build_train_functions
     else:
         from codebase_tpu_torch.algos.ac import build_train_functions
     init_state, train_iteration, evaluate = build_train_functions(
-        env, eval_env, cfg.algorithm, time_limit, device, hypers=[variants[vi] for vi, _ in units]
+        env, eval_env, cfg.algorithm, time_limit, device, hypers=[variants[vi] for vi, _ in units], shard=shard
     )[:3]
-    state = init_state([s for _, s in units])
+    state = init_state([s for _, s in units], generator_seed=first_seed)
     return units, state, train_iteration, evaluate
+
+
+def unit_dir(run_dir: Path, variants, unit) -> Path:
+    """`run_dir[/<variant>]/seed_<s>` of a (variant index, seed) unit."""
+    vi, s = unit
+    d = Path(run_dir)
+    if variants != [{}]:
+        d = d / _variant_label(variants[vi])
+    return d / f"seed_{s}"
 
 
 def run_vmapped_multiseed(
@@ -96,12 +127,38 @@ def run_vmapped_multiseed(
     trains just the seed axis. Writes one reference-compatible
     `results.csv` + `config.yaml` per unit (under
     `run_dir[/variant]/seed_<s>/`). Returns the unit run dirs.
+
+    `distributed.devices` shards the units over ranks (spawned here unless
+    this process is a rank already); each rank writes its units' files.
     """
     run_dir = Path(run_dir)
     variants = hyper_variants or [{}]
-    units, state, train_iteration, evaluate = build_group(cfg, seeds, hyper_variants)
+    device_name = cfg.get("device", "cuda")
+    n_ranks = mesh.ranks_to_spawn(cfg.get("distributed"), device_name)
+    if n_ranks:
+        mesh.Shard(world=n_ranks).local(len(group_units(seeds, hyper_variants)),
+                                        "the number of (variant x seed) units")
+        mesh.spawn(_rank_sweep, n_ranks, device_name, args=(cfg.to_dict(), list(seeds), run_dir, hyper_variants))
+        return [unit_dir(run_dir, variants, u) for u in group_units(seeds, hyper_variants)]
+    shard = mesh.mesh_from_config(cfg.get("distributed"), device_name, mode="unit")
+    try:
+        return _train_group(cfg, seeds, run_dir, hyper_variants, shard)
+    finally:
+        mesh.release(shard)
+
+
+def _rank_sweep(cfg_dict, seeds, run_dir, hyper_variants):
+    """One spawned rank of a sharded group."""
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
+    run_vmapped_multiseed(Config(cfg_dict), seeds, run_dir, hyper_variants)
+
+
+def _train_group(cfg, seeds, run_dir, hyper_variants, shard):
+    variants = hyper_variants or [{}]
+    units, state, train_iteration, evaluate = build_group(cfg, seeds, hyper_variants, shard)
     U = len(units)
     device = state.generator.device
+    world = shard or mesh.Shard()
 
     is_dqn = cfg.algorithm.name in DQN_FAMILY
     acfg = cfg.algorithm
@@ -114,10 +171,7 @@ def run_vmapped_multiseed(
     # per-unit writers
     unit_dirs = []
     for vi, s in units:
-        d = run_dir
-        if variants != [{}]:
-            d = d / _variant_label(variants[vi])
-        d = d / f"seed_{s}"
+        d = unit_dir(run_dir, variants, (vi, s))
         d.mkdir(parents=True, exist_ok=True)
         unit_cfg = cfg.to_dict()
         unit_cfg["seed"] = int(s)
@@ -143,9 +197,11 @@ def run_vmapped_multiseed(
             losses.append(metrics["loss"].reshape(U).cpu().numpy())  # waits for the iteration
             state.timings.append((int((unit_values(state.env_steps, U) - before).sum()), time.perf_counter() - t0))
         env_steps = unit_values(state.env_steps, U)
-        step = int(env_steps.min())
+        # the slowest unit of the whole group, and its steps since a row
+        mins = torch.tensor([env_steps.min(), (env_steps - last_eval).min()], dtype=torch.int64, device=world.device)
+        step, since_row = world.all_reduce(mins, dist.ReduceOp.MIN, "steps").tolist()
 
-        if (env_steps - last_eval).min() >= eval_interval:
+        if since_row >= eval_interval:
             out = evaluate(state, eval_gen) if is_dqn else metrics
             returns = out["episode_returns"].reshape((U, -1) + out["episode_returns"].shape[1:])  # (U, E, N)
             lengths = out["episode_lengths"].reshape(U, -1)

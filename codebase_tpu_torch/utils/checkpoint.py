@@ -22,6 +22,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from codebase_tpu_torch.parallel import mesh
 from codebase_tpu_torch.utils import msgpack
 from codebase_tpu_torch.utils.params import tree_leaves
 
@@ -273,14 +274,63 @@ def load_generator(generator: torch.Generator, state_dict) -> None:
     generator.set_state(torch.from_numpy(np.array(state_dict["generator"], dtype=np.uint8)))
 
 
+# ------------------------------------------- data-parallel runs: global layout
+# A checkpoint of a W-rank run has the one-rank run's schema and layout, so
+# it resumes at any W: the per-env leaves (replay slots, reward streams) are
+# assembled whole on save (a zero-filled all_reduce, on every rank) and
+# each rank keeps its env slice on load (`parallel/mesh.py`).
+
+
+def _splits(shard) -> bool:
+    return shard is not None and shard.splits_envs
+
+
+def global_slots(t: torch.Tensor, shard, n_envs: int) -> torch.Tensor:
+    """A rank's replay slots (S/W, ...) in the global slot order (S, ...):
+    global slot g holds env g % E (`ops/replay.py`)."""
+    if not _splits(shard):
+        return t
+    local = t.reshape((-1, n_envs // shard.world) + t.shape[1:])
+    return shard.gather_envs(local, 1, "state").reshape((-1,) + t.shape[1:])
+
+
+def local_slots(x, shard, n_envs: int, device) -> torch.Tensor:
+    """The inverse of `global_slots` on a loaded leaf."""
+    t = as_tensor(x, device)
+    if not _splits(shard):
+        return t
+    return shard.part(t.reshape((-1, n_envs) + t.shape[1:]), 1).reshape((-1,) + t.shape[1:])
+
+
+def global_envs(state_dict, shard):
+    """A per-env state dict (leading env axis on every leaf, or None) with
+    the whole env batch on every rank."""
+    if state_dict is None or not _splits(shard):
+        return state_dict
+    return {k: shard.gather_envs(v, 0, "state") for k, v in state_dict.items()}
+
+
+def local_envs(state_dict, shard, device):
+    """The inverse of `global_envs` on a loaded state dict."""
+    if state_dict is None or not _splits(shard):
+        return state_dict
+    return {k: shard.part(as_tensor(v, device), 0) for k, v in state_dict.items()}
+
+
 # ------------------------------------------------------- the host loops' use
 
 
 def resume_train_state(state, resume, run_dir, logger):
     """Restore `state` (a train state with `load_state_dict`) from the
     checkpoint the `resume` config value names, logging where from, as the
-    JAX package's host loops do. Returns the checkpoint's path or None."""
+    JAX package's host loops do. Returns the checkpoint's path or None.
+
+    In a data-parallel run every rank resolves `resume` on its own
+    filesystem and loads the file; the ranks must agree on the checkpoint's
+    step (RuntimeError naming each rank's otherwise)."""
     path = resolve_resume(resume, run_dir)
+    step = path.stem.split("_s")[-1] if path else "-1"
+    mesh.assert_agreement(int(step) if step.lstrip("-").isdigit() else 0, "the step of the checkpoint to resume from")
     if path:
         state.load_state_dict(load_checkpoint(path), path)
         logger.info(f"Resumed from {path} at step {state.env_steps}")
@@ -290,8 +340,12 @@ def resume_train_state(state, resume, run_dir, logger):
 
 
 def save_train_state(state, run_dir, step: int, logger) -> Path:
-    """Write `<run_dir>/checkpoints/model_s{step}.msgpack`."""
+    """Write `<run_dir>/checkpoints/model_s{step}.msgpack`. In a
+    data-parallel run every rank calls this (the state is assembled by a
+    collective) and only the coordinator writes."""
     path = Path(run_dir) / "checkpoints" / f"model_s{step}.msgpack"
-    nbytes = save_checkpoint(path, state.state_dict())
-    logger.info(f"Saved checkpoint {path} ({nbytes} bytes)")
+    state_dict = state.state_dict()
+    if mesh.is_coordinator():
+        nbytes = save_checkpoint(path, state_dict)
+        logger.info(f"Saved checkpoint {path} ({nbytes} bytes)")
     return path

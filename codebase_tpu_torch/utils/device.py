@@ -4,10 +4,14 @@ from __future__ import annotations
 
 import torch
 
+from codebase_tpu_torch.parallel import mesh
+
 
 def resolve_device(name) -> torch.device:
     """`cuda` (the default) or `cpu`. `cuda` without a visible GPU raises:
-    an entry point never carries on quietly on the CPU.
+    an entry point never carries on quietly on the CPU. In a rank of a
+    data-parallel run `cuda` is the rank's GPU; every rank calls this, so
+    each pins its own matmul precision.
 
     Also pins float32 matmuls and convolutions to full precision
     (`allow_tf32 = False`), so the `torch.matmul` projections around the GRU
@@ -17,7 +21,10 @@ def resolve_device(name) -> torch.device:
         if not torch.cuda.is_available():
             raise RuntimeError("device=cuda was requested but no CUDA GPU is visible")
         if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
+            # a rank of a data-parallel run takes its own GPU
+            ranked = mesh.rank_device()
+            dev = ranked if ranked is not None and ranked.type == "cuda" else torch.device(
+                "cuda", torch.cuda.current_device())
     elif dev.type != "cpu":
         raise ValueError(f"device must be cuda or cpu; got {name!r}")
     torch.backends.cuda.matmul.allow_tf32 = False

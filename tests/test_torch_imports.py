@@ -31,6 +31,21 @@ def test_port_imports_nothing_of_jax():
     assert not bad, bad
 
 
+def test_multi_gpu_modules_import_torch_and_nothing_of_jax():
+    """The data-parallel slice (`parallel/`, `scaling_bench.py`) and the
+    rank functions its tests spawn build on `torch` (`torch.distributed`)
+    alone: a spawned rank imports no JAX."""
+    files = sorted((ROOT / "codebase_tpu_torch" / "parallel").glob("*.py")) + [
+        ROOT / "codebase_tpu_torch" / "scaling_bench.py", ROOT / "tests" / "torch_dist_worker.py"]
+    assert {p.name for p in files} >= {"mesh.py", "scaling_bench.py", "torch_dist_worker.py"}
+    for path in files:
+        mods = list(_imported_modules(path))
+        assert not [m for m in mods if m.split(".")[0] in FORBIDDEN], path
+        if path.name != "__init__.py":
+            assert any(m.split(".")[0] == "torch" for m in mods), path
+    assert "torch.distributed" in list(_imported_modules(ROOT / "codebase_tpu_torch" / "parallel" / "mesh.py"))
+
+
 def test_port_needs_no_msgpack_and_imports_imageio_only_in_the_video_encoder():
     """A GPU host need not have either package: the port writes msgpack with
     its own codec and imports imageio lazily, inside `VideoRecorder.save`."""

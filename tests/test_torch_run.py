@@ -22,6 +22,7 @@ from codebase_tpu.config import load_config as jax_load_config
 from codebase_tpu_torch import run
 from codebase_tpu_torch.algos import ac_train, dqn_train
 from codebase_tpu_torch.config import load_config
+from codebase_tpu_torch.parallel import mesh
 
 torch.set_num_threads(2)
 ARGV = [
@@ -72,13 +73,28 @@ def test_entry_point_refuses_what_it_cannot_do(tmp_path, monkeypatch):
     # JAX-package keys the port does not do yet are refused, not ignored;
     # their defaults still run (test_cpu_run_writes_results_with_the_jax_schema
     # passes them explicitly)
-    for key, value in (("debug", "true"), ("distributed.devices", "2"),
-                       ("distributed.initialize", "always"), ("trace_dir", "traces"),
-                       ("algorithm.entry", "my_pkg.algo:main")):
+    for key, value in (("debug", "true"), ("trace_dir", "traces"), ("algorithm.entry", "my_pkg.algo:main")):
         with pytest.raises(NotImplementedError, match=rf"{key} is not ported yet \(ROADMAP.md Queue 1 item"):
             run.main(ARGV + ["device=cpu", f"{key}={value}", f"run_dir={tmp_path}"])
     with pytest.raises(ValueError, match=r"unknown config keys \['distributed.hosts'\]"):
         run.main(ARGV + ["device=cpu", "distributed.hosts=4", f"run_dir={tmp_path}"])
+    # the multi-GPU keys are ported (parallel/mesh.py): each builds its group.
+    # distributed.devices=2 spawns two ranks over gloo on the CPU ...
+    spawned, joined = [], []
+    spawn, init = mesh.spawn, mesh.init
+    monkeypatch.setattr(mesh, "spawn", lambda fn, world, *a, **k: spawned.append(world) or spawn(fn, world, *a, **k))
+    monkeypatch.setattr(mesh, "init", lambda *a, **k: joined.append(a[:2]) or init(*a, **k))
+    short = ["algorithm.total_steps=100", "algorithm.eval_interval=50", "algorithm.log_interval=50"]
+    rows, _ = run.main(ARGV + ["device=cpu", "distributed.devices=2", *short, f"run_dir={tmp_path / 'devices2'}"])
+    assert spawned == [2] and rows
+    # ... and distributed.initialize=always joins torchrun's group (here a
+    # job of one rank) from its variables
+    for var, value in (("RANK", "0"), ("WORLD_SIZE", "1"), ("MASTER_ADDR", "localhost"), ("MASTER_PORT", "0")):
+        monkeypatch.setenv(var, value)
+    rows, state = run.main(ARGV + ["device=cpu", "distributed.initialize=always", "distributed.devices=all", *short,
+                                   f"run_dir={tmp_path / 'always'}"])
+    assert joined == [(0, 1)] and state.shard.world == 1 and rows
+    assert not torch.distributed.is_initialized()
     # checkpoints and videos are ported: both intervals run on the CPU
     run.main(ARGV + ["device=cpu", "algorithm.total_steps=100", "algorithm.save_interval=50",
                      "algorithm.video_interval=50", "algorithm.video_frames=4", f"run_dir={tmp_path / 'saved'}"])
@@ -220,7 +236,7 @@ def _jax_stub(steps, family):
 
 
 def _port_stub(steps, family):
-    def build(env, eval_env, acfg, time_limit, device):
+    def build(env, eval_env, acfg, time_limit, device, shard=None):
         def init_state(seed):
             return SimpleNamespace(env_steps=0, updates=0, model=None, timings=[], k=0)
 

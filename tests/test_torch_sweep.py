@@ -30,6 +30,7 @@ from codebase_tpu_torch import sweep as port_sweep
 from codebase_tpu_torch.algos import ac, dqn
 from codebase_tpu_torch.algos.common import unit_values
 from codebase_tpu_torch.config import load_config
+from codebase_tpu_torch.parallel import mesh
 
 torch.set_num_threads(2)
 CPU = torch.device("cpu")
@@ -172,9 +173,20 @@ def test_refusals(tmp_path):
     cfg.algorithm.parallel_envs = 8
     with pytest.raises(ValueError, match="regime"):
         port_sweep.run_vmapped_multiseed(cfg, [0], tmp_path / "bad", hyper_variants=[{"tau": 0.5}, {"tau": 300}])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    # distributed.devices shards the group's units over ranks (ported): two
+    # units over two spawned CPU ranks, each writing its unit; a unit count
+    # that does not divide raises
+    spawned = []
+    spawn = mesh.spawn
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(mesh, "spawn", lambda fn, world, *a, **k: spawned.append(world) or spawn(fn, world, *a, **k))
+        dist_cfg = load_config(MATRIX + ["device=cpu", "distributed.devices=2", "algorithm.total_steps=200"])
+        dirs = port_sweep.run_vmapped_multiseed(dist_cfg, [0, 1], tmp_path / "dist")
+    assert spawned == [2] and [d.name for d in dirs] == ["seed_0", "seed_1"]
+    assert all(len(_rows(d / "results.csv")) >= 1 for d in dirs)
+    with pytest.raises(ValueError, match="divide"):
         port_sweep.run_vmapped_multiseed(load_config(MATRIX + ["device=cpu", "distributed.devices=2"]), [0],
-                                         tmp_path / "dist")
+                                         tmp_path / "dist1")
     _, state, _, _ = port_sweep.build_group(cfg, [0, 1])
     with pytest.raises(NotImplementedError, match="does not checkpoint"):
         state.state_dict()
