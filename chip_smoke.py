@@ -189,6 +189,34 @@ device syncs (`mesh.collect_times`):
                  units 0 and 31 wrote the unsharded group's rows.
 31. dist_refusal — `distributed.devices` one more than the visible GPUs
                  raises before any rank starts.
+Then the tooling (`analyze` runs right after sweep_unit_parity, on its
+run tree), each on the train phase's lane (recurrent IDQN, 65536 envs,
+batch 1024) unless said:
+32. analyze      — `codebase_tpu_torch.analyze summary` and `best` over
+                 sweep_idqn_rnn's run tree: 4 groups (lr x batch), the best.
+33. debug_idqn_rnn — 2 iterations with `debug=false`, then with
+                 `debug=true`: rows equal to rtol 1e-6, each run's seconds an
+                 iteration, the ops the dispatch mode scanned on the
+                 caller's thread and on others (the autograd engine's).
+34. debug_nan    — under debug, a poisoned W_hh entry raises naming
+                 gru_fwd_kernel, a NaN dy given to `gru_backward_cuda` at (b)
+                 names gru_bwd_kernel, a poisoned first-layer weight names an
+                 aten op, and an out-of-range gather raises IndexError before
+                 its launch (the card runs on after it).
+35. trace_idqn_rnn — 2 iterations with `trace_dir`: the trace parses and
+                 holds the four GRU kernels' events and the ranges
+                 dqn/rollout, dqn/updates and env/step; its bytes.
+36. profile_dist — `codebase_tpu_torch.profile` with
+                 `distributed.devices=1` (one NCCL rank) and over two gloo
+                 ranks sharing the card: `world`, each rank's kernel ms and
+                 busy share, `tflops_per_s`.
+37. entry_and_optimizers — one iteration through `algorithm.entry=
+                 chip_smoke:custom_entry`, one through `register_algorithm`,
+                 then 2 under each of rmsprop, sgd and adamw; each first step
+                 equals its CPU twin's on the same gradients (rtol 1e-6).
+38. hetero       — agents of unequal sizes (inputs [15, 12], outputs [6,
+                 5], GRU(128)) at 65536 envs: the kernels' forward against
+                 the plain recurrence, zero gradients on the padding.
 Then the kernel summary line and, last, the device line.
 
 Imports nothing of JAX or of the JAX package.
@@ -196,7 +224,9 @@ Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import csv
+import io
 import itertools
 import json
 import math
@@ -206,6 +236,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -230,6 +261,7 @@ from codebase_tpu_torch.ops.replay import batch_to_reference_layout, replay_samp
 from codebase_tpu_torch.ops.running_stats import RunningMeanStd  # noqa: E402
 from codebase_tpu_torch.parallel import mesh  # noqa: E402
 from codebase_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
+from codebase_tpu_torch.utils import debug as port_debug  # noqa: E402
 from codebase_tpu_torch.utils.device import resolve_device  # noqa: E402
 
 SHAPES = {
@@ -310,7 +342,16 @@ TOL = {
 }
 
 
+_LAST_LINE = [time.perf_counter()]
+
+
 def emit(obj) -> None:
+    """Print a phase's JSON line, with `wall_s`: the seconds since the
+    previous line (a phase's time, from its first line's)."""
+    now = time.perf_counter()
+    if "phase" in obj:
+        obj = {**obj, "wall_s": now - _LAST_LINE[0]}
+    _LAST_LINE[0] = now
     print(json.dumps(obj), flush=True)
 
 
@@ -365,33 +406,36 @@ def time_ms(fn, reps=25, warmup=3) -> float:
 def bounds(kernel, G, T, B, H, P, peaks):
     """Least time (ms) for the function's work: max(bytes / HBM rate,
     operations / peak rate), each input read once and each output written
-    once, no scratch or partials. The forward's product, the backward's
-    three (h_prev @ W_hh, dgh @ W_hh^T, h_prev^T dgh), of which the
-    recurrence alone runs the first two, and the weight gradient's one run
-    on tensor cores in 3xTF32 (three TF32 products each); the reduction's
-    adds on FP32 CUDA cores."""
+    once, no scratch or partials. The operations are the kernels' own counts
+    (`fused_gru.kernel_flops`, which `utils/profiling.cost_analysis` adds
+    up): the forward's product, the recurrence's two (h_prev @ W_hh, dgh @
+    W_hh^T) and the weight gradient's one (h_prev^T dgh) run on tensor cores
+    in 3xTF32 (three TF32 products each); the reduction's adds on FP32 CUDA
+    cores."""
     bw, fp32, tf32 = peaks
     H3 = 3 * H
     K = T * B
+    dims = dict(G=G, T=T, B=B, H=H)
+    flops = {k: fg.kernel_flops(f"gru_{k}_kernel", dims) for k in ("fwd", "bwd", "dw")}
     if kernel == "gru_fwd":
         nbytes = 4 * G * (K * H3 + H * H3 + H3 + B * H + K * H + B * H)
-        t_ops = 3 * 2 * G * K * H * H3 / tf32
+        t_ops = 3 * flops["fwd"] / tf32
     elif kernel == "gru_bwd":  # the whole backward: gi, W, b, h0, y, dy, dhT -> dgi, dW, db, dh0
         ins = K * H3 + H * H3 + H3 + B * H + 2 * K * H + B * H
         outs = K * H3 + H * H3 + H3 + B * H
         nbytes = 4 * G * (ins + outs)
-        t_ops = 3 * 3 * 2 * G * K * H * H3 / tf32
+        t_ops = 3 * (flops["bwd"] + flops["dw"]) / tf32
     elif kernel == "gru_bwd_recurrence":  # gi, W, b, h0, y, dy, dhT -> dgi, dh0, dgh_n
         ins = K * H3 + H * H3 + H3 + B * H + 2 * K * H + B * H
         outs = K * H3 + B * H + K * H
         nbytes = 4 * G * (ins + outs)
-        t_ops = 3 * 2 * 2 * G * K * H * H3 / tf32
+        t_ops = 3 * flops["bwd"] / tf32
     elif kernel == "gru_dw":  # h_prev, dgh -> dW, db
         nbytes = 4 * G * (K * H + K * H3 + H * H3 + H3)
-        t_ops = 3 * 2 * G * K * H * H3 / tf32
+        t_ops = 3 * flops["dw"] / tf32
     else:  # gru_reduce
         nbytes = 4 * G * (P + 1) * (H * H3 + H3)
-        t_ops = G * (P - 1) * (H * H3 + H3) / fp32
+        t_ops = fg.kernel_flops("gru_reduce_kernel", dict(G=G, P=P, E=H * H3 + H3)) / fp32
     t_bytes, t_ops = nbytes / bw * 1e3, t_ops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -529,11 +573,13 @@ def train_phase(phase, smi, argv, E, iters, per_iteration, T=25):
             f"env.time_limit={T}",
             f"env.parallel_envs={E}",
             # the loop stops once env steps exceed total_steps: `iters`
-            # iterations of (at most) E*T steps each; log_interval = E*T
-            # makes the host loop's chunk one iteration
-            f"algorithm.total_steps={(iters - 1) * E * T}",
+            # iterations of (at most) E*T steps each (one iteration: 1, as
+            # the epsilon schedule needs a positive total); log_interval =
+            # E*T makes the host loop's chunk one iteration
+            f"algorithm.total_steps={max(1, (iters - 1) * E * T)}",
             f"algorithm.eval_interval={(iters - 1) * E * T}",
-            f"algorithm.log_interval={E * T}",
+            # (one iteration: a row after it, however many steps ended early)
+            f"algorithm.log_interval={E * T if iters > 1 else 1}",
             "seed=0",
             "device=cuda",
             f"run_dir={run_dir}",
@@ -565,7 +611,7 @@ def train_phase(phase, smi, argv, E, iters, per_iteration, T=25):
         "launches_per_iteration_with_eval": {k: v / ran for k, v in counts.items()},
         "iteration_seconds": [s for _, s in state.timings],
         "env_steps_per_s_each": [n / s for n, s in state.timings],
-        "env_steps_per_s_after_first": sum(n for n, _ in steady) / sum(s for _, s in steady),
+        "env_steps_per_s_after_first": sum(n for n, _ in steady) / sum(s for _, s in steady) if steady else None,
         "loss": losses,
         "results_columns": list(rows[0].keys()),
         "peak_device_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
@@ -778,7 +824,7 @@ def resume_phase(phase, smi, argv, E, per_iteration, run_dir, T=25, rtol=1e-6):
 
     fa, fb = _flat(state_a.state_dict()), _flat(state_b.state_dict())
     exact = [k for k in fa if k.startswith(("/buffer", "/generator")) or k in (
-        "/env_steps", "/updates", "/last_target_update", "/opt_state/count")]
+        "/env_steps", "/updates", "/last_target_update") or (k.startswith("/opt_state") and k.endswith("/count"))]
     unequal = [k for k in exact if not _equal(fa[k], fb[k])]
     diffs, outside, bitwise = {}, [], True
     for k in fa:
@@ -1504,6 +1550,328 @@ def dist_refusal_phase(phase, smi, tmp) -> None:
     emit({"phase": phase, "card": smi, "gpus": torch.cuda.device_count(), "error": message})
 
 
+# ------------------------------------------------------------------- tooling
+# the train phase's lane: recurrent IDQN on LBF 8x8, the [128,128] MLP with
+# GRU(128), 65536 envs, batch 1024 (the idqn_rnn_lbf lane)
+TRAIN_ARGV = ["+algorithm=idqn", "env.name=lbforaging:Foraging-8x8-2p-3f-v3", "algorithm.model.use_rnn=true",
+              "algorithm.model.layers=[128,128]", "algorithm.batch_size=1024", "algorithm.buffer_size=131072",
+              *DQN_ARGV]
+
+
+def debug_phase(phase, smi) -> dict:
+    """The train lane for 2 iterations with `debug=false`, then with
+    `debug=true` (`utils/debug.py`: every aten op scanned for NaN, indices
+    and integer divisors checked before the op, anomaly mode, each GRU
+    kernel's outputs scanned), each through `run.main` with the launch
+    counters set to 0 just before and read just after: the rows must agree
+    to rtol 1e-6. Counts the ops the dispatch mode scanned on threads other
+    than the caller's (the autograd engine's device thread runs a CUDA
+    backward). Prints each run's seconds an iteration. Returns the debug
+    run's launch counts."""
+    runs = {}
+    threads = {}
+    checks = port_debug.checks
+
+    @contextlib.contextmanager
+    def counting_checks():
+        # the debug run's regions, each adding the ops it saw on each thread
+        with checks() as mode:
+            try:
+                yield mode
+            finally:
+                for tid, n in mode.threads.items():
+                    threads[tid] = threads.get(tid, 0) + n
+
+    for on in (False, True):
+        port_debug.checks = counting_checks if on else checks
+        try:
+            counts, state = train_phase(f"{phase}_{'on' if on else 'off'}", smi, TRAIN_ARGV + [f"debug={str(on).lower()}"],
+                                        E=65536, iters=2, per_iteration=IDQN_LAUNCHES)
+        finally:
+            port_debug.checks = checks
+        runs[on] = (RUNS[f"{phase}_{'on' if on else 'off'}"][1], [t for _, t in state.timings], counts)
+        del state
+    worst = compare_rows(phase, runs[True][0], runs[False][0], rtol=1e-6, atol=1e-6)
+    main_thread = threading.get_ident()
+    off_thread = sum(n for tid, n in threads.items() if tid != main_thread)
+    emit({"phase": phase, "card": smi, "rows_equal_bitwise": runs[True][0] == runs[False][0],
+          "max_rel_diff_debug_vs_off": worst,
+          "iteration_seconds_off": runs[False][1], "iteration_seconds_debug": runs[True][1],
+          "debug_cost_per_iteration_s": [a - b for a, b in zip(runs[True][1], runs[False][1])],
+          "ops_scanned_on_the_caller_thread": threads.get(main_thread, 0),
+          "ops_scanned_on_other_threads": off_thread, "launches_debug": runs[True][2]})
+    return runs[True][2]
+
+
+def _expect_raise(case, exc_type, pattern, fn):
+    """Run fn; return the message of the `exc_type` it must raise, whose text
+    must hold `pattern`. Any other exception propagates."""
+    try:
+        fn()
+    except exc_type as exc:
+        if pattern not in str(exc):
+            raise AssertionError(f"debug_nan {case}: {exc_type.__name__} without {pattern!r}: {exc}") from exc
+        return str(exc)
+    raise AssertionError(f"debug_nan {case}: nothing raised; expected {exc_type.__name__} naming {pattern!r}")
+
+
+def debug_nan_phase(phase, smi) -> None:
+    """Four faults at full width under debug, each of which must raise:
+    one W_hh entry poisoned before the first iteration (the rollout's GRU
+    forward at (a) writes NaN: the error names gru_fwd_kernel); a NaN `dy`
+    handed to `gru_backward_cuda` at the update shape (b) (gru_bwd_kernel);
+    a poisoned weight of the first Linear (an aten op); an out-of-range
+    gather of Q values of 65536 envs (IndexError before the launch, after
+    which the card still runs)."""
+    dev = torch.device("cuda")
+    cfg = load_config(TRAIN_ARGV + ["env.time_limit=25", "env.parallel_envs=65536", "device=cuda"])
+    cfg.algorithm.parallel_envs = 65536
+    env, _ = port_run.build_envs(cfg)
+    init_state, train_iteration, _ = port_dqn.build_train_functions(env, env, cfg.algorithm, 25, dev, debug=True)
+    out = {}
+    for case, leaf, index in (("w_hh", "rnn", "w_hh"), ("mlp", "first", "w")):
+        state = init_state(0)
+        tree = state.model.critic.param_tree()
+        with torch.no_grad():
+            (tree[leaf][0] if leaf == "rnn" else tree[leaf])[index].view(-1)[0] = math.nan
+        fg.reset_launch_counts()
+        want = "gru_fwd_kernel wrote NaN" if case == "w_hh" else "of aten."
+        out[case] = {"error": _expect_raise(case, FloatingPointError, want, lambda: train_iteration(state)),
+                     "launches": fg.launch_counts()}
+        del state, tree
+    G, T, B, H = (SHAPES["b"][k] for k in "GTBH")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    gi = torch.randn((G, T, B, 3 * H), generator=gen, device=dev)
+    w_hh = torch.randn((G, H, 3 * H), generator=gen, device=dev) / H ** 0.5
+    b_hh, h0 = torch.zeros((G, 3 * H), device=dev), torch.zeros((G, B, H), device=dev)
+    y, _ = fg.gru_fwd_cuda(gi, w_hh, b_hh, h0)
+    dy = torch.randn_like(y)
+    dy[0, T - 1, 0, 0] = math.nan
+    with port_debug.checks():
+        out["dy"] = {"error": _expect_raise("dy", FloatingPointError, "gru_bwd_kernel wrote NaN", lambda: fg.gru_backward_cuda(
+            gi, w_hh, b_hh, h0, y, dy, torch.zeros_like(h0)))}
+        q = torch.randn((65536, 2, 6), generator=gen, device=dev)
+        actions = torch.randint(0, 6, (65536, 2, 1), generator=gen, device=dev)
+        actions[4095, 1, 0] = 6
+        out["gather"] = {"error": _expect_raise("gather", IndexError, "aten.gather", lambda: torch.gather(q, -1, actions))}
+    torch.cuda.synchronize()  # the card was not poisoned: the valid gather runs
+    ok = torch.gather(q, -1, actions.clamp(max=5))
+    torch.cuda.synchronize()
+    emit({"phase": phase, "card": smi, "cases": out, "after_gather_ok": bool(torch.isfinite(ok).all())})
+
+
+def trace_phase(phase, smi, tmp) -> dict:
+    """The train lane for 2 iterations with `trace_dir` (a `torch.profiler`
+    trace of the whole run): the trace must parse as JSON and hold the four
+    GRU kernels' device events and the ranges dqn/rollout, dqn/updates and
+    env/step. Prints the trace's bytes and the traced run's seconds an
+    iteration. Returns the launch counts."""
+    trace_dir = tmp / "trace"
+    counts, state = train_phase(phase, smi, TRAIN_ARGV + [f"trace_dir={trace_dir}"], E=65536, iters=2,
+                                per_iteration=IDQN_LAUNCHES)
+    files = sorted(trace_dir.glob("*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"{phase}: {len(files)} trace files in {trace_dir}")
+    t0 = time.perf_counter()
+    events = json.loads(files[0].read_text())["traceEvents"]
+    parse_s = time.perf_counter() - t0
+    kernels = {k: sum(1 for e in events if e.get("cat") == "kernel" and k in e.get("name", ""))
+               for k in ("gru_fwd_kernel", "gru_bwd_kernel", "gru_dw_kernel", "gru_reduce_kernel")}
+    ranges = {r: sum(1 for e in events if e.get("name") == r) for r in ("dqn/rollout", "dqn/updates", "env/step")}
+    if not all(kernels.values()) or not all(ranges.values()):
+        raise AssertionError(f"{phase}: trace kernel events {kernels}, ranges {ranges}")
+    emit({"phase": f"{phase}_file", "card": smi, "trace_bytes": files[0].stat().st_size, "events": len(events),
+          "parse_seconds": parse_s, "kernel_events": kernels, "range_events": ranges,
+          "traced_iteration_seconds": [t for _, t in state.timings]})
+    return counts
+
+
+def _profile_rank(argv):
+    """One gloo rank of the distributed profile: returns its report."""
+    from codebase_tpu_torch import profile as port_profile
+
+    return port_profile.main(argv)
+
+
+def profile_dist_phase(phase, smi) -> None:
+    """`codebase_tpu_torch.profile` on the train lane (65536 envs, 2 traced
+    iterations), with `distributed.devices=1` (one NCCL rank in this
+    process), then over two gloo ranks sharing the card (each 32768 envs, a
+    `mesh.spawn` on GPUs [0, 0]). Prints `world`, each rank's kernel ms and
+    busy share, and `tflops_per_s` of each."""
+    from codebase_tpu_torch import profile as port_profile
+
+    argv = TRAIN_ARGV + ["env.time_limit=25", "env.parallel_envs=65536", "profile.iters=2", "seed=0", "device=cuda"]
+    reports = {"nccl1": port_profile.main(argv + ["distributed.devices=1"])}
+    reports["gloo2"] = mesh.spawn(_profile_rank, 2, "cuda", args=(argv + ["distributed.devices=2"],),
+                                  backend="gloo", device_ids=[0, 0])[0]
+    out = {}
+    for name, r in reports.items():
+        if r["world"]["ranks"] != (1 if name == "nccl1" else 2) or not r["kernel_ms_per_iter"]:
+            raise AssertionError(f"{phase} {name}: world {r['world']}, kernel ms {r['kernel_ms_per_iter']}")
+        out[name] = {"world": r["world"], "tflops_per_s": r["tflops_per_s"], "iteration_flops": r["iteration_flops"],
+                     "ranks": [{k: x[k] for k in ("rank", "iteration_ms", "kernel_ms_per_iter", "device_busy_share",
+                                                  "collective_ms_per_iter")} for x in r["ranks"]],
+                     "gru_kernel_ms_per_iter": r["gru_kernel_ms_per_iter"]}
+    emit({"phase": phase, "card": smi, **out})
+
+
+def custom_entry(env, eval_env, logger, time_limit, cfg, device, shard=None):
+    """A user's train entry point for `entry_and_optimizers`: the value-based
+    family's, tagged so that the caller sees it ran."""
+    from codebase_tpu_torch.algos.dqn_train import main as dqn_main
+
+    state = dqn_main(env, eval_env, logger, time_limit, cfg, device, shard)
+    state.entry = "custom_entry"
+    return state
+
+
+class FirstStep:
+    """While active, records the first optimizer step of a run: the
+    parameters before, the gradients and the parameters after (on the
+    host), and the optimizer's settings."""
+
+    def __init__(self, cls):
+        self.cls, self.record = cls, None
+
+    def __enter__(self):
+        self._own = self.cls.__dict__.get("step")  # None: the class inherits its step
+        step = self.cls.step
+        watch = self
+
+        def recording(opt, grads, active=None):
+            if watch.record is not None:
+                return step(opt, grads, active)
+            before = [p.detach().cpu().clone() for p in opt.params]
+            step(opt, grads, active)
+            watch.record = (opt, before, [g.detach().cpu().clone() for g in grads],
+                            [p.detach().cpu().clone() for p in opt.params])
+
+        self.cls.step = recording
+        return self
+
+    def __exit__(self, *exc):
+        if self._own is None:
+            del self.cls.step
+        else:
+            self.cls.step = self._own
+
+
+def entry_and_optimizers_phase(phase, smi) -> dict:
+    """One iteration of the train lane through `algorithm.entry=
+    chip_smoke:custom_entry` and one through `register_algorithm`, then 2
+    iterations under each of rmsprop, sgd and adamw: each optimizer's first
+    step on the card must equal its CPU twin's step on the same gradients
+    copied to the host (rtol 1e-6, atol 1e-8: an entry whose step cancels
+    it to near 0 keeps only its leading digits). Returns the launch counts
+    by run."""
+    from codebase_tpu_torch.algos import common as port_common
+    from codebase_tpu_torch.algos.registry import ALGORITHMS, register_algorithm
+
+    counts = {}
+    c, state = train_phase(f"{phase}_entry", smi, TRAIN_ARGV + ["algorithm.entry=chip_smoke:custom_entry"],
+                           E=65536, iters=1, per_iteration=IDQN_LAUNCHES)
+    counts["entry"] = c
+    if getattr(state, "entry", None) != "custom_entry":
+        raise AssertionError(f"{phase}: algorithm.entry did not reach chip_smoke:custom_entry")
+    del state
+    register_algorithm("idqn_registered", custom_entry)
+    try:
+        c, state = train_phase(f"{phase}_registered", smi, TRAIN_ARGV + ["algorithm.name=idqn_registered"],
+                               E=65536, iters=1, per_iteration=IDQN_LAUNCHES)
+    finally:
+        ALGORITHMS.pop("idqn_registered")
+    counts["registered"] = c
+    if getattr(state, "entry", None) != "custom_entry":
+        raise AssertionError(f"{phase}: register_algorithm did not reach custom_entry")
+    del state
+    steps = {}
+    for name in ("rmsprop", "sgd", "adamw"):
+        cls = port_common.OPTIMIZERS[name]
+        with FirstStep(cls) as watch:
+            c, state = train_phase(f"{phase}_{name}", smi, TRAIN_ARGV + [f"algorithm.optimizer={name}"],
+                                   E=65536, iters=2, per_iteration=IDQN_LAUNCHES)
+        counts[name] = c
+        opt, before, grads, after = watch.record
+        if type(state.opt) is not cls:
+            raise AssertionError(f"{phase}: the run's optimizer is {type(state.opt).__name__}, not {cls.__name__}")
+        twin = cls([p.clone() for p in before], opt.lr, opt.grad_clip, clip_mask=opt.clip_mask, n_units=opt.n_units)
+        twin.step(grads)
+        worst = 0.0
+        for got, ref in zip(after, twin.params):
+            err = (got - ref).abs()
+            if not bool((err <= 1e-8 + 1e-6 * ref.abs()).all()):
+                raise AssertionError(f"{phase} {name}: the card's first step differs from the CPU's by "
+                                     f"{float(err.max()):.3e}")
+            worst = max(worst, float((err / ref.abs().clamp(min=1e-30)).max()))
+        steps[name] = {"max_rel_err_first_step": worst, "moved": max(float((a - b).abs().max())
+                                                                     for a, b in zip(after, before)),
+                       "iteration_seconds": [t for _, t in state.timings]}
+        del state
+    emit({"phase": phase, "card": smi, "optimizers": steps, "launches": counts})
+    return counts
+
+
+def hetero_phase(phase, smi) -> dict:
+    """A MultiAgentNetwork of agents of unequal sizes on the card: inputs
+    [15, 12] (LBF 8x8's obs and 3 fewer), outputs [6, 5], the [128,128] MLP
+    with GRU(128), one step of 65536 envs through the kernels (G=2, the
+    shape (a)), against the same network with the plain recurrence
+    (`fused_rnn=off`) to the kernels' tolerance; under a loss masked with
+    `output_mask`, the padded output columns and input rows take zero
+    gradients. Returns the launch counts."""
+    from codebase_tpu_torch.models.multi_agent import MultiAgentNetwork
+
+    dev = torch.device("cuda")
+    sizes = dict(input_sizes=[15, 12], hidden_dims=[128, 128], output_sizes=[6, 5], use_rnn=True)
+    net = MultiAgentNetwork(generator=torch.Generator().manual_seed(0), device=dev, **sizes)
+    plain = MultiAgentNetwork(fused_rnn="off", device=dev, **sizes)
+    plain.load_params(net.param_tree())
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((2, 1, 65536, 15), generator=gen, device=dev)
+    x[1, ..., 12:] = 0.0  # agent 1's obs zero-padded beyond its own size
+    mask = net.output_mask[:, None, None, :]
+    fg.reset_launch_counts()
+    y, hT = net(x)
+    tree = net.param_tree()
+    w_in, w_out = tree["first"]["w"], tree["final"]["w"]
+    g_in, g_out = torch.autograd.grad(((y * mask) ** 2).sum(), [w_in, w_out])
+    torch.cuda.synchronize()
+    counts = fg.launch_counts()
+    with torch.no_grad():
+        y_ref, h_ref = plain(x)
+    err_y, err_h = compare("y", y.detach(), y_ref), compare("hT", hT.detach(), h_ref)
+    padded = float(g_out[1, :, 5:].abs().max()) + float(g_in[1, 12:].abs().max())
+    if padded != 0.0 or not float(g_in[1, :12].abs().max()) > 0:
+        raise AssertionError(f"{phase}: padded gradients {padded}; real ones {float(g_in[1, :12].abs().max())}")
+    check_launches(phase, counts, 1, {"fwd": 1, "bwd": 1, "dw": 1, "reduce": 1})
+    emit({"phase": phase, "card": smi, "max_abs_err_y": err_y, "max_abs_err_hT": err_h,
+          "padded_gradients_max": padded, "output_mask": net.output_mask.tolist(), "launches": counts})
+    return counts
+
+
+def analyze_phase(phase, smi, groups) -> None:
+    """`analyze summary` and `best` over sweep_idqn_rnn's run tree (32
+    units a group, a `config.yaml` and `results.csv` each): the number of
+    groups, the best group's name."""
+    from codebase_tpu_torch import analyze as port_analyze
+
+    source = groups[0]["run_dir"].parent
+    table = io.StringIO()
+    with contextlib.redirect_stdout(table):
+        if port_analyze.main(["summary", "--source", str(source)]) != 0:
+            raise AssertionError(f"{phase}: analyze summary failed")
+    winners = port_analyze.best(source, print_config=False, out=io.StringIO())
+    from codebase_tpu_torch.utils.postprocessing.load_data import load_and_group_runs
+
+    n_groups = len(load_and_group_runs(source))
+    if n_groups != 4 or len(winners) != 1:
+        raise AssertionError(f"{phase}: {n_groups} groups, winners {winners}; expected 4 groups (lr x batch) of "
+                             "one env")
+    emit({"phase": phase, "card": smi, "source_runs": sum(len(g["dirs"]) for g in groups), "groups": n_groups,
+          "best": winners, "summary": table.getvalue().splitlines()})
+
+
 def main() -> None:
     # --- 1. device
     dev = resolve_device("cuda")  # also pins f32 matmuls (allow_tf32 = False)
@@ -1711,6 +2079,8 @@ def main() -> None:
         torch.cuda.empty_cache()
         idqn_groups, sweep_counts = sweep_idqn_phase("sweep_idqn_rnn", smi, tmp / "idqn")
         unit_parity_phase("sweep_unit_parity", smi, idqn_groups[0], (0, 31))
+        # --- 32. analyze (slice 15): summary and best over this run tree
+        analyze_phase("analyze", smi, idqn_groups)
         sweep_ref = {k: idqn_groups[0][k] for k in ("cfg", "seeds", "run_dir", "units", "dirs", "variants")}
         del idqn_groups
         torch.cuda.empty_cache()
@@ -1727,6 +2097,18 @@ def main() -> None:
         dist_counts = {"dist_idqn_nccl": dist_nccl_phase("dist_idqn_nccl", smi)}
         dist_counts.update(dist_gloo_phases(smi, tmp / "dist", sweep_ref))
         dist_refusal_phase("dist_refusal", smi, tmp)
+
+        # --- 33-38. tooling: debug mode, a located NaN from each kernel, a
+        # trace of the run, the distributed profiler, a user's entry point
+        # and the optimizers, agents of unequal sizes
+        torch.cuda.empty_cache()
+        tooling_counts = {"debug_idqn_rnn": debug_phase("debug_idqn_rnn", smi)}
+        debug_nan_phase("debug_nan", smi)
+        tooling_counts["trace_idqn_rnn"] = trace_phase("trace_idqn_rnn", smi, tmp)
+        profile_dist_phase("profile_dist", smi)
+        for run_name, c in entry_and_optimizers_phase("entry_and_optimizers", smi).items():
+            tooling_counts[f"entry_and_optimizers_{run_name}"] = c
+        tooling_counts["hetero"] = hetero_phase("hetero", smi)
 
     sources = {
         "gru_fwd": "codebase_tpu/ops/fused_gru.py:80 (_fwd_kernel, pallas_call at :238)",
@@ -1752,7 +2134,8 @@ def main() -> None:
               "train_qmix_rware": rware_counts, "train_qmix_mmm2": mmm2_qmix_counts,
               "train_mappo_mmm2": mmm2_mappo_counts, "resume_idqn": resume_idqn_counts,
               "resume_mappo": resume_mappo_counts, "eval_cli": eval_counts, "video": video_counts,
-              "sweep_idqn_rnn": sweep_counts, "sweep_mappo_rnn": sweep_mappo_counts, **dist_counts}
+              "sweep_idqn_rnn": sweep_counts, "sweep_mappo_rnn": sweep_mappo_counts, **dist_counts,
+              **tooling_counts}
     summary = []
     # (name, counter, the kernel's key in the per-shape results, the shapes
     # it takes, the shape it is timed at and the phase its launches are from)

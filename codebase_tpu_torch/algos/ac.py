@@ -70,6 +70,7 @@ from codebase_tpu_torch.ops.returns import nstep_returns
 from codebase_tpu_torch.ops.reward_stream import RewardStream, apply_plan
 from codebase_tpu_torch.ops.running_stats import RunningMeanStd
 from codebase_tpu_torch.utils import checkpoint as ckpt
+from codebase_tpu_torch.utils import debug as debug_checks
 from codebase_tpu_torch.utils.params import load_tree, params_from_numpy, tree_leaves
 
 METRICS = ("loss", "actor_loss", "value_loss", "entropy")
@@ -329,7 +330,7 @@ class ACTrainState:
     def state_dict(self) -> dict:
         """The checkpoint's state, keyed by the JAX package's `ACTrainState`
         fields: `params` ({"actor", "critic"}) and `target_critic` in flax's
-        state-dict form, the Adam moments in their nesting, the moments,
+        state-dict form, the optimizer's state in its layout, the moments,
         0-d int32 counters and the generator state in place of the
         threefry `key`. `timings` is not saved. A state of several units (a
         sweep) raises, as `DQNTrainState.state_dict` does."""
@@ -337,7 +338,7 @@ class ACTrainState:
         return {
             "params": ckpt.params_state_dict(self.model.param_tree()),
             "target_critic": ckpt.params_state_dict(self.target_critic.param_tree()),
-            "opt_state": ckpt.adam_state_dict(self.opt, self.model.param_tree()),
+            "opt_state": self.opt.state_dict(self.model.param_tree()),
             "ret_rms": ckpt.dataclass_state_dict(self.ret_rms),
             # whole on every rank in a data-parallel run (a collective)
             "reward_stream": ckpt.global_envs(ckpt.dataclass_state_dict(self.reward_stream), self.shard),
@@ -355,7 +356,7 @@ class ACTrainState:
         device = self.ret_rms.mean.device
         ckpt.load_params_state_dict(self.model.param_tree(), state_dict["params"])
         ckpt.load_params_state_dict(self.target_critic.param_tree(), state_dict["target_critic"])
-        ckpt.load_adam(self.opt, self.model.param_tree(), state_dict["opt_state"])
+        self.opt.load_state_dict(self.model.param_tree(), state_dict["opt_state"])
         self.ret_rms = ckpt.load_dataclass(RunningMeanStd, state_dict["ret_rms"], device)
         self.reward_stream = ckpt.load_dataclass(
             RewardStream, ckpt.local_envs(state_dict["reward_stream"], self.shard, device), device)
@@ -365,9 +366,12 @@ class ACTrainState:
 
 
 def build_train_functions(env: Environment, eval_env: Environment, cfg, time_limit: int, device, hypers=None,
-                          shard=None):
+                          shard=None, debug=False):
     """Construct (init_state(seed), train_iteration(state), evaluate(state,
     generator), update(state, rollout)). cfg is the `algorithm` config node.
+    `debug` runs each train iteration under `utils/debug.checks()` (NaN,
+    index and division errors raised with the op and its source line, the
+    GRU kernels' outputs scanned), as the JAX package checkifies its chunk.
 
     `hypers` makes a sweep group of one unit per {"lr"|"gamma"|"tau": value}
     dict, with one seed per unit given to `init_state`, seeded as
@@ -521,4 +525,6 @@ def build_train_functions(env: Environment, eval_env: Environment, cfg, time_lim
         )
         return {"episode_returns": rollout.episode_returns, "episode_lengths": rollout.episode_lengths}
 
+    if debug:
+        train_iteration = debug_checks.checked(train_iteration)
     return init_state, train_iteration, evaluate, update

@@ -40,7 +40,8 @@ from codebase_tpu_torch.utils.video import record_episodes
 
 def main(env, eval_env, logger, time_limit, cfg, device, shard=None):
     acfg = cfg.algorithm
-    init_state, train_iteration, _, _ = build_train_functions(env, eval_env, acfg, time_limit, device, shard=shard)
+    init_state, train_iteration, _, _ = build_train_functions(env, eval_env, acfg, time_limit, device, shard=shard,
+                                                              debug=bool(cfg.get("debug")))
     seed = cfg.get("seed")
     seed = int(seed) if seed is not None else int(np.random.randint(2**31 - 1))
     state = init_state(seed)

@@ -1,4 +1,4 @@
-"""Shared training utilities: the optimizer, target-network updates and the
+"""Shared training utilities: the optimizers, target-network updates and the
 early-exit option of the episode collector."""
 
 from __future__ import annotations
@@ -6,50 +6,99 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from codebase_tpu_torch.utils import checkpoint as ckpt
+from codebase_tpu_torch.utils.params import tree_leaves, tree_unflatten
 
-class Adam:
-    """Adam after a global-norm clip, with the JAX package's exact rules
-    (`optax.chain(optax.clip_by_global_norm(c), optax.adam(lr))`):
+
+class Optimizer:
+    """A gradient step after a global-norm clip, with the JAX package's exact
+    rules (`optax.chain(optax.clip_by_global_norm(c), <rule>)`). The
+    subclasses are the rules: `Adam`, `AdamW`, `RMSProp` and `SGD`.
 
     - clip: with `n = sqrt(sum_i |g_i|^2)` over all leaves, every gradient
       becomes `g` when `n < c`, else `(g / n) * c`. This is not
-      `torch.nn.utils.clip_grad_norm_`, which scales by `c / (n + 1e-6)`;
-    - Adam (torch-default hyperparameters b1=0.9, b2=0.999, eps=1e-8):
-      `mu = (1-b1) g + b1 mu`, `nu = (1-b2) g^2 + b2 nu`, and the update
-      `-lr * (mu / (1-b1^k)) / (sqrt(nu / (1-b2^k)) + eps)` at step k.
-
-    `clip_mask` (one bool per parameter, or None for all) restricts both the
-    norm and the scaling to the masked leaves; the others pass to Adam
-    unclipped (`optax.masked(clip_by_global_norm(c), mask)`). QMIX clips the
-    critic only, as the reference's `clip_grad_norm_(critic.parameters())`
-    does: whole-tree clipping changed QMIX's learning in the JAX package.
-    The actor-critic family runs one Adam over the whole {"actor", "critic"}
-    tree, and a clip there covers every leaf.
+      `torch.nn.utils.clip_grad_norm_`, which scales by `c / (n + 1e-6)`.
+      `clip_mask` (one bool per parameter, or None for all) restricts both
+      the norm and the scaling to the masked leaves; the others pass
+      unclipped (`optax.masked(clip_by_global_norm(c), mask)`). QMIX clips
+      the critic only, as the reference's `clip_grad_norm_(critic.parameters())`
+      does: whole-tree clipping changed QMIX's learning in the JAX package.
+      The actor-critic family runs one optimizer over the whole {"actor",
+      "critic"} tree, and a clip there covers every leaf;
+    - the rule's direction `d` (`_direction`), then `p <- p - lr * d`.
 
     `n_units` > 1 runs one optimizer per unit of a sweep over parameters
     whose leading axis is unit-major (`leaf.view(U, -1)` is unit u's row u):
     `lr` may then be one value per unit, and the clip norm, the step count
     and the bias corrections are each unit's own, as `jax.vmap` over optax
     gives them. `step(grads, active)` moves only the active units (a unit
-    that may not train yet takes no step and keeps its count). One unit
-    keeps the scalar arithmetic, `lr` and `count` of a plain Adam.
+    that may not train yet takes no step and keeps its count and moments).
+    One unit keeps the scalar arithmetic, `lr` and `count` of a plain run.
 
     The clip decision stays on the device (`torch.where`), so a step never
-    waits for the host. Parameters are updated in place.
+    waits for the host. Parameters and moments are updated in place.
+
+    `state_dict` writes the state in the layout of the JAX package's
+    checkpoint for the same optimizer, flax's state dict of its optax chain,
+    and `load_state_dict` reads it back from a checkpoint of either package.
     """
 
-    def __init__(self, params, lr, grad_clip=None, b1=0.9, b2=0.999, eps=1e-8, clip_mask=None, n_units=1):
+    moments = ()  # the names of the per-parameter state tensors
+    # the rule's optax chain: its number of transformations (the first holds
+    # the moments) and whether that first state carries the step count
+    chain_length = 2
+    counted = False
+
+    def __init__(self, params, lr, grad_clip=None, clip_mask=None, n_units=1):
         self.params = list(params)
         self.n_units = int(n_units)
         self.lr = pack_units(unit_values(lr, self.n_units, np.float64))
-        self.b1, self.b2, self.eps = b1, b2, eps
         self.grad_clip = float(grad_clip) if grad_clip else None
+        self.masked_clip = clip_mask is not None
         self.clip_mask = [True] * len(self.params) if clip_mask is None else [bool(m) for m in clip_mask]
         if len(self.clip_mask) != len(self.params):
             raise ValueError(f"clip_mask has {len(self.clip_mask)} entries for {len(self.params)} parameters")
-        self.mu = [torch.zeros_like(p) for p in self.params]
-        self.nu = [torch.zeros_like(p) for p in self.params]
+        for name in self.moments:
+            setattr(self, name, [torch.zeros_like(p) for p in self.params])
         self.count = pack_units(np.zeros(self.n_units, np.int64))
+
+    def _corrections(self, counts):
+        """Per-step values the rule needs beside the gradients (Adam's bias
+        corrections), from each unit's step count."""
+        return None
+
+    def _direction(self, g, p, moments, corr):
+        """(the moments' new values, the direction d) for one parameter, each
+        (U, -1): the update is `p - lr * d`."""
+        raise NotImplementedError
+
+    def _unit_tensor(self, values, dtype=None):
+        """Per-unit values as a (U, 1) tensor on the parameters' device."""
+        return torch.tensor(values, dtype=dtype, device=self.params[0].device)[:, None]
+
+    def state_dict(self, param_tree) -> dict:
+        """`{"0": <the first transformation's state>, "1": {}, ...}`, each
+        moment nested as `param_tree` (whose `tree_leaves` order the moments
+        follow), inside `{"0": <the clip's state>, "1": ...}` when the
+        gradients are clipped (`{}`, or `{"inner_state": {}}` for a clip
+        masked to the critic). One unit only: a sweep does not checkpoint."""
+        first = {name: ckpt.params_state_dict(tree_unflatten(param_tree, getattr(self, name)))
+                 for name in self.moments}
+        if self.counted:
+            first["count"] = ckpt.counter(self.count)
+        chain = {str(i): {} for i in range(self.chain_length)}
+        chain["0"] = first
+        if self.grad_clip is None:
+            return chain
+        return {"0": {"inner_state": {}} if self.masked_clip else {}, "1": chain}
+
+    def load_state_dict(self, param_tree, state_dict) -> None:
+        """Restore the state from `state_dict`'s layout, in place."""
+        first = (state_dict["1"] if self.grad_clip is not None else state_dict)["0"]
+        if self.counted:
+            self.count = int(first["count"])
+        for name in self.moments:
+            ckpt.load_leaves(getattr(self, name), tree_leaves(ckpt.tree_from_state_dict(param_tree, first[name])))
 
     @torch.no_grad()
     def step(self, grads, active=None) -> None:
@@ -67,44 +116,108 @@ class Adam:
             ]
         counts = unit_values(self.count, U) + active
         self.count = pack_units(counts)
+        corr = self._corrections(counts)
+        lr = unit_values(self.lr, U, np.float64)
+        if U == 1:
+            neg_lr, live = -float(lr[0]), None
+        else:
+            neg_lr = self._unit_tensor(-lr, self.params[0].dtype)
+            live = None if active.all() else self._unit_tensor(active)
+        for i, (p, g) in enumerate(zip(self.params, grads)):
+            p = p.view(U, -1)
+            olds = [getattr(self, name)[i].view(U, -1) for name in self.moments]
+            news, d = self._direction(g, p, olds, corr)
+            for old, new in zip(olds, news):
+                old.copy_(new if live is None else torch.where(live, new, old))
+            if U == 1:
+                p.add_(d, alpha=neg_lr)
+            elif live is None:
+                p.add_(d * neg_lr)
+            else:
+                p.copy_(torch.where(live, p + d * neg_lr, p))
+
+
+class Adam(Optimizer):
+    """optax's `adam` (torch-default hyperparameters b1=0.9, b2=0.999,
+    eps=1e-8): `mu = (1-b1) g + b1 mu`, `nu = (1-b2) g^2 + b2 nu`, and the
+    direction `(mu / (1-b1^k)) / (sqrt(nu / (1-b2^k)) + eps)` at step k."""
+
+    moments = ("mu", "nu")
+    counted = True
+
+    def __init__(self, params, lr, grad_clip=None, b1=0.9, b2=0.999, eps=1e-8, clip_mask=None, n_units=1):
+        self.b1, self.b2, self.eps = b1, b2, eps
+        super().__init__(params, lr, grad_clip, clip_mask, n_units)
+
+    def _corrections(self, counts):
         # optax forms the bias corrections in the default float type: 1 -
         # f32(b)**count for float32 parameters, float64 where JAX runs in
         # 64-bit mode
         f = np.float64 if self.params[0].dtype == torch.float64 else np.float32
         bc1 = np.array([f(1.0) - f(self.b1) ** f(c) for c in counts])
         bc2 = np.array([f(1.0) - f(self.b2) ** f(c) for c in counts])
-        lr = unit_values(self.lr, U, np.float64)
-        if U == 1:
-            bc1, bc2, neg_lr, live = float(bc1[0]), float(bc2[0]), -float(lr[0]), None
-        else:
-            device = self.params[0].device
-            bc1, bc2 = (torch.tensor(b, device=device)[:, None] for b in (bc1, bc2))
-            neg_lr = torch.tensor(-lr, dtype=self.params[0].dtype, device=device)[:, None]
-            live = None if active.all() else torch.tensor(active, device=device)[:, None]
-        for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
-            p, mu, nu = p.view(U, -1), mu.view(U, -1), nu.view(U, -1)
-            new_mu = (1.0 - self.b1) * g + self.b1 * mu
-            new_nu = (1.0 - self.b2) * (g * g) + self.b2 * nu
-            upd = (new_mu / bc1) / (torch.sqrt(new_nu / bc2) + self.eps)
-            if U == 1:
-                mu.copy_(new_mu)
-                nu.copy_(new_nu)
-                p.add_(upd, alpha=neg_lr)
-            elif live is None:
-                mu.copy_(new_mu)
-                nu.copy_(new_nu)
-                p.add_(upd * neg_lr)
-            else:
-                mu.copy_(torch.where(live, new_mu, mu))
-                nu.copy_(torch.where(live, new_nu, nu))
-                p.copy_(torch.where(live, p + upd * neg_lr, p))
+        if self.n_units == 1:
+            return float(bc1[0]), float(bc2[0])
+        return self._unit_tensor(bc1), self._unit_tensor(bc2)
+
+    def _direction(self, g, p, moments, corr):
+        mu, nu = moments
+        bc1, bc2 = corr
+        new_mu = (1.0 - self.b1) * g + self.b1 * mu
+        new_nu = (1.0 - self.b2) * (g * g) + self.b2 * nu
+        return (new_mu, new_nu), (new_mu / bc1) / (torch.sqrt(new_nu / bc2) + self.eps)
 
 
-def make_optimizer(name: str, params, lr, grad_clip=False, clip_mask=None, n_units=1) -> Adam:
-    """Only Adam (the presets' optimizer) is ported so far."""
-    if str(name).lower() != "adam":
-        raise NotImplementedError(f"optimizer {name!r} is not ported yet; use adam")
-    return Adam(params, lr, grad_clip, clip_mask=clip_mask, n_units=n_units)
+class AdamW(Adam):
+    """optax's `adamw` with its default weight decay 1e-4: Adam's direction
+    plus `weight_decay * p` (`add_decayed_weights`, on every leaf), both
+    scaled by the learning rate."""
+
+    chain_length = 3
+
+    def __init__(self, params, lr, grad_clip=None, weight_decay=1e-4, clip_mask=None, n_units=1):
+        self.weight_decay = weight_decay
+        super().__init__(params, lr, grad_clip, clip_mask=clip_mask, n_units=n_units)
+
+    def _direction(self, g, p, moments, corr):
+        news, d = super()._direction(g, p, moments, corr)
+        return news, d + self.weight_decay * p
+
+
+class RMSProp(Optimizer):
+    """optax's `rmsprop` as the JAX package builds it (decay 0.99, eps 1e-8,
+    no centering or momentum): `nu = (1-decay) g^2 + decay nu`, nu starting
+    at 0, and the direction `g / sqrt(nu + eps)` (eps inside the root, not
+    torch.optim.RMSprop's `sqrt(nu) + eps`)."""
+
+    moments = ("nu",)
+    chain_length = 3
+
+    def __init__(self, params, lr, grad_clip=None, decay=0.99, eps=1e-8, clip_mask=None, n_units=1):
+        self.decay, self.eps = decay, eps
+        super().__init__(params, lr, grad_clip, clip_mask, n_units)
+
+    def _direction(self, g, p, moments, corr):
+        new_nu = (1.0 - self.decay) * (g * g) + self.decay * moments[0]
+        return (new_nu,), g * torch.rsqrt(new_nu + self.eps)
+
+
+class SGD(Optimizer):
+    """optax's plain `sgd`: the direction is the gradient."""
+
+    def _direction(self, g, p, moments, corr):
+        return (), g
+
+
+OPTIMIZERS = {"adam": Adam, "adamw": AdamW, "rmsprop": RMSProp, "sgd": SGD}
+
+
+def make_optimizer(name: str, params, lr, grad_clip=False, clip_mask=None, n_units=1) -> Optimizer:
+    """The JAX package's optimizers by name: adam, adamw, rmsprop, sgd."""
+    key = str(name).lower()
+    if key not in OPTIMIZERS:
+        raise ValueError(f"unknown optimizer {name!r}; choose from {sorted(OPTIMIZERS)}")
+    return OPTIMIZERS[key](params, lr, grad_clip, clip_mask=clip_mask, n_units=n_units)
 
 
 # --------------------------------------------------------------- sweep units

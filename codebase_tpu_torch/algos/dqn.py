@@ -74,6 +74,7 @@ from codebase_tpu_torch.ops.running_stats import RunningMeanStd
 from codebase_tpu_torch.ops.schedules import epsilon_schedule
 from codebase_tpu_torch.parallel import mesh
 from codebase_tpu_torch.utils import checkpoint as ckpt
+from codebase_tpu_torch.utils import debug as debug_checks
 from codebase_tpu_torch.utils.params import load_tree, params_from_numpy, tree_leaves, tree_map
 
 MIXER_TYPES = {"qnetwork": "none", "vdn": "vdn", "qmix": "qmix"}
@@ -332,7 +333,7 @@ class DQNTrainState:
     def state_dict(self) -> dict:
         """The checkpoint's state, keyed by the JAX package's
         `DQNTrainState` fields: `params` and `target_params` in flax's
-        state-dict form, the Adam moments in their nesting, every replay
+        state-dict form, the optimizer's state in its layout, every replay
         field with `pos`, the moments, 0-d int32 counters and the generator
         state in place of the threefry `key`. Tensors stay where they are
         (the codec moves each to the host as it writes it); `timings` is
@@ -351,7 +352,7 @@ class DQNTrainState:
         return {
             "params": ckpt.params_state_dict(self.model.param_tree()),
             "target_params": ckpt.params_state_dict(self.target.param_tree()),
-            "opt_state": ckpt.adam_state_dict(self.opt, self.model.param_tree()),
+            "opt_state": self.opt.state_dict(self.model.param_tree()),
             "buffer": {
                 "obs": slots(buf.obs), "actions": slots(buf.actions.to(torch.int32)), "rewards": slots(buf.rewards),
                 "dones": slots(buf.dones), "filled": slots(buf.filled), "action_mask": slots(buf.action_mask),
@@ -374,7 +375,7 @@ class DQNTrainState:
         device = self.buffer.obs.device
         ckpt.load_params_state_dict(self.model.param_tree(), state_dict["params"])
         ckpt.load_params_state_dict(self.target.param_tree(), state_dict["target_params"])
-        ckpt.load_adam(self.opt, self.model.param_tree(), state_dict["opt_state"])
+        self.opt.load_state_dict(self.model.param_tree(), state_dict["opt_state"])
         buf = state_dict["buffer"]
         names = ("obs", "actions", "rewards", "dones", "filled", "action_mask")
         ckpt.load_leaves([getattr(self.buffer, k) for k in names if buf[k] is not None],
@@ -399,10 +400,17 @@ def refuse_units(n_units: int) -> None:
 
 
 def build_train_functions(env: Environment, eval_env: Environment, cfg, time_limit: int, device, hypers=None,
-                          shard=None):
+                          shard=None, debug=False):
     """Construct (init_state(seed), train_iteration(state), evaluate(state,
     generator)). cfg is the `algorithm` config node. `train_iteration.update
     (state, batch, active=None)` is one update on a reference-layout batch.
+
+    `debug` runs each train iteration under `utils/debug.checks()` (NaN,
+    index and division errors raised with the op and its source line, the
+    GRU kernels' outputs scanned) and, as the JAX package does, logs a loss
+    of 0.0 where no update happened instead of the NaN sentinel, so that
+    the NaN checks stay meaningful: the rows of a debug run before
+    `training_start` log loss 0.0.
 
     `hypers`, one {"lr"|"gamma"|"tau": value} dict per unit (None: one unit
     with the config's values), makes a sweep group: `init_state(seeds)`
@@ -454,6 +462,7 @@ def build_train_functions(env: Environment, eval_env: Environment, cfg, time_lim
     )
     reward_plan = standardisation_plan(env)
     early_exit = resolve_early_exit(early_exit_option(acfg), env, n_envs)
+    no_update_loss = 0.0 if debug else math.nan  # the logger's nanmean skips a NaN
 
     def init_state(seed, generator_seed=None) -> DQNTrainState:
         seeds = [int(s) for s in (seed if isinstance(seed, (list, tuple)) else [seed])]
@@ -559,10 +568,10 @@ def build_train_functions(env: Environment, eval_env: Environment, cfg, time_lim
                 if shard is not None:
                     loss = shard.env_sum(loss, "loss")  # the ranks' rows' shares
                 if not can_update.all():
-                    loss = torch.where(torch.tensor(can_update, device=loss.device), loss, math.nan)
+                    loss = torch.where(torch.tensor(can_update, device=loss.device), loss, no_update_loss)
                 loss = loss.reshape(lead)
         else:
-            loss = torch.full(lead, math.nan)  # "no update happened" for the logger's nanmean
+            loss = torch.full(lead, no_update_loss)  # "no update happened"
         return {
             "loss": loss,
             "epsilon": epsilon,
@@ -591,4 +600,6 @@ def build_train_functions(env: Environment, eval_env: Environment, cfg, time_lim
     # the update on a given batch, for callers that lay out their own
     # (the parity tests)
     train_iteration.update = update
+    if debug:
+        train_iteration = debug_checks.checked(train_iteration)
     return init_state, train_iteration, evaluate

@@ -14,9 +14,17 @@ unit's weights drawn from its own generator as a one-unit network draws
 them) and runs U*N agent rows, `agent_to_group[u*N + a] = u*G + sharing[a]`.
 Every layer, and every GRU kernel launch, then serves all units at once.
 
-Agents must have equal observation and action sizes; the pad-to-max path
-for heterogeneous agents waits for the environments that need it
-(ROADMAP.md Queue 1).
+Agents of unequal observation or action sizes stack by pad-to-max, as in
+the JAX package: each group's network is initialised at its true dims (the
+init distributions depend on fan-in) and zero-padded to the largest input
+and output sizes, so all groups stack into one tree and every layer (and
+GRU launch, at the padded width) serves them all. Zero input padding keeps
+the padded weight rows out of the forward pass and gives them zero
+gradients; the padded output columns start at zero and stay there as long
+as the caller never consumes outputs beyond an agent's own size:
+`output_mask` is the (N, max_out) mask of the real ones. Agents that share
+a network must have equal sizes. The parameters take the JAX package's
+padded parameters as they are (`load_params`).
 """
 
 from __future__ import annotations
@@ -28,6 +36,28 @@ from torch import nn
 
 from codebase_tpu_torch.models.networks import make_network_spec
 from codebase_tpu_torch.utils.params import load_tree, module_to_tree, stack_trees, tree_leaves, tree_map, tree_to_module
+
+
+def _largest_shapes(trees):
+    """A tree of the largest size of each leaf's every dimension over `trees`."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _largest_shapes([t[k] for t in trees]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return [_largest_shapes([t[i] for t in trees]) for i in range(len(first))]
+    return torch.Size(max(d) for d in zip(*(t.shape for t in trees)))
+
+
+def _pad_to(small, shapes):
+    """The tree `small` with each leaf zero-padded at the end of each
+    dimension to its shape in `shapes`."""
+    if isinstance(small, dict):
+        return {k: _pad_to(v, shapes[k]) for k, v in small.items()}
+    if isinstance(small, (list, tuple)):
+        return [_pad_to(v, b) for v, b in zip(small, shapes)]
+    out = small.new_zeros(shapes)
+    out[tuple(slice(0, n) for n in small.shape)] = small
+    return out
 
 
 def resolve_sharing(sharing: Union[bool, Sequence[int]], n_agents: int) -> Tuple[int, ...]:
@@ -80,24 +110,50 @@ class MultiAgentNetwork(nn.Module):
         n_agents = len(input_sizes)
         if len(output_sizes) != n_agents:
             raise ValueError("Expect same number of input and output sizes")
-        if len(set(input_sizes)) != 1 or len(set(output_sizes)) != 1:
-            raise NotImplementedError(
-                "agents with different obs/action sizes are not ported yet (ROADMAP.md Queue 1)"
-            )
+        self.input_sizes = tuple(int(i) for i in input_sizes)
+        self.output_sizes = tuple(int(o) for o in output_sizes)
         self.sharing = resolve_sharing(parameter_sharing, n_agents)
         self.n_agents = n_agents  # of one unit
         self.n_groups = max(self.sharing) + 1  # of one unit
         self.use_rnn = bool(use_rnn)
-        dims = (int(input_sizes[0]),) + tuple(int(h) for h in hidden_dims) + (int(output_sizes[0]),)
-        self.spec = make_network_spec(dims, use_rnn, use_orthogonal_init, compute_dtype, fused_rnn)
+        hidden = tuple(int(h) for h in hidden_dims)
+
+        def spec(n_in, n_out):
+            return make_network_spec((n_in,) + hidden + (n_out,), use_rnn, use_orthogonal_init, compute_dtype,
+                                     fused_rnn)
+
+        # the reference asks for equal sizes only within a sharing group
+        firsts = [self.sharing.index(g) for g in range(self.n_groups)]
+        for g, first in enumerate(firsts):
+            members = [i for i, s in enumerate(self.sharing) if s == g]
+            if any((self.input_sizes[i], self.output_sizes[i]) != (self.input_sizes[first], self.output_sizes[first])
+                   for i in members):
+                raise ValueError(
+                    f"agents sharing network {g} must have equal obs/action sizes (got inputs "
+                    f"{[self.input_sizes[i] for i in members]}, outputs {[self.output_sizes[i] for i in members]})"
+                )
+        self.spec = spec(max(self.input_sizes), max(self.output_sizes))  # the padded, stacked network
+        group_specs = [spec(self.input_sizes[f], self.output_sizes[f]) for f in firsts]
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         generators = generator if isinstance(generator, (list, tuple)) else [generator]
         self.n_units = len(generators)
-        self.params = tree_to_module(stack_trees([self.spec.init(g) for g in generators for _ in range(self.n_groups)]))
+        # each group at its true dims, then zero-padded to the stacked
+        # spec's shapes (the largest over the groups)
+        trees = [s.init(g) for g in generators for s in group_specs]
+        shapes = _largest_shapes(trees)
+        trees = [_pad_to(t, shapes) for t in trees]
+        self.params = tree_to_module(stack_trees(trees))
         groups = [u * self.n_groups + s for u in range(self.n_units) for s in self.sharing]
         self.register_buffer("agent_to_group", torch.tensor(groups, dtype=torch.long), persistent=False)
         self.to(device)
+
+    @property
+    def output_mask(self) -> torch.Tensor:
+        """(U*N, max_out) float32: 1 where an output index is a real action
+        of the agent, 0 where it is stack padding."""
+        sizes = torch.tensor(self.output_sizes * self.n_units, device=self.agent_to_group.device)
+        return (torch.arange(max(self.output_sizes), device=sizes.device)[None, :] < sizes[:, None]).float()
 
     def param_tree(self):
         """The parameters as a plain nested dict/list (leading axis G)."""
@@ -117,6 +173,9 @@ class MultiAgentNetwork(nn.Module):
         return tree_map(lambda p: p.index_select(0, idx), self.param_tree())
 
     def forward(self, inputs, hiddens=None):
+        """inputs (U*N, T, B, max_in), each agent's zero-padded beyond its
+        own size -> (outputs (U*N, T, B, max_out), new hiddens or None); for
+        agents of unequal sizes, mask the outputs with `output_mask`."""
         agent_params = self.per_agent_params()
         if self.use_rnn:
             if hiddens is None:

@@ -59,7 +59,11 @@ launch covers all groups.
 Launch counters (`FWD_LAUNCHES`, `BWD_LAUNCHES`, `FWD_WIDE_LAUNCHES`,
 `BWD_WIDE_LAUNCHES`, `DW_LAUNCHES`, `REDUCE_LAUNCHES`) rise by one where a
 kernel is launched and nowhere else, so a run can show that its path went
-through the kernels.
+through the kernels. After each launch the wrapper hands the kernel's name,
+outputs and shape to `LAUNCH_OBSERVERS`: in a debug region
+(`utils/debug.py`) a NaN in an output raises naming the kernel, and
+`utils/profiling.cost_analysis` counts its operations (`kernel_flops`). No
+PyTorch tool sees these `ctypes` launches otherwise.
 """
 
 from __future__ import annotations
@@ -76,6 +80,7 @@ from pathlib import Path
 import torch
 
 from codebase_tpu_torch.ops.matmul import grouped_matmul
+from codebase_tpu_torch.utils import debug
 
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
@@ -83,6 +88,12 @@ FWD_WIDE_LAUNCHES = 0
 BWD_WIDE_LAUNCHES = 0
 DW_LAUNCHES = 0
 REDUCE_LAUNCHES = 0
+
+# what runs after each kernel launch, as fn(kernel name, outputs, dims): the
+# debug mode's NaN scan of the outputs (`utils/debug.py`; nothing unless a
+# debug region is open) and, while `utils/profiling.cost_analysis` counts,
+# its count of the launch's operations (`kernel_flops`)
+LAUNCH_OBSERVERS = [debug.check_kernel]
 
 RESIDENT_HIDDEN = 128  # the hidden size of the kernels that hold W_hh in shared memory
 MAX_HIDDEN = 896  # the wide kernels' largest H (csrc/fused_gru.cu kMaxH)
@@ -149,6 +160,24 @@ def reset_launch_counts() -> None:
 def launch_counts() -> dict:
     return {"fwd": FWD_LAUNCHES, "bwd": BWD_LAUNCHES, "fwd_wide": FWD_WIDE_LAUNCHES,
             "bwd_wide": BWD_WIDE_LAUNCHES, "dw": DW_LAUNCHES, "reduce": REDUCE_LAUNCHES}
+
+
+def kernel_flops(kernel: str, dims: dict) -> float:
+    """The operations of one launch at its shape: 2*M*N*K for each product
+    over K = T*B rows (the forward's h @ W_hh; the recurrence's h_prev @ W_hh
+    and dgh @ W_hh^T; the weight gradient's h_prev^T dgh), the reduction's
+    adds. The tensor cores run each product three times in 3xTF32
+    (`chip_smoke.py` `bounds()`)."""
+    if kernel == "gru_reduce_kernel":
+        return float(dims["G"] * (dims["P"] - 1) * dims["E"])
+    G, T, B, H = (dims[k] for k in "GTBH")
+    products = 2 if kernel.startswith("gru_bwd") else 1
+    return float(products * 2 * G * T * B * H * 3 * H)
+
+
+def _launched(kernel: str, outputs: dict, **dims) -> None:
+    for observe in LAUNCH_OBSERVERS:
+        observe(kernel, outputs, dims)
 
 
 def kernel_variant(H: int):
@@ -470,6 +499,7 @@ def gru_fwd_cuda(gi, w_hh, b_hh, h0, tiling=None):
         FWD_WIDE_LAUNCHES += 1
     else:
         FWD_LAUNCHES += 1
+    _launched("gru_fwd_wide_kernel" if wide else "gru_fwd_kernel", {"y": y, "hT": hT}, G=G, T=T, B=B, H=H)
     return y, hT
 
 
@@ -505,6 +535,8 @@ def gru_bwd_cuda(gi, w_hh, b_hh, h0, y, dy, dhT, tiling=None):
         BWD_WIDE_LAUNCHES += 1
     else:
         BWD_LAUNCHES += 1
+    _launched("gru_bwd_wide_kernel" if wide else "gru_bwd_kernel", {"dgi": dgi, "dh0": dh0, "dgh_n": dgh_n},
+              G=G, T=T, B=B, H=H)
     return dgi, dh0, dgh_n
 
 
@@ -576,6 +608,7 @@ def gru_dw_cuda(h0, y, dgi, dgh_n, stages=None):
         )
     _raise_on(code, "gru_dw launch")
     DW_LAUNCHES += 1
+    _launched("gru_dw_kernel", {"partials": partials}, G=G, T=T, B=B, H=H)
     return partials
 
 
@@ -594,6 +627,7 @@ def reduce_partials_cuda(partials):
         code = lib.gru_reduce(_ptr(partials), _ptr(out), G, P, E, _stream(dev))
     _raise_on(code, "gru_reduce launch")
     REDUCE_LAUNCHES += 1
+    _launched("gru_reduce_kernel", {"out": out}, G=G, P=P, E=E)
     return out
 
 

@@ -2,7 +2,8 @@
 
     python -m codebase_tpu_torch.profile +algorithm=idqn|vdn|qmix|ia2c|maa2c|ippo|mappo \
         env.name=... env.time_limit=25 \
-        [profile.warmup=1] [profile.iters=3] [profile.top=15] [any run override]
+        [profile.warmup=1] [profile.iters=3] [profile.top=15] [profile.trace_dir=<dir>]
+        [distributed.devices=N] [any run override]
 
 Builds the train iteration for the config, runs `warmup` iterations, times
 `iters` iterations on the host clock (each ends in a device sync), then runs
@@ -20,6 +21,23 @@ device time, and the peak device memory.
 The busy share is kernel time over the untraced iteration time: tracing
 slows the host's launch loop (`traced_iteration_ms`) but not the kernels.
 Device numbers need `device=cuda`; on the CPU they read null.
+
+`iteration_flops` counts the operations of the traced iterations, an
+iteration's share (`utils/profiling.count_operations`: PyTorch's ops, plus
+the GRU kernels' from their shapes), the counterpart of the JAX report's
+`chunk_flops`; `tflops_per_s` is that over the untraced iteration time.
+The count slows only the traced pass's host loop, as tracing does.
+`profile.trace_dir` writes the traced iterations as a Chrome/Perfetto JSON
+file there.
+
+Under `distributed.devices=N` the ranks are spawned or joined as `run.py`
+does (`parallel/mesh.py`) and each profiles its own shard; rank 0 prints
+the line, its top-level keys rank 0's own, plus `world` (the global
+env-steps/s: the run's env steps over the slowest rank's seconds, and the
+ranks' operations over those seconds) and `ranks` (each rank's iteration
+ms, kernel ms, busy share, ranges and ms an iteration of each kind of
+collective, each between device syncs in the traced pass,
+`mesh.collect_times`).
 """
 
 from __future__ import annotations
@@ -35,7 +53,9 @@ from torch.autograd import DeviceType
 from codebase_tpu_torch.algos import ac, dqn
 from codebase_tpu_torch.config import load_config
 from codebase_tpu_torch.ops import fused_gru
-from codebase_tpu_torch.run import build_envs
+from codebase_tpu_torch.parallel import mesh
+from codebase_tpu_torch.run import build_envs, check_divides, check_keys
+from codebase_tpu_torch.utils import profiling
 from codebase_tpu_torch.utils.device import resolve_device
 
 # each algorithm's family: its train functions and the ranges its iteration names
@@ -134,24 +154,74 @@ def _model_config(family: str, acfg) -> dict:
 
 
 def main(argv=None):
-    cfg = load_config(argv if argv is not None else sys.argv[1:])
+    """Profile the config's train iteration and print one JSON line (rank 0
+    of a data-parallel run prints the run's); returns the report."""
+    argv = list(argv if argv is not None else sys.argv[1:])
+    cfg = load_config(argv)
     if not cfg.env.get("name") or not cfg.env.get("time_limit"):
         raise ValueError("env.name and env.time_limit must be set")
     name = cfg.get("algorithm", {}).get("name")
     if name not in FAMILIES:
         raise ValueError(f"unknown algorithm {name!r}; select one of {sorted(FAMILIES)} with +algorithm=")
+    check_keys(cfg)
+    device_name = cfg.get("device", "cuda")
+    n_ranks = mesh.ranks_to_spawn(cfg.get("distributed"), device_name)
+    if n_ranks:
+        check_divides(cfg, n_ranks)
+        return mesh.spawn(_rank_main, n_ranks, device_name, args=(argv,))[0]
+    shard = mesh.mesh_from_config(cfg.get("distributed"), device_name)
+    try:
+        if shard is not None:
+            check_divides(cfg, shard.world)
+        report = _profile(cfg, name, shard)
+        if shard is not None:
+            report = _combine(report, shard)
+    finally:
+        mesh.release(shard)
+    if shard is None or shard.rank == 0:
+        print(json.dumps(report), flush=True)
+    return report
+
+
+def _rank_main(argv):
+    """One spawned rank: profiles its shard; returns the run's report (rank
+    0's is the one printed)."""
+    return main(argv)
+
+
+def _combine(report: dict, shard) -> dict:
+    """Rank 0's report with `world` (the global env-steps/s: the whole run's
+    steps over the slowest rank's seconds; the ranks' summed operations over
+    those seconds) and `ranks` (each rank's numbers), gathered from every
+    rank (a collective)."""
+    mine = {k: report[k] for k in ("iteration_ms", "kernel_ms_per_iter", "device_busy_share", "ranges",
+                                    "collective_ms_per_iter", "iteration_flops", "seconds", "steps")}
+    mine["rank"] = shard.rank
+    ranks = [None] * shard.world
+    torch.distributed.all_gather_object(ranks, mine)
+    slowest = max(r["seconds"] for r in ranks)
+    report["world"] = {
+        "ranks": shard.world,
+        "backend": torch.distributed.get_backend(),
+        "env_steps_per_s": report["steps"] / slowest,
+        "tflops_per_s": sum(r["iteration_flops"] for r in ranks) * report["iters"] / slowest / 1e12,
+        "slowest_rank_seconds": slowest,
+    }
+    report["ranks"] = ranks
+    return report
+
+
+def _profile(cfg, name, shard) -> dict:
     family = FAMILIES[name]
-    if (cfg.get("distributed") or {}).get("devices"):
-        raise NotImplementedError("profile.py under distributed.* is not ported yet "
-                                  "(ROADMAP.md Queue 1 item 7, tooling): it profiles one process")
     pcfg = cfg.get("profile") or {}
     warmup, iters, top = (int(pcfg.get(k, d)) for k, d in (("warmup", 1), ("iters", 3), ("top", 15)))
+    trace_dir = pcfg.get("trace_dir")
     device = resolve_device(cfg.get("device", "cuda"))
     env, eval_env = build_envs(cfg)
     if "parallel_envs" in cfg.env:
         cfg.algorithm.parallel_envs = int(cfg.env.parallel_envs)
     T = int(cfg.env.time_limit)
-    init_state, train_iteration = BUILDERS[family](env, eval_env, cfg.algorithm, T, device)[:2]
+    init_state, train_iteration = BUILDERS[family](env, eval_env, cfg.algorithm, T, device, shard=shard)[:2]
     state = init_state(int(cfg.get("seed") or 0))
     on_gpu = device.type == "cuda"
 
@@ -174,12 +244,15 @@ def main(argv=None):
     steps, seconds = run(iters)
     iteration_ms = seconds / iters * 1e3
 
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if on_gpu:
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
     fused_gru.reset_launch_counts()
-    with torch.profiler.profile(activities=activities) as prof:
+    if shard is not None:
+        shard.times = {}  # each collective between device syncs, in the traced pass only
+    with profiling.trace(trace_dir) as prof, profiling.count_operations() as ops:
         _, traced_seconds = run(iters)
+    iteration_flops = ops["flops"] / iters
+    collectives = {k: s * 1e3 / iters for k, (s, _) in shard.times.items()} if shard is not None else None
+    if shard is not None:
+        shard.times = None
     launches = fused_gru.launch_counts()
     breakdown = device_breakdown(prof.events(), iters, top, RANGES[family])
     measured = on_gpu and breakdown["kernel_ms_per_iter"] > 0
@@ -195,15 +268,21 @@ def main(argv=None):
                    "standardise_returns": bool(cfg.algorithm.get("standardise_returns")),
                    **_model_config(family, cfg.algorithm)},
         "iters": iters,
+        "steps": steps,
+        "seconds": seconds,
         "env_steps_per_s": steps / seconds,
         "iteration_ms": iteration_ms,
         "traced_iteration_ms": traced_seconds / iters * 1e3,
         "device_busy_share": breakdown["kernel_ms_per_iter"] / iteration_ms if measured else None,
+        "iteration_flops": iteration_flops,
+        "tflops_per_s": iteration_flops / (iteration_ms / 1e3) / 1e12,
         "gru_launches_per_iter": {k: v / iters for k, v in launches.items()},
         "peak_device_memory_gib": torch.cuda.max_memory_allocated(device) / 2**30 if on_gpu else None,
+        "collective_ms_per_iter": collectives,
         **breakdown,
     }
-    print(json.dumps(report), flush=True)
+    if trace_dir:
+        report["trace_dir"] = str(trace_dir)
     return report
 
 

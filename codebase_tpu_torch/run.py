@@ -20,6 +20,7 @@ gloo); under torchrun's variables `distributed.initialize` `auto` or
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import sys
@@ -29,44 +30,22 @@ from codebase_tpu_torch.algos.registry import get_algorithm
 from codebase_tpu_torch.config import load_config
 from codebase_tpu_torch.envs.factory import make_env
 from codebase_tpu_torch.parallel import mesh
+from codebase_tpu_torch.utils import profiling
 from codebase_tpu_torch.utils.device import resolve_device
 from codebase_tpu_torch.utils.loggers import Logger, make_logger
-
-
-# JAX-package keys the port does not do yet, each with its default (absent
-# or null counts as the default) and the ROADMAP.md item that ports it: a run
-# that sets one is refused before anything is built
-NOT_PORTED = {
-    "trace_dir": (None, "Queue 1 item 7, tooling (a torch.profiler trace)"),
-    "debug": (False, "Queue 1 item 7, tooling (NaN and anomaly checks)"),
-    "algorithm.entry": (None, "Queue 1 item 7, tooling (algorithm.entry and register_algorithm)"),
-}
-
-
-def _lookup(data: dict, key: str):
-    for part in key.split("."):
-        data = data.get(part) if isinstance(data, dict) else None
-    return data
 
 
 # the keys of the `distributed` node, the JAX package's
 DISTRIBUTED_KEYS = ("devices", "initialize")
 
 
-def refuse_unported(cfg) -> None:
-    """Raise NotImplementedError, naming the ROADMAP.md item of each, on any
-    `NOT_PORTED` key set off its default; ValueError on a `distributed` key
-    the JAX package does not have."""
-    data = cfg.to_dict()
-    dist = data.get("distributed") or {}
+def check_keys(cfg) -> None:
+    """Raise ValueError on a `distributed` key the JAX package does not have."""
+    dist = cfg.to_dict().get("distributed") or {}
     unknown = sorted(f"distributed.{k}" for k in dist if k not in DISTRIBUTED_KEYS) \
         if isinstance(dist, dict) else ["distributed"]
     if unknown:
         raise ValueError(f"unknown config keys {unknown}; `distributed` takes `devices` and `initialize`")
-    found = [f"{k} is not ported yet (ROADMAP.md {item})"
-             for k, (default, item) in NOT_PORTED.items() if (_lookup(data, k) or default) != default]
-    if found:
-        raise NotImplementedError("; ".join(found))
 
 
 def build_envs(cfg):
@@ -93,13 +72,18 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
     argv = list(argv if argv is not None else sys.argv[1:])
     cfg = load_config(argv)
-    refuse_unported(cfg)
+    check_keys(cfg)
     if not cfg.env.get("name"):
         raise ValueError("env.name must be set")
     if not cfg.env.get("time_limit"):
         raise ValueError("Time limit must be set.")
     if "name" not in cfg.algorithm:
         raise ValueError("select an algorithm with +algorithm=<name>")
+    if cfg.get("debug"):
+        logging.getLogger("codebase_tpu_torch").warning(
+            "debug=true: NaN, index and division checks on every op, anomaly mode in the backward and a NaN "
+            "scan of each GRU kernel's outputs (utils/debug.py; expect several-fold slower iterations)"
+        )
     device_name = cfg.get("device", "cuda")
     n_ranks = mesh.ranks_to_spawn(cfg.get("distributed"), device_name)
     if n_ranks:
@@ -124,7 +108,7 @@ def _train(cfg, shard):
     # full-f32 matmuls (allow_tf32 = False) are set here for the whole run,
     # on this rank's GPU
     device = resolve_device(cfg.get("device", "cuda"))
-    algo = get_algorithm(cfg.algorithm.name)
+    algo = get_algorithm(cfg.algorithm.name, entry=cfg.algorithm.get("entry"))
 
     run_dir = cfg.get("run_dir")
     if not run_dir:
@@ -144,7 +128,11 @@ def _train(cfg, shard):
     if "parallel_envs" in cfg.env:
         cfg.algorithm.parallel_envs = int(cfg.env.parallel_envs)
 
-    state = algo(env, eval_env, logger, int(cfg.env.time_limit), cfg, device, shard)
+    trace_dir = cfg.get("trace_dir")
+    with profiling.trace(trace_dir) if trace_dir else contextlib.nullcontext():
+        if trace_dir:
+            logger.info(f"Capturing a profiler trace to {trace_dir}")
+        state = algo(env, eval_env, logger, int(cfg.env.time_limit), cfg, device, shard)
     return logger.get_state(), state
 
 

@@ -51,7 +51,7 @@ import yaml
 from codebase_tpu_torch.algos.common import unit_values
 from codebase_tpu_torch.config import Config
 from codebase_tpu_torch.parallel import mesh
-from codebase_tpu_torch.run import build_envs, refuse_unported
+from codebase_tpu_torch.run import build_envs, check_keys
 from codebase_tpu_torch.utils.device import resolve_device, sync
 from codebase_tpu_torch.utils.loggers import append_results_row, episode_infos, squash_info
 
@@ -81,9 +81,16 @@ def build_group(cfg, seeds: Sequence[int], hyper_variants: Optional[List[Dict[st
     """The train functions and initial state of one group: (units, state,
     train_iteration, evaluate), the units (variant index, seed)
     variant-major, seed-minor, as the JAX sweep orders them. With a `shard`
-    (mode unit) only this rank's units. Refuses the keys the port has not
-    ported (`run.refuse_unported`)."""
-    refuse_unported(cfg)
+    (mode unit) only this rank's units. `debug` checks the group's
+    iterations (`utils/debug.py`); `algorithm.entry` and `trace_dir`, which
+    a group does not run, raise ValueError (the `single` and `locally` modes
+    run each unit through `run.py`, which takes them)."""
+    check_keys(cfg)
+    for key in ("algorithm.entry", "trace_dir"):
+        node, _, leaf = key.rpartition(".")
+        if (cfg.get(node) if node else cfg).get(leaf):
+            raise ValueError(f"{key} is not taken by a vmapped group; run the units with the single or locally "
+                             "mode (each a codebase_tpu_torch.run)")
     device = resolve_device(cfg.get("device", "cuda"))
     env, eval_env = build_envs(cfg)
     time_limit = int(cfg.env.time_limit)
@@ -100,7 +107,8 @@ def build_group(cfg, seeds: Sequence[int], hyper_variants: Optional[List[Dict[st
     else:
         from codebase_tpu_torch.algos.ac import build_train_functions
     init_state, train_iteration, evaluate = build_train_functions(
-        env, eval_env, cfg.algorithm, time_limit, device, hypers=[variants[vi] for vi, _ in units], shard=shard
+        env, eval_env, cfg.algorithm, time_limit, device, hypers=[variants[vi] for vi, _ in units], shard=shard,
+        debug=bool(cfg.get("debug")),
     )[:3]
     state = init_state([s for _, s in units], generator_seed=first_seed)
     return units, state, train_iteration, evaluate

@@ -198,33 +198,6 @@ def counter(n) -> np.ndarray:
     return np.asarray(int(n), dtype=np.int32)
 
 
-def adam_state_dict(opt, param_tree) -> dict:
-    """The port's `Adam` as `{"count", "mu", "nu"}`, mu and nu in the
-    nesting of the parameters (`opt.mu`/`opt.nu` follow `tree_leaves` of
-    `param_tree`)."""
-    return {
-        "count": counter(opt.count),
-        "mu": params_state_dict(_unflatten(param_tree, iter(opt.mu))),
-        "nu": params_state_dict(_unflatten(param_tree, iter(opt.nu))),
-    }
-
-
-def _unflatten(template, leaves):
-    """`template`'s tree with its leaves taken from `leaves` in
-    `tree_leaves` order (dict keys sorted, lists in order)."""
-    if isinstance(template, dict):
-        return {k: _unflatten(template[k], leaves) for k in sorted(template)}
-    if isinstance(template, (list, tuple)):
-        return [_unflatten(v, leaves) for v in template]
-    return next(leaves)
-
-
-def load_adam(opt, param_tree, state_dict) -> None:
-    opt.count = int(state_dict["count"])
-    for name, dst in (("mu", opt.mu), ("nu", opt.nu)):
-        load_leaves(dst, tree_leaves(tree_from_state_dict(param_tree, state_dict[name])))
-
-
 def dataclass_state_dict(obj) -> dict | None:
     """The tensor fields of a running-moments dataclass (or None)."""
     if obj is None:

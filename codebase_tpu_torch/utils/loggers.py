@@ -186,7 +186,9 @@ LOGGERS = {"filesystem": FileSystemLogger, "basic": Logger}
 def make_logger(cfg, run_dir=".") -> Logger:
     name = cfg.get("logger", "filesystem")
     if name == "wandb":
-        raise NotImplementedError("the wandb logger is not ported yet (ROADMAP.md Queue 1)")
+        raise NotImplementedError(
+            "the wandb logger is not ported: wandb is not installed (ROADMAP.md Queue 1 item 7, what stays out)"
+        )
     if name not in LOGGERS:
         raise ValueError(f"unknown logger {name!r}; choose from {sorted(LOGGERS)}")
     return LOGGERS[name](cfg.get("project_name", "codebase_tpu_torch"), cfg, run_dir)

@@ -43,6 +43,21 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_unflatten(template, leaves):
+    """`template`'s tree with its leaves taken from `leaves` in
+    `tree_leaves` order."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        if isinstance(t, (list, tuple)):
+            return [build(v) for v in t]
+        return next(it)
+
+    return build(template)
+
+
 def tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}

@@ -132,7 +132,9 @@ def test_train_state_writes_flax_bytes_and_the_jax_schema(tmp_path):
     raw = jax_checkpoint.load_checkpoint(path)
     assert raw["buffer"]["obs"].dtype == jnp.bfloat16 and raw["buffer"]["actions"].dtype == np.int32
     assert raw["env_steps"].shape == () and raw["env_steps"].dtype == np.int32
-    assert set(raw["opt_state"]) == {"count", "mu", "nu"} and set(raw["params"]) == {"critic", "mixer"}
+    # flax's state dict of optax.chain(masked clip, adam), the JAX run's layout
+    assert raw["opt_state"]["0"] == {"inner_state": {}} and set(raw["opt_state"]["1"]) == {"0", "1"}
+    assert set(raw["opt_state"]["1"]["0"]) == {"count", "mu", "nu"} and set(raw["params"]) == {"critic", "mixer"}
     assert raw["params"]["critic"]["rnn"]["0"]["w_hh"].shape == (2, 128, 384)
 
 

@@ -70,12 +70,17 @@ def test_entry_point_refuses_what_it_cannot_do(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="unknown algorithm 'nosuch'"):
         run.main(["+algorithm=nosuch", "env.name=lbforaging:Foraging-5x5-2p-1f-v3", "env.time_limit=5",
                   "device=cpu", f"run_dir={tmp_path}"])
-    # JAX-package keys the port does not do yet are refused, not ignored;
-    # their defaults still run (test_cpu_run_writes_results_with_the_jax_schema
-    # passes them explicitly)
-    for key, value in (("debug", "true"), ("trace_dir", "traces"), ("algorithm.entry", "my_pkg.algo:main")):
-        with pytest.raises(NotImplementedError, match=rf"{key} is not ported yet \(ROADMAP.md Queue 1 item"):
-            run.main(ARGV + ["device=cpu", f"{key}={value}", f"run_dir={tmp_path}"])
+    # the tooling keys are ported (no key of the JAX package is refused any
+    # longer): debug trains under the checks, trace_dir writes a trace, and
+    # algorithm.entry dispatches to the user's entry point (an import error
+    # names the module it could not find)
+    short = ["algorithm.total_steps=100", "algorithm.eval_interval=50", "algorithm.log_interval=50"]
+    rows, _ = run.main(ARGV + ["device=cpu", "debug=true", *short, f"run_dir={tmp_path / 'debug'}"])
+    assert rows and all(math.isfinite(float(r["loss"])) for r in rows if r.get("loss"))
+    run.main(ARGV + ["device=cpu", f"trace_dir={tmp_path / 'traces'}", *short, f"run_dir={tmp_path / 'traced'}"])
+    assert list((tmp_path / "traces").glob("*.pt.trace.json"))
+    with pytest.raises(ModuleNotFoundError, match="my_pkg"):
+        run.main(ARGV + ["device=cpu", "algorithm.entry=my_pkg.algo:main", f"run_dir={tmp_path}"])
     with pytest.raises(ValueError, match=r"unknown config keys \['distributed.hosts'\]"):
         run.main(ARGV + ["device=cpu", "distributed.hosts=4", f"run_dir={tmp_path}"])
     # the multi-GPU keys are ported (parallel/mesh.py): each builds its group.
@@ -84,7 +89,6 @@ def test_entry_point_refuses_what_it_cannot_do(tmp_path, monkeypatch):
     spawn, init = mesh.spawn, mesh.init
     monkeypatch.setattr(mesh, "spawn", lambda fn, world, *a, **k: spawned.append(world) or spawn(fn, world, *a, **k))
     monkeypatch.setattr(mesh, "init", lambda *a, **k: joined.append(a[:2]) or init(*a, **k))
-    short = ["algorithm.total_steps=100", "algorithm.eval_interval=50", "algorithm.log_interval=50"]
     rows, _ = run.main(ARGV + ["device=cpu", "distributed.devices=2", *short, f"run_dir={tmp_path / 'devices2'}"])
     assert spawned == [2] and rows
     # ... and distributed.initialize=always joins torchrun's group (here a
@@ -236,7 +240,7 @@ def _jax_stub(steps, family):
 
 
 def _port_stub(steps, family):
-    def build(env, eval_env, acfg, time_limit, device, shard=None):
+    def build(env, eval_env, acfg, time_limit, device, shard=None, debug=False):
         def init_state(seed):
             return SimpleNamespace(env_steps=0, updates=0, model=None, timings=[], k=0)
 
