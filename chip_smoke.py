@@ -217,6 +217,13 @@ batch 1024) unless said:
 38. hetero       — agents of unequal sizes (inputs [15, 12], outputs [6,
                  5], GRU(128)) at 65536 envs: the kernels' forward against
                  the plain recurrence, zero gradients on the padding.
+39. bench        — every lane of `codebase_tpu_torch/bench_suite.py` at
+                 its full width (idqn_lbf at 65536 envs among them) through
+                 `run_config` with one window of 2 iterations: a line a lane
+                 with env-steps/s, MFU and its peak, operations and bytes a
+                 step, HBM use, peak memory and GRU launches an iteration;
+                 idqn_rnn_lbf launches the H=128 kernels, the two MMM2
+                 lanes the wide ones, every other lane none.
 Then the kernel summary line and, last, the device line.
 
 Imports nothing of JAX or of the JAX package.
@@ -226,6 +233,7 @@ from __future__ import annotations
 
 import contextlib
 import csv
+import gc
 import io
 import itertools
 import json
@@ -247,6 +255,7 @@ import yaml
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: torch.cuda.is_available() is false; this smoke run needs a CUDA GPU")
 
+from codebase_tpu_torch import bench_suite as port_bench_suite  # noqa: E402
 from codebase_tpu_torch import eval as port_eval  # noqa: E402
 from codebase_tpu_torch import run as port_run  # noqa: E402
 from codebase_tpu_torch import search as port_search  # noqa: E402
@@ -318,13 +327,6 @@ for _shape in SHAPES.values():
 RUNS = {}
 # the value-based phases' replay settings
 DQN_ARGV = ["algorithm.updates_per_collect=8", "algorithm.training_start=0", "algorithm.replay_slot_reuse=clear"]
-# published peaks, dense, no sparsity (NVIDIA data sheets): HBM bytes/s,
-# FP32 (non-tensor-core) flop/s and TF32 tensor-core flop/s, keyed by the
-# name the card reports
-PEAKS = {
-    "H100 80GB HBM3": (3.35e12, 67e12, 495e12),  # SXM
-    "H100 PCIe": (2.0e12, 51e12, 378e12),
-}
 # cycles of the spin kernel that holds the stream while a timed run of calls
 # is enqueued (about 2 ms on an H100)
 SPIN_CYCLES = 4_000_000
@@ -406,37 +408,33 @@ def time_ms(fn, reps=25, warmup=3) -> float:
 def bounds(kernel, G, T, B, H, P, peaks):
     """Least time (ms) for the function's work: max(bytes / HBM rate,
     operations / peak rate), each input read once and each output written
-    once, no scratch or partials. The operations are the kernels' own counts
-    (`fused_gru.kernel_flops`, which `utils/profiling.cost_analysis` adds
-    up): the forward's product, the recurrence's two (h_prev @ W_hh, dgh @
-    W_hh^T) and the weight gradient's one (h_prev^T dgh) run on tensor cores
-    in 3xTF32 (three TF32 products each); the reduction's adds on FP32 CUDA
-    cores."""
-    bw, fp32, tf32 = peaks
-    H3 = 3 * H
-    K = T * B
+    once, no scratch or partials (`fused_gru.kernel_bytes`). The operations
+    are the kernels' own counts (`fused_gru.kernel_flops`; both are what
+    `utils/profiling.cost_analysis` adds up): the forward's product, the
+    recurrence's two (h_prev @ W_hh, dgh @ W_hh^T) and the weight
+    gradient's one (h_prev^T dgh) run on tensor cores in 3xTF32 (three TF32
+    products each); the reduction's adds on FP32 CUDA cores. `peaks` is the
+    card's `bench_suite.PEAKS` entry."""
+    tf32 = peaks["tf32_flops"]
     dims = dict(G=G, T=T, B=B, H=H)
     flops = {k: fg.kernel_flops(f"gru_{k}_kernel", dims) for k in ("fwd", "bwd", "dw")}
     if kernel == "gru_fwd":
-        nbytes = 4 * G * (K * H3 + H * H3 + H3 + B * H + K * H + B * H)
+        nbytes = fg.kernel_bytes("gru_fwd_kernel", dims)
         t_ops = 3 * flops["fwd"] / tf32
     elif kernel == "gru_bwd":  # the whole backward: gi, W, b, h0, y, dy, dhT -> dgi, dW, db, dh0
-        ins = K * H3 + H * H3 + H3 + B * H + 2 * K * H + B * H
-        outs = K * H3 + H * H3 + H3 + B * H
-        nbytes = 4 * G * (ins + outs)
+        nbytes = fg.kernel_bytes("gru_backward", dims)
         t_ops = 3 * (flops["bwd"] + flops["dw"]) / tf32
     elif kernel == "gru_bwd_recurrence":  # gi, W, b, h0, y, dy, dhT -> dgi, dh0, dgh_n
-        ins = K * H3 + H * H3 + H3 + B * H + 2 * K * H + B * H
-        outs = K * H3 + B * H + K * H
-        nbytes = 4 * G * (ins + outs)
+        nbytes = fg.kernel_bytes("gru_bwd_kernel", dims)
         t_ops = 3 * flops["bwd"] / tf32
     elif kernel == "gru_dw":  # h_prev, dgh -> dW, db
-        nbytes = 4 * G * (K * H + K * H3 + H * H3 + H3)
+        nbytes = fg.kernel_bytes("gru_dw_kernel", dims)
         t_ops = 3 * flops["dw"] / tf32
     else:  # gru_reduce
-        nbytes = 4 * G * (P + 1) * (H * H3 + H3)
-        t_ops = fg.kernel_flops("gru_reduce_kernel", dict(G=G, P=P, E=H * H3 + H3)) / fp32
-    t_bytes, t_ops = nbytes / bw * 1e3, t_ops * 1e3
+        reduce_dims = dict(G=G, P=P, E=H * 3 * H + 3 * H)
+        nbytes = fg.kernel_bytes("gru_reduce_kernel", reduce_dims)
+        t_ops = fg.kernel_flops("gru_reduce_kernel", reduce_dims) / peaks["fp32_flops"]
+    t_bytes, t_ops = nbytes / peaks["hbm_bytes_per_s"] * 1e3, t_ops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -1872,6 +1870,46 @@ def analyze_phase(phase, smi, groups) -> None:
           "best": winners, "summary": table.getvalue().splitlines()})
 
 
+# the GRU kernels each bench lane must launch: the H=128 ones, the wide ones
+# (H=512), or none (an MLP, or the per-step cell under fused_rnn=off)
+BENCH_ROUTES = {"idqn_rnn_lbf": "resident", "qmix_smaclite_mmm2_big": "wide", "mappo_smaclite_mmm2_big": "wide"}
+ROUTE_COUNTERS = {"resident": ("fwd", "bwd", "dw", "reduce"), "wide": ("fwd_wide", "bwd_wide", "dw", "reduce"),
+                  None: ()}
+
+
+def bench_phase(phase, smi) -> None:
+    """Every lane of `bench_suite.CONFIGS` at its full width through
+    `bench_suite.run_config` (one warmup and one timed window of 2
+    iterations, then one counted iteration), called directly so that a
+    failure propagates; each lane's state is freed and the CUDA cache
+    emptied before the next. Checks finite env-steps/s above 0, 0 < MFU <= 1,
+    operations and bytes a step above 0, and each lane's GRU route from its
+    launches an iteration (`BENCH_ROUTES`)."""
+    t0 = time.perf_counter()
+    for key in port_bench_suite.CONFIGS:
+        res = port_bench_suite.run_config(key, windows=1, window_iters=2)
+        rate, mfu = res["env_steps_per_s"], res["mfu"]
+        if not (math.isfinite(rate) and rate > 0):
+            raise AssertionError(f"{phase} {key}: env-steps/s {rate}")
+        if mfu is None or not 0 < mfu <= 1:
+            raise AssertionError(f"{phase} {key}: mfu {mfu} (peak {res['mfu_peak']})")
+        if not (res["flops_per_step"] > 0 and res["bytes_per_step"] > 0):
+            raise AssertionError(f"{phase} {key}: flops {res['flops_per_step']}, bytes {res['bytes_per_step']} a step")
+        launches = res["gru_launches_per_iter"]
+        route = BENCH_ROUTES.get(key)
+        launched = {k for k, v in launches.items() if v > 0}
+        if launched != set(ROUTE_COUNTERS[route]):
+            raise AssertionError(f"{phase} {key}: launched {sorted(launched)}, the {route or 'no-GRU'} route "
+                                 f"launches {list(ROUTE_COUNTERS[route])} ({launches})")
+        emit({"phase": f"{phase}_{key}", "card": smi, "route": route, **{k: res[k] for k in (
+            "env_steps_per_s", "mfu", "mfu_peak", "flops_per_step", "analytic_flops_per_step", "bytes_per_step",
+            "hbm_bandwidth_util", "peak_device_memory_gib", "gru_launches_per_iter", "windows_s")}})
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": phase, "card": smi, "lanes": list(port_bench_suite.CONFIGS), "phase_s": time.perf_counter() - t0})
+
+
 def main() -> None:
     # --- 1. device
     dev = resolve_device("cuda")  # also pins f32 matmuls (allow_tf32 = False)
@@ -1881,11 +1919,13 @@ def main() -> None:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    peaks = next((v for k, v in PEAKS.items() if k in name), PEAKS["H100 80GB HBM3"])
+    peaks = port_bench_suite.card_peaks(name)
+    if peaks is None:
+        raise RuntimeError(f"no published peaks for the card {name!r} in codebase_tpu_torch/bench_suite.py "
+                           f"PEAKS ({sorted(port_bench_suite.PEAKS)}): the bounds need them")
     emit({"phase": "device", "name": name, "nvidia_smi": smi, "count": torch.cuda.device_count(),
-          "torch": torch.__version__, "cuda": torch.version.cuda,
-          "peaks": {"hbm_bytes_per_s": peaks[0], "fp32_flops": peaks[1], "tf32_flops": peaks[2]},
-          "peaks_for": next((k for k in PEAKS if k in name), "H100 80GB HBM3 (assumed)")})
+          "torch": torch.__version__, "cuda": torch.version.cuda, "peaks": peaks,
+          "peaks_for": next(k for k in port_bench_suite.PEAKS if k in name)})
 
     # --- 2. build
     t0 = time.perf_counter()
@@ -2109,6 +2149,11 @@ def main() -> None:
         for run_name, c in entry_and_optimizers_phase("entry_and_optimizers", smi).items():
             tooling_counts[f"entry_and_optimizers_{run_name}"] = c
         tooling_counts["hetero"] = hetero_phase("hetero", smi)
+
+    # --- 39. bench: the ten lanes of bench_suite.CONFIGS at full width
+    gc.collect()
+    torch.cuda.empty_cache()
+    bench_phase("bench", smi)
 
     sources = {
         "gru_fwd": "codebase_tpu/ops/fused_gru.py:80 (_fwd_kernel, pallas_call at :238)",

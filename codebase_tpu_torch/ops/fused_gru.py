@@ -62,8 +62,9 @@ kernel is launched and nowhere else, so a run can show that its path went
 through the kernels. After each launch the wrapper hands the kernel's name,
 outputs and shape to `LAUNCH_OBSERVERS`: in a debug region
 (`utils/debug.py`) a NaN in an output raises naming the kernel, and
-`utils/profiling.cost_analysis` counts its operations (`kernel_flops`). No
-PyTorch tool sees these `ctypes` launches otherwise.
+`utils/profiling.cost_analysis` counts its operations and bytes
+(`kernel_flops`, `kernel_bytes`). No PyTorch tool sees these `ctypes`
+launches otherwise.
 """
 
 from __future__ import annotations
@@ -92,7 +93,8 @@ REDUCE_LAUNCHES = 0
 # what runs after each kernel launch, as fn(kernel name, outputs, dims): the
 # debug mode's NaN scan of the outputs (`utils/debug.py`; nothing unless a
 # debug region is open) and, while `utils/profiling.cost_analysis` counts,
-# its count of the launch's operations (`kernel_flops`)
+# its count of the launch's operations and bytes (`kernel_flops`,
+# `kernel_bytes`)
 LAUNCH_OBSERVERS = [debug.check_kernel]
 
 RESIDENT_HIDDEN = 128  # the hidden size of the kernels that hold W_hh in shared memory
@@ -173,6 +175,33 @@ def kernel_flops(kernel: str, dims: dict) -> float:
     G, T, B, H = (dims[k] for k in "GTBH")
     products = 2 if kernel.startswith("gru_bwd") else 1
     return float(products * 2 * G * T * B * H * 3 * H)
+
+
+def kernel_bytes(kernel: str, dims: dict) -> float:
+    """The f32 bytes one launch must move at its shape, each input read once
+    and each output written once, no scratch or partials (the bytes of
+    `chip_smoke.py` `bounds()`): the forward's gi, W_hh, b_hh, h0 -> y, hT;
+    the recurrence's gi, W_hh, b_hh, h0, y, dy, dhT -> dgi, dh0, dgh_n; the
+    weight gradient's h_prev, dgh -> dW_hh, db_hh; the reduction's P
+    partials -> their sum. `gru_backward` is the three backward kernels as
+    one function (`gru_backward_cuda`): gi, W_hh, b_hh, h0, y, dy, dhT ->
+    dgi, dW_hh, db_hh, dh0."""
+    if kernel == "gru_reduce_kernel":
+        return float(4 * dims["G"] * (dims["P"] + 1) * dims["E"])
+    G, T, B, H = (dims[k] for k in "GTBH")
+    H3, K = 3 * H, T * B
+    weights = H * H3 + H3
+    if kernel in ("gru_fwd_kernel", "gru_fwd_wide_kernel"):
+        elements = K * H3 + weights + B * H + K * H + B * H
+    elif kernel in ("gru_bwd_kernel", "gru_bwd_wide_kernel"):
+        elements = (K * H3 + weights + B * H + 2 * K * H + B * H) + (K * H3 + B * H + K * H)
+    elif kernel == "gru_dw_kernel":
+        elements = K * H + K * H3 + weights
+    elif kernel == "gru_backward":
+        elements = (K * H3 + weights + B * H + 2 * K * H + B * H) + (K * H3 + weights + B * H)
+    else:
+        raise ValueError(f"unknown kernel {kernel!r}")
+    return float(4 * G * elements)
 
 
 def _launched(kernel: str, outputs: dict, **dims) -> None:

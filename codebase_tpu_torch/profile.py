@@ -2,13 +2,18 @@
 
     python -m codebase_tpu_torch.profile +algorithm=idqn|vdn|qmix|ia2c|maa2c|ippo|mappo \
         env.name=... env.time_limit=25 \
-        [profile.warmup=1] [profile.iters=3] [profile.top=15] [profile.trace_dir=<dir>]
-        [distributed.devices=N] [any run override]
+        [profile.warmup=1 profile.iters=3 | profile.chunks=4 profile.chunk_iters=8]
+        [profile.top=15] [profile.trace_dir=<dir>] [distributed.devices=N] [any run override]
 
 Builds the train iteration for the config, runs `warmup` iterations, times
-`iters` iterations on the host clock (each ends in a device sync), then runs
-`iters` more under `torch.profiler` and prints one JSON line: the card and its
-power limit, env-steps/s and iteration time untraced, the device time of
+`iters` iterations on the host clock as one span that ends in a device sync
+(`utils/profiling.time_windows`), then runs `iters` more under
+`torch.profiler`. The JAX package's keys take the place of the port's:
+`chunks` x `chunk_iters` iterations timed after a warmup of one chunk of
+`chunk_iters`, and one chunk traced. A run that mixes the two sets, or
+passes any other `profile.*` key, raises ValueError. It prints one JSON
+line: the algorithm and env, the card and its power limit, env-steps/s,
+updates/s and iteration time untraced, the device time of
 every kernel (kernels, copies and fills, each counted once) per iteration,
 split over the iteration's named ranges (the value-based family's
 `dqn/rollout`, `dqn/reward_stream` when the env stack standardises rewards,
@@ -45,7 +50,6 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
-import time
 
 import torch
 from torch.autograd import DeviceType
@@ -68,6 +72,11 @@ RANGES = {
     "ac": ("ac/rollout", "ac/reward_stream", "ac/update"),
 }
 SUB_RANGES = ("env/step",)  # inside the rollout range of either family
+# the profiler's keys: the port's schedule, the JAX package's (they do not
+# mix), and the keys both take
+PORT_SCHEDULE = ("warmup", "iters")
+JAX_SCHEDULE = ("chunks", "chunk_iters")
+PROFILE_KEYS = PORT_SCHEDULE + JAX_SCHEDULE + ("top", "trace_dir")
 GRU_KERNELS = ("gru_fwd_kernel", "gru_bwd_kernel", "gru_fwd_wide_kernel", "gru_bwd_wide_kernel", "gru_dw_kernel",
                "gru_reduce_kernel")
 
@@ -131,7 +140,36 @@ def device_breakdown(events, iters: int, top: int, ranges) -> dict:
     }
 
 
-def _card(device) -> dict:
+def schedule(pcfg) -> tuple:
+    """(warmup, timed, traced) iterations from the `profile` config node:
+    the port's `warmup` (1) and `iters` (3), timed and traced alike, or the
+    JAX package's `chunks` (4) x `chunk_iters` (8) timed after one chunk of
+    warmup, one chunk traced. Raises ValueError on a key the profiler does
+    not take, or on keys of both schedules."""
+    if pcfg is None:
+        pcfg = {}
+    elif hasattr(pcfg, "to_dict"):
+        pcfg = pcfg.to_dict()
+    else:
+        raise ValueError(f"profile must hold profile.* keys; got profile={pcfg!r}")
+    unknown = sorted(set(pcfg) - set(PROFILE_KEYS))
+    if unknown:
+        raise ValueError(f"unknown profile keys {['profile.' + k for k in unknown]}; "
+                         f"the profiler takes {['profile.' + k for k in PROFILE_KEYS]}")
+    port, jax_keys = [k for k in PORT_SCHEDULE if k in pcfg], [k for k in JAX_SCHEDULE if k in pcfg]
+    if port and jax_keys:
+        raise ValueError(f"profile.{port[0]} and profile.{jax_keys[0]} do not mix: time with "
+                         "profile.warmup/profile.iters or with profile.chunks/profile.chunk_iters")
+    if jax_keys:
+        chunks, chunk_iters = int(pcfg.get("chunks", 4)), int(pcfg.get("chunk_iters", 8))
+        return chunk_iters, chunks * chunk_iters, chunk_iters
+    iters = int(pcfg.get("iters", 3))
+    return int(pcfg.get("warmup", 1)), iters, iters
+
+
+def card(device) -> dict:
+    """The card's name and its `nvidia-smi --query-gpu=name,power.limit`
+    line; `{"name": "cpu", "nvidia_smi": None}` on the CPU."""
     if device.type != "cuda":
         return {"name": "cpu", "nvidia_smi": None}
     smi = subprocess.run(
@@ -164,6 +202,7 @@ def main(argv=None):
     if name not in FAMILIES:
         raise ValueError(f"unknown algorithm {name!r}; select one of {sorted(FAMILIES)} with +algorithm=")
     check_keys(cfg)
+    schedule(cfg.get("profile"))
     device_name = cfg.get("device", "cuda")
     n_ranks = mesh.ranks_to_spawn(cfg.get("distributed"), device_name)
     if n_ranks:
@@ -214,7 +253,8 @@ def _combine(report: dict, shard) -> dict:
 def _profile(cfg, name, shard) -> dict:
     family = FAMILIES[name]
     pcfg = cfg.get("profile") or {}
-    warmup, iters, top = (int(pcfg.get(k, d)) for k, d in (("warmup", 1), ("iters", 3), ("top", 15)))
+    warmup, iters, traced_iters = schedule(cfg.get("profile"))
+    top = int(pcfg.get("top", 15))
     trace_dir = pcfg.get("trace_dir")
     device = resolve_device(cfg.get("device", "cuda"))
     env, eval_env = build_envs(cfg)
@@ -225,43 +265,38 @@ def _profile(cfg, name, shard) -> dict:
     state = init_state(int(cfg.get("seed") or 0))
     on_gpu = device.type == "cuda"
 
-    def sync():
-        if on_gpu:
-            torch.cuda.synchronize(device)
-
     def run(n):
-        steps0 = state.env_steps
-        sync()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            float(train_iteration(state)["loss"])
-        sync()
-        return state.env_steps - steps0, time.perf_counter() - t0
+        window, = profiling.time_windows(lambda: train_iteration(state), device, 1, n,
+                                          lambda: (state.env_steps, state.updates))
+        return window
 
     run(warmup)
     if on_gpu:
         torch.cuda.reset_peak_memory_stats(device)
-    steps, seconds = run(iters)
+    timed = run(iters)
+    steps, seconds = timed["steps"], timed["seconds"]
     iteration_ms = seconds / iters * 1e3
 
     fused_gru.reset_launch_counts()
     if shard is not None:
         shard.times = {}  # each collective between device syncs, in the traced pass only
     with profiling.trace(trace_dir) as prof, profiling.count_operations() as ops:
-        _, traced_seconds = run(iters)
-    iteration_flops = ops["flops"] / iters
-    collectives = {k: s * 1e3 / iters for k, (s, _) in shard.times.items()} if shard is not None else None
+        traced_seconds = run(traced_iters)["seconds"]
+    iteration_flops = ops["flops"] / traced_iters
+    collectives = {k: s * 1e3 / traced_iters for k, (s, _) in shard.times.items()} if shard is not None else None
     if shard is not None:
         shard.times = None
     launches = fused_gru.launch_counts()
-    breakdown = device_breakdown(prof.events(), iters, top, RANGES[family])
+    breakdown = device_breakdown(prof.events(), traced_iters, top, RANGES[family])
     measured = on_gpu and breakdown["kernel_ms_per_iter"] > 0
     if not measured:  # no device trace: keep the host ranges only
         for r in [*breakdown["ranges"].values(), *breakdown["sub_ranges"].values()]:
             r["device_span_ms_per_iter"] = r["kernel_ms_per_iter"] = None
         breakdown.update(kernel_ms_per_iter=None, gru_kernel_ms_per_iter=None, top_kernels=None)
     report = {
-        "card": _card(device),
+        "algorithm": name,
+        "env": str(cfg.env.name),
+        "card": card(device),
         "config": {"algorithm": name, "env": cfg.env.name, "time_limit": T,
                    "parallel_envs": int(cfg.algorithm.get("parallel_envs", 1)),
                    "standardise_rewards": bool(cfg.env.get("standardise_rewards")),
@@ -271,12 +306,14 @@ def _profile(cfg, name, shard) -> dict:
         "steps": steps,
         "seconds": seconds,
         "env_steps_per_s": steps / seconds,
+        "updates_per_s": timed["updates"] / seconds,
         "iteration_ms": iteration_ms,
-        "traced_iteration_ms": traced_seconds / iters * 1e3,
+        "traced_iters": traced_iters,
+        "traced_iteration_ms": traced_seconds / traced_iters * 1e3,
         "device_busy_share": breakdown["kernel_ms_per_iter"] / iteration_ms if measured else None,
         "iteration_flops": iteration_flops,
         "tflops_per_s": iteration_flops / (iteration_ms / 1e3) / 1e12,
-        "gru_launches_per_iter": {k: v / iters for k, v in launches.items()},
+        "gru_launches_per_iter": {k: v / traced_iters for k, v in launches.items()},
         "peak_device_memory_gib": torch.cuda.max_memory_allocated(device) / 2**30 if on_gpu else None,
         "collective_ms_per_iter": collectives,
         **breakdown,

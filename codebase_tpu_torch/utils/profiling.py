@@ -8,15 +8,21 @@ The counterpart of the JAX package's `utils/profiling.py`:
   it yields the profiler, whose events `profile.py` reads.
 - `annotate(name)`        — a named range inside an active trace
   (`record_function`).
-- `count_operations()`   — the operations of a region: what
+- `count_operations()`   — the operations and bytes of a region: what
   `torch.utils.flop_counter.FlopCounterMode` counts of PyTorch's ops, plus
   the GRU kernels' operations, which the wrappers report from their shapes
   (`ops/fused_gru.kernel_flops`): FlopCounterMode cannot see a `ctypes`
-  launch. `cost_analysis(fn, *a)` returns `{"flops": ...}` of one call.
+  launch; and the bytes of every dispatched op's tensor inputs and outputs
+  (views and ops that move no data count none) plus the GRU kernels'
+  (`ops/fused_gru.kernel_bytes`), the counterpart of XLA's "bytes
+  accessed". `cost_analysis(fn, *a)` returns the counts of one call.
 - `device_memory_stats()` — `torch.cuda.memory_stats` of each visible GPU
   (`{}` on a machine without one).
 - `StepTimer`             — steps/s between marks, each mark after a device
   sync.
+- `time_windows(step, device, windows, window_iters, counters)` — windows
+  of train iterations, each ending in a device sync, with the steps and
+  updates each made (`profile.py` and `bench_suite.py` time with it).
 
 XLA's analysis of a compiled program's memory has no counterpart in an
 eager program; the port reports the peak device memory of a run instead
@@ -28,12 +34,15 @@ eager program; the port reports the peak device memory of a run instead
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 from pathlib import Path
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch.profiler import ProfilerActivity, record_function
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 from codebase_tpu_torch.ops import fused_gru
 
@@ -63,26 +72,75 @@ def annotate(name: str):
     return record_function(name)
 
 
+# ops whose outputs hold no data they read or wrote: allocations (views are
+# told apart by `OpOverload.is_view`)
+_NO_DATA = {torch.ops.aten.empty, torch.ops.aten.empty_like, torch.ops.aten.empty_strided,
+            torch.ops.aten.new_empty, torch.ops.aten.new_empty_strided, torch.ops.aten.lift_fresh}
+
+
+class _ByteCounter(TorchDispatchMode):
+    """Sums the bytes of every dispatched op's tensor inputs and outputs
+    (each tensor argument counted as read, each result as written; an
+    in-place op's tensor both), skipping views and allocations. The count is
+    of bytes addressed: the L2 serves some of them, so bytes over time is an
+    estimate of the HBM rate, not a reading of it. The autograd engine runs
+    a CUDA backward on a thread of its own, which inherits the mode, so the
+    sum takes a lock."""
+
+    def __init__(self):
+        super().__init__()
+        self.bytes = 0
+        self._lock = threading.Lock()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if not func.is_view and func.overloadpacket not in _NO_DATA:
+            nbytes = sum(t.numel() * t.element_size() for t in tree_leaves((args, kwargs, out))
+                         if isinstance(t, torch.Tensor))
+            with self._lock:
+                self.bytes += nbytes
+        return out
+
+
+def _bmm_flops(a_shape, b_shape, *_, out_shape=None, **kwargs) -> int:
+    """2*b*m*n*k of a batched product, also for `bmm.dtype` (bf16 inputs
+    and an f32 result, `ops/matmul.py` on the card), whose `out_dtype`
+    argument `FlopCounterMode`'s own formula takes for its `out_shape`."""
+    b, m, k = a_shape
+    return 2 * b * m * b_shape[-1] * k
+
+
 @contextlib.contextmanager
 def count_operations():
-    """Count the operations of the enclosed region; yields a dict whose
-    `flops` (PyTorch's ops as `FlopCounterMode` counts them: matrix
-    products, convolutions, attention; plus the GRU kernels' operations)
-    and `gru_kernel_flops` (those alone) are filled in on exit."""
+    """Count the operations and bytes of the enclosed region; yields a dict
+    whose `flops` (PyTorch's ops as `FlopCounterMode` counts them: matrix
+    products, convolutions, attention; plus the GRU kernels' operations),
+    `gru_kernel_flops` (those alone), `bytes` (`_ByteCounter`'s, plus the GRU
+    kernels' bytes) and `gru_kernel_bytes` (those alone) are filled in on
+    exit."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    result = {"flops": 0.0, "gru_kernel_flops": 0.0}
+    result = {"flops": 0.0, "gru_kernel_flops": 0.0, "bytes": 0.0, "gru_kernel_bytes": 0.0}
+    bytes_mode = _ByteCounter()
+    kernels = {"flops": 0.0, "bytes": 0.0}
+    lock = threading.Lock()  # the backward's launches come from the autograd engine's thread
 
     def count(kernel, outputs, dims):
-        result["gru_kernel_flops"] += fused_gru.kernel_flops(kernel, dims)
+        with lock:
+            kernels["flops"] += fused_gru.kernel_flops(kernel, dims)
+            kernels["bytes"] += fused_gru.kernel_bytes(kernel, dims)
 
     fused_gru.LAUNCH_OBSERVERS.append(count)
     try:
-        with FlopCounterMode(display=False) as counter:
+        with FlopCounterMode(display=False, custom_mapping={torch.ops.aten.bmm: _bmm_flops}) as counter, \
+                bytes_mode:
             yield result
     finally:
         fused_gru.LAUNCH_OBSERVERS.remove(count)
-    result["flops"] = float(counter.get_total_flops()) + result["gru_kernel_flops"]
+    result["gru_kernel_flops"], result["gru_kernel_bytes"] = kernels["flops"], kernels["bytes"]
+    result["flops"] = float(counter.get_total_flops()) + kernels["flops"]
+    result["bytes"] = float(bytes_mode.bytes) + kernels["bytes"]
 
 
 def cost_analysis(fn, *args, **kwargs) -> Dict[str, float]:
@@ -138,3 +196,31 @@ class StepTimer:
 
     def rate(self) -> Optional[float]:
         return self._rate
+
+
+def time_windows(step: Callable[[], Any], device, windows: int, window_iters: int,
+                 counters: Callable[[], Tuple[int, int]]) -> List[Dict[str, float]]:
+    """Time `windows` windows of `window_iters` calls of `step()` (one train
+    iteration a call). Each window starts after a device sync and ends in
+    one, on the host clock; `counters()` (the state's env steps and updates)
+    is read outside the timed region. Returns each window's `steps`,
+    `updates` and `seconds`."""
+    device = torch.device(device)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    out = []
+    steps0, updates0 = counters()
+    for _ in range(windows):
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(window_iters):
+            step()
+        sync()
+        seconds = time.perf_counter() - t0
+        steps, updates = counters()
+        out.append({"steps": steps - steps0, "updates": updates - updates0, "seconds": seconds})
+        steps0, updates0 = steps, updates
+    return out

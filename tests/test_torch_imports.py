@@ -7,6 +7,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "codebase_tpu")
 
@@ -107,3 +109,14 @@ print("ok")
         env={"PATH": "/usr/bin:/bin", "HOME": str(tmp_path)}, cwd=tmp_path,
     )
     assert res.returncode == 0 and res.stdout.strip().endswith("ok"), res.stderr[-2000:]
+
+
+@pytest.mark.parametrize("name", ["bench_suite.py", "bench.py"])
+def test_bench_modules_import_torch_and_nothing_of_jax(name):
+    """The port's bench keeps its own copy of the lanes and the FLOPs model:
+    it imports no JAX and nothing of the JAX package (not its
+    `bench_suite`), and runs on `torch`."""
+    path = ROOT / "codebase_tpu_torch" / name
+    mods = list(_imported_modules(path))
+    assert not [m for m in mods if m.split(".")[0] in FORBIDDEN], mods
+    assert any(m.split(".")[0] in ("torch", "codebase_tpu_torch") for m in mods), mods

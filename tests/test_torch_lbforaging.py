@@ -23,6 +23,7 @@ NAMES = [
     "lbforaging:Foraging-8x8-2p-3f-v3",
     "lbforaging:Foraging-2s-8x8-3p-2f-coop-v3",
     "lbforaging:Foraging-5x5-2p-1f-v3",
+    "lbforaging:Foraging-10x10-3p-3f-v3",  # the vdn_shared_lbf10 bench lane's env
 ]
 # action mix weighted towards LOAD so that foods get collected
 P_ACTIONS = [0.1, 0.12, 0.12, 0.12, 0.12, 0.42]

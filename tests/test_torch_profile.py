@@ -8,6 +8,7 @@ import torch
 from torch.autograd import DeviceType
 
 from codebase_tpu_torch import profile
+from codebase_tpu_torch.config import load_config
 
 torch.set_num_threads(2)
 
@@ -137,3 +138,32 @@ def test_profile_cli_takes_mappo_and_reads_the_ac_ranges(tmp_path, monkeypatch, 
     assert all(r["host_ms_per_iter_traced"] > 0 for r in ranges.values())
     assert report["env_steps_per_s"] > 0 and report["device_busy_share"] is None
     assert report["gru_launches_per_iter"] == {"fwd": 0, "bwd": 0, "fwd_wide": 0, "bwd_wide": 0, "dw": 0, "reduce": 0}  # the CPU path
+
+
+TINY_IDQN = ["+algorithm=idqn", "env.name=lbforaging:Foraging-5x5-2p-1f-v3", "env.time_limit=5",
+             "env.parallel_envs=4", "algorithm.batch_size=2", "algorithm.buffer_size=8",
+             "algorithm.training_start=0", "algorithm.updates_per_collect=2", "device=cpu", "seed=0"]
+
+
+def test_profile_cli_takes_the_jax_packages_chunk_keys(tmp_path, monkeypatch):
+    """`profile.chunks` x `profile.chunk_iters` iterations timed as one span
+    after a warmup of one chunk, one chunk traced; the report carries the
+    JAX report's `algorithm`, `env` and `updates_per_s`."""
+    monkeypatch.chdir(tmp_path)
+    report = profile.main(TINY_IDQN + ["profile.chunks=2", "profile.chunk_iters=2"])
+    assert report["iters"] == 4 and report["traced_iters"] == 2
+    assert report["algorithm"] == "idqn" and report["env"] == "lbforaging:Foraging-5x5-2p-1f-v3"
+    assert report["updates_per_s"] > 0 and report["env_steps_per_s"] > 0
+    assert report["steps"] <= 4 * 4 * 5  # at most E*T steps an iteration
+    assert profile.schedule(None) == (1, 3, 3)
+    assert profile.schedule(load_config(["profile.chunks=3"]).profile) == (8, 24, 8)
+
+
+@pytest.mark.parametrize("keys, match", [
+    (["profile.bogus=1"], r"unknown profile keys \['profile.bogus'\]"),
+    (["profile.iters=2", "profile.chunks=2"], "profile.iters and profile.chunks do not mix"),
+])
+def test_profile_cli_refuses_unknown_and_mixed_keys(tmp_path, monkeypatch, keys, match):
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(ValueError, match=match):
+        profile.main(TINY_IDQN + keys)
