@@ -224,6 +224,16 @@ batch 1024) unless said:
                  step, HBM use, peak memory and GRU launches an iteration;
                  idqn_rnn_lbf launches the H=128 kernels, the two MMM2
                  lanes the wide ones, every other lane none.
+40. gate_smoke   — `codebase_tpu_torch.gate.run` on two seeds of the
+                 ippo_lbf gate's overrides (the JAX runner's, 10 envs) cut to
+                 `algorithm.total_steps=40000`: seed 0 uncut, then seed 1 cut
+                 by the budget half way between its first two rows and
+                 resumed by a second `run` call; both results.csv files hold
+                 rows at 20000, 40000 and 60000 only, the JAX package's steps
+                 (a chunk of 80 iterations is one row; the loop runs until
+                 the step exceeds the budget): no duplicate, no gap.
+                 `gate._read_csv` (the comparison's reader) reads them,
+                 losses and returns are finite; seconds per 20,000 steps.
 Then the kernel summary line and, last, the device line.
 
 Imports nothing of JAX or of the JAX package.
@@ -257,6 +267,7 @@ if not torch.cuda.is_available():
 
 from codebase_tpu_torch import bench_suite as port_bench_suite  # noqa: E402
 from codebase_tpu_torch import eval as port_eval  # noqa: E402
+from codebase_tpu_torch import gate as port_gate  # noqa: E402
 from codebase_tpu_torch import run as port_run  # noqa: E402
 from codebase_tpu_torch import search as port_search  # noqa: E402
 from codebase_tpu_torch import sweep as port_sweep  # noqa: E402
@@ -1910,6 +1921,44 @@ def bench_phase(phase, smi) -> None:
     emit({"phase": phase, "card": smi, "lanes": list(port_bench_suite.CONFIGS), "phase_s": time.perf_counter() - t0})
 
 
+def gate_smoke_phase(phase, smi, out) -> None:
+    """The gate runner on the card: two seeds of ippo_lbf at 40000 steps
+    (rows at 20000, 40000 and 60000: the loop runs until the step exceeds
+    the budget, a chunk a row). Seed 0 runs uncut; its time to the first
+    row and between rows places seed 1's budget half way between its first
+    two rows, so that seed 1 checkpoints at the end of the chunk in flight
+    (40000) and a second `run` resumes it from there. Every process is
+    stopped by `run` itself."""
+    extra = ["algorithm.total_steps=40000"]
+    expected = [20000, 40000, 60000]
+    uncut = port_gate.run(["ippo_lbf"], out, budget_s=600, seeds=[0], extra=extra)[0]
+    timing = uncut["by_call"][0]
+    if uncut["state"] != "done" or timing["s_per_20000_steps"] is None:
+        raise AssertionError(f"{phase}: seed 0 did not finish with two rows: {uncut}")
+    budget = timing["first_row_s"] + 0.5 * timing["s_per_20000_steps"]
+    cut = port_gate.run(["ippo_lbf"], out, budget_s=budget, procs=2, seeds=[0, 1], extra=extra)
+    states = {st["seed"]: st["state"] for st in cut}
+    if states != {0: "skipped", 1: "cut"}:
+        raise AssertionError(f"{phase}: expected seed 0 skipped and seed 1 cut at {budget:.1f} s: {cut}")
+    resumed = port_gate.run(["ippo_lbf"], out, budget_s=600, seeds=[0, 1], extra=extra)
+    last = {st["seed"]: st for st in resumed}
+    if last[0]["state"] != "skipped" or last[1]["state"] != "done" or last[1]["resumed_at"] not in expected[:2]:
+        raise AssertionError(f"{phase}: expected seed 1 resumed at a row before the last and done: {resumed}")
+    curves = {}
+    for seed in (0, 1):
+        run_dir = out / "ippo_lbf" / f"ippo_seed{seed}"
+        rows = _csv_rows(run_dir / "results.csv")
+        steps = [int(r["environment_steps"]) for r in rows]
+        curves[seed] = port_gate._read_csv(run_dir / "results.csv")
+        values = [float(r[k]) for r in rows for k in ("loss", "actor_loss", "value_loss", "mean_episode_returns")]
+        if steps != expected or [s for s, _ in curves[seed]] != expected or not all(map(math.isfinite, values)):
+            raise AssertionError(f"{phase}: seed {seed} rows at {steps}, read {curves[seed]}, values {values}")
+    emit({"phase": phase, "card": smi, "gate": "ippo_lbf", "overrides": port_gate.GATES["ippo_lbf"].overrides + extra,
+          "rows_at": expected, "seed0_first_row_s": timing["first_row_s"],
+          "s_per_20000_steps": timing["s_per_20000_steps"], "cut_budget_s": budget,
+          "seed1_by_call": last[1]["by_call"], "final_returns": {seed: c[-1][1] for seed, c in curves.items()}})
+
+
 def main() -> None:
     # --- 1. device
     dev = resolve_device("cuda")  # also pins f32 matmuls (allow_tf32 = False)
@@ -2154,6 +2203,10 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     bench_phase("bench", smi)
+
+    # --- 40. gate_smoke: the learning gate's runner, cut and resumed
+    with tempfile.TemporaryDirectory() as tmp:
+        gate_smoke_phase("gate_smoke", smi, Path(tmp))
 
     sources = {
         "gru_fwd": "codebase_tpu/ops/fused_gru.py:80 (_fwd_kernel, pallas_call at :238)",

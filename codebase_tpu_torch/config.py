@@ -14,6 +14,8 @@ Algorithm names resolve through an explicit registry (`algos/registry.py`).
 from __future__ import annotations
 
 import copy
+import hashlib
+import json
 from pathlib import Path
 from typing import Any, Dict, List, Optional
 
@@ -59,6 +61,12 @@ class Config:
 
     def __repr__(self):
         return f"Config({self._data!r})"
+
+    def hash(self, exclude=("seed",)) -> str:
+        """sha256 of the config without the seed, its last 10 hex chars: the
+        JAX package's run grouping (`Config.hash`), the wandb logger's group."""
+        d = {k: v for k, v in self.to_dict().items() if k not in exclude}
+        return hashlib.sha256(json.dumps(d, sort_keys=True, default=str).encode("utf8")).hexdigest()[-10:]
 
 
 def _deep_merge(base: Dict, patch: Dict) -> Dict:

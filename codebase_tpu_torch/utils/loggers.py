@@ -1,4 +1,4 @@
-"""Loggers: the results.csv filesystem logger and a console logger.
+"""Loggers: the results.csv filesystem logger, wandb and a console logger.
 
 The `results.csv` schema is the JAX package's (and the reference's):
 `environment_steps` first, remaining keys sorted; header written once, rows
@@ -64,6 +64,7 @@ class Logger:
         self.project_name = project_name
         self.cfg = cfg
         self.run_dir = Path(run_dir)
+        self.config_hash = cfg.hash() if hasattr(cfg, "hash") else ""
         self._total_steps = int(cfg.algorithm.total_steps)
         self._start_time = time.time()
         self._prev_time = None
@@ -180,15 +181,38 @@ def _fmt(v) -> str:
     return str(v)
 
 
-LOGGERS = {"filesystem": FileSystemLogger, "basic": Logger}
+class WandbLogger(Logger):
+    """Weights & Biases logger, as the JAX package's: one run a config
+    (`project_name`, the whole config, grouped by the config's hash without
+    the seed), one `log` a squashed row. Needs the optional `wandb` package,
+    imported when the logger is made (ImportError without it)."""
+
+    def __init__(self, project_name, cfg, run_dir="."):
+        import wandb
+
+        super().__init__(project_name, cfg, run_dir)
+        self._run = wandb.init(
+            project=project_name,
+            config=cfg.to_dict() if hasattr(cfg, "to_dict") else dict(cfg),
+            group=self.config_hash,
+        )
+
+    def log_metrics(self, metrics: List[Dict]):
+        d = squash_info(metrics)
+        self._run.log(d)
+        self.print_progress(
+            d.get("updates", 0),
+            d.get("environment_steps", 0),
+            d.get("mean_episode_returns", float("nan")),
+            len(metrics) - 1,
+        )
+
+
+LOGGERS = {"filesystem": FileSystemLogger, "basic": Logger, "wandb": WandbLogger}
 
 
 def make_logger(cfg, run_dir=".") -> Logger:
     name = cfg.get("logger", "filesystem")
-    if name == "wandb":
-        raise NotImplementedError(
-            "the wandb logger is not ported: wandb is not installed (ROADMAP.md Queue 1 item 7, what stays out)"
-        )
     if name not in LOGGERS:
         raise ValueError(f"unknown logger {name!r}; choose from {sorted(LOGGERS)}")
     return LOGGERS[name](cfg.get("project_name", "codebase_tpu_torch"), cfg, run_dir)

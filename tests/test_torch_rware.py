@@ -185,3 +185,30 @@ def test_parse_names_like_jax():
             assert getattr(env, f) == getattr(jenv, f), (name, f)
     with pytest.raises(ValueError, match="unknown rware size"):
         parse_rware_name("rware-huge-2ag-v2")
+
+
+def test_random_policy_episodes_deliver_at_the_jax_rate():
+    """Whole T=500 episodes of rware-tiny-2ag-v2 under a uniform random
+    policy, 2048 a package: the reset's joint draw, the steps and the
+    requests drawn after each delivery together give the JAX package's
+    delivery rate (counts within 4 standard deviations of their Poisson
+    difference). The learning gate's ia2c_rware runs start from this rate."""
+    from codebase_tpu.envs.factory import make_env as jax_make_env
+    from codebase_tpu_torch.envs.factory import make_env
+
+    E, T = 2048, 500
+    jenv, env = jax_make_env("rware-tiny-2ag-v2", time_limit=T), make_env("rware-tiny-2ag-v2", time_limit=T)
+    key, k = jax.random.split(jax.random.PRNGKey(1))
+    jstate, _ = jenv.reset_batch(k, E)
+    jstep = jax.jit(jenv.step_batch)
+    g = torch.Generator().manual_seed(1)
+    state, _ = env.reset_batch(g, E)
+    jax_total, total = 0.0, 0.0
+    for _ in range(T):
+        key, ka, ks = jax.random.split(key, 3)
+        jstate, jts = jstep(jstate, jax.random.randint(ka, (E, jenv.n_agents), 0, jenv.n_actions), ks)
+        jax_total += float(np.asarray(jts.reward).sum())
+        state, ts = env.step_batch(state, torch.randint(0, env.n_actions, (E, env.n_agents), generator=g), g)
+        total += float(ts.reward.sum())
+    assert jax_total > 10 and total > 10  # deliveries happen under a random policy
+    assert abs(total - jax_total) <= 4 * np.sqrt(total + jax_total), (total, jax_total)
