@@ -234,6 +234,24 @@ batch 1024) unless said:
                  the step exceeds the budget): no duplicate, no gap.
                  `gate._read_csv` (the comparison's reader) reads them,
                  losses and returns are finite; seconds per 20,000 steps.
+41. card_vs_cpu  — `codebase_tpu_torch.card_vs_cpu.run_all("cuda")`:
+                 the same inputs through the port on the card and on the CPU
+                 in this process. The env steps of rware-tiny-2ag-v2 (2048
+                 envs, 500 steps, deliveries planted, the CPU's requests
+                 carried to the card after each step), LBF 8x8 (4096, 25)
+                 and SMAClite 3m with masks (1024, 60) are equal (SMAClite's
+                 float fields within rtol 1e-6, its entries that are not
+                 bitwise equal counted); 20 updates of the ia2c_rware gate's
+                 IA2C config (10 envs, T=500) from the same params on the
+                 same rollouts agree to rtol 1e-5 / atol 1e-6 after the
+                 first and 1e-4 after the last; the card's Gumbel-max
+                 sample, `gumbel_argmax` and RWARE's reset pass chi-square
+                 tests at p >= 1e-4 (2^22 draws; `exponential_` yields no
+                 0); the card's random-policy delivery counts (9 seeds of
+                 2048 episodes: the first and the sum) and the eval CLI's
+                 score of the vendored ia2c_rware checkpoint (2000 episodes)
+                 agree with the JAX package's vendored numbers within 4
+                 standard deviations.
 Then the kernel summary line and, last, the device line.
 
 Imports nothing of JAX or of the JAX package.
@@ -266,6 +284,7 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke: torch.cuda.is_available() is false; this smoke run needs a CUDA GPU")
 
 from codebase_tpu_torch import bench_suite as port_bench_suite  # noqa: E402
+from codebase_tpu_torch import card_vs_cpu as port_card_vs_cpu  # noqa: E402
 from codebase_tpu_torch import eval as port_eval  # noqa: E402
 from codebase_tpu_torch import gate as port_gate  # noqa: E402
 from codebase_tpu_torch import run as port_run  # noqa: E402
@@ -2207,6 +2226,13 @@ def main() -> None:
     # --- 40. gate_smoke: the learning gate's runner, cut and resumed
     with tempfile.TemporaryDirectory() as tmp:
         gate_smoke_phase("gate_smoke", smi, Path(tmp))
+
+    # --- 41. card_vs_cpu: the env steps, the gate's IA2C update and the
+    # card's draws against the CPU's, the delivery rates against the JAX
+    # package's vendored numbers
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "card_vs_cpu", "card": smi, **port_card_vs_cpu.run_all("cuda")})
 
     sources = {
         "gru_fwd": "codebase_tpu/ops/fused_gru.py:80 (_fwd_kernel, pallas_call at :238)",

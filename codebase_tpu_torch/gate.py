@@ -37,8 +37,11 @@ the GPU unless the overrides say `device=cpu`.
 curve is the mean of its last 5 rows at or below the largest step every
 curve reached, and the gate passes when |port mean - JAX mean| <= 2 * JAX
 std, with no slack. The JAX curves take `compare_gate.py`'s `ref` side and
-the port's runs its `fw` side. It prints compare_gate's markdown table and
-one JSON line a gate; `--vendor` copies each run's results.csv flat to
+the port's runs its `fw` side, every port seed present (also seeds beyond
+the gate's own list, which `run --seeds` trains as further independent
+samples). Where every curve ran past the JAX budget, it also compares the
+curves cut at the budget. It prints compare_gate's markdown table and
+one JSON line a comparison; `--vendor` copies each run's results.csv flat to
 `EVIDENCE_DIR/<gate>/<algo>_seed<s>.csv` and records the verdicts in
 `EVIDENCE_DIR/../PORT_GATE_h100.json`.
 
@@ -215,13 +218,16 @@ def _last(overrides, key, default=None):
     return vals[-1] if vals else default
 
 
-def judge(name: str, root: Path, evidence: Path = EVIDENCE) -> dict | None:
+def judge(name: str, root: Path, evidence: Path = EVIDENCE, at_step: int | None = None) -> dict | None:
     """compare_gate's verdict on gate `name` (JAX curves as ref, the port's
     as fw), with the JAX budget, or None when a side has no curve or a
-    curve no row by the step every curve reached."""
+    curve no row by the step every curve reached. `at_step` compares the
+    curves cut to their rows at or below it (the JAX budget, say)."""
     gate = GATES[name]
     ref, fw = jax_curves(gate, evidence), port_curves(root, name)
-    if not ref or not fw:
+    if at_step is not None:
+        ref, fw = ({s: [r for r in c if r[0] <= at_step] for s, c in side.items()} for side in (ref, fw))
+    if not ref or not fw or not all(c for c in list(ref.values()) + list(fw.values())):
         return None
     at = min(c[-1][0] for c in list(ref.values()) + list(fw.values()))
     if any(c[0][0] > at for c in list(ref.values()) + list(fw.values())):
@@ -319,8 +325,8 @@ def _status(run_dir: Path) -> dict:
 
 
 def run(names, out, budget_s: float, procs: int = 1, seeds=None, extra=()) -> list:
-    """Train the gates' seeds (`seeds`: a subset of each gate's, default
-    all) as `python -m codebase_tpu_torch.run` subprocesses, up to `procs`
+    """Train the gates' seeds (`seeds`: any seeds, also beyond a gate's
+    own list, which is the default) as `python -m codebase_tpu_torch.run` subprocesses, up to `procs`
     at once, until they finish or `budget_s` seconds pass; then SIGTERM the
     running ones (each checkpoints and exits) and launch no more. `extra`
     overrides follow the gate's. Returns one status dict a seed:
@@ -338,7 +344,7 @@ def run(names, out, budget_s: float, procs: int = 1, seeds=None, extra=()) -> li
         cadence = _last(overrides, "algorithm.log_interval")
         if cadence != _last(overrides, "algorithm.eval_interval"):
             raise ValueError(f"{name}: log_interval and eval_interval must be equal (each row a checkpoint)")
-        for s in (gate.seeds if seeds is None else [s for s in seeds if s in gate.seeds]):
+        for s in (gate.seeds if seeds is None else seeds):
             run_dir = out / name / f"{gate.algo}_seed{s}"
             job = {"gate": name, "seed": s, "run_dir": run_dir, "budget": total_steps(overrides),
                    "argv": [f"+algorithm={gate.algo}", *overrides, f"algorithm.save_interval={cadence}",
@@ -486,7 +492,10 @@ def vendor(names, out, evidence_dir, record) -> dict:
             if st.get("state") == "done":
                 done.append(_seed_of(run_dir.name))
         entry = {**(judge(name, evidence_dir) or {"gate": name}), "seeds_done": sorted(done),
-                 "partial": sorted(done) != list(gate.seeds), "wall_s_by_seed": wall, "commit": _commit()}
+                 "partial": not set(gate.seeds) <= set(done), "wall_s_by_seed": wall, "commit": _commit()}
+        at_budget = judge(name, evidence_dir, at_step=total_steps(gate.overrides))
+        if at_budget is not None and at_budget["compared_at_step"] != entry.get("compared_at_step"):
+            entry["at_jax_budget"] = at_budget
         for key, fname in (("card", "card.txt"), ("ckpt", "ckpt.json")):
             if (out / name / fname).exists():
                 text = (out / name / fname).read_text()
@@ -516,7 +525,8 @@ def main(argv=None) -> int:
     commands.choices["run"].add_argument("--budget-s", type=float, required=True,
                                          help="SIGTERM the running seeds after this many seconds")
     commands.choices["run"].add_argument("--procs", type=int, default=1, help="seeds trained at once")
-    commands.choices["run"].add_argument("--seeds", type=_seed_list, default=None, help="a subset, e.g. 0,1")
+    commands.choices["run"].add_argument("--seeds", type=_seed_list, default=None,
+                                         help="e.g. 0,1, or 5,6,7,8,9 beyond a gate's own (default: the gate's)")
     commands.choices["compare"].add_argument("--vendor", type=Path, default=None, metavar="EVIDENCE_DIR",
                                              help="copy the CSVs to EVIDENCE_DIR/<gate>/ and record the verdicts "
                                                   "in EVIDENCE_DIR/../PORT_GATE_h100.json")
@@ -536,6 +546,10 @@ def main(argv=None) -> int:
         print(json.dumps(result))
         return 0
     results = [(name, judge(name, args.out)) for name in args.gates]
+    # and at the JAX budget, where every curve ran past it
+    results += [(f"{name} @ JAX budget", s) for name in args.gates
+                if (s := judge(name, args.out, at_step=total_steps(GATES[name].overrides))) is not None
+                and s["compared_at_step"] != (dict(results).get(name) or {}).get("compared_at_step")]
     print(table(results))
     for _, s in results:
         if s is not None:

@@ -145,6 +145,18 @@ def test_prepare_resume_keeps_the_newest_checkpoint_on_a_row(tmp_path):
     assert gate.prepare_resume(run_dir) == 0 and not (run_dir / "results.csv").exists()
 
 
+def test_run_trains_seeds_beyond_the_gates_own_list(tmp_path, monkeypatch):
+    """`--seeds` may name seeds the gate's list lacks (ia2c_rware's is 0-4):
+    each trains as a further independent sample, and `port_curves` reads it."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    tiny = ["env.time_limit=5", "env.parallel_envs=4", "algorithm.total_steps=2000",
+            "algorithm.eval_interval=1000", "algorithm.log_interval=1000", "device=cpu"]
+    statuses = gate.run(["ia2c_rware"], tmp_path, 120, seeds=[7], extra=tiny)
+    assert [(st["seed"], st["state"]) for st in statuses] == [(7, "done")]
+    assert sorted(gate.port_curves(tmp_path, "ia2c_rware")) == [7]
+    assert "seed=7" in (tmp_path / "ia2c_rware" / "ia2c_seed7" / "config.yaml").read_text().replace(": ", "=")
+
+
 def test_run_refuses_the_runners_own_keys_and_unequal_cadences(tmp_path):
     with pytest.raises(ValueError, match="sets"):
         gate.run(["ippo_lbf"], tmp_path, 1, extra=["seed=3"])
@@ -174,7 +186,9 @@ def test_vendored_card_verdicts_rederive_from_the_vendored_curves():
     assert {"ippo_lbf", "qmix_smaclite3m", "idqn_lbf", "ia2c_rware"} <= set(record["gates"])
     for name, entry in record["gates"].items():
         g = gate.GATES[name]
-        assert entry["partial"] == (entry["seeds_done"] != list(g.seeds)), name
+        # partial: a seed of the gate's own list not done (seeds beyond it
+        # are further samples)
+        assert entry["partial"] == (not set(g.seeds) <= set(entry["seeds_done"])), name
         assert "H100" in entry["card"], name
         port = gate.port_curves(EVIDENCE / "port_h100", name)
         if "compared_at_step" not in entry:  # no step with a row on every curve yet
@@ -184,18 +198,41 @@ def test_vendored_card_verdicts_rederive_from_the_vendored_curves():
         again = gate.compare(g.algo, gate.jax_curves(g), port, gate.TAIL, 0.0)
         assert {k: entry[k] for k in again} == again, name
         assert entry["jax_budget"] == gate.total_steps(g.overrides)
+        if "at_jax_budget" in entry:  # every curve ran past the budget: compared there too
+            budget = entry["jax_budget"]
+            cut = [{s: [r for r in c if r[0] <= budget] for s, c in side.items()}
+                   for side in (gate.jax_curves(g), port)]
+            again = gate.compare(g.algo, *cut, gate.TAIL, 0.0)
+            assert again["compared_at_step"] == budget < entry["compared_at_step"], name
+            assert {k: entry["at_jax_budget"][k] for k in again} == again, name
+            assert gate.judge(name, EVIDENCE / "port_h100", at_step=budget) == entry["at_jax_budget"], name
+    # ia2c_rware with 10 port seeds (5-9 beyond the gate's own list), done,
+    # compared at the largest common step and at the JAX budget
+    rware = record["gates"]["ia2c_rware"]
+    assert rware["fw_seeds"] == rware["seeds_done"] == list(range(10)) and not rware["partial"]
+    assert rware["compared_at_step"] == 2_020_000 and rware["at_jax_budget"]["fw_seeds"] == list(range(10))
 
 
 def test_ia2c_rware_strict_fail_and_its_rows_with_a_delivery():
-    """The card's ia2c_rware gate fails the strict rule at its full budget
-    (its tail-5 mean above the JAX curves', by more than 2 JAX stds). A row
-    holds 10 training episodes, so a return of 0.02 is one delivery: over
-    each million steps the rows with a delivery of the two sides agree
-    within two standard deviations of their Poisson difference."""
+    """The card's ia2c_rware gate failed the strict rule with the port's
+    first 5 seeds at 2,020,000 steps (their tail-5 mean above the JAX
+    curves', by more than 2 JAX stds) and passes with 10, at 2,020,000 and
+    at the JAX budget. A row holds 10 training episodes, so a return of
+    0.02 is one delivery: over each million steps the rows with a delivery
+    a seed of the two sides agree within two standard deviations of their
+    Poisson difference, for the first 5 port seeds and for all 10."""
     entry = json.loads((EVIDENCE / "PORT_GATE_h100.json").read_text())["gates"]["ia2c_rware"]
     assert entry["compared_at_step"] == 2_020_000 and not entry["partial"]
-    assert not entry["within_seed_variance"] and entry["fw_mean"] > entry["ref_mean"]
-    sides = (gate.jax_curves(gate.GATES["ia2c_rware"]), gate.port_curves(EVIDENCE / "port_h100", "ia2c_rware"))
-    for lo, hi in ((0, 1_000_000), (1_000_000, 2_020_000)):
-        jax_rows, port_rows = (sum(1 for c in side.values() for s, r in c if lo < s <= hi and r > 0) for side in sides)
-        assert abs(port_rows - jax_rows) <= 2 * math.sqrt(port_rows + jax_rows), (lo, hi, jax_rows, port_rows)
+    jax, port = gate.jax_curves(gate.GATES["ia2c_rware"]), gate.port_curves(EVIDENCE / "port_h100", "ia2c_rware")
+    first5 = {s: port[s] for s in range(5)}
+    five = gate.compare("ia2c", jax, first5, gate.TAIL, 0.0)
+    assert five["compared_at_step"] == 2_020_000
+    assert not five["within_seed_variance"] and five["fw_mean"] > five["ref_mean"]
+    assert entry["within_seed_variance"] and entry["at_jax_budget"]["within_seed_variance"]
+    for side in (first5, port):
+        for lo, hi in ((0, 1_000_000), (1_000_000, 2_020_000)):
+            jax_rows, port_rows = (sum(1 for c in x.values() for s, r in c if lo < s <= hi and r > 0)
+                                   for x in (jax, side))
+            nj, np_ = len(jax), len(side)
+            assert abs(port_rows / np_ - jax_rows / nj) <= 2 * math.sqrt(port_rows / np_**2 + jax_rows / nj**2), (
+                lo, hi, np_, jax_rows, port_rows)
