@@ -33,8 +33,12 @@ exits non-zero:
              G=2 T=1 B=32768 and update (z9) T=26 B=512, MAPPO's rollout
              (z10) T=1 B=4096, update (z11) T=25 B=4096 and target (z12)
              T=26 B=4096, a sweep rank's 16 units (G=32): rollout (z13)
-             T=1 B=32, update (z14) T=26 B=32 and eval (z15) T=1 B=100
-             (every shape a phase below gives the kernels): the
+             T=1 B=32, update (z14) T=26 B=32 and eval (z15) T=1 B=100,
+             and the recurrent learning gates' (`gate.RNN_GATES`, 10
+             envs): the rollouts' policy step (z16) G=2 T=1 B=10,
+             idqn_rnn_lbf's update (z17) G=2 T=26 B=32, mappo_rnn_lbf's
+             update (z18) G=2 T=25 B=10 and target critic (z19) G=2 T=26
+             B=10 (every shape a phase below gives the kernels): the
              forward against `gru_sequence_plain`, the whole backward (recurrence, weight
              gradient, reduction) against `gru_backward_plain`, the weight
              gradient alone against `gru_dw_plain` on the recurrence
@@ -53,7 +57,7 @@ exits non-zero:
              against the CUDA runtime's count), and at every shape the
              weight gradient's (`dw_tiling`: tile, P, stages a block,
              grid, waves, their fill, shared memory).
-Then twelve train phases through `codebase_tpu_torch.run.main`, each with
+Then fourteen train phases through `codebase_tpu_torch.run.main`, each with
 the launch counters set to 0 just before and read just after, and logging
 every iteration (`log_interval` = E*T, so the host loop's chunk is one
 iteration, as before the chunk rule):
@@ -78,6 +82,16 @@ iteration, as before the chunk rule):
                  kernels at (g) in the rollout, (f) in the update and (m) for
                  the target critic (35 forward and 8 of each backward kernel
                  per iteration); the target critic follows the refresh rule.
+8b. train_idqn_rnn_lbf — the idqn_rnn_lbf gate's config (the main path:
+                 the IDQN preset with its GRU(128), 10 envs, batch 32, 10
+                 updates a collect) with `training_start=0`, 6 iterations
+                 and one eval: exactly 25 forwards at (z16) a rollout, 25 at
+                 (o) an eval, 2 at (z17) and 1 of each backward kernel an
+                 update (updates from iteration 4, once the replay holds 32
+                 episodes).
+8c. train_mappo_rnn_lbf — the mappo_rnn_lbf gate's config (10 envs), 3
+                 iterations: exactly 35 forwards (25 at z16, 9 at z18, 1 at
+                 z19) and 8 of each backward kernel an iteration.
 9. train_ia2c  — the `ia2c_lbf` lane as the JAX package defines it (MLP,
                  8192 envs), 2 iterations, no GRU launch.
 10. train_ippo_std — IPPO (MLP, 8192 envs) with reward and return
@@ -234,6 +248,10 @@ batch 1024) unless said:
                  the step exceeds the budget): no duplicate, no gap.
                  `gate._read_csv` (the comparison's reader) reads them,
                  losses and returns are finite; seconds per 20,000 steps.
+                 Then gate_smoke_mappo_rnn: the same on two seeds of the
+                 mappo_rnn_lbf gate (the GRU kernels in the subprocesses;
+                 the cut seed resumes from a checkpoint of recurrent
+                 weights).
 41. card_vs_cpu  — `codebase_tpu_torch.card_vs_cpu.run_all("cuda")`:
                  the same inputs through the port on the card and on the CPU
                  in this process. The env steps of rware-tiny-2ag-v2 (2048
@@ -244,7 +262,13 @@ batch 1024) unless said:
                  bitwise equal counted); 20 updates of the ia2c_rware gate's
                  IA2C config (10 envs, T=500) from the same params on the
                  same rollouts agree to rtol 1e-5 / atol 1e-6 after the
-                 first and 1e-4 after the last; the card's Gumbel-max
+                 first and 1e-4 after the last; 20 updates of the
+                 idqn_rnn_lbf gate's IDQN (batches of 32 episodes, T=25)
+                 and of the mappo_rnn_lbf gate's MAPPO (10 envs, T=25), the
+                 GRU through the kernels on the card and their plain
+                 versions on the CPU, agree to rtol 1e-4 / atol 1e-6 after
+                 the first and 1e-3 / 1e-5 after (`RNN_UPDATE_TOL`), with
+                 the kernels' launches counted; the card's Gumbel-max
                  sample, `gumbel_argmax` and RWARE's reset pass chi-square
                  tests at p >= 1e-4 (2^22 draws; `exponential_` yields no
                  0); the card's random-policy delivery counts (9 seeds of
@@ -349,6 +373,12 @@ SHAPES = {
     "z13": dict(G=32, T=1, B=32, role="IDQN sweep over 2 ranks, a rank's 16 units' rollout"),
     "z14": dict(G=32, T=26, B=32, role="IDQN sweep over 2 ranks, a rank's 16 units' update, batch 32"),
     "z15": dict(G=32, T=1, B=100, role="IDQN sweep over 2 ranks, a rank's 16 units' eval of 100 episodes"),
+    # the recurrent learning gates (`gate.RNN_GATES`) at their 10 envs; their
+    # evals of 100 episodes are (o)
+    "z16": dict(G=2, T=1, B=10, role="recurrent gates' rollout: the policy step over 10 envs"),
+    "z17": dict(G=2, T=26, B=32, role="idqn_rnn_lbf update: online/target nets over T+1=26 steps, batch 32"),
+    "z18": dict(G=2, T=25, B=10, role="mappo_rnn_lbf update: actor and critic over the rollout, T=25"),
+    "z19": dict(G=2, T=26, B=10, role="mappo_rnn_lbf target critic: bootstrap values over T+1=26 steps"),
 }
 for _shape in SHAPES.values():
     _shape.setdefault("H", 128)
@@ -647,6 +677,34 @@ def train_phase(phase, smi, argv, E, iters, per_iteration, T=25):
         "gru_route": {n: getattr(m.spec, "route", "mlp") for n, m in state.model.named_children() if hasattr(m, "spec")},
     })
     return counts, state
+
+
+def gate_train_phase(phase, smi, name, iters):
+    """`train_phase` on a recurrent gate's config (`gate.RNN_GATES`: the
+    preset, the gate's overrides, its 10 envs), with updates from the first
+    iteration on (`training_start=0`). Fails unless the GRU kernels launched
+    exactly as the config says: IDQN-RNN 25 forwards (z16) a rollout and
+    each eval (o), and 2 forwards (online and target, z17) and 1 of each
+    backward kernel an update (10 an iteration once the replay holds a
+    batch of 32 episodes); MAPPO-RNN 35 forwards (25 at z16, 9 at z18, 1 at
+    z19) and 8 of each backward kernel an iteration."""
+    g = port_gate.GATES[name]
+    argv = [f"+algorithm={g.algo}", *g.overrides] + (["algorithm.training_start=0"] if g.algo == "idqn" else [])
+    E = int(port_gate._last(g.overrides, "env.parallel_envs", 10))
+    dqn = g.algo == "idqn"
+    # the least launches an iteration (IDQN's backward kernels: none before
+    # the replay holds a batch); the exact counts are checked below
+    least = {"fwd": 25, "bwd": 0, "dw": 0, "reduce": 0} if dqn else {"fwd": 35, "bwd": 8, "dw": 8, "reduce": 8}
+    counts, state = train_phase(phase, smi, argv, E=E, iters=iters, per_iteration=least)
+    ran, updates = len(state.timings), int(unit_values(state.updates, 1)[0])
+    per_update = {"bwd": 1, "dw": 1, "reduce": 1} if dqn else {"bwd": 8, "dw": 8, "reduce": 8}
+    rollout_and_evals = counts["fwd"] - 2 * updates if dqn else counts["fwd"] - 35 * ran
+    if (not updates or any(counts[k] != n * updates for k, n in per_update.items())
+            or (dqn and (rollout_and_evals < 25 * ran or rollout_and_evals % 25)) or (not dqn and rollout_and_evals)):
+        raise AssertionError(f"{phase}: launches {counts} over {ran} iterations and {updates} updates")
+    emit({"phase": f"{phase}_launches", "gate": name, "iterations": ran, "updates": updates, "launches": counts,
+          "per_update": per_update, "forwards_an_update": 2 if dqn else 10})
+    return counts
 
 
 class MaskAudit:
@@ -1940,39 +1998,41 @@ def bench_phase(phase, smi) -> None:
     emit({"phase": phase, "card": smi, "lanes": list(port_bench_suite.CONFIGS), "phase_s": time.perf_counter() - t0})
 
 
-def gate_smoke_phase(phase, smi, out) -> None:
-    """The gate runner on the card: two seeds of ippo_lbf at 40000 steps
+def gate_smoke_phase(phase, smi, out, name="ippo_lbf") -> None:
+    """The gate runner on the card: two seeds of gate `name` at 40000 steps
     (rows at 20000, 40000 and 60000: the loop runs until the step exceeds
     the budget, a chunk a row). Seed 0 runs uncut; its time to the first
     row and between rows places seed 1's budget half way between its first
     two rows, so that seed 1 checkpoints at the end of the chunk in flight
-    (40000) and a second `run` resumes it from there. Every process is
-    stopped by `run` itself."""
+    (40000) and a second `run` resumes it from there (for a recurrent gate
+    the checkpoint carries the GRU weights and Adam moments; each rollout
+    starts from a zero hidden state). Every process is stopped by `run`
+    itself."""
     extra = ["algorithm.total_steps=40000"]
     expected = [20000, 40000, 60000]
-    uncut = port_gate.run(["ippo_lbf"], out, budget_s=600, seeds=[0], extra=extra)[0]
+    uncut = port_gate.run([name], out, budget_s=600, seeds=[0], extra=extra)[0]
     timing = uncut["by_call"][0]
     if uncut["state"] != "done" or timing["s_per_20000_steps"] is None:
         raise AssertionError(f"{phase}: seed 0 did not finish with two rows: {uncut}")
     budget = timing["first_row_s"] + 0.5 * timing["s_per_20000_steps"]
-    cut = port_gate.run(["ippo_lbf"], out, budget_s=budget, procs=2, seeds=[0, 1], extra=extra)
+    cut = port_gate.run([name], out, budget_s=budget, procs=2, seeds=[0, 1], extra=extra)
     states = {st["seed"]: st["state"] for st in cut}
     if states != {0: "skipped", 1: "cut"}:
         raise AssertionError(f"{phase}: expected seed 0 skipped and seed 1 cut at {budget:.1f} s: {cut}")
-    resumed = port_gate.run(["ippo_lbf"], out, budget_s=600, seeds=[0, 1], extra=extra)
+    resumed = port_gate.run([name], out, budget_s=600, seeds=[0, 1], extra=extra)
     last = {st["seed"]: st for st in resumed}
     if last[0]["state"] != "skipped" or last[1]["state"] != "done" or last[1]["resumed_at"] not in expected[:2]:
         raise AssertionError(f"{phase}: expected seed 1 resumed at a row before the last and done: {resumed}")
     curves = {}
     for seed in (0, 1):
-        run_dir = out / "ippo_lbf" / f"ippo_seed{seed}"
+        run_dir = out / name / f"{port_gate.GATES[name].algo}_seed{seed}"
         rows = _csv_rows(run_dir / "results.csv")
         steps = [int(r["environment_steps"]) for r in rows]
         curves[seed] = port_gate._read_csv(run_dir / "results.csv")
         values = [float(r[k]) for r in rows for k in ("loss", "actor_loss", "value_loss", "mean_episode_returns")]
         if steps != expected or [s for s, _ in curves[seed]] != expected or not all(map(math.isfinite, values)):
             raise AssertionError(f"{phase}: seed {seed} rows at {steps}, read {curves[seed]}, values {values}")
-    emit({"phase": phase, "card": smi, "gate": "ippo_lbf", "overrides": port_gate.GATES["ippo_lbf"].overrides + extra,
+    emit({"phase": phase, "card": smi, "gate": name, "overrides": port_gate.GATES[name].overrides + extra,
           "rows_at": expected, "seed0_first_row_s": timing["first_row_s"],
           "s_per_20000_steps": timing["s_per_20000_steps"], "cut_budget_s": budget,
           "seed1_by_call": last[1]["by_call"], "final_returns": {seed: c[-1][1] for seed, c in curves.items()}})
@@ -2060,6 +2120,12 @@ def main() -> None:
     ], E=8192, iters=3, per_iteration={"fwd": 35, "bwd": 8, "dw": 8, "reduce": 8})
     check_target_refresh(state)
     del state
+
+    # --- 8b, 8c. the recurrent learning gates' configs at their 10 envs:
+    # the kernels at (z16) in the rollouts, (z17) in IDQN's updates, (z18)
+    # and (z19) in MAPPO's, (o) in IDQN's eval
+    gate_counts = {f"train_{name}": gate_train_phase(f"train_{name}", smi, name, iters)
+                   for name, iters in (("idqn_rnn_lbf", 6), ("mappo_rnn_lbf", 3))}
 
     # --- 9. train_ia2c: the ia2c_lbf lane (MLP): no GRU launch
     train_phase("train_ia2c", smi, ["+algorithm=ia2c", "env.name=lbforaging:Foraging-8x8-2p-3f-v3"],
@@ -2226,10 +2292,13 @@ def main() -> None:
     # --- 40. gate_smoke: the learning gate's runner, cut and resumed
     with tempfile.TemporaryDirectory() as tmp:
         gate_smoke_phase("gate_smoke", smi, Path(tmp))
+        # the recurrent gate: the GRU kernels in subprocesses, a cut and a
+        # resume through a checkpoint of recurrent weights
+        gate_smoke_phase("gate_smoke_mappo_rnn", smi, Path(tmp), "mappo_rnn_lbf")
 
-    # --- 41. card_vs_cpu: the env steps, the gate's IA2C update and the
-    # card's draws against the CPU's, the delivery rates against the JAX
-    # package's vendored numbers
+    # --- 41. card_vs_cpu: the env steps, the gates' IA2C, IDQN-RNN and
+    # MAPPO-RNN updates and the card's draws against the CPU's, the
+    # delivery rates against the JAX package's vendored numbers
     gc.collect()
     torch.cuda.empty_cache()
     emit({"phase": "card_vs_cpu", "card": smi, **port_card_vs_cpu.run_all("cuda")})
@@ -2250,7 +2319,9 @@ def main() -> None:
              "z4": "sweep_idqn_eval", "z5": "sweep_mappo_rollout", "z6": "sweep_mappo_update",
              "z7": "sweep_mappo_target", "z8": "dist_idqn_rollout", "z9": "dist_idqn_update",
              "z10": "dist_mappo_rollout", "z11": "dist_mappo_update", "z12": "dist_mappo_target",
-             "z13": "dist_sweep_rollout", "z14": "dist_sweep_update", "z15": "dist_sweep_eval"}
+             "z13": "dist_sweep_rollout", "z14": "dist_sweep_update", "z15": "dist_sweep_eval",
+             "z16": "gate_rnn_rollout", "z17": "gate_idqn_rnn_update", "z18": "gate_mappo_rnn_update",
+             "z19": "gate_mappo_rnn_target"}
     resident = [k for k in SHAPES if SHAPES[k]["H"] == 128]
     wide = [k for k in SHAPES if SHAPES[k]["H"] != 128]
     phases = {"train": counts, "train_qmix": qmix_counts, "train_mappo": mappo_counts,
@@ -2258,7 +2329,7 @@ def main() -> None:
               "train_qmix_rware": rware_counts, "train_qmix_mmm2": mmm2_qmix_counts,
               "train_mappo_mmm2": mmm2_mappo_counts, "resume_idqn": resume_idqn_counts,
               "resume_mappo": resume_mappo_counts, "eval_cli": eval_counts, "video": video_counts,
-              "sweep_idqn_rnn": sweep_counts, "sweep_mappo_rnn": sweep_mappo_counts, **dist_counts,
+              "sweep_idqn_rnn": sweep_counts, "sweep_mappo_rnn": sweep_mappo_counts, **gate_counts, **dist_counts,
               **tooling_counts}
     summary = []
     # (name, counter, the kernel's key in the per-shape results, the shapes

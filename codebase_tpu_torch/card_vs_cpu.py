@@ -20,6 +20,12 @@ numbers:
   numpy), the same rollouts (numpy at RWARE's shapes and value ranges),
   consecutive updates: the metrics of every update and the params after the
   first and the last update within `UPDATE_TOL`.
+- `idqn_rnn_updates`, `mappo_rnn_updates`: the same for the recurrent
+  gates' configs (`idqn_rnn_lbf`, the main path, on LBF-shaped batches of
+  32 episodes; `mappo_rnn_lbf` on LBF-shaped rollouts of 10 envs), within
+  `RNN_UPDATE_TOL`: on the card every GRU runs through the hand-written
+  kernels, on the CPU through their plain versions. Each reports the
+  kernels' launches on the card.
 - `draw_checks`: the card's own draws at fixed logits and masks against
   their distributions by a chi-square test at p >= `P_MIN`: `sample`
   (Gumbel-max, a masked action never drawn), `gumbel_argmax` (uniform over
@@ -47,6 +53,7 @@ import numpy as np
 import torch
 
 from codebase_tpu_torch import gate
+from codebase_tpu_torch.algos import dqn
 from codebase_tpu_torch.algos.ac import METRICS, build_train_functions
 from codebase_tpu_torch.config import load_config
 from codebase_tpu_torch.envs.api import gumbel_argmax
@@ -54,6 +61,7 @@ from codebase_tpu_torch.envs.factory import make_env
 from codebase_tpu_torch.envs.rware import NOOP, RWARE
 from codebase_tpu_torch.envs.vector import Rollout
 from codebase_tpu_torch.models import distributions as D
+from codebase_tpu_torch.ops import fused_gru
 from codebase_tpu_torch.utils.device import resolve_device
 from codebase_tpu_torch.utils.params import params_from_numpy, params_to_numpy, tree_leaves
 
@@ -71,6 +79,18 @@ P_ACTIONS = [0.1, 0.4, 0.15, 0.15, 0.2]
 # (rtol, atol) of the IA2C update, card against CPU: the first update, then
 # every later one and the params after the last
 UPDATE_TOL = {"first": (1e-5, 1e-6), "later": (1e-4, 1e-6)}
+# (rtol, atol) of the recurrent updates (H=128), card against CPU. On the
+# card the GRU runs through the hand-written kernels: 3xTF32 products (f32's
+# ~2^-22 relative rounding of a product term), sums in another order, and
+# `dW_hh` summed over T*B in partials; `chip_smoke.py` holds one call of
+# each to 1e-5 (outputs, per-step gradients) and 1e-4 of the largest entry
+# (`dW_hh`, `db_hh`). An update composes a 26-step recurrence forward and
+# back through two networks (online and target, or actor, critic and target
+# critic over 4 PPO epochs), so ten times those: 1e-4 on the first update;
+# 20 Adam steps compound them, so 1e-3 after. An entry whose gradient
+# cancels to its rounding could take Adam's first step (+-lr) the other way:
+# that would fail here, and be reported with its leaf.
+RNN_UPDATE_TOL = {"first": (1e-4, 1e-6), "later": (1e-3, 1e-5)}
 P_MIN = 1e-4  # the chi-square tests' least p-value
 SIGMAS = 4.0  # the delivery rates' band
 
@@ -256,20 +276,62 @@ def _within(got, ref, tol) -> bool:
     return bool(((_host(got) - _host(ref)).abs() <= atol + rtol * _host(ref).abs()).all())
 
 
-def ia2c_updates(device, n_updates=20, T=None, seed=0) -> dict:
-    """`n_updates` consecutive IA2C updates of the ia2c_rware gate's config
-    (its preset and overrides: 10 envs) on `device` and on the CPU from the
-    same params on the same rollouts of T steps (default the gate's time
-    limit). Raises unless each update's metrics, and the params after the
-    first and the last update, agree within `UPDATE_TOL`. Returns the
-    largest relative difference of each metric at each update and the
-    largest relative and absolute differences of the params."""
-    dev, ref = resolve_device(device), resolve_device(CPU)  # f32 matmuls (allow_tf32 off)
-    g = gate.GATES["ia2c_rware"]
+def _check_updates(name, n_updates, tolerance, metric_names, step, param_leaves):
+    """Run `step(u)` -> ({metric: device value}, {metric: reference value})
+    for each update u and hold them, and the params (`param_leaves()` ->
+    (device leaves, reference leaves)) after the first and the last update,
+    to `tolerance` {"first": (rtol, atol), "later": (rtol, atol)}. Raises
+    at the first difference, naming the update and what differs."""
+    per_update, params_rel, params_abs = [], {}, {}
+    for u in range(n_updates):
+        m_dev, m_ref = step(u)
+        tol = tolerance["first" if u == 0 else "later"]
+        per_update.append({k: _rel(m_dev[k], m_ref[k]) for k in metric_names})
+        bad = [k for k in metric_names if not _within(m_dev[k], m_ref[k], tol)]
+        if bad:
+            raise AssertionError(f"{name} update {u + 1}: {bad} differ beyond rtol {tol[0]} atol {tol[1]}: "
+                                 f"{ {k: (float(m_dev[k]), float(m_ref[k])) for k in bad} }")
+        if u in (0, n_updates - 1):
+            got, want = param_leaves()
+            params_rel[f"after_update_{u + 1}"] = max(_rel(g, w) for g, w in zip(got, want))
+            params_abs[f"after_update_{u + 1}"] = max(float((_host(g) - _host(w)).abs().max())
+                                                      for g, w in zip(got, want))
+            bad = [i for i, (g, w) in enumerate(zip(got, want)) if not _within(g, w, tol)]
+            if bad:
+                raise AssertionError(f"{name} params after update {u + 1}: leaves {bad} differ beyond rtol "
+                                     f"{tol[0]} atol {tol[1]} (largest relative difference {params_rel}, "
+                                     f"absolute {params_abs})")
+    return {"updates": n_updates, "tolerance": tolerance, "max_rel_by_update": per_update,
+            "max_rel": {k: max(m[k] for m in per_update) for k in metric_names}, "params_max_rel": params_rel,
+            "params_max_abs": params_abs}
+
+
+def _gru_launches(before) -> dict:
+    """The GRU kernels' launches since `before` (`launch_counts()`), nonzero only."""
+    now = fused_gru.launch_counts()
+    return {k: now[k] - before[k] for k in now if now[k] != before[k]}
+
+
+def _gate_config(name, envs=None):
+    g = gate.GATES[name]
     cfg = load_config([f"+algorithm={g.algo}", *g.overrides])
     acfg = cfg.algorithm
-    acfg.parallel_envs = int(cfg.env.parallel_envs)
-    env = make_env(cfg.env.name, time_limit=int(cfg.env.time_limit))
+    acfg.parallel_envs = int(envs if envs is not None else cfg.env.parallel_envs)
+    return cfg, acfg, make_env(cfg.env.name, time_limit=int(cfg.env.time_limit))
+
+
+def ac_updates(name, make_rollout, device, n_updates=20, T=None, envs=None, seed=0, tolerance=UPDATE_TOL) -> dict:
+    """`n_updates` consecutive updates of gate `name`'s actor-critic config
+    (its preset and overrides; `envs` envs, default the gate's) on `device`
+    and on the CPU from the same params on the same rollouts of T steps
+    (default the gate's time limit), `make_rollout(rng, env, T, E)` each a
+    dict of numpy arrays. Raises unless each update's metrics, and the
+    params after the first and the last update, agree within `tolerance`.
+    Returns the largest relative difference of each metric at each update,
+    the largest relative and absolute differences of the params, and the
+    GRU kernels' launches on the device."""
+    dev, ref = resolve_device(device), resolve_device(CPU)  # f32 matmuls (allow_tf32 off)
+    cfg, acfg, env = _gate_config(name, envs)
     E, T = acfg.parallel_envs, int(T if T is not None else cfg.env.time_limit)
     (init_ref, _, _, update_ref), (init_dev, _, _, update_dev) = (
         build_train_functions(env, env, acfg, T, d) for d in (ref, dev))
@@ -278,34 +340,106 @@ def ia2c_updates(device, n_updates=20, T=None, seed=0) -> dict:
     state_dev.model.load_params(params_to_numpy(state_ref.model.param_tree()))
     state_dev.target_critic.load_params(params_from_numpy(params_to_numpy(state_ref.target_critic.param_tree()), dev))
     rng = np.random.default_rng(seed)
-    per_update, params_rel, params_abs = [], {}, {}
-    for u in range(n_updates):
-        r = rware_rollout(rng, env.base_env, T, E)
-        m_ref, m_dev = update_ref(state_ref, _rollout_on(r, ref)), update_dev(state_dev, _rollout_on(r, dev))
+    before = fused_gru.launch_counts()
+
+    def step(u):
+        r = make_rollout(rng, env, T, E)
+        m_ref = update_ref(state_ref, _rollout_on(r, ref))
+        m_dev = update_dev(state_dev, _rollout_on(r, dev))
         for state in (state_ref, state_dev):
             state.env_steps += T * E
-        tol = UPDATE_TOL["first" if u == 0 else "later"]
-        per_update.append({k: _rel(m_dev[k], m_ref[k]) for k in METRICS})
-        bad = [k for k in METRICS if not _within(m_dev[k], m_ref[k], tol)]
-        if bad:
-            raise AssertionError(f"ia2c update {u + 1}: {bad} differ beyond rtol {tol[0]} atol {tol[1]}: "
-                                 f"{ {k: (float(m_dev[k]), float(m_ref[k])) for k in bad} }")
-        if u in (0, n_updates - 1):
-            leaves = [(tree_leaves(s.model.param_tree()), tree_leaves(s.target_critic.param_tree()))
-                      for s in (state_dev, state_ref)]
-            got = leaves[0][0] + leaves[0][1]
-            want = leaves[1][0] + leaves[1][1]
-            params_rel[f"after_update_{u + 1}"] = max(_rel(g, w) for g, w in zip(got, want))
-            params_abs[f"after_update_{u + 1}"] = max(float((_host(g) - _host(w)).abs().max())
-                                                      for g, w in zip(got, want))
-            bad = [i for i, (g, w) in enumerate(zip(got, want)) if not _within(g, w, tol)]
-            if bad:
-                raise AssertionError(f"ia2c params after update {u + 1}: leaves {bad} differ beyond rtol {tol[0]} "
-                                     f"atol {tol[1]} (largest relative difference {params_rel})")
-    return {"config": "ia2c_rware", "envs": E, "T": T, "n_steps": int(acfg.n_steps), "updates": n_updates,
-            "tolerance": UPDATE_TOL, "max_rel_by_update": per_update,
-            "max_rel": {k: max(m[k] for m in per_update) for k in METRICS}, "params_max_rel": params_rel,
-            "params_max_abs": params_abs}
+        return m_dev, m_ref
+
+    def leaves():
+        got, want = (tree_leaves(s.model.param_tree()) + tree_leaves(s.target_critic.param_tree())
+                     for s in (state_dev, state_ref))
+        return got, want
+
+    out = _check_updates(name, n_updates, tolerance, METRICS, step, leaves)
+    return {"config": name, "envs": E, "T": T, "n_steps": int(acfg.n_steps), **out,
+            "gru_launches": _gru_launches(before)}
+
+
+def ia2c_updates(device, n_updates=20, T=None, seed=0) -> dict:
+    """`ac_updates` of the ia2c_rware gate's config (10 envs, MLPs) on
+    RWARE-shaped rollouts, within `UPDATE_TOL`."""
+    return ac_updates("ia2c_rware", lambda rng, env, T, E: rware_rollout(rng, env.base_env, T, E), device,
+                      n_updates, T, seed=seed)
+
+
+def lbf_rollout(rng, env, T, E) -> dict:
+    """A numpy rollout at LBF's shapes and value ranges (the triples
+    observation of `lbforaging.py`): per food and then per agent (row, col,
+    level), an eaten food (-1, -1, 0); episodes of T steps or ended early
+    (all food eaten, half of them), steps after the end unfilled; sparse
+    rewards of a food's share; uniform actions; no action mask."""
+    base = env.base_env
+    N, Dm, A = env.n_agents, env.obs_dim, env.n_actions
+    cells = rng.integers(0, min(base.rows, base.cols), size=(T + 1, E, Dm // 3, 2)).astype(np.float32)
+    levels = rng.integers(1, 4, size=(T + 1, E, Dm // 3, 1)).astype(np.float32)
+    triples = np.concatenate([cells, levels], -1)
+    eaten = (rng.random((T + 1, E, base.max_food)) < 0.3)
+    triples[:, :, :base.max_food][eaten] = (-1.0, -1.0, 0.0)
+    obs = np.broadcast_to(triples.reshape(T + 1, E, 1, Dm), (T + 1, E, N, Dm)).copy()
+    lengths = np.where(rng.random(E) < 0.5, T, rng.integers(5, T + 1, size=E))
+    filled = (np.arange(T)[:, None] < lengths[None]).astype(np.float32)
+    dones = np.zeros((T + 1, E), np.float32)
+    dones[lengths, np.arange(E)] = 1.0
+    rewards = np.where(rng.random((T, E, N)) < 0.03, rng.uniform(0.1, 0.5, size=(T, E, N)), 0.0)
+    return dict(obs=obs, actions=rng.integers(0, A, size=(T, E, N)),
+                rewards=(rewards * filled[..., None]).astype(np.float32), dones=dones, filled=filled,
+                action_mask=np.ones((T + 1, E, N, A), np.float32))
+
+
+def mappo_rnn_updates(device, n_updates=20, T=None, envs=None, seed=0) -> dict:
+    """`ac_updates` of the mappo_rnn_lbf gate's config (recurrent actor and
+    centralised recurrent critic, H=128, 4 PPO epochs) on LBF-shaped
+    rollouts, within `RNN_UPDATE_TOL`: on the card every GRU of the update
+    and of the target critic runs through the hand-written kernels."""
+    return ac_updates("mappo_rnn_lbf", lbf_rollout, device, n_updates, T, envs, seed, RNN_UPDATE_TOL)
+
+
+def _dqn_batch(r, device) -> dict:
+    """A numpy rollout (`lbf_rollout`) as the DQN update's reference-layout
+    batch: obss (N, T+1, B, D), actions and rewards (N, T, B), dones (T+1,
+    B), filled (T, B); no action mask (LBF has none)."""
+    t = {k: torch.as_tensor(v).to(device) for k, v in r.items()}
+    return dict(obss=t["obs"].permute(2, 0, 1, 3).contiguous(), actions=t["actions"].permute(2, 0, 1).long(),
+                rewards=t["rewards"].permute(2, 0, 1).contiguous(), dones=t["dones"], filled=t["filled"],
+                action_mask=None)
+
+
+def idqn_rnn_updates(device, n_updates=20, batch_size=None, seed=0) -> dict:
+    """`n_updates` consecutive IDQN updates of the idqn_rnn_lbf gate's
+    config (the main path: Linear -> ReLU -> GRU(128) -> Linear an agent,
+    double Q, Adam, a hard target every 200 updates) on `device` and on the
+    CPU from the same params (online and target) on the same LBF-shaped
+    batches of `batch_size` episodes (default the preset's 32), within
+    `RNN_UPDATE_TOL`. Returns what `ac_updates` returns, for the loss."""
+    dev, ref = resolve_device(device), resolve_device(CPU)
+    cfg, acfg, env = _gate_config("idqn_rnn_lbf")
+    T, B = int(cfg.env.time_limit), int(batch_size if batch_size is not None else acfg.batch_size)
+    (init_ref, it_ref, _), (init_dev, it_dev, _) = (
+        dqn.build_train_functions(env, env, acfg, T, d) for d in (ref, dev))
+    state_ref, state_dev = init_ref(seed), init_dev(seed)
+    state_dev.model.load_params(params_to_numpy(state_ref.model.param_tree()))
+    state_dev.target.load_params(params_to_numpy(state_ref.target.param_tree()))
+    rng = np.random.default_rng(seed)
+    before = fused_gru.launch_counts()
+
+    def step(u):
+        r = lbf_rollout(rng, env, T, B)
+        loss_ref = it_ref.update(state_ref, _dqn_batch(r, ref))
+        loss_dev = it_dev.update(state_dev, _dqn_batch(r, dev))
+        return {"loss": loss_dev}, {"loss": loss_ref}
+
+    def leaves():
+        got, want = (tree_leaves(s.model.param_tree()) + tree_leaves(s.target.param_tree())
+                     for s in (state_dev, state_ref))
+        return got, want
+
+    out = _check_updates("idqn_rnn_lbf", n_updates, RNN_UPDATE_TOL, ("loss",), step, leaves)
+    return {"config": "idqn_rnn_lbf", "batch_size": B, "T": T, **out, "gru_launches": _gru_launches(before)}
 
 
 # --- the card's draws against their distributions
@@ -453,7 +587,8 @@ def delivery_rates(device, rates_path=RATES) -> dict:
 def run_all(device) -> dict:
     """Every check, `device` against the CPU. Returns their numbers."""
     return {"envs": [env_steps(name, E, steps, T, device, rtol) for name, (E, steps, T, rtol) in ENV_CASES.items()],
-            "ia2c_update": ia2c_updates(device), "draws": draw_checks(device),
+            "ia2c_update": ia2c_updates(device), "idqn_rnn_update": idqn_rnn_updates(device),
+            "mappo_rnn_update": mappo_rnn_updates(device), "draws": draw_checks(device),
             "delivery_rates": delivery_rates(device)}
 
 

@@ -14,8 +14,12 @@ JAX package: the comparison below is this module's own copy of
 
 `GATES` is the JAX package's gate matrix: each gate's overrides are the JAX
 runner's, letter for letter, each group beside the script line it comes
-from. The port's seeds cannot reproduce the JAX package's draws (threefry
-against Philox), so each port seed is an independent sample.
+from. It also holds `RNN_GATES`, two recurrent gates (`idqn_rnn_lbf`, the
+main path, and `mappo_rnn_lbf`) whose JAX curves were made on the CPU with
+the unchanged JAX package, each group beside the `provenance.json` that
+holds the commands. The port's seeds cannot reproduce the JAX package's
+draws (threefry against Philox), so each port seed is an independent
+sample.
 
 `run` launches one `python -m codebase_tpu_torch.run` per seed, up to
 `--procs` at once (they share the one GPU), each in
@@ -119,6 +123,31 @@ GATES = {
     "qmix_lbf": Gate("qmix", LBF_BASE + ((f"{R4}:64", ("env.parallel_envs=1", "algorithm.total_steps=1000000")),),
                      _seeds(0, 5), (("fw_r4", _seeds(0, 5)),), (f"{R4}:64",)),
 }
+# The recurrent gates: no JAX runner ran a recurrent model, so their JAX
+# curves were made on the CPU with the unchanged JAX package
+# (`tests/test_torch_gate_rnn.py`'s `__main__`), each seed's command, the
+# commit and the package versions in the gate's `provenance.json` beside
+# the curves.
+RNN_CPU = "fw_cpu_rnn"
+RNN_LBF = ("env.name=Foraging-8x8-2p-3f-v3", "env.time_limit=25", "algorithm.total_steps=1000000",
+           "algorithm.eval_interval=20000", "algorithm.log_interval=20000")
+
+
+def _rnn_gate(name, algo, overrides, seeds):
+    cite = f"docs/gate_evidence/{RNN_CPU}/{name}/provenance.json"
+    return Gate(algo, ((cite, RNN_LBF + overrides),), seeds, ((f"{RNN_CPU}/{name}", _seeds(0, 5)),), (cite,))
+
+
+RNN_GATES = {
+    # the main path: Linear -> ReLU -> GRU(128) -> Linear a agent, 10 envs
+    "idqn_rnn_lbf": _rnn_gate("idqn_rnn_lbf", "idqn", ("env.parallel_envs=10", "algorithm.model.use_rnn=true"),
+                              _seeds(0, 5)),
+    # recurrent actor and centralised recurrent critic, the preset's 10 envs
+    "mappo_rnn_lbf": _rnn_gate("mappo_rnn_lbf", "mappo",
+                               ("algorithm.model.actor.use_rnn=true", "algorithm.model.critic.use_rnn=true"),
+                               _seeds(0, 10)),
+}
+GATES.update(RNN_GATES)
 # the keys the runner sets itself
 RUNNER_KEYS = ("seed", "run_dir", "resume", "algorithm.save_interval")
 
@@ -235,6 +264,17 @@ def judge(name: str, root: Path, evidence: Path = EVIDENCE, at_step: int | None 
     budget = total_steps(gate.overrides)
     return {"gate": name, **compare(gate.algo, ref, fw, TAIL, 0.0), "jax_budget": budget,
             "fw_last_steps": {str(s): c[-1][0] for s, c in sorted(fw.items())}}
+
+
+def judge_at_budget(name: str, root: Path, evidence: Path = EVIDENCE) -> dict | None:
+    """`judge` with the curves cut at the JAX budget, where every curve (JAX
+    and port) has a row past it; else None (a curve that ends below the
+    budget would set the step compared either way)."""
+    gate, budget = GATES[name], total_steps(GATES[name].overrides)
+    curves = list(jax_curves(gate, evidence).values()) + list(port_curves(root, name).values())
+    if not curves or not all(c and c[-1][0] > budget for c in curves):
+        return None
+    return judge(name, root, evidence, at_step=budget)
 
 
 def table(results) -> str:
@@ -493,8 +533,8 @@ def vendor(names, out, evidence_dir, record) -> dict:
                 done.append(_seed_of(run_dir.name))
         entry = {**(judge(name, evidence_dir) or {"gate": name}), "seeds_done": sorted(done),
                  "partial": not set(gate.seeds) <= set(done), "wall_s_by_seed": wall, "commit": _commit()}
-        at_budget = judge(name, evidence_dir, at_step=total_steps(gate.overrides))
-        if at_budget is not None and at_budget["compared_at_step"] != entry.get("compared_at_step"):
+        at_budget = judge_at_budget(name, evidence_dir)
+        if at_budget is not None:
             entry["at_jax_budget"] = at_budget
         for key, fname in (("card", "card.txt"), ("ckpt", "ckpt.json")):
             if (out / name / fname).exists():
@@ -547,9 +587,7 @@ def main(argv=None) -> int:
         return 0
     results = [(name, judge(name, args.out)) for name in args.gates]
     # and at the JAX budget, where every curve ran past it
-    results += [(f"{name} @ JAX budget", s) for name in args.gates
-                if (s := judge(name, args.out, at_step=total_steps(GATES[name].overrides))) is not None
-                and s["compared_at_step"] != (dict(results).get(name) or {}).get("compared_at_step")]
+    results += [(f"{name} @ JAX budget", s) for name in args.gates if (s := judge_at_budget(name, args.out))]
     print(table(results))
     for _, s in results:
         if s is not None:

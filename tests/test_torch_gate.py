@@ -54,7 +54,12 @@ def _cited_text(cite):
     return "\n".join(text[int(first) - 1:int(last or first)])
 
 
-@pytest.mark.parametrize("name", sorted(gate.GATES))
+# the gates the JAX runners ran (the recurrent gates' JAX curves were made
+# on the CPU: tests/test_torch_gate_rnn.py)
+SCRIPT_GATES = sorted(n for n in gate.GATES if n not in gate.RNN_GATES)
+
+
+@pytest.mark.parametrize("name", SCRIPT_GATES)
 def test_gate_overrides_are_the_jax_runners_letter_for_letter(name):
     g = gate.GATES[name]
     for cite, tokens in g.groups:
@@ -81,11 +86,18 @@ def test_gate_table():
                 "qmix_smaclite3m": ("qmix", 5, 1_000_000), "ia2c_rware": ("ia2c", 5, 2_000_000),
                 "maa2c_lbf": ("maa2c", 10, 2_000_000), "mappo_lbf": ("mappo", 5, 2_000_000),
                 "ia2c_lbf": ("ia2c", 5, 2_000_000), "vdn_smaclite3m": ("vdn", 5, 1_000_000),
-                "vdn_lbf": ("vdn", 5, 1_000_000), "qmix_lbf": ("qmix", 5, 1_000_000)}
+                "vdn_lbf": ("vdn", 5, 1_000_000), "qmix_lbf": ("qmix", 5, 1_000_000),
+                "idqn_rnn_lbf": ("idqn", 5, 1_000_000), "mappo_rnn_lbf": ("mappo", 10, 1_000_000)}
     got = {n: (g.algo, len(g.seeds), gate.total_steps(g.overrides)) for n, g in gate.GATES.items()}
     assert got == expected
+    assert all(gate._last(g.overrides, "algorithm.log_interval") == gate._last(g.overrides, "algorithm.eval_interval")
+               for g in gate.GATES.values())  # each row a checkpoint
     assert "env.parallel_envs=1" in gate.GATES["idqn_lbf"].overrides
     assert "env.parallel_envs=1" not in gate.GATES["ippo_lbf"].overrides  # the preset's 10 envs
+    assert "env.parallel_envs=10" in gate.GATES["idqn_rnn_lbf"].overrides
+    assert "algorithm.model.use_rnn=true" in gate.GATES["idqn_rnn_lbf"].overrides
+    assert {"algorithm.model.actor.use_rnn=true", "algorithm.model.critic.use_rnn=true"} <= set(
+        gate.GATES["mappo_rnn_lbf"].overrides)
 
 
 def test_gate_module_imports_no_jax_scripts_or_compare_gate():
@@ -96,13 +108,17 @@ def test_gate_module_imports_no_jax_scripts_or_compare_gate():
         assert not [m for m in names if m.split(".")[0] in ("jax", "codebase_tpu", "compare_gate", "scripts")], path
 
 
-def _rows_text(root, seed):
-    return (root / "ippo_lbf" / f"ippo_seed{seed}" / "results.csv").read_text()
+def _rows_text(root, seed, name="ippo_lbf"):
+    return (root / name / f"{gate.GATES[name].algo}_seed{seed}" / "results.csv").read_text()
 
 
-def test_run_cut_by_the_budget_and_resumed_writes_the_uncut_rows(tmp_path, monkeypatch):
+@pytest.mark.parametrize("name", ["ippo_lbf", "mappo_rnn_lbf"])
+def test_run_cut_by_the_budget_and_resumed_writes_the_uncut_rows(tmp_path, monkeypatch, name):
+    """Also for the recurrent MAPPO gate (GRU(128) actor and centralised
+    critic): a resume restores the recurrent weights, their Adam moments
+    and the target critic, and the rows are the uncut run's bit for bit."""
     monkeypatch.setenv("OMP_NUM_THREADS", "1")  # the same threads in every run: bitwise rows
-    uncut = gate.run(["ippo_lbf"], tmp_path / "uncut", 300, procs=2, seeds=[0, 1], extra=TINY)
+    uncut = gate.run([name], tmp_path / "uncut", 300, procs=2, seeds=[0, 1], extra=TINY)
     assert [st["state"] for st in uncut] == ["done", "done"]
     # the first cut half way between the uncut run's first row and its end,
     # then longer budgets until both seeds finish
@@ -110,7 +126,7 @@ def test_run_cut_by_the_budget_and_resumed_writes_the_uncut_rows(tmp_path, monke
     budget = timing["first_row_s"] + 0.5 * (timing["wall_s"] - timing["first_row_s"])
     calls = []
     while len(calls) < 8:
-        statuses = gate.run(["ippo_lbf"], tmp_path / "cut", budget, procs=2, seeds=[0, 1], extra=TINY)
+        statuses = gate.run([name], tmp_path / "cut", budget, procs=2, seeds=[0, 1], extra=TINY)
         calls.append(statuses)
         if all(st["state"] in ("done", "skipped") for st in statuses):
             break
@@ -120,14 +136,15 @@ def test_run_cut_by_the_budget_and_resumed_writes_the_uncut_rows(tmp_path, monke
     resumed = [st["resumed_at"] for c in calls[1:] for st in c if st["state"] != "skipped"]
     assert any(step > 0 for step in resumed), calls  # a run continued from a mid-run checkpoint
     for seed in (0, 1):
-        rows = _rows_text(tmp_path / "cut", seed)
-        assert rows == _rows_text(tmp_path / "uncut", seed)
+        rows = _rows_text(tmp_path / "cut", seed, name)
+        assert rows == _rows_text(tmp_path / "uncut", seed, name)
         steps = [int(line.split(",")[0]) for line in rows.splitlines()[1:]]
         assert steps == list(range(1000, 7001, 1000))  # the JAX package's rows: no duplicate, no gap
-        status = json.loads((tmp_path / "cut" / "ippo_lbf" / f"ippo_seed{seed}" / "gate_status.json").read_text())
+        run_dir = tmp_path / "cut" / name / f"{gate.GATES[name].algo}_seed{seed}"
+        status = json.loads((run_dir / "gate_status.json").read_text())
         assert status["state"] == "done" and status["calls"] == len(status["by_call"]) >= 1
     # a finished seed is skipped
-    again = gate.run(["ippo_lbf"], tmp_path / "cut", 60, procs=2, seeds=[0, 1], extra=TINY)
+    again = gate.run([name], tmp_path / "cut", 60, procs=2, seeds=[0, 1], extra=TINY)
     assert [st["state"] for st in again] == ["skipped", "skipped"]
 
 
