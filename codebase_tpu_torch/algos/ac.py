@@ -45,7 +45,6 @@ from typing import Optional
 
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 import numpy as np
 
@@ -71,6 +70,7 @@ from codebase_tpu_torch.ops.reward_stream import RewardStream, apply_plan
 from codebase_tpu_torch.ops.running_stats import RunningMeanStd
 from codebase_tpu_torch.utils import checkpoint as ckpt
 from codebase_tpu_torch.utils import debug as debug_checks
+from codebase_tpu_torch.utils import profiling
 from codebase_tpu_torch.utils.params import load_tree, params_from_numpy, tree_leaves
 
 METRICS = ("loss", "actor_loss", "value_loss", "entropy")
@@ -478,8 +478,8 @@ def build_train_functions(env: Environment, eval_env: Environment, cfg, time_lim
         return metrics
 
     def train_iteration(state: ACTrainState) -> dict:
-        # the named ranges below are what `codebase_tpu_torch.profile` reads
-        with record_function("ac/rollout"):
+        # the spans below are what `codebase_tpu_torch.profile` reads
+        with profiling.span("ac/rollout"):
             rollout, _ = collect_episodes(
                 env,
                 state.model.policy(),
@@ -492,13 +492,13 @@ def build_train_functions(env: Environment, eval_env: Environment, cfg, time_lim
                 shard,
             )
         if reward_plan is not None:
-            with record_function("ac/reward_stream"):
+            with profiling.span("ac/reward_stream"):
                 # persistent streaming standardisation of the raw rewards
                 state.reward_stream, rewards = apply_plan(
                     reward_plan, state.reward_stream, rollout.stat_rewards, rollout.filled
                 )
                 rollout = dataclasses.replace(rollout, rewards=rewards)
-        with record_function("ac/update"):
+        with profiling.span("ac/update"):
             metrics = update(state, rollout)
         # step accounting: each unit's longest episode times its envs
         t_max = rollout.episode_lengths.reshape(U, local_envs).amax(1)

@@ -42,7 +42,6 @@ from typing import Optional
 
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 import numpy as np
 
@@ -75,6 +74,7 @@ from codebase_tpu_torch.ops.schedules import epsilon_schedule
 from codebase_tpu_torch.parallel import mesh
 from codebase_tpu_torch.utils import checkpoint as ckpt
 from codebase_tpu_torch.utils import debug as debug_checks
+from codebase_tpu_torch.utils import profiling
 from codebase_tpu_torch.utils.params import load_tree, params_from_numpy, tree_leaves, tree_map
 
 MIXER_TYPES = {"qnetwork": "none", "vdn": "vdn", "qmix": "qmix"}
@@ -503,7 +503,8 @@ def build_train_functions(env: Environment, eval_env: Environment, cfg, time_lim
         grads = torch.autograd.grad(losses.sum(), params)
         if shard is not None:
             grads = shard.sum_grads(grads)  # the whole batch's gradient on every rank
-        state.opt.step(grads, active)
+        with profiling.span("dqn/optimizer"):
+            state.opt.step(grads, active)
         state.ret_rms = ret_rms if active.all() else ret_rms.where(
             torch.tensor(active, device=ret_rms.count.device), state.ret_rms)
         updates = unit_values(state.updates, U) + active
@@ -518,10 +519,11 @@ def build_train_functions(env: Environment, eval_env: Environment, cfg, time_lim
         return losses.detach()
 
     def train_iteration(state: DQNTrainState) -> dict:
-        # the named ranges below are what `codebase_tpu_torch.profile` reads
+        # the spans below are what `codebase_tpu_torch.profile` reads
+        profiling.count("dqn/iterations")
         env_steps = unit_values(state.env_steps, U)
         epsilon = pack_units(np.array([eps_sched(s) for s in env_steps]))
-        with record_function("dqn/rollout"):
+        with profiling.span("dqn/rollout"):
             rollout, _ = collect_episodes(
                 env,
                 state.model.policy(epsilon),
@@ -534,18 +536,20 @@ def build_train_functions(env: Environment, eval_env: Environment, cfg, time_lim
                 shard,
             )
         if reward_plan is not None:
-            with record_function("dqn/reward_stream"):
+            with profiling.span("dqn/reward_stream"):
                 # persistent streaming standardisation of the raw rewards
                 state.reward_stream, rewards = apply_plan(
                     reward_plan, state.reward_stream, rollout.stat_rewards, rollout.filled
                 )
                 rollout = dataclasses.replace(rollout, rewards=rewards)
-        with record_function("dqn/replay_add"):
+        with profiling.span("dqn/replay_add"):
             replay_add(state.buffer, rollout, slot_reuse)
             filled = rollout.filled.reshape(time_limit, U, local_envs).sum((0, 2))
             if shard is not None:
                 filled = shard.env_sum(filled)  # the whole run's steps
-            env_steps = env_steps + filled.cpu().numpy().astype(np.int64)
+            with profiling.host_sync("sync/replay_filled"):
+                filled = filled.cpu()
+            env_steps = env_steps + filled.numpy().astype(np.int64)
             state.env_steps = pack_units(env_steps)
 
         # each unit trains once it is past training_start (the group draws
@@ -555,9 +559,9 @@ def build_train_functions(env: Environment, eval_env: Environment, cfg, time_lim
         if shard is not None:
             any_update = shard.any(any_update)
         if any_update:
-            with record_function("dqn/updates"):
-                # ONE gather for all updates of this iteration
-                batches = replay_sample_many(state.buffer, state.generator, batch_size, n_updates, shard)
+            with profiling.span("dqn/updates"):
+                with profiling.span("dqn/sample"):  # ONE gather for all updates of this iteration
+                    batches = replay_sample_many(state.buffer, state.generator, batch_size, n_updates, shard)
                 losses = [
                     update(state, batch_to_reference_layout(
                         {k: (v[u] if v is not None else None) for k, v in batches.items()}, U

@@ -35,11 +35,19 @@ import torch
 from codebase_tpu_torch.algos.dqn import build_train_functions
 from codebase_tpu_torch.ops.schedules import epsilon_schedule
 from codebase_tpu_torch.parallel import mesh
+from codebase_tpu_torch.utils import profiling
 from codebase_tpu_torch.utils.checkpoint import resume_train_state, save_train_state
 from codebase_tpu_torch.utils.device import sync
 from codebase_tpu_torch.utils.loggers import episode_infos
 from codebase_tpu_torch.utils.preemption import PreemptionGuard
 from codebase_tpu_torch.utils.video import record_episodes
+
+
+def read_loss(metrics: dict) -> float:
+    """The host loop's one read of an iteration's result, its loss, which
+    waits for the iteration's updates (the host sync `sync/loss`)."""
+    with profiling.host_sync("sync/loss"):
+        return float(metrics["loss"])
 
 
 def main(env, eval_env, logger, time_limit, cfg, device, shard=None):
@@ -89,7 +97,7 @@ def main(env, eval_env, logger, time_limit, cfg, device, shard=None):
                 sync(device)
                 t0 = time.perf_counter()
                 metrics = train_iteration(state)
-                losses.append(float(metrics["loss"]))  # waits for the iteration's updates
+                losses.append(read_loss(metrics))
                 state.timings.append((state.env_steps - step, time.perf_counter() - t0))
                 step = state.env_steps
             preempt = mesh.sync_flag(guard.triggered)  # every rank saves and stops together

@@ -13,6 +13,11 @@ ones), so its rollout is identical; the returned policy carry is the one at
 the stop, as in the JAX package's while_loop. Its test for a running env is
 a host sync per step.
 
+Host syncs: the rollout's seed (one a rollout) and the early exit's test
+(one a step taken, and the one that stops) are each a `sync/*` span and
+counter of `utils/profiling`; the steps the loop ran count as
+`rollout/policy_steps`.
+
 Random draws: the rollout (reset, policy, env step) draws from a generator
 of its own, seeded by one draw of the caller's, so the caller's generator
 ends in the same state whether or not the loop stops early (the JAX package
@@ -25,10 +30,10 @@ from dataclasses import dataclass
 from typing import Callable
 
 import torch
-from torch.profiler import record_function
 
 from codebase_tpu_torch.envs.api import Environment
 from codebase_tpu_torch.parallel import mesh
+from codebase_tpu_torch.utils import profiling
 
 
 @dataclass
@@ -102,16 +107,21 @@ def collect_episodes(
 
 def _collect(env, policy, carry, generator, n_envs, time_limit, use_proper_termination, early_exit, shard):
     seed = torch.randint(2**62, (), generator=generator, device=generator.device)
-    generator = torch.Generator(device=generator.device).manual_seed(int(seed))
+    with profiling.host_sync("sync/rollout_seed"):
+        seed = int(seed)
+    generator = torch.Generator(device=generator.device).manual_seed(seed)
     states, ts = env.reset_batch(generator, n_envs)
     obs0, mask0 = ts.obs, ts.action_mask
     running = torch.ones((n_envs,), dtype=torch.bool, device=ts.obs.device)
     out = {k: [] for k in ("obs", "actions", "rewards", "stat_rewards", "dones", "filled", "action_mask")}
     for _ in range(time_limit):
-        if early_exit and not shard.any(running):
-            break
+        if early_exit:
+            with profiling.host_sync("sync/early_exit"):
+                stop = not shard.any(running)
+            if stop:
+                break
         carry, actions = policy(carry, ts.obs, ts.action_mask, generator)
-        with record_function("env/step"):  # read by `codebase_tpu_torch.profile`
+        with profiling.span("env/step"):
             states, ts = env.step_batch(states, actions, generator, ts.action_mask)
         done = ts.done  # (E,)
         proper_done = ts.terminated if use_proper_termination else done
@@ -126,6 +136,7 @@ def _collect(env, policy, carry, generator, n_envs, time_limit, use_proper_termi
             torch.where(running[:, None, None], ts.action_mask, torch.ones_like(ts.action_mask))
         )
         running = running & ~done
+    profiling.count("rollout/policy_steps", len(out["filled"]))
     skipped = time_limit - len(out["filled"])  # the steps an early exit did not take
     if skipped:
         for k, steps in out.items():

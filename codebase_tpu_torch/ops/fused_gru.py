@@ -56,11 +56,16 @@ to; no path runs them on a CUDA tensor.
 Every tensor carries a leading group axis G (agents or sharing groups): one
 launch covers all groups.
 
-Launch counters (`FWD_LAUNCHES`, `BWD_LAUNCHES`, `FWD_WIDE_LAUNCHES`,
-`BWD_WIDE_LAUNCHES`, `DW_LAUNCHES`, `REDUCE_LAUNCHES`) rise by one where a
-kernel is launched and nowhere else, so a run can show that its path went
-through the kernels. After each launch the wrapper hands the kernel's name,
-outputs and shape to `LAUNCH_OBSERVERS`: in a debug region
+Launch counters (`launch_counts()`: `fwd`, `bwd`, `fwd_wide`, `bwd_wide`,
+`dw`, `reduce`, entries `gru_launch/<kernel>` of `utils/profiling`'s counter
+registry) rise by one where a kernel is launched and nowhere else, so a run
+can show that its path went through the kernels. The recurrence's calls
+are counted apart from its kernels, by direction and shape, so the count
+stays whatever kernels implement it: `("gru/forward", (G, T, B, H))` at
+each `fused_gru_sequence` call, `("gru/backward", (G, T, B, H))` at each
+kernel backward; on the card each runs inside the span of the same name.
+After each launch the wrapper hands the kernel's name, outputs and shape
+to `LAUNCH_OBSERVERS`: in a debug region
 (`utils/debug.py`) a NaN in an output raises naming the kernel, and
 `utils/profiling.cost_analysis` counts its operations and bytes
 (`kernel_flops`, `kernel_bytes`). No PyTorch tool sees these `ctypes`
@@ -81,14 +86,10 @@ from pathlib import Path
 import torch
 
 from codebase_tpu_torch.ops.matmul import grouped_matmul
-from codebase_tpu_torch.utils import debug
+from codebase_tpu_torch.utils import debug, profiling
 
-FWD_LAUNCHES = 0
-BWD_LAUNCHES = 0
-FWD_WIDE_LAUNCHES = 0
-BWD_WIDE_LAUNCHES = 0
-DW_LAUNCHES = 0
-REDUCE_LAUNCHES = 0
+# `launch_counts()`' keys and their counters in the registry
+LAUNCHES = {k: f"gru_launch/{k}" for k in ("fwd", "bwd", "fwd_wide", "bwd_wide", "dw", "reduce")}
 
 # what runs after each kernel launch, as fn(kernel name, outputs, dims): the
 # debug mode's NaN scan of the outputs (`utils/debug.py`; nothing unless a
@@ -155,13 +156,12 @@ _lib_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    global FWD_LAUNCHES, BWD_LAUNCHES, FWD_WIDE_LAUNCHES, BWD_WIDE_LAUNCHES, DW_LAUNCHES, REDUCE_LAUNCHES
-    FWD_LAUNCHES = BWD_LAUNCHES = FWD_WIDE_LAUNCHES = BWD_WIDE_LAUNCHES = DW_LAUNCHES = REDUCE_LAUNCHES = 0
+    profiling.reset_counters(LAUNCHES.values())
 
 
 def launch_counts() -> dict:
-    return {"fwd": FWD_LAUNCHES, "bwd": BWD_LAUNCHES, "fwd_wide": FWD_WIDE_LAUNCHES,
-            "bwd_wide": BWD_WIDE_LAUNCHES, "dw": DW_LAUNCHES, "reduce": REDUCE_LAUNCHES}
+    counts = profiling.counters()
+    return {k: counts.get(name, 0) for k, name in LAUNCHES.items()}
 
 
 def kernel_flops(kernel: str, dims: dict) -> float:
@@ -504,7 +504,6 @@ def gru_fwd_cuda(gi, w_hh, b_hh, h0, tiling=None):
     """Kernel 1, `gru_fwd` at H=128, `gru_fwd_wide` above:
     (y (G, T, B, H), hT (G, B, H)). `tiling` ({rows, units}) replaces
     `wide_forward_tiling`'s choice for the wide forward (for measurements)."""
-    global FWD_LAUNCHES, FWD_WIDE_LAUNCHES
     G, T, B, H = _dims(gi)
     dev = gi.device
     _check(
@@ -524,10 +523,7 @@ def gru_fwd_cuda(gi, w_hh, b_hh, h0, tiling=None):
         else:
             code = lib.gru_fwd(*args, forward_blocks_per_group(G, B, lib.gru_fwd_rows()), _stream(dev))
     _raise_on(code, "gru_fwd_wide launch" if wide else "gru_fwd launch")
-    if wide:
-        FWD_WIDE_LAUNCHES += 1
-    else:
-        FWD_LAUNCHES += 1
+    profiling.count(LAUNCHES["fwd_wide" if wide else "fwd"])
     _launched("gru_fwd_wide_kernel" if wide else "gru_fwd_kernel", {"y": y, "hT": hT}, G=G, T=T, B=B, H=H)
     return y, hT
 
@@ -537,7 +533,6 @@ def gru_bwd_cuda(gi, w_hh, b_hh, h0, y, dy, dhT, tiling=None):
     persistent grid at H=128, `gru_bwd_wide` above): (dgi (G, T, B, 3H),
     dh0 (G, B, H), dgh_n (G, T, B, H)). `tiling` ({rows}) replaces
     `wide_backward_tiling`'s choice for the wide backward (for measurements)."""
-    global BWD_LAUNCHES, BWD_WIDE_LAUNCHES
     G, T, B, H = _dims(gi)
     dev = gi.device
     _check(
@@ -560,10 +555,7 @@ def gru_bwd_cuda(gi, w_hh, b_hh, h0, y, dy, dhT, tiling=None):
         else:
             code = lib.gru_bwd(*args, forward_blocks_per_group(G, B, lib.gru_fwd_rows()), _stream(dev))
     _raise_on(code, "gru_bwd_wide launch" if wide else "gru_bwd launch")
-    if wide:
-        BWD_WIDE_LAUNCHES += 1
-    else:
-        BWD_LAUNCHES += 1
+    profiling.count(LAUNCHES["bwd_wide" if wide else "bwd"])
     _launched("gru_bwd_wide_kernel" if wide else "gru_bwd_kernel", {"dgi": dgi, "dh0": dh0, "dgh_n": dgh_n},
               G=G, T=T, B=B, H=H)
     return dgi, dh0, dgh_n
@@ -618,7 +610,6 @@ def gru_dw_cuda(h0, y, dgi, dgh_n, stages=None):
     where partials[g, p] holds the share of rows block p summed of
     [dW_hh[g] | db_hh[g]]. `stages` (a block's stages) replaces `dw_tiling`'s
     choice (for measurements)."""
-    global DW_LAUNCHES
     G, T, B, H = _dims(dgi)
     dev = dgi.device
     _check(
@@ -636,7 +627,7 @@ def gru_dw_cuda(h0, y, dgi, dgh_n, stages=None):
             _stream(dev),
         )
     _raise_on(code, "gru_dw launch")
-    DW_LAUNCHES += 1
+    profiling.count(LAUNCHES["dw"])
     _launched("gru_dw_kernel", {"partials": partials}, G=G, T=T, B=B, H=H)
     return partials
 
@@ -644,7 +635,6 @@ def gru_dw_cuda(h0, y, dgi, dgh_n, stages=None):
 def reduce_partials_cuda(partials):
     """Kernel 4: partials (G, P, E) -> (G, E), summed over P in order (two
     calls give bitwise-equal results)."""
-    global REDUCE_LAUNCHES
     if partials.ndim != 3:
         raise ValueError(f"partials must be (G, P, E); got {tuple(partials.shape)}")
     G, P, E = partials.shape
@@ -655,7 +645,7 @@ def reduce_partials_cuda(partials):
     with torch.cuda.device(dev):
         code = lib.gru_reduce(_ptr(partials), _ptr(out), G, P, E, _stream(dev))
     _raise_on(code, "gru_reduce launch")
-    REDUCE_LAUNCHES += 1
+    profiling.count(LAUNCHES["reduce"])
     _launched("gru_reduce_kernel", {"out": out}, G=G, P=P, E=E)
     return out
 
@@ -677,14 +667,23 @@ class FusedGRUSequence(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, gi, w_hh, b_hh, h0):
-        y, hT = gru_fwd_cuda(gi, w_hh, b_hh, h0)
+        with profiling.span("gru/forward"):
+            y, hT = gru_fwd_cuda(gi, w_hh, b_hh, h0)
         ctx.save_for_backward(gi, w_hh, b_hh, h0, y)
         return y, hT
 
     @staticmethod
     def backward(ctx, dy, dhT):
         gi, w_hh, b_hh, h0, y = ctx.saved_tensors
-        return gru_backward_cuda(gi, w_hh, b_hh, h0, y, dy.contiguous(), dhT.contiguous())
+        profiling.count(("gru/backward", _shape(gi)))
+        with profiling.span("gru/backward"):
+            return gru_backward_cuda(gi, w_hh, b_hh, h0, y, dy.contiguous(), dhT.contiguous())
+
+
+def _shape(gi) -> tuple:
+    """(G, T, B, H) of the recurrence's input gi (G, T, B, 3H)."""
+    G, T, B, H3 = gi.shape
+    return G, T, B, H3 // 3
 
 
 def fused_gru_sequence(gi, w_hh, b_hh, h0):
@@ -692,12 +691,14 @@ def fused_gru_sequence(gi, w_hh, b_hh, h0):
 
     gi (G, T, B, 3H) = x @ w_ih + b_ih, w_hh (G, H, 3H), b_hh (G, 3H),
     h0 (G, B, H) -> (y (G, T, B, H), hT (G, B, H)). Differentiable. CPU
-    tensors take the plain version; CUDA tensors the kernels."""
+    tensors take the plain version; CUDA tensors the kernels. Each call
+    counts as `("gru/forward", (G, T, B, H))`."""
+    if gi.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_gru_sequence runs on cpu or cuda tensors; got {gi.device}")
+    profiling.count(("gru/forward", _shape(gi)))
     if gi.device.type == "cpu":
         return gru_sequence_plain(gi, w_hh, b_hh, h0)
-    if gi.device.type == "cuda":
-        return FusedGRUSequence.apply(gi, w_hh, b_hh, h0)
-    raise ValueError(f"fused_gru_sequence runs on cpu or cuda tensors; got {gi.device}")
+    return FusedGRUSequence.apply(gi, w_hh, b_hh, h0)
 
 
 def gru_layer_sequence(params, x, h0, compute_dtype: str = "float32"):

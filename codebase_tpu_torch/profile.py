@@ -7,8 +7,11 @@
 
 Builds the train iteration for the config, runs `warmup` iterations, times
 `iters` iterations on the host clock as one span that ends in a device sync
-(`utils/profiling.time_windows`), then runs `iters` more under
-`torch.profiler`. The JAX package's keys take the place of the port's:
+(`utils/profiling.time_windows`), runs `iters` more with the host-span
+collector open (`utils/profiling.host_spans`, no profiler) and the
+counters reset before them, then `iters` more under `torch.profiler`. A
+value-based iteration ends in the host loop's read of its loss
+(`algos/dqn_train.read_loss`, the host sync `sync/loss`), as in training. The JAX package's keys take the place of the port's:
 `chunks` x `chunk_iters` iterations timed after a warmup of one chunk of
 `chunk_iters`, and one chunk traced. A run that mixes the two sets, or
 passes any other `profile.*` key, raises ValueError. It prints one JSON
@@ -18,13 +21,24 @@ every kernel (kernels, copies and fills, each counted once) per iteration,
 split over the iteration's named ranges (the value-based family's
 `dqn/rollout`, `dqn/reward_stream` when the env stack standardises rewards,
 `dqn/replay_add` and `dqn/updates`; the actor-critic family's `ac/rollout`,
-`ac/reward_stream` and `ac/update`) and the sub-range `env/step` (the env
-steps inside the rollout, the rest of it being the policy), the device's
-busy share, the GRU kernels' launches and time, the kernels with the most
-device time, and the peak device memory.
+`ac/reward_stream` and `ac/update`) and the sub-ranges, every other span of
+`utils/profiling.SPANS`: `env/step` (the env steps inside the rollout, the
+rest of it being the policy), `dqn/sample` (the replay gather),
+`dqn/optimizer` (the clip and Adam), `gru/forward` and `gru/backward` (the
+GRU recurrence, in the rollout and the updates) and the host syncs
+`sync/*`; the device's busy share, the GRU kernels' launches and time, the
+kernels with the most device time, and the peak device memory. From the
+host-span pass: `host_spans` (per span name and iteration: calls, host ms,
+self ms less its child spans, and ms inside `sync/*` spans; a CUDA
+backward's spans are roots on the autograd engine's thread),
+`host_span_iteration_ms`, and the counters per iteration:
+`policy_steps_per_iter` (the rollout's steps run), `syncs_per_iter` (by
+name), `gru_calls_per_iter` (the recurrence's calls by direction and shape)
+and `gru_launches_per_iter`.
 
 The busy share is kernel time over the untraced iteration time: tracing
-slows the host's launch loop (`traced_iteration_ms`) but not the kernels.
+slows the host's launch loop (`traced_iteration_ms`, and less so
+`host_span_iteration_ms`) but not the kernels.
 Device numbers need `device=cuda`; on the CPU they read null.
 
 `iteration_flops` counts the operations of the traced iterations, an
@@ -47,6 +61,7 @@ collective, each between device syncs in the traced pass,
 
 from __future__ import annotations
 
+import bisect
 import json
 import subprocess
 import sys
@@ -54,7 +69,7 @@ import sys
 import torch
 from torch.autograd import DeviceType
 
-from codebase_tpu_torch.algos import ac, dqn
+from codebase_tpu_torch.algos import ac, dqn, dqn_train
 from codebase_tpu_torch.config import load_config
 from codebase_tpu_torch.ops import fused_gru
 from codebase_tpu_torch.parallel import mesh
@@ -71,7 +86,8 @@ RANGES = {
     "dqn": ("dqn/rollout", "dqn/reward_stream", "dqn/replay_add", "dqn/updates"),
     "ac": ("ac/rollout", "ac/reward_stream", "ac/update"),
 }
-SUB_RANGES = ("env/step",)  # inside the rollout range of either family
+# the spans inside the ranges of either family
+SUB_RANGES = tuple(s for s in profiling.SPANS if s not in RANGES["dqn"] + RANGES["ac"])
 # the profiler's keys: the port's schedule, the JAX package's (they do not
 # mix), and the keys both take
 PORT_SCHEDULE = ("warmup", "iters")
@@ -86,37 +102,36 @@ def device_breakdown(events, iters: int, top: int, ranges) -> dict:
 
     Only device-side events count (PyTorch's op events carry their kernels'
     time too, so summing those would count it twice). A kernel belongs to
-    the range whose device-side span holds its start. `ranges` are the
-    names of the family's ranges, which do not nest; the `SUB_RANGES` lie
-    inside them and are attributed the same way, on their own."""
-    named = set(ranges) | set(SUB_RANGES)
-
-    def device_spans(names):
-        return [(e.name, e.time_range.start, e.time_range.end)
-                for e in events if e.name in names and e.device_type != DeviceType.CPU]
-
-    spans, sub_spans = device_spans(ranges), device_spans(SUB_RANGES)
-    host_us = dict.fromkeys(named, 0.0)
-    span_us = dict.fromkeys(named, 0.0)
-    kernel_us = dict.fromkeys(named, 0.0)
-    for name, start, end in spans + sub_spans:
-        span_us[name] += end - start
-    by_name = {}
+    the range whose device-side span holds its start (the first of its
+    group, in the group's order, where two do). `ranges` are the names of
+    the family's ranges, which do not nest; the `SUB_RANGES` lie inside them
+    and are attributed the same way, as a group of their own."""
+    spans = {name: [] for name in (*ranges, *SUB_RANGES)}
+    host_us = dict.fromkeys(spans, 0.0)
+    by_name, kernels = {}, []
     total_us = 0.0
     for e in events:
-        if e.name in named:
+        if e.name in spans:
             if e.device_type == DeviceType.CPU:
                 host_us[e.name] += e.time_range.elapsed_us()
+            else:
+                spans[e.name].append((e.time_range.start, e.time_range.end))
             continue
         if e.device_type == DeviceType.CPU or getattr(e, "is_user_annotation", False):
             continue
         us = e.time_range.elapsed_us()
         total_us += us
+        kernels.append((e.time_range.start, us))
         calls, acc = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (calls + 1, acc + us)
-        for group in (spans, sub_spans):
-            for name, start, end in group:
-                if start <= e.time_range.start < end:
+    span_us = {name: sum(end - start for start, end in ss) for name, ss in spans.items()}
+    kernel_us = dict.fromkeys(spans, 0.0)
+    for group in (ranges, SUB_RANGES):
+        found = [(name, [start for start, _ in sorted(spans[name])], sorted(spans[name])) for name in group]
+        for t, us in kernels:
+            for name, starts, ss in found:
+                i = bisect.bisect_right(starts, t) - 1
+                if i >= 0 and t < ss[i][1]:
                     kernel_us[name] += us
                     break
     ms = lambda us: us / 1e3 / iters  # noqa: E731
@@ -264,9 +279,10 @@ def _profile(cfg, name, shard) -> dict:
     init_state, train_iteration = BUILDERS[family](env, eval_env, cfg.algorithm, T, device, shard=shard)[:2]
     state = init_state(int(cfg.get("seed") or 0))
     on_gpu = device.type == "cuda"
+    read = dqn_train.read_loss if family == "dqn" else (lambda metrics: metrics)
 
     def run(n):
-        window, = profiling.time_windows(lambda: train_iteration(state), device, 1, n,
+        window, = profiling.time_windows(lambda: read(train_iteration(state)), device, 1, n,
                                           lambda: (state.env_steps, state.updates))
         return window
 
@@ -277,7 +293,12 @@ def _profile(cfg, name, shard) -> dict:
     steps, seconds = timed["steps"], timed["seconds"]
     iteration_ms = seconds / iters * 1e3
 
-    fused_gru.reset_launch_counts()
+    profiling.reset_counters()
+    with profiling.host_spans() as spans:
+        host_span_seconds = run(traced_iters)["seconds"]
+    counts = profiling.counters()
+    launches = fused_gru.launch_counts()
+
     if shard is not None:
         shard.times = {}  # each collective between device syncs, in the traced pass only
     with profiling.trace(trace_dir) as prof, profiling.count_operations() as ops:
@@ -286,7 +307,6 @@ def _profile(cfg, name, shard) -> dict:
     collectives = {k: s * 1e3 / traced_iters for k, (s, _) in shard.times.items()} if shard is not None else None
     if shard is not None:
         shard.times = None
-    launches = fused_gru.launch_counts()
     breakdown = device_breakdown(prof.events(), traced_iters, top, RANGES[family])
     measured = on_gpu and breakdown["kernel_ms_per_iter"] > 0
     if not measured:  # no device trace: keep the host ranges only
@@ -313,6 +333,15 @@ def _profile(cfg, name, shard) -> dict:
         "device_busy_share": breakdown["kernel_ms_per_iter"] / iteration_ms if measured else None,
         "iteration_flops": iteration_flops,
         "tflops_per_s": iteration_flops / (iteration_ms / 1e3) / 1e12,
+        "host_span_iteration_ms": host_span_seconds / traced_iters * 1e3,
+        "host_spans": spans.report(traced_iters),
+        "policy_steps_per_iter": counts.get("rollout/policy_steps", 0) / traced_iters,
+        "syncs_per_iter": {k: counts[k] / traced_iters
+                           for k in sorted(k for k in counts if isinstance(k, str) and k.startswith("sync/"))},
+        "gru_calls_per_iter": [
+            {"direction": key[0].split("/")[1], **dict(zip("GTBH", key[1])), "calls": v / traced_iters}
+            for key, v in sorted(counts.items(), key=str) if isinstance(key, tuple) and key[0].startswith("gru/")
+        ],
         "gru_launches_per_iter": {k: v / traced_iters for k, v in launches.items()},
         "peak_device_memory_gib": torch.cuda.max_memory_allocated(device) / 2**30 if on_gpu else None,
         "collective_ms_per_iter": collectives,

@@ -6,8 +6,17 @@ The counterpart of the JAX package's `utils/profiling.py`:
   region, written as a Chrome/Perfetto JSON file into `log_dir`
   (`tensorboard_trace_handler`; a data-parallel rank's file names its rank);
   it yields the profiler, whose events `profile.py` reads.
-- `annotate(name)`        — a named range inside an active trace
-  (`record_function`).
+- `span(name)`            — the program's one span helper, gated: a
+  `record_function` range while a profiler is on (so on the device's clock
+  too), host time into the open `host_spans()` collector, and else nothing
+  but a flag check. `SPANS` declares every name the port opens.
+- `host_spans()`          — a collector of each span name's host time while
+  open, off by default: calls, inclusive time, self time (less the child
+  spans of the same thread) and the time inside `sync/*` spans.
+- `count(name, n)`        — the counter registry (`counters()`,
+  `reset_counters()`): the GRU kernels' launches (`ops/fused_gru.py`), the
+  recurrence's calls by shape, the rollout's policy steps, the host syncs
+  (`host_sync(name)`, a span that also counts).
 - `count_operations()`   — the operations and bytes of a region: what
   `torch.utils.flop_counter.FlopCounterMode` counts of PyTorch's ops, plus
   the GRU kernels' operations, which the wrappers report from their shapes
@@ -18,8 +27,6 @@ The counterpart of the JAX package's `utils/profiling.py`:
   accessed". `cost_analysis(fn, *a)` returns the counts of one call.
 - `device_memory_stats()` — `torch.cuda.memory_stats` of each visible GPU
   (`{}` on a machine without one).
-- `StepTimer`             — steps/s between marks, each mark after a device
-  sync.
 - `time_windows(step, device, windows, window_iters, counters)` — windows
   of train iterations, each ending in a device sync, with the steps and
   updates each made (`profile.py` and `bench_suite.py` time with it).
@@ -28,7 +35,8 @@ XLA's analysis of a compiled program's memory has no counterpart in an
 eager program; the port reports the peak device memory of a run instead
 (`torch.cuda.max_memory_allocated`, in `profile.py`).
 
-`python -m codebase_tpu_torch.profile` composes these into a report.
+`python -m codebase_tpu_torch.profile` composes these into a report and
+reads every span and counter.
 """
 
 from __future__ import annotations
@@ -37,14 +45,24 @@ import contextlib
 import threading
 import time
 from pathlib import Path
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 from torch.profiler import ProfilerActivity, record_function
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
-from codebase_tpu_torch.ops import fused_gru
+# every span the port opens, each read by `profile.py` (sub-ranges and host
+# spans) and named in PERF.md
+SPANS = (
+    # the train iteration's ranges (`profile.RANGES`)
+    "dqn/rollout", "dqn/reward_stream", "dqn/replay_add", "dqn/updates",
+    "ac/rollout", "ac/reward_stream", "ac/update",
+    # inside them (`profile.SUB_RANGES`)
+    "env/step", "dqn/sample", "dqn/optimizer", "gru/forward", "gru/backward",
+    # reads the host waits on the device for (`host_sync`), each also counted
+    "sync/rollout_seed", "sync/early_exit", "sync/replay_filled", "sync/loss",
+)
 
 
 @contextlib.contextmanager
@@ -67,9 +85,128 @@ def trace(log_dir=None):
         yield prof
 
 
-def annotate(name: str):
-    """A named range inside an active trace."""
-    return record_function(name)
+_OFF = contextlib.nullcontext()
+_host = None  # the open `HostSpans`, if any
+_counters: Dict[Any, int] = {}
+_counters_lock = threading.Lock()  # the backward counts from the autograd engine's thread
+
+
+def span(name: str):
+    """A span named `name` (one of `SPANS`) around the enclosed work: a
+    `record_function` range while a profiler is on, host time into the open
+    `host_spans()` collector, both or neither. With neither it costs this
+    check: `record_function` runs its dispatcher op even with no profiler
+    listening."""
+    profiled = torch.autograd._profiler_enabled()
+    if _host is None:
+        return record_function(name) if profiled else _OFF
+    return _HostSpan(_host, name, record_function(name) if profiled else None)
+
+
+def host_sync(name: str):
+    """A span around a read that makes the host wait on the device (a
+    device-to-host read, a blocking copy), also counted under `name`."""
+    count(name)
+    return span(name)
+
+
+class HostSpans:
+    """Host time of each span name while `host_spans()` is open, on
+    `time.perf_counter_ns`: `totals[name] = [calls, ns, self ns, sync ns]`.
+    Self time is the span's time less the part its child spans (of the same
+    thread: the autograd engine runs a CUDA backward on a thread of its own,
+    whose spans are roots there) cover; sync time is the part inside `sync/*`
+    spans, a sync span's own time included."""
+
+    def __init__(self):
+        self.totals: Dict[str, List[int]] = {}
+        self._lock = threading.Lock()
+        self._local = threading.local()
+
+    def stack(self) -> list:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+    def add(self, name: str, ns: int, self_ns: int, sync_ns: int) -> None:
+        with self._lock:
+            t = self.totals.setdefault(name, [0, 0, 0, 0])
+            t[0] += 1
+            t[1] += ns
+            t[2] += self_ns
+            t[3] += sync_ns
+
+    def report(self, iters: int = 1) -> Dict[str, Dict[str, float]]:
+        """Per name, per iteration: `calls`, `ms`, `self_ms`, `sync_ms`."""
+        with self._lock:
+            return {name: {"calls": c / iters, "ms": ns / 1e6 / iters, "self_ms": own / 1e6 / iters,
+                           "sync_ms": sync / 1e6 / iters}
+                    for name, (c, ns, own, sync) in sorted(self.totals.items())}
+
+
+class _HostSpan:
+    __slots__ = ("spans", "name", "range", "start", "child_ns", "sync_ns")
+
+    def __init__(self, spans: HostSpans, name: str, rng):
+        self.spans, self.name, self.range = spans, name, rng
+
+    def __enter__(self):
+        if self.range is not None:
+            self.range.__enter__()
+        self.spans.stack().append(self)
+        self.child_ns = self.sync_ns = 0
+        self.start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        ns = time.perf_counter_ns() - self.start
+        stack = self.spans.stack()
+        stack.pop()
+        sync_ns = ns if self.name.startswith("sync/") else self.sync_ns
+        if stack:
+            stack[-1].child_ns += ns
+            stack[-1].sync_ns += sync_ns
+        self.spans.add(self.name, ns, ns - self.child_ns, sync_ns)
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        return False
+
+
+@contextlib.contextmanager
+def host_spans():
+    """Collect the host time of every span opened inside; yields the
+    `HostSpans`. One at a time."""
+    global _host
+    if _host is not None:
+        raise RuntimeError("a host_spans() collector is already open")
+    _host = HostSpans()
+    try:
+        yield _host
+    finally:
+        _host = None
+
+
+def count(name, n: int = 1) -> None:
+    """Add `n` to the counter `name` (a string, or a tuple for a keyed
+    counter such as `("gru/forward", (G, T, B, H))`)."""
+    with _counters_lock:
+        _counters[name] = _counters.get(name, 0) + n
+
+
+def counters() -> Dict[Any, int]:
+    """A copy of every counter since the last reset."""
+    with _counters_lock:
+        return dict(_counters)
+
+
+def reset_counters(names=None) -> None:
+    """Zero every counter, or those in `names`."""
+    with _counters_lock:
+        if names is None:
+            _counters.clear()
+        for name in names or ():
+            _counters.pop(name, None)
 
 
 # ops whose outputs hold no data they read or wrote: allocations (views are
@@ -121,6 +258,8 @@ def count_operations():
     exit."""
     from torch.utils.flop_counter import FlopCounterMode
 
+    from codebase_tpu_torch.ops import fused_gru
+
     result = {"flops": 0.0, "gru_kernel_flops": 0.0, "bytes": 0.0, "gru_kernel_bytes": 0.0}
     bytes_mode = _ByteCounter()
     kernels = {"flops": 0.0, "bytes": 0.0}
@@ -165,37 +304,6 @@ def device_memory_stats() -> Dict[str, Dict[str, Any]]:
         s["bytes_limit"] = torch.cuda.get_device_properties(i).total_memory
         stats[f"cuda:{i}"] = s
     return stats
-
-
-class StepTimer:
-    """Steps/s between marks, with a device sync at each mark.
-
-        timer = StepTimer(device)
-        timer.mark(state.env_steps)
-        ... train iterations ...
-        timer.mark(state.env_steps)
-        timer.rate()  # env-steps/s since the previous mark
-    """
-
-    def __init__(self, device=None):
-        self.device = torch.device(device) if device is not None else None
-        self._last: Optional[tuple] = None
-        self._rate: Optional[float] = None
-
-    def mark(self, steps: int) -> Optional[float]:
-        if self.device is not None and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        if self._last is not None:
-            prev_steps, prev_t = self._last
-            dt = now - prev_t
-            if dt > 0 and steps > prev_steps:
-                self._rate = (steps - prev_steps) / dt
-        self._last = (int(steps), now)
-        return self._rate
-
-    def rate(self) -> Optional[float]:
-        return self._rate
 
 
 def time_windows(step: Callable[[], Any], device, windows: int, window_iters: int,

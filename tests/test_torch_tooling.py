@@ -1,13 +1,11 @@
 """The port's tooling on the CPU: `trace_dir` (a parseable Chrome trace with
-the iteration's ranges), `utils/profiling.py` (`StepTimer`,
-`device_memory_stats`, `cost_analysis` of a Linear and a GRU layer, the GRU
+the iteration's ranges), `utils/profiling.py` (`device_memory_stats`, `cost_analysis` of a Linear and a GRU layer, the GRU
 kernels' operation counts), the user-algorithm surface
 (`register_algorithm`, `algorithm.entry`, external presets; the port of
 `tests/test_extension.py`) and `profile.py` over two gloo ranks."""
 
 import json
 import textwrap
-import time
 
 import pytest
 import torch
@@ -46,12 +44,7 @@ def test_trace_dir_writes_a_parseable_trace_with_the_ranges(tmp_path):
 
 
 def test_step_timer_and_device_memory_stats():
-    timer = profiling.StepTimer(torch.device("cpu"))
-    assert timer.mark(0) is None and timer.rate() is None
-    time.sleep(0.02)
-    rate = timer.mark(100)
-    assert rate is not None and 0 < rate < 100 / 0.02 and timer.rate() == rate
-    assert timer.mark(100) == rate  # no new steps: the rate stays
+    # `StepTimer` went with its last reader; the memory statistics stay
     stats = profiling.device_memory_stats()
     assert stats == {} if not torch.cuda.is_available() else all("peak_bytes_in_use" in s for s in stats.values())
 
