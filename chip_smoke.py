@@ -57,14 +57,25 @@ exits non-zero:
              against the CUDA runtime's count), and at every shape the
              weight gradient's (`dw_tiling`: tile, P, stages a block,
              grid, waves, their fill, shared memory).
+3b. grouped_dw — the f32 weight gradients' kernels (`ops/grouped_dw.py`)
+             at the benchmark cells' three products an update (first
+             Linear 15 x 128, GRU input projection 128 x 384, final Linear
+             128 x 6; G=2, K = 26 x 4096 and 26 x 8192): against an f64
+             x^T dy, two calls bitwise equal, and device ms beside the
+             bound, the plain version, `torch.bmm` f32 and P.
 Then fourteen train phases through `codebase_tpu_torch.run.main`, each with
-the launch counters set to 0 just before and read just after, and logging
+the counters (`utils/profiling`'s registry: the GRU kernels' launches, the
+f32 weight gradients' calls by route and shape and their kernels' launches)
+set to 0 just before and read just after, and logging
 every iteration (`log_interval` = E*T, so the host loop's chunk is one
 iteration, as before the chunk rule):
 4. train       — recurrent IDQN on lbforaging:Foraging-8x8-2p-3f-v3 (T=25,
                  layers [128,128], 65536 envs, batch 1024, 8 updates per
                  collect), 3 iterations and one eval: the GRU kernels at (a),
-                 (b) and (o).
+                 (b) and (o); the update's three f32 weight gradients
+                 (K = 26 x 1024) exactly 3 an update on the kernel route and
+                 none to cuBLAS, one weight gradient kernel a call and a
+                 reduction for each whose split is more than one, counted.
 5. train_qmix  — the QMIX preset (CooperativeReward) with reward
                  standardisation, the recurrent critic shared by the 3 agents
                  of lbforaging:Foraging-10x10-3p-3f-v3 (the kernels at G=3),
@@ -88,7 +99,8 @@ iteration, as before the chunk rule):
                  and one eval: exactly 25 forwards at (z16) a rollout, 25 at
                  (o) an eval, 2 at (z17) and 1 of each backward kernel an
                  update (updates from iteration 4, once the replay holds 32
-                 episodes).
+                 episodes); the f32 weight gradients (K = 26 x 32) counted
+                 and checked as in phase 4.
 8c. train_mappo_rnn_lbf — the mappo_rnn_lbf gate's config (10 envs), 3
                  iterations: exactly 35 forwards (25 at z16, 9 at z18, 1 at
                  z19) and 8 of each backward kernel an iteration.
@@ -240,10 +252,11 @@ batch 1024) unless said:
                  lanes the wide ones, every other lane none.
 40. gate_smoke   — `codebase_tpu_torch.gate.run` on two seeds of the
                  ippo_lbf gate's overrides (the JAX runner's, 10 envs) cut to
-                 `algorithm.total_steps=40000`: seed 0 uncut, then seed 1 cut
-                 by the budget half way between its first two rows and
-                 resumed by a second `run` call; both results.csv files hold
-                 rows at 20000, 40000 and 60000 only, the JAX package's steps
+                 `algorithm.total_steps=80000`: seed 0 uncut, then seed 1
+                 cut by the budget half way between its second and third
+                 rows, resumed by a second `run` call at its third row or
+                 one either side; both results.csv files hold rows every
+                 20000 up to 100000 only, the JAX package's steps
                  (a chunk of 80 iterations is one row; the loop runs until
                  the step exceeds the budget): no duplicate, no gap.
                  `gate._read_csv` (the comparison's reader) reads them,
@@ -320,11 +333,14 @@ from codebase_tpu_torch.config import load_config  # noqa: E402
 from codebase_tpu_torch.algos.common import unit_values  # noqa: E402
 from codebase_tpu_torch.envs import vector as port_vector  # noqa: E402
 from codebase_tpu_torch.ops import fused_gru as fg  # noqa: E402
+from codebase_tpu_torch.ops import grouped_dw as gd  # noqa: E402
+from codebase_tpu_torch.ops import kernel_lib  # noqa: E402
 from codebase_tpu_torch.ops.replay import batch_to_reference_layout, replay_sample_many  # noqa: E402
 from codebase_tpu_torch.ops.running_stats import RunningMeanStd  # noqa: E402
 from codebase_tpu_torch.parallel import mesh  # noqa: E402
 from codebase_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
 from codebase_tpu_torch.utils import debug as port_debug  # noqa: E402
+from codebase_tpu_torch.utils import profiling  # noqa: E402
 from codebase_tpu_torch.utils.device import resolve_device  # noqa: E402
 
 SHAPES = {
@@ -617,15 +633,83 @@ def check_shape(key, G, T, B, H, gen, peaks):
     return out
 
 
-def train_phase(phase, smi, argv, E, iters, per_iteration, T=25):
+# the f32 weight gradients of recurrent IDQN's update on LBF 8x8-2p-3f
+# (`ops/grouped_dw.py`): the first Linear, the GRU input projection and the
+# final Linear, M x N, of G=2 agents over K = (T+1) B = 26 B rows, at each
+# benchmark cell's batch B
+DW_PRODUCTS = {"first_linear": (15, 128), "gru_input_projection": (128, 384), "final_linear": (128, 6)}
+DW_CELLS = {"idqn_rnn_lbf.collect": 4096, "idqn_rnn_lbf.replay32": 8192}
+
+
+def grouped_dw_bounds(G, K, M, N, variant, peaks):
+    """`bounds()`' rule for a weight gradient x^T dy: its bytes (x and dy
+    read once, dW written once) over the HBM rate, or its operations over
+    the rate of the units that run them (3xTF32 on tensor cores in the wgmma
+    kernel, FP32 FFMA in the other), the larger."""
+    dims = dict(G=G, K=K, M=M, N=N)
+    kernel = "grouped_dw_kernel" if variant == "wgmma" else "grouped_dw_ffma_kernel"
+    flops = gd.kernel_flops(kernel, dims)
+    t_ops = 3 * flops / peaks["tf32_flops"] if variant == "wgmma" else flops / peaks["fp32_flops"]
+    t_bytes = gd.kernel_bytes(kernel, dims) / peaks["hbm_bytes_per_s"]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def grouped_dw_phase(smi, peaks) -> dict:
+    """The weight gradient kernels (and their reduction) at each cell's three
+    products: against an f64 x^T dy (1e-4 of the largest entry), two calls
+    bitwise equal; device ms beside the bound, the plain version
+    (`grouped_dw_plain`) and `torch.bmm` f32, and the split (P). The launches
+    are counted in the train phases (`check_linear_dw`)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = []
+    for cell, B in DW_CELLS.items():
+        for product, (M, N) in DW_PRODUCTS.items():
+            G, K = 2, 26 * B
+            x = torch.randn((G, K, M), device=dev, generator=gen)
+            dy = torch.randn((G, K, N), device=dev, generator=gen)
+            tiling = gd.grouped_dw_tiling(G, K, M, N, sms)
+
+            def kernel():
+                partials = gd.grouped_dw_cuda(x, dy)
+                return partials[:, 0] if tiling["P"] == 1 else gd.grouped_dw_reduce_cuda(partials)
+
+            got, again = kernel(), kernel()
+            ref = torch.bmm(x.double().transpose(1, 2), dy.double())
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"grouped_dw at {cell} {product}: two calls on the same inputs differ")
+            err = (got.double() - ref).abs().max().item() / ref.abs().max().item()
+            if err > 1e-4:
+                raise AssertionError(f"grouped_dw at {cell} {product}: error {err:.3e} of the largest entry")
+            bound_ms, bound_by = grouped_dw_bounds(G, K, M, N, tiling["variant"], peaks)
+            ms = time_ms(kernel)
+            rows.append({
+                "cell": cell, "product": product, "G": G, "K": K, "M": M, "N": N,
+                "route": gd.dw_route(G, K, M, N), "variant": tiling["variant"], "tile": tiling["tile"],
+                "P": tiling["P"], "stages": tiling["stages"], "err_over_max": err,
+                "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by, "roofline_pct": 100 * bound_ms / ms,
+                "plain_ms": time_ms(lambda: gd.grouped_dw_plain(x, dy, tiling), reps=5),
+                "library_ms": time_ms(lambda: torch.bmm(x.transpose(1, 2), dy)),
+                "library": "torch.bmm(x^T, dy), f32 (allow_tf32 False): cuBLAS",
+            })
+            del x, dy, ref, got, again
+            torch.cuda.empty_cache()
+    return {"phase": "grouped_dw", "card": smi, "rows": rows}
+
+
+def train_phase(phase, smi, argv, E, iters, per_iteration, T=25, dw_per_update=None):
     """Train through `codebase_tpu_torch.run.main` on the card for at least
     `iters` iterations of E envs (exactly `iters` when every episode runs
     the full T), logging every iteration, and (for the value-based family)
-    one eval at the end, with the launch counters set to 0 just before and
-    read just after. Fails unless every logged loss and every parameter is
-    finite and each GRU kernel named in `per_iteration` launched at least
-    that often per iteration (and the others never). Returns (launch
-    counts, final state)."""
+    one eval at the end, with every counter of `utils/profiling`'s registry
+    set to 0 just before and read just after. Fails unless every logged loss
+    and every parameter is finite and each GRU kernel named in
+    `per_iteration` launched at least that often per iteration (and the
+    others never); with `dw_per_update`, also unless the f32 weight
+    gradients are as `check_linear_dw` says. Returns (GRU launch counts,
+    final state)."""
     with tempfile.TemporaryDirectory() as run_dir:
         argv = argv + [
             f"env.time_limit={T}",
@@ -643,9 +727,12 @@ def train_phase(phase, smi, argv, E, iters, per_iteration, T=25):
             f"run_dir={run_dir}",
         ]
         torch.cuda.reset_peak_memory_stats()
-        fg.reset_launch_counts()
+        profiling.reset_counters()
         rows, state = port_run.main(argv)
         counts = fg.launch_counts()
+        linear_launches = gd.launch_counts()
+        dw_calls = {key[1:]: n for key, n in profiling.counters().items()
+                    if isinstance(key, tuple) and key[0] == "linear/dw"}
         torch.cuda.synchronize()
         RUNS[phase] = (argv[:-1], rows)
     ran = len(state.timings)
@@ -661,12 +748,19 @@ def train_phase(phase, smi, argv, E, iters, per_iteration, T=25):
     for k, v in counts.items():
         if v < per_iteration.get(k, 0) * ran or (k not in per_iteration and v):
             raise AssertionError(f"{phase}: launches {counts} over {ran} iterations; expected {per_iteration}")
+    if dw_per_update is not None:
+        check_linear_dw(phase, dw_calls, linear_launches, int(unit_values(state.updates, 1)[0]), dw_per_update)
     steady = state.timings[1:]
     emit({
         "phase": phase, "card": smi, "argv": argv[:-1],
         "iterations": ran, "env_steps": state.env_steps, "updates": state.updates,
         "launches": counts,
         "launches_per_iteration_with_eval": {k: v / ran for k, v in counts.items()},
+        # the f32 weight gradients (`ops/grouped_dw.py`), counted: calls by
+        # route and shape (G, K, M, N), and their kernels' launches
+        "linear_dw_calls": [{"route": route, "shape": list(shape), "calls": n}
+                            for (route, shape), n in sorted(dw_calls.items())],
+        "linear_launches": linear_launches,
         "iteration_seconds": [s for _, s in state.timings],
         "env_steps_per_s_each": [n / s for n, s in state.timings],
         "env_steps_per_s_after_first": sum(n for n, _ in steady) / sum(s for _, s in steady) if steady else None,
@@ -679,6 +773,22 @@ def train_phase(phase, smi, argv, E, iters, per_iteration, T=25):
     return counts, state
 
 
+def check_linear_dw(phase, calls, launches, updates, per_update) -> None:
+    """The f32 weight gradients of `updates` updates, as counted: exactly
+    `per_update` an update on the kernel route and none to cuBLAS
+    (`calls`: {(route, (G, K, M, N)): calls}), and the kernels' launches
+    (`launches`, `grouped_dw.launch_counts()`) one a weight gradient, with
+    a reduction for each whose split (`grouped_dw_tiling`'s P at the shape
+    counted) is more than one."""
+    sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+    kernel = {shape: n for (route, shape), n in calls.items() if route == "kernel"}
+    split = sum(n for shape, n in kernel.items() if gd.grouped_dw_tiling(*shape, sms)["P"] > 1)
+    if (not updates or sum(kernel.values()) != per_update * updates or len(kernel) != len(calls)
+            or launches != {"dw": sum(kernel.values()), "reduce": split}):
+        raise AssertionError(f"{phase}: f32 weight gradients {calls} and launches {launches} over {updates} "
+                             f"updates; expected {per_update} an update, all on the kernel route")
+
+
 def gate_train_phase(phase, smi, name, iters):
     """`train_phase` on a recurrent gate's config (`gate.RNN_GATES`: the
     preset, the gate's overrides, its 10 envs), with updates from the first
@@ -687,7 +797,8 @@ def gate_train_phase(phase, smi, name, iters):
     each eval (o), and 2 forwards (online and target, z17) and 1 of each
     backward kernel an update (10 an iteration once the replay holds a
     batch of 32 episodes); MAPPO-RNN 35 forwards (25 at z16, 9 at z18, 1 at
-    z19) and 8 of each backward kernel an iteration."""
+    z19) and 8 of each backward kernel an iteration. IDQN-RNN's three f32
+    weight gradients an update take the kernels (`check_linear_dw`)."""
     g = port_gate.GATES[name]
     argv = [f"+algorithm={g.algo}", *g.overrides] + (["algorithm.training_start=0"] if g.algo == "idqn" else [])
     E = int(port_gate._last(g.overrides, "env.parallel_envs", 10))
@@ -695,7 +806,8 @@ def gate_train_phase(phase, smi, name, iters):
     # the least launches an iteration (IDQN's backward kernels: none before
     # the replay holds a batch); the exact counts are checked below
     least = {"fwd": 25, "bwd": 0, "dw": 0, "reduce": 0} if dqn else {"fwd": 35, "bwd": 8, "dw": 8, "reduce": 8}
-    counts, state = train_phase(phase, smi, argv, E=E, iters=iters, per_iteration=least)
+    counts, state = train_phase(phase, smi, argv, E=E, iters=iters, per_iteration=least,
+                                dw_per_update=3 if dqn else None)
     ran, updates = len(state.timings), int(unit_values(state.updates, 1)[0])
     per_update = {"bwd": 1, "dw": 1, "reduce": 1} if dqn else {"bwd": 8, "dw": 8, "reduce": 8}
     rollout_and_evals = counts["fwd"] - 2 * updates if dqn else counts["fwd"] - 35 * ran
@@ -1999,30 +2111,34 @@ def bench_phase(phase, smi) -> None:
 
 
 def gate_smoke_phase(phase, smi, out, name="ippo_lbf") -> None:
-    """The gate runner on the card: two seeds of gate `name` at 40000 steps
-    (rows at 20000, 40000 and 60000: the loop runs until the step exceeds
+    """The gate runner on the card: two seeds of gate `name` at 80000 steps
+    (rows every 20000 up to 100000: the loop runs until the step exceeds
     the budget, a chunk a row). Seed 0 runs uncut; its time to the first
-    row and between rows places seed 1's budget half way between its first
-    two rows, so that seed 1 checkpoints at the end of the chunk in flight
-    (40000) and a second `run` resumes it from there (for a recurrent gate
-    the checkpoint carries the GRU weights and Adam moments; each rollout
-    starts from a zero hidden state). Every process is stopped by `run`
-    itself."""
-    extra = ["algorithm.total_steps=40000"]
-    expected = [20000, 40000, 60000]
+    row and between rows places seed 1's budget half way between its second
+    and third rows, so that seed 1 checkpoints at the end of the chunk in
+    flight (60000) and a second `run` resumes it from there (for a recurrent
+    gate the checkpoint carries the GRU weights and Adam moments; each
+    rollout starts from a zero hidden state). `run`'s budget counts from the
+    launch, and seed 1's process may reach its first row some seconds sooner
+    or later than seed 0's did (torch's import time varies on the card's
+    machine; rows come about 10 s apart): a resume one row either side of
+    60000 is accepted, and the rows after it leave the cut run undone. Every
+    process is stopped by `run` itself."""
+    extra = ["algorithm.total_steps=80000"]
+    expected = [20000 * i for i in range(1, 6)]
     uncut = port_gate.run([name], out, budget_s=600, seeds=[0], extra=extra)[0]
     timing = uncut["by_call"][0]
     if uncut["state"] != "done" or timing["s_per_20000_steps"] is None:
         raise AssertionError(f"{phase}: seed 0 did not finish with two rows: {uncut}")
-    budget = timing["first_row_s"] + 0.5 * timing["s_per_20000_steps"]
+    budget = timing["first_row_s"] + 1.5 * timing["s_per_20000_steps"]
     cut = port_gate.run([name], out, budget_s=budget, procs=2, seeds=[0, 1], extra=extra)
     states = {st["seed"]: st["state"] for st in cut}
     if states != {0: "skipped", 1: "cut"}:
         raise AssertionError(f"{phase}: expected seed 0 skipped and seed 1 cut at {budget:.1f} s: {cut}")
     resumed = port_gate.run([name], out, budget_s=600, seeds=[0, 1], extra=extra)
     last = {st["seed"]: st for st in resumed}
-    if last[0]["state"] != "skipped" or last[1]["state"] != "done" or last[1]["resumed_at"] not in expected[:2]:
-        raise AssertionError(f"{phase}: expected seed 1 resumed at a row before the last and done: {resumed}")
+    if last[0]["state"] != "skipped" or last[1]["state"] != "done" or last[1]["resumed_at"] not in expected[1:4]:
+        raise AssertionError(f"{phase}: expected seed 1 resumed at {expected[1:4]} and done: {resumed}")
     curves = {}
     for seed in (0, 1):
         run_dir = out / name / f"{port_gate.GATES[name].algo}_seed{seed}"
@@ -2057,9 +2173,9 @@ def main() -> None:
 
     # --- 2. build
     t0 = time.perf_counter()
-    lib_path = fg.build_library()
+    lib_path = kernel_lib.build_library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "library": lib_path.name,
-          "nvcc_flags": fg.NVCC_FLAGS})
+          "nvcc_flags": kernel_lib.NVCC_FLAGS})
 
     # --- 3. kernels
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -2070,12 +2186,15 @@ def main() -> None:
     emit({"phase": "kernels", "card": smi,
           "shapes": SHAPES, "results": results})
 
+    # --- 3b. grouped_dw: the f32 weight gradients of the benchmark cells' updates
+    emit(grouped_dw_phase(smi, peaks))
+
     # --- 4. train: recurrent IDQN
     counts, _ = train_phase("train", smi, [
         "+algorithm=idqn", "env.name=lbforaging:Foraging-8x8-2p-3f-v3", "algorithm.model.use_rnn=true",
         "algorithm.model.layers=[128,128]", "algorithm.batch_size=1024", "algorithm.buffer_size=131072",
         *DQN_ARGV,
-    ], E=65536, iters=3, per_iteration={"fwd": 25, "bwd": 8, "dw": 8, "reduce": 8})
+    ], E=65536, iters=3, per_iteration={"fwd": 25, "bwd": 8, "dw": 8, "reduce": 8}, dw_per_update=3)
 
     # --- 5. train_qmix: the QMIX preset, shared recurrent critic (G=3),
     # reward standardisation on the card

@@ -12,6 +12,10 @@
 //   gru_reduce_kernel <- its in-order dW_hh/db_hh accumulation (:123-126,
 //                        :166-167), which on the TPU is race-free only
 //                        because grid steps run in order.
+// Beside them, in the same library, the weight gradient of the grouped f32
+// Linear products (grouped_dw_kernel, grouped_dw_ffma_kernel,
+// grouped_dw_reduce_kernel; their section at the end), which replaces no
+// TPU kernel.
 //
 // Function (torch gate order [r, z, n]), per group g and batch row b:
 //   gh  = h_{t-1} @ W_hh + b_hh
@@ -1448,8 +1452,10 @@ __device__ __forceinline__ uint64_t wgmma_desc_sw128(const void* p) {
          ((uint64_t)1 << 62);
 }
 // d (64 x 192, f32) += a (64 x 8, TF32, registers) * b (8 x 192, TF32,
-// K-major in shared memory at desc_b), one warpgroup
-__device__ __forceinline__ void wgmma_tf32_m64n192k8(float (&d)[96], const uint32_t (&a)[4], uint64_t desc_b) {
+// K-major in shared memory at desc_b), one warpgroup; with scale_d 0,
+// d = a * b
+__device__ __forceinline__ void wgmma_tf32_m64n192k8(float (&d)[96], const uint32_t (&a)[4], uint64_t desc_b,
+                                                     int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n192k8.f32.tf32.tf32 "
@@ -1472,7 +1478,7 @@ __device__ __forceinline__ void wgmma_tf32_m64n192k8(float (&d)[96], const uint3
         "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
         "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
         "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
@@ -1702,6 +1708,376 @@ __global__ void gru_reduce_kernel(const float* __restrict__ partials, float* __r
   out[(size_t)g * E + e] = s;
 }
 
+// ---------------------------------------------------------------------------
+// Weight gradients of the grouped f32 products: dW[g] = x[g]^T dy[g]
+// ---------------------------------------------------------------------------
+//
+// grouped_dw_kernel, grouped_dw_ffma_kernel and grouped_dw_reduce_kernel
+// replace no TPU kernel: XLA forms these products there. They take the
+// backward of ops/matmul.py's f32 grouped product x (G, K, M) @ w (G, M, N)
+// (every f32 Linear layer and GRU input projection of the port): the
+// weight gradient dW[g] (M x N) = sum over the K rows of x[g, k]^T dy[g, k],
+// with a tiny M x N and a long K, (T+1)B rows in an update (212,992 at
+// B=8192). cuBLAS ran it as a strided-batched FFMA GEMM of 32 x 32 tiles
+// that does not split K: a few dozen blocks, each walking all of K in
+// serial 8-deep steps, at about 2% of the bound below (PERF.md).
+// What bounds them on an H100: the bytes of x and dy, each read once (872 MB
+// at the GRU input projection, 128 x 384, G=2, K=212,992: 0.26 ms at 3.35
+// TB/s) and, for a wide product, the 3xTF32 operations (0.25 ms there at
+// 495 TFLOP/s). Design:
+// - K is split over P blocks a tile (ops/grouped_dw.py grouped_dw_tiling,
+//   a cost model like dw_tiling's, the partials kept under 16 MB), each
+//   summing its rows into a partial of its own (P = 1: straight into dW);
+// - grouped_dw_reduce_kernel sums the partials in a fixed order (no
+//   atomics: two calls are bitwise equal), bound by bytes. Unlike
+//   gru_reduce_kernel's one chain of P loads an entry, it splits P eight
+//   ways, as a small dW has few entries for many partials (15 x 128 split
+//   196 ways is 3,840 chains of 196 loads). A name of its own keeps this
+//   work out of the GRU kernels' time, which readers match by name;
+// - grouped_dw_kernel takes M and N that are multiples of 4 (rows TMA can
+//   map: 16-byte strides): gru_dw_kernel's design with one tensor map for x
+//   and one for dy. Tiles of 128 x 192 of dW, a TMA ring of 32-row stages,
+//   A = x^T from registers, B = dy through the split pass, three m64n192k8
+//   wgmma a k8 step. A block sums its stages in runs of equal length, at
+//   most kGdwMaxRun: a run's first product overwrites the accumulator, and
+//   at its end the accumulator is added into the block's partial. So the
+//   error the accumulator gathers (about 2.4e-7 of the largest entry a
+//   stage, gru_dw_kernel's note) stays within gru_dw_kernel's bound however
+//   many rows a block sums, and the partials stay few (under 16 MB). A run's
+//   end costs about 24 us on an H100 (the add, and a stage split and read
+//   outside the pipeline): runs of 32 stages took 0.544 ms at 128 x 384,
+//   K=212,992, one run 0.398 ms. Boxes wholly past M or N are not loaded;
+//   the tile's rows and columns past M and N are not stored;
+// - grouped_dw_ffma_kernel takes any M and N, among them the 15-wide
+//   observations (60-byte rows) and the 6-wide Q-value gradients (24-byte
+//   rows) that TMA cannot map. Exact FFMA, bound by bytes: the tile's
+//   columns of 32 rows of x and dy are copied by cp.async (16 bytes where
+//   the width is a multiple of 4, else 4) into a ring of three zero-padded
+//   stages; each thread sums a 4 x 4 tile of dW over its slice of a
+//   stage's rows, and the slices' sums are added in a fixed order at the
+//   end. Tiles (bm, bn) of powers of two, at most 4096 entries, shaped to
+//   the product (ops/grouped_dw.py ffma_tile): 16 x 128 for 15 x 128, 128
+//   x 8 for 128 x 6.
+
+// the most stages grouped_dw_kernel's accumulator sums before it is added
+// into the partial (ops/fused_gru.py DW_MAX_STAGES)
+constexpr int kGdwMaxRun = 128;
+
+// grid (ceil(M / kDwM) * ceil(N / kDwN), P, G), kDwThreads threads, kDwSmem
+// bytes of dynamic shared memory. K's rows are cut into stages of kDwK (the
+// last one ragged: the tensor maps end there and TMA fills the rest with
+// zeros); block (tile, p, g) sums stages [p * spb, (p + 1) * spb) for its
+// kDwM x kDwN tile of dW[g] into partials[g, p] (M x N). The tiles run
+// fastest in the grid, so the blocks in flight together read the same rows.
+__global__ void __launch_bounds__(kDwThreads, 1)
+grouped_dw_kernel(const __grid_constant__ CUtensorMap x_map, const __grid_constant__ CUtensorMap dy_map,
+                  float* __restrict__ partials, int K, int M, int N, int spb) {
+  extern __shared__ uint8_t gdw_smem_raw[];
+  float* smem = reinterpret_cast<float*>((reinterpret_cast<uintptr_t>(gdw_smem_raw) + 1023) & ~(uintptr_t)1023);
+  float* ring = smem;                                      // kDwStages fp32 stages
+  float* split = smem + kDwStages * kDwStageFloats;        // [2 buffers][big, small]
+  uint64_t* full = reinterpret_cast<uint64_t*>(reinterpret_cast<uint8_t*>(smem) + kDwBarOffset);
+  uint64_t* empty = full + kDwStages;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int p = blockIdx.y, g = blockIdx.z;
+  const int tiles_n = (N + kDwN - 1) / kDwN;
+  const int m0 = (blockIdx.x / tiles_n) * kDwM, n0 = (blockIdx.x % tiles_n) * kDwN;
+  const int n_stages = (K + kDwK - 1) / kDwK;
+  const int s0 = p * spb, ns = max(0, min(n_stages, s0 + spb) - s0);
+  // the boxes of the tile that hold columns of x and of dy
+  const int xb = min(kDwHBoxes, (M - m0 + kDwBox - 1) / kDwBox);
+  const int yb = min(kDwGBoxes, (N - n0 + kDwBox - 1) / kDwBox);
+
+  if (tid == 0) {
+    for (int i = 0; i < kDwStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], kDwConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kDwConsumers / 32) {
+    // producer: one thread issues every stage's boxes; the warpgroup gives
+    // its registers to the consumers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == kDwConsumers) {
+      for (int s = 0; s < ns; ++s) {
+        const int slot = s % kDwStages;
+        if (s >= kDwStages) mbar_wait(&empty[slot], (s / kDwStages - 1) & 1);
+        mbar_expect_tx(&full[slot], (xb + yb) * kDwBoxFloats * 4);
+        const int row = (s0 + s) * kDwK;
+        float* st = ring + slot * kDwStageFloats;
+        for (int j = 0; j < xb; ++j) tma_load_3d(st + j * kDwBoxFloats, &x_map, m0 + kDwBox * j, row, g, &full[slot]);
+        for (int j = 0; j < yb; ++j)
+          tma_load_3d(st + (kDwHBoxes + j) * kDwBoxFloats, &dy_map, n0 + kDwBox * j, row, g, &full[slot]);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg forms rows [64 wg, 64 wg + 64) of the tile
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int wg = warp >> 2, wi = warp & 3, gid = lane >> 2, tig = lane & 3;
+  // A-fragment offsets in a stage's x boxes, k8 step 0 (gru_dw_kernel's)
+  int a_off[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int u = dw_unit(wg, wi, gid, i & 1), k = tig + 4 * (i >> 1);
+    a_off[i] = (u / kDwBox) * kDwBoxFloats + dw_box_at(k, u % kDwBox);
+  }
+  float acc[96];
+#pragma unroll
+  for (int i = 0; i < 96; ++i) acc[i] = 0.f;
+
+  // the split pass of stage s (gru_dw_kernel's, with no column sums)
+  auto split_stage = [&](int s) {
+    const int slot = s % kDwStages;
+    mbar_wait(&full[slot], (s / kDwStages) & 1);
+    const float* gsrc = ring + slot * kDwStageFloats + kDwHBoxes * kDwBoxFloats;
+    float* big = split + (s & 1) * 2 * kDwSplitFloats;
+    float* small = big + kDwSplitFloats;
+#pragma unroll
+    for (int t = 0; t < kDwTasks; ++t) {
+      const int task = kDwTasks * warp + t, cg = task >> 3, kq = task & 7, n = kDwBox * cg + lane;
+      uint32_t vb[4], vs[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split_tf32(gsrc[cg * kDwBoxFloats + dw_box_at(4 * kq + e, lane)], vb[e], vs[e]);
+      const int at = n * kDwK + ((kq ^ (n & 7)) << 2);
+      *reinterpret_cast<uint4*>(big + at) = make_uint4(vb[0], vb[1], vb[2], vb[3]);
+      *reinterpret_cast<uint4*>(small + at) = make_uint4(vs[0], vs[1], vs[2], vs[3]);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  };
+  using Frags = uint32_t[4][4];
+  auto load_a = [&](int s, Frags& ab, Frags& as) {
+    const float* xsrc = ring + (s % kDwStages) * kDwStageFloats;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split_tf32(xsrc[a_off[i] + 8 * kDwBox * j], ab[j][i], as[j][i]);
+  };
+  // stage s of the run ending before r1: its products while stage s + 1 is
+  // split and read (gru_dw_kernel's step); the run's first product
+  // overwrites the accumulator (scale_d 0), so that no other instruction
+  // writes it between the products
+  auto step = [&](int s, int r0, int r1, Frags& cur_b, Frags& cur_s, Frags& nxt_b, Frags& nxt_s) {
+    const float* big = split + (s & 1) * 2 * kDwSplitFloats;
+    const float* small = big + kDwSplitFloats;
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      wgmma_tf32_m64n192k8(acc, cur_s[j], wgmma_desc_sw128(big + 8 * j), j > 0 || s > r0);
+      wgmma_tf32_m64n192k8(acc, cur_b[j], wgmma_desc_sw128(small + 8 * j));
+      wgmma_tf32_m64n192k8(acc, cur_b[j], wgmma_desc_sw128(big + 8 * j));
+    }
+    wgmma_commit();
+    if (s + 1 < r1) {
+      split_stage(s + 1);
+      load_a(s + 1, nxt_b, nxt_s);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[(s + 1) % kDwStages]);
+    }
+    wgmma_wait_all();
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      asm volatile("" ::"r"(cur_b[j][0]), "r"(cur_b[j][1]), "r"(cur_b[j][2]), "r"(cur_b[j][3]), "r"(cur_s[j][0]),
+                   "r"(cur_s[j][1]), "r"(cur_s[j][2]), "r"(cur_s[j][3]));
+    consumers_sync();
+  };
+
+  // runs of equal, even length (a run starts on fragment set 0), at most
+  // kGdwMaxRun, each summed in the accumulator and then added into the
+  // partial (the first run stores it), one half of the tile's rows at a
+  // time. Between runs only the accumulator is live: the next run's first
+  // stage is split and read after the add.
+  float* out = partials + ((size_t)g * gridDim.y + p) * M * N;
+  const int runs = max(1, (ns + kGdwMaxRun - 1) / kGdwMaxRun);
+  const int run = ((ns + runs - 1) / runs + 1) & ~1;
+  uint32_t ab0[4][4], as0[4][4], ab1[4][4], as1[4][4];
+  for (int r0 = 0; r0 < ns; r0 += run) {
+    const int r1 = min(ns, r0 + run);
+    split_stage(r0);
+    load_a(r0, ab0, as0);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[r0 % kDwStages]);
+    consumers_sync();
+    for (int s = r0; s < r1; s += 2) {  // two stages a turn: the fragment sets swap by name, not by index
+      step(s, r0, r1, ab0, as0, ab1, as1);
+      if (s + 1 < r1) step(s + 1, r0, r1, ab1, as1, ab0, as0);
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = m0 + dw_unit(wg, wi, gid, half);
+#pragma unroll
+      for (int j = 0; j < 24; ++j) {
+        const int c = n0 + 8 * j + 2 * tig;
+        if (r < M && c < N) {  // N % 4 == 0: c + 1 < N too
+          float2* at = reinterpret_cast<float2*>(out + (size_t)r * N + c);
+          float2 v = make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+          if (r0 > 0) {
+            const float2 o = *at;
+            v = make_float2(o.x + v.x, o.y + v.y);
+          }
+          *at = v;
+        }
+      }
+      asm volatile("" ::: "memory");  // one half's reads in flight at a time
+    }
+  }
+}
+
+constexpr int kFfThreads = 256;
+constexpr int kFfRows = 32;   // rows of K a stage of grouped_dw_ffma_kernel
+constexpr int kFfStages = 3;  // its ring: two stages in flight while one is summed
+
+// 4 bytes global -> shared, asynchronous; zero-filled when !valid
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(valid ? 4 : 0));
+}
+
+// rows [k0, k0 + kFfRows) and columns [c0, c0 + 2^lb) of a row-major (K, C)
+// matrix into dst (kFfRows rows of 2^lb floats), zeros outside the matrix:
+// 16-byte copies where C % 4 == 0 (each wholly inside or outside it), else
+// 4-byte copies
+__device__ __forceinline__ void ffma_stage(float* dst, const float* __restrict__ src, int K, int C, int k0, int c0,
+                                           int lb) {
+  if ((C & 3) == 0) {
+    const int lq = lb - 2;
+    for (int i = threadIdx.x; i < (kFfRows << lq); i += kFfThreads) {
+      const int r = k0 + (i >> lq), c = c0 + ((i & ((1 << lq) - 1)) << 2);
+      const bool ok = r < K && c < C;
+      cp_async16(dst + 4 * i, ok ? src + (size_t)r * C + c : src, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < (kFfRows << lb); i += kFfThreads) {
+      const int r = k0 + (i >> lb), c = c0 + (i & ((1 << lb) - 1));
+      const bool ok = r < K && c < C;
+      cp_async4(dst + i, ok ? src + (size_t)r * C + c : src, ok);
+    }
+  }
+}
+
+// grid (ceil(M / bm) * ceil(N / bn), P, G), kFfThreads threads, bm = 2^lbm,
+// bn = 2^lbn (each >= 4, bm * bn <= 16 * kFfThreads). Thread t owns the 4 x 4
+// entries at rows 4 tm.., columns 4 tn.. of the tile, with tn = t % (bn / 4),
+// tm = t / (bn / 4) % (bm / 4), and sums rows slice, slice + slices, ... of
+// each stage, slice = t / (bm bn / 16). Block (tile, p, g) sums stages [p *
+// spb, (p + 1) * spb) of kFfRows rows into partials[g, p] (M x N).
+__global__ void __launch_bounds__(kFfThreads)
+grouped_dw_ffma_kernel(const float* __restrict__ x, const float* __restrict__ dy, float* __restrict__ partials,
+                       int K, int M, int N, int lbm, int lbn, int spb) {
+  extern __shared__ float4 ffma_smem_raw[];
+  float* smem = reinterpret_cast<float*>(ffma_smem_raw);
+  const int bm = 1 << lbm, bn = 1 << lbn, tns = bn >> 2, per_slice = (bm >> 2) * tns;
+  const int slices = kFfThreads / per_slice;
+  const int tid = threadIdx.x, at = tid % per_slice, slice = tid / per_slice, tm = at / tns, tn = at % tns;
+  const int p = blockIdx.y, g = blockIdx.z;
+  const int tiles_n = (N + bn - 1) >> lbn;
+  const int m0 = (blockIdx.x / tiles_n) << lbm, n0 = (blockIdx.x % tiles_n) << lbn;
+  const int n_stages = (K + kFfRows - 1) / kFfRows;
+  const int s0 = p * spb, ns = max(0, min(n_stages, s0 + spb) - s0);
+  const float* xg = x + (size_t)g * K * M;
+  const float* yg = dy + (size_t)g * K * N;
+  const int stage = kFfRows * (bm + bn);
+  // stage s into its slot of the ring, as one group of copies (an empty
+  // group past the block's stages, so that every turn waits alike)
+  auto load = [&](int s) {
+    if (s < ns) {
+      float* st = smem + (s % kFfStages) * stage;
+      const int k0 = (s0 + s) * kFfRows;
+      ffma_stage(st, xg, K, M, k0, m0, lbm);
+      ffma_stage(st + kFfRows * bm, yg, K, N, k0, n0, lbn);
+    }
+    cp_async_commit();
+  };
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+#pragma unroll
+  for (int s = 0; s < kFfStages - 1; ++s) load(s);
+  for (int s = 0; s < ns; ++s) {
+    load(s + kFfStages - 1);  // into the slot stage s - 1 left
+    cp_async_wait<kFfStages - 1>();
+    __syncthreads();
+    const float* xs = smem + (s % kFfStages) * stage + 4 * tm;
+    const float* ys = smem + (s % kFfStages) * stage + kFfRows * bm + 4 * tn;
+    for (int r = slice; r < kFfRows; r += slices) {
+      const float4 a = *reinterpret_cast<const float4*>(xs + (r << lbm));
+      const float4 b = *reinterpret_cast<const float4*>(ys + (r << lbn));
+      const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();  // the slot is read no more before the next copy into it
+  }
+  cp_async_wait<0>();  // the empty groups
+  // the slices' sums, added in order 0, 1, ... through shared memory, which
+  // no stage uses any more
+  if (slice > 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) smem[((slice - 1) * 16 + 4 * i + j) * per_slice + at] = acc[i][j];
+  }
+  __syncthreads();
+  if (slice > 0) return;
+  for (int o = 1; o < slices; ++o)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] += smem[((o - 1) * 16 + 4 * i + j) * per_slice + at];
+  float* out = partials + ((size_t)g * gridDim.y + p) * M * N;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = m0 + 4 * tm + i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = n0 + 4 * tn + j;
+      if (r < M && c < N) out[(size_t)r * N + c] = acc[i][j];
+    }
+  }
+}
+
+// the FFMA kernel's dynamic shared memory (bytes) at a tile: the ring, or
+// the slices' sums where they take more
+__host__ __device__ constexpr size_t ffma_smem(int bm, int bn) {
+  return (size_t)(kFfStages * kFfRows * (bm + bn) > (kFfThreads - bm * bn / 16) * 16
+                      ? kFfStages * kFfRows * (bm + bn)
+                      : (kFfThreads - bm * bn / 16) * 16) *
+         sizeof(float);
+}
+
+constexpr int kRedRows = 8;  // the ways grouped_dw_reduce_kernel splits P
+
+// out[g, e] = sum over p < P of partials[g, p, e] in a fixed order: thread
+// row r of a block (32 entries x kRedRows rows) sums p = r, r + kRedRows, ...
+// in order, and the rows' sums are added in order r = 0, 1, ...
+__global__ void __launch_bounds__(32 * kRedRows)
+grouped_dw_reduce_kernel(const float* __restrict__ partials, float* __restrict__ out, int P, int E) {
+  __shared__ float sums[kRedRows][32];
+  const int lane = threadIdx.x, r = threadIdx.y, e = blockIdx.x * 32 + lane, g = blockIdx.y;
+  float s = 0.f;
+  if (e < E) {
+    const float* p = partials + (size_t)g * P * E + e;
+    for (int i = r; i < P; i += kRedRows) s += p[(size_t)i * E];
+  }
+  sums[r][lane] = s;
+  __syncthreads();
+  if (r == 0 && e < E) {
+    float t = sums[0][lane];
+#pragma unroll
+    for (int i = 1; i < kRedRows; ++i) t += sums[i][lane];
+    out[(size_t)g * E + e] = t;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -1865,6 +2241,63 @@ int gru_reduce(const float* partials, float* out, int G, int P, int E, void* str
   if (G < 1 || P < 1 || E < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   gru_reduce_kernel<<<dim3((E + 255) / 256, G), 256, 0, s>>>(partials, out, P, E);
+  return (int)cudaGetLastError();
+}
+
+// P blocks a split, each summing `stages` of `rows` rows of K (no block
+// without one): the host's check of a split of K
+static bool split_ok(int K, int rows, int P, int stages) {
+  const int n_stages = (K + rows - 1) / rows;
+  return P >= 1 && stages >= 1 && (long long)P * stages >= n_stages && (long long)(P - 1) * stages < n_stages;
+}
+
+int grouped_dw_max_run() { return kGdwMaxRun; }
+int grouped_dw_ffma_rows() { return kFfRows; }
+int grouped_dw_ffma_stages() { return kFfStages; }
+int grouped_dw_reduce_rows() { return kRedRows; }
+int grouped_dw_ffma_smem(int bm, int bn) { return (int)ffma_smem(bm, bn); }
+
+// x (G, K, M), dy (G, K, N), M and N multiples of 4, 16-byte aligned: the
+// wgmma kernel on grid (ceil(M / 128) * ceil(N / 192), P, G), each block
+// summing `stages` stages of gru_dw_chunk() rows; partials (G, P, M, N)
+int grouped_dw(const float* x, const float* dy, float* partials, int G, int K, int M, int N, int P, int stages,
+               void* stream) {
+  if (G < 1 || K < 1 || M < 1 || N < 1 || M % 4 || N % 4 || !split_ok(K, kDwK, P, stages))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap x_map, dy_map;
+  if (!dw_tensor_map(&x_map, x, M, K, G, (long long)K * M) || !dw_tensor_map(&dy_map, dy, N, K, G, (long long)K * N))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(grouped_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDwSmem);
+  if (e != cudaSuccess) return (int)e;
+  const int tiles = ((M + kDwM - 1) / kDwM) * ((N + kDwN - 1) / kDwN);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  grouped_dw_kernel<<<dim3(tiles, P, G), kDwThreads, kDwSmem, s>>>(x_map, dy_map, partials, K, M, N, stages);
+  return (int)cudaGetLastError();
+}
+
+// x (G, K, M), dy (G, K, N), 16-byte aligned: the FFMA kernel at tiles of
+// bm x bn (powers of two >= 4, bm * bn <= 4096) on grid (ceil(M / bm) *
+// ceil(N / bn), P, G), each block summing `stages` stages of
+// grouped_dw_ffma_rows() rows; partials (G, P, M, N)
+int grouped_dw_ffma(const float* x, const float* dy, float* partials, int G, int K, int M, int N, int bm, int bn,
+                    int P, int stages, void* stream) {
+  const bool pow2 = bm >= 4 && bn >= 4 && !(bm & (bm - 1)) && !(bn & (bn - 1));
+  if (G < 1 || K < 1 || M < 1 || N < 1 || !pow2 || bm * bn > 16 * kFfThreads || !split_ok(K, kFfRows, P, stages))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = ffma_smem(bm, bn);
+  cudaError_t e = cudaFuncSetAttribute(grouped_dw_ffma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int tiles = ((M + bm - 1) / bm) * ((N + bn - 1) / bn);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  grouped_dw_ffma_kernel<<<dim3(tiles, P, G), kFfThreads, smem, s>>>(x, dy, partials, K, M, N, __builtin_ctz(bm),
+                                                                      __builtin_ctz(bn), stages);
+  return (int)cudaGetLastError();
+}
+
+int grouped_dw_reduce(const float* partials, float* out, int G, int P, int E, void* stream) {
+  if (G < 1 || P < 1 || E < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  grouped_dw_reduce_kernel<<<dim3((E + 31) / 32, G), dim3(32, kRedRows), 0, s>>>(partials, out, P, E);
   return (int)cudaGetLastError();
 }
 

@@ -45,13 +45,33 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 
 
-def load_fused_gru(root: Path, name: str):
-    """The `ops/fused_gru.py` module of the checkout at `root`, under its
-    own module name (its library is built from that checkout's source)."""
-    spec = importlib.util.spec_from_file_location(name, root / "codebase_tpu_torch" / "ops" / "fused_gru.py")
+def _load(path: Path, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def load_fused_gru(root: Path, name: str):
+    """The `ops/fused_gru.py` module of the checkout at `root`, under its
+    own module name, its library built from that checkout's source: where
+    the checkout builds and loads it in `ops/kernel_lib.py`, that file is
+    loaded too, under a name of its own, and stands for the package's
+    `kernel_lib` while fused_gru.py runs (this checkout's modules are
+    imported by then, through `chip_smoke`)."""
+    ops = root / "codebase_tpu_torch" / "ops"
+    if not (ops / "kernel_lib.py").exists():
+        return _load(ops / "fused_gru.py", name)
+    import codebase_tpu_torch.ops as package
+
+    key = "codebase_tpu_torch.ops.kernel_lib"
+    saved = sys.modules[key], package.kernel_lib
+    lib = _load(ops / "kernel_lib.py", f"{name}_kernel_lib")
+    sys.modules[key] = package.kernel_lib = lib
+    try:
+        return _load(ops / "fused_gru.py", name)
+    finally:
+        sys.modules[key], package.kernel_lib = saved
 
 
 def inputs(G, T, B, H, seed=0):
@@ -164,7 +184,7 @@ def main(argv=None) -> None:
     if args.base is not None:
         trees["base"] = load_fused_gru(args.base.resolve(), "fused_gru_base")
     for fg in trees.values():
-        fg.build_library()
+        fg._library()
     order = ["base", "this", "this", "base"] if "base" in trees else ["this"]
     keys = args.shapes.split(",") if args.shapes else list(chip_smoke.SHAPES)
     kernels = args.kernels.split(",")

@@ -44,8 +44,9 @@ that chunk's dgh in shared memory; its row tile is 16 or 32 rows
 (`wide_backward_tiling`). `gru_dw` and `gru_reduce` serve every H.
 
 The header of `csrc/fused_gru.cu` says what bounds each kernel and what the
-design does about it. The library is built with nvcc for sm_90a at first
-use, into `codebase_tpu_torch/_build/`, and loaded with ctypes.
+design does about it. The library is built and loaded by
+`ops/kernel_lib.py`, which also holds the sizes (`DW_*`) of the weight
+gradient's design, shared with `ops/grouped_dw.py`.
 
 Dispatch: a CPU tensor goes through the plain PyTorch version
 (`gru_sequence_plain`, a loop of GRU-cell tensor ops with autograd through
@@ -65,38 +66,28 @@ stays whatever kernels implement it: `("gru/forward", (G, T, B, H))` at
 each `fused_gru_sequence` call, `("gru/backward", (G, T, B, H))` at each
 kernel backward; on the card each runs inside the span of the same name.
 After each launch the wrapper hands the kernel's name, outputs and shape
-to `LAUNCH_OBSERVERS`: in a debug region
-(`utils/debug.py`) a NaN in an output raises naming the kernel, and
-`utils/profiling.cost_analysis` counts its operations and bytes
-(`kernel_flops`, `kernel_bytes`). No PyTorch tool sees these `ctypes`
-launches otherwise.
+to `kernel_lib.launched`: in a debug region (`utils/debug.py`) a NaN in an
+output raises naming the kernel, and `utils/profiling.cost_analysis` counts
+its operations and bytes by this module's `kernel_flops` and
+`kernel_bytes`. No PyTorch tool sees these `ctypes` launches otherwise.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 
 import torch
 
+from codebase_tpu_torch.ops import kernel_lib
+from codebase_tpu_torch.ops.kernel_lib import (  # the weight gradient's sizes, shared with ops/grouped_dw.py
+    DW_BLOCK_US, DW_CHUNK, DW_MAX_STAGES, DW_PARTIAL_BYTES_PER_US, DW_SMEM, DW_STAGE_US, DW_TILE_M, DW_TILE_N,
+)
 from codebase_tpu_torch.ops.matmul import grouped_matmul
-from codebase_tpu_torch.utils import debug, profiling
+from codebase_tpu_torch.utils import profiling
 
 # `launch_counts()`' keys and their counters in the registry
 LAUNCHES = {k: f"gru_launch/{k}" for k in ("fwd", "bwd", "fwd_wide", "bwd_wide", "dw", "reduce")}
-
-# what runs after each kernel launch, as fn(kernel name, outputs, dims): the
-# debug mode's NaN scan of the outputs (`utils/debug.py`; nothing unless a
-# debug region is open) and, while `utils/profiling.cost_analysis` counts,
-# its count of the launch's operations and bytes (`kernel_flops`,
-# `kernel_bytes`)
-LAUNCH_OBSERVERS = [debug.check_kernel]
 
 RESIDENT_HIDDEN = 128  # the hidden size of the kernels that hold W_hh in shared memory
 MAX_HIDDEN = 896  # the wide kernels' largest H (csrc/fused_gru.cu kMaxH)
@@ -124,35 +115,6 @@ WIDE_STAGE_COST = {16: 1.0, 32: 1.5, 64: 2.9}
 WIDE_BWD_DGH_STRIDE = 3 * WIDE_CHUNK + 16
 WIDE_BWD_BLOCKS_PER_SM = 1
 WIDE_BWD_COST = {16: 1.0, 32: 1.4}
-# the weight gradient (csrc/fused_gru.cu `gru_dw_kernel`): tiles of
-# DW_TILE_M x DW_TILE_N of dW_hh, stages of DW_CHUNK rows of h_prev and dgh
-# in a ring of DW_STAGES fp32 stages (40 KB each) beside two pairs of TF32
-# B buffers (24 KB each), mbarriers and 1 KB of alignment slack. dw_tiling's
-# cost model: DW_STAGE_US, a block's time for a stage; DW_BLOCK_US, a
-# block's fixed time (the ring's fill and the epilogue); and the rate at
-# which the partials are written and read again.
-DW_CHUNK = 32
-DW_TILE_M, DW_TILE_N = 128, 192
-DW_STAGES = 3
-DW_SMEM = DW_STAGES * 40_960 + 4 * 24_576 + 2 * DW_STAGES * 8 + 1024
-DW_STAGE_US = 2.2
-DW_BLOCK_US = 15.0
-# the most stages a block sums in one wgmma accumulator: its error grows
-# with the count (about 2.4e-7 of the largest entry a stage, measured on an
-# H100), 3.3e-5 at 128 stages (4096 rows), against the 1e-4 it is held to
-DW_MAX_STAGES = 128
-DW_PARTIAL_BYTES_PER_US = 2.2e6
-
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "fused_gru.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
-
-_lib = None
-_lib_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
@@ -204,9 +166,9 @@ def kernel_bytes(kernel: str, dims: dict) -> float:
     return float(4 * G * elements)
 
 
-def _launched(kernel: str, outputs: dict, **dims) -> None:
-    for observe in LAUNCH_OBSERVERS:
-        observe(kernel, outputs, dims)
+kernel_lib.COSTS.update({k: (kernel_flops, kernel_bytes) for k in (
+    "gru_fwd_kernel", "gru_bwd_kernel", "gru_fwd_wide_kernel", "gru_bwd_wide_kernel", "gru_dw_kernel",
+    "gru_reduce_kernel")})
 
 
 def kernel_variant(H: int):
@@ -295,98 +257,48 @@ def reduce_partials_plain(partials):
 
 
 # ---------------------------------------------------------------------------
-# Build and load
+# The library's GRU functions
 # ---------------------------------------------------------------------------
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    path = Path(cuda_home) / "bin" / "nvcc"
-    if not path.exists():
-        raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
-    return str(path)
-
-
-def build_library() -> Path:
-    """Compile `csrc/fused_gru.cu` into `_build/` unless a library built
-    from the same source is already there; returns its path. The build log
-    (including ptxas register and shared-memory use) sits beside it."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"fused_gru_{tag}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"fused_gru_{tag}.{os.getpid()}.tmp.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / f"fused_gru_{tag}.log").write_text(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {res.returncode}):\n{res.stderr[-4000:]}")
-    os.replace(tmp, out)
-    return out
-
-
 def _library():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build_library()))
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.gru_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
-            lib.gru_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
-            lib.gru_fwd_wide.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
-            lib.gru_fwd_wide_smem.argtypes = [i, i, i]
-            lib.gru_bwd_wide.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
-            lib.gru_bwd_wide_smem.argtypes = [i, i]
-            lib.gru_bwd_wide_blocks_per_sm.argtypes = [i, i]
-            lib.gru_dw.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
-            lib.gru_reduce.argtypes = [p, p, i, i, i, p]
-            lib.gru_dw_tiles.argtypes = [i]
-            lib.gru_dw_stages.argtypes = [i, i]
-            sizes = (lib.gru_max_hidden, lib.gru_fwd_rows, lib.gru_dw_chunk, lib.gru_dw_smem)
-            for fn in (lib.gru_fwd, lib.gru_bwd, lib.gru_fwd_wide, lib.gru_fwd_wide_smem, lib.gru_bwd_wide,
-                       lib.gru_bwd_wide_smem, lib.gru_bwd_wide_blocks_per_sm, lib.gru_dw, lib.gru_reduce,
-                       lib.gru_dw_tiles, lib.gru_dw_stages, *sizes):
-                fn.restype = i
-            for fn in sizes:
-                fn.argtypes = []
-            if lib.gru_max_hidden() != MAX_HIDDEN:
-                raise RuntimeError("fused GRU library was built for other hidden sizes")
-            if any(lib.gru_fwd_wide_smem(T, MAX_HIDDEN, rows) != wide_forward_smem(T, MAX_HIDDEN, rows)
-                   for T in (1, 2) for rows in (16, 32, 64)):
-                raise RuntimeError("fused GRU library sizes the wide forward's shared memory otherwise")
-            if any(lib.gru_bwd_wide_smem(H, rows) != wide_backward_smem(H, rows)
-                   for H in (256, MAX_HIDDEN) for rows in WIDE_BWD_COST):
-                raise RuntimeError("fused GRU library sizes the wide backward's shared memory otherwise")
-            if (lib.gru_dw_chunk(), lib.gru_dw_smem()) != (DW_CHUNK, DW_SMEM) or any(
-                    lib.gru_dw_tiles(H) != dw_tiles(H) or lib.gru_dw_stages(T, B) != dw_stages(T, B)
-                    for H in (RESIDENT_HIDDEN, 384, MAX_HIDDEN) for T, B in ((1, 100), (121, 256), (9, 77))):
-                raise RuntimeError("fused GRU library tiles the weight gradient otherwise")
-            _lib = lib
-        return _lib
+    """The kernel library (`kernel_lib.library`) with the GRU kernels'
+    functions declared and its sizes checked against this module's."""
+    return kernel_lib.library(_declare)
 
 
-def _raise_on(code: int, what: str) -> None:
-    if code != 0:
-        raise RuntimeError(f"{what} failed: CUDA error {code}")
-
-
-def _check(shapes: dict, device) -> None:
-    for name, (t, shape) in shapes.items():
-        if t.device != device or t.device.type != "cuda":
-            raise ValueError(f"{name} must be a CUDA tensor on {device}; got {t.device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32; got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if tuple(t.shape) != tuple(shape):
-            raise ValueError(f"{name} has shape {tuple(t.shape)}; expected {tuple(shape)}")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned (the kernels load float4)")
+def _declare(lib) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.gru_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.gru_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.gru_fwd_wide.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.gru_fwd_wide_smem.argtypes = [i, i, i]
+    lib.gru_bwd_wide.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.gru_bwd_wide_smem.argtypes = [i, i]
+    lib.gru_bwd_wide_blocks_per_sm.argtypes = [i, i]
+    lib.gru_dw.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.gru_reduce.argtypes = [p, p, i, i, i, p]
+    lib.gru_dw_tiles.argtypes = [i]
+    lib.gru_dw_stages.argtypes = [i, i]
+    sizes = (lib.gru_max_hidden, lib.gru_fwd_rows, lib.gru_dw_chunk, lib.gru_dw_smem)
+    for fn in (lib.gru_fwd, lib.gru_bwd, lib.gru_fwd_wide, lib.gru_fwd_wide_smem, lib.gru_bwd_wide,
+               lib.gru_bwd_wide_smem, lib.gru_bwd_wide_blocks_per_sm, lib.gru_dw, lib.gru_reduce,
+               lib.gru_dw_tiles, lib.gru_dw_stages, *sizes):
+        fn.restype = i
+    for fn in sizes:
+        fn.argtypes = []
+    if lib.gru_max_hidden() != MAX_HIDDEN:
+        raise RuntimeError("fused GRU library was built for other hidden sizes")
+    if any(lib.gru_fwd_wide_smem(T, MAX_HIDDEN, rows) != wide_forward_smem(T, MAX_HIDDEN, rows)
+           for T in (1, 2) for rows in (16, 32, 64)):
+        raise RuntimeError("fused GRU library sizes the wide forward's shared memory otherwise")
+    if any(lib.gru_bwd_wide_smem(H, rows) != wide_backward_smem(H, rows)
+           for H in (256, MAX_HIDDEN) for rows in WIDE_BWD_COST):
+        raise RuntimeError("fused GRU library sizes the wide backward's shared memory otherwise")
+    if (lib.gru_dw_chunk(), lib.gru_dw_smem()) != (DW_CHUNK, DW_SMEM) or any(
+            lib.gru_dw_tiles(H) != dw_tiles(H) or lib.gru_dw_stages(T, B) != dw_stages(T, B)
+            for H in (RESIDENT_HIDDEN, 384, MAX_HIDDEN) for T, B in ((1, 100), (121, 256), (9, 77))):
+        raise RuntimeError("fused GRU library tiles the weight gradient otherwise")
 
 
 def _dims(gi):
@@ -401,21 +313,9 @@ def _dims(gi):
     return G, T, B, H
 
 
-def _stream(device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-
-
-def _ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
 # ---------------------------------------------------------------------------
 # Kernel wrappers (CUDA tensors only)
 # ---------------------------------------------------------------------------
-
-
-def _sms() -> int:
-    return torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
 
 
 def forward_blocks_per_group(G: int, B: int, rows: int) -> int:
@@ -424,7 +324,7 @@ def forward_blocks_per_group(G: int, B: int, rows: int) -> int:
     group, each walking tiles of `rows` rows. Small tiles let a short batch
     (the update shape, G=2 B=1024: 128 tiles of 16) spread its serial chains
     over the card."""
-    return max(1, min(-(-B // rows), _sms() // G))
+    return max(1, min(-(-B // rows), kernel_lib.sms() // G))
 
 
 def wide_forward_smem(T: int, H: int, rows: int) -> int:
@@ -506,7 +406,7 @@ def gru_fwd_cuda(gi, w_hh, b_hh, h0, tiling=None):
     `wide_forward_tiling`'s choice for the wide forward (for measurements)."""
     G, T, B, H = _dims(gi)
     dev = gi.device
-    _check(
+    kernel_lib.check(
         {"gi": (gi, (G, T, B, 3 * H)), "w_hh": (w_hh, (G, H, 3 * H)),
          "b_hh": (b_hh, (G, 3 * H)), "h0": (h0, (G, B, H))},
         dev,
@@ -514,17 +414,18 @@ def gru_fwd_cuda(gi, w_hh, b_hh, h0, tiling=None):
     lib = _library()
     y = torch.empty((G, T, B, H), device=dev)
     hT = torch.empty((G, B, H), device=dev)
-    args = (_ptr(gi), _ptr(w_hh), _ptr(b_hh), _ptr(h0), _ptr(y), _ptr(hT), G, T, B, H)
+    args = (*map(kernel_lib.ptr, (gi, w_hh, b_hh, h0, y, hT)), G, T, B, H)
     wide = kernel_variant(H) == "wide"
     with torch.cuda.device(dev):
         if wide:
-            tile = tiling or wide_forward_tiling(G, T, B, H, _sms())
-            code = lib.gru_fwd_wide(*args, tile["rows"], tile["units"], _stream(dev))
+            tile = tiling or wide_forward_tiling(G, T, B, H, kernel_lib.sms())
+            code = lib.gru_fwd_wide(*args, tile["rows"], tile["units"], kernel_lib.stream(dev))
         else:
-            code = lib.gru_fwd(*args, forward_blocks_per_group(G, B, lib.gru_fwd_rows()), _stream(dev))
-    _raise_on(code, "gru_fwd_wide launch" if wide else "gru_fwd launch")
+            code = lib.gru_fwd(*args, forward_blocks_per_group(G, B, lib.gru_fwd_rows()), kernel_lib.stream(dev))
+    kernel_lib.raise_on(code, "gru_fwd_wide launch" if wide else "gru_fwd launch")
     profiling.count(LAUNCHES["fwd_wide" if wide else "fwd"])
-    _launched("gru_fwd_wide_kernel" if wide else "gru_fwd_kernel", {"y": y, "hT": hT}, G=G, T=T, B=B, H=H)
+    kernel_lib.launched("gru_fwd_wide_kernel" if wide else "gru_fwd_kernel", {"y": y, "hT": hT},
+                        G=G, T=T, B=B, H=H)
     return y, hT
 
 
@@ -535,7 +436,7 @@ def gru_bwd_cuda(gi, w_hh, b_hh, h0, y, dy, dhT, tiling=None):
     `wide_backward_tiling`'s choice for the wide backward (for measurements)."""
     G, T, B, H = _dims(gi)
     dev = gi.device
-    _check(
+    kernel_lib.check(
         {"gi": (gi, (G, T, B, 3 * H)), "w_hh": (w_hh, (G, H, 3 * H)),
          "b_hh": (b_hh, (G, 3 * H)), "h0": (h0, (G, B, H)), "y": (y, (G, T, B, H)),
          "dy": (dy, (G, T, B, H)), "dhT": (dhT, (G, B, H))},
@@ -545,19 +446,18 @@ def gru_bwd_cuda(gi, w_hh, b_hh, h0, y, dy, dhT, tiling=None):
     dgi = torch.empty_like(gi)
     dh0 = torch.empty_like(h0)
     dgh_n = torch.empty_like(y)
-    args = (_ptr(gi), _ptr(w_hh), _ptr(b_hh), _ptr(h0), _ptr(y), _ptr(dy), _ptr(dhT), _ptr(dgi),
-            _ptr(dh0), _ptr(dgh_n), G, T, B, H)
+    args = (*map(kernel_lib.ptr, (gi, w_hh, b_hh, h0, y, dy, dhT, dgi, dh0, dgh_n)), G, T, B, H)
     wide = kernel_variant(H) == "wide"
     with torch.cuda.device(dev):
         if wide:
-            tile = tiling or wide_backward_tiling(G, T, B, H, _sms())
-            code = lib.gru_bwd_wide(*args, tile["rows"], _stream(dev))
+            tile = tiling or wide_backward_tiling(G, T, B, H, kernel_lib.sms())
+            code = lib.gru_bwd_wide(*args, tile["rows"], kernel_lib.stream(dev))
         else:
-            code = lib.gru_bwd(*args, forward_blocks_per_group(G, B, lib.gru_fwd_rows()), _stream(dev))
-    _raise_on(code, "gru_bwd_wide launch" if wide else "gru_bwd launch")
+            code = lib.gru_bwd(*args, forward_blocks_per_group(G, B, lib.gru_fwd_rows()), kernel_lib.stream(dev))
+    kernel_lib.raise_on(code, "gru_bwd_wide launch" if wide else "gru_bwd launch")
     profiling.count(LAUNCHES["bwd_wide" if wide else "bwd"])
-    _launched("gru_bwd_wide_kernel" if wide else "gru_bwd_kernel", {"dgi": dgi, "dh0": dh0, "dgh_n": dgh_n},
-              G=G, T=T, B=B, H=H)
+    kernel_lib.launched("gru_bwd_wide_kernel" if wide else "gru_bwd_kernel",
+                        {"dgi": dgi, "dh0": dh0, "dgh_n": dgh_n}, G=G, T=T, B=B, H=H)
     return dgi, dh0, dgh_n
 
 
@@ -612,23 +512,22 @@ def gru_dw_cuda(h0, y, dgi, dgh_n, stages=None):
     choice (for measurements)."""
     G, T, B, H = _dims(dgi)
     dev = dgi.device
-    _check(
+    kernel_lib.check(
         {"h0": (h0, (G, B, H)), "y": (y, (G, T, B, H)), "dgi": (dgi, (G, T, B, 3 * H)),
          "dgh_n": (dgh_n, (G, T, B, H))},
         dev,
     )
     lib = _library()
-    spb = stages or dw_tiling(G, T, B, H, _sms())["stages"]
+    spb = stages or dw_tiling(G, T, B, H, kernel_lib.sms())["stages"]
     P, rows = -(-dw_stages(T, B) // spb), spb * DW_CHUNK
     partials = torch.empty((G, P, H * 3 * H + 3 * H), device=dev)
     with torch.cuda.device(dev):
         code = lib.gru_dw(
-            _ptr(h0), _ptr(y), _ptr(dgi), _ptr(dgh_n), _ptr(partials), G, T, B, H, P, rows,
-            _stream(dev),
+            *map(kernel_lib.ptr, (h0, y, dgi, dgh_n, partials)), G, T, B, H, P, rows, kernel_lib.stream(dev),
         )
-    _raise_on(code, "gru_dw launch")
+    kernel_lib.raise_on(code, "gru_dw launch")
     profiling.count(LAUNCHES["dw"])
-    _launched("gru_dw_kernel", {"partials": partials}, G=G, T=T, B=B, H=H)
+    kernel_lib.launched("gru_dw_kernel", {"partials": partials}, G=G, T=T, B=B, H=H)
     return partials
 
 
@@ -639,14 +538,14 @@ def reduce_partials_cuda(partials):
         raise ValueError(f"partials must be (G, P, E); got {tuple(partials.shape)}")
     G, P, E = partials.shape
     dev = partials.device
-    _check({"partials": (partials, (G, P, E))}, dev)
+    kernel_lib.check({"partials": (partials, (G, P, E))}, dev)
     lib = _library()
     out = torch.empty((G, E), device=dev)
     with torch.cuda.device(dev):
-        code = lib.gru_reduce(_ptr(partials), _ptr(out), G, P, E, _stream(dev))
-    _raise_on(code, "gru_reduce launch")
+        code = lib.gru_reduce(kernel_lib.ptr(partials), kernel_lib.ptr(out), G, P, E, kernel_lib.stream(dev))
+    kernel_lib.raise_on(code, "gru_reduce launch")
     profiling.count(LAUNCHES["reduce"])
-    _launched("gru_reduce_kernel", {"out": out}, G=G, P=P, E=E)
+    kernel_lib.launched("gru_reduce_kernel", {"out": out}, G=G, P=P, E=E)
     return out
 
 

@@ -25,7 +25,8 @@ split over the iteration's named ranges (the value-based family's
 `utils/profiling.SPANS`: `env/step` (the env steps inside the rollout, the
 rest of it being the policy), `dqn/sample` (the replay gather),
 `dqn/optimizer` (the clip and Adam), `gru/forward` and `gru/backward` (the
-GRU recurrence, in the rollout and the updates) and the host syncs
+GRU recurrence, in the rollout and the updates), `linear/dw` (the f32
+weight gradients of the backward, `ops/grouped_dw.py`) and the host syncs
 `sync/*`; the device's busy share, the GRU kernels' launches and time, the
 kernels with the most device time, and the peak device memory. From the
 host-span pass: `host_spans` (per span name and iteration: calls, host ms,
@@ -33,8 +34,10 @@ self ms less its child spans, and ms inside `sync/*` spans; a CUDA
 backward's spans are roots on the autograd engine's thread),
 `host_span_iteration_ms`, and the counters per iteration:
 `policy_steps_per_iter` (the rollout's steps run), `syncs_per_iter` (by
-name), `gru_calls_per_iter` (the recurrence's calls by direction and shape)
-and `gru_launches_per_iter`.
+name), `gru_calls_per_iter` (the recurrence's calls by direction and shape),
+`gru_launches_per_iter`, `linear_dw_calls_per_iter` (the f32 weight
+gradients by route, "kernel" or "cublas", and shape (G, K, M, N)) and
+`linear_launches_per_iter` (the weight gradient kernels' launches).
 
 The busy share is kernel time over the untraced iteration time: tracing
 slows the host's launch loop (`traced_iteration_ms`, and less so
@@ -71,7 +74,7 @@ from torch.autograd import DeviceType
 
 from codebase_tpu_torch.algos import ac, dqn, dqn_train
 from codebase_tpu_torch.config import load_config
-from codebase_tpu_torch.ops import fused_gru
+from codebase_tpu_torch.ops import fused_gru, grouped_dw
 from codebase_tpu_torch.parallel import mesh
 from codebase_tpu_torch.run import build_envs, check_divides, check_keys
 from codebase_tpu_torch.utils import profiling
@@ -298,6 +301,7 @@ def _profile(cfg, name, shard) -> dict:
         host_span_seconds = run(traced_iters)["seconds"]
     counts = profiling.counters()
     launches = fused_gru.launch_counts()
+    linear_launches = grouped_dw.launch_counts()
 
     if shard is not None:
         shard.times = {}  # each collective between device syncs, in the traced pass only
@@ -343,6 +347,11 @@ def _profile(cfg, name, shard) -> dict:
             for key, v in sorted(counts.items(), key=str) if isinstance(key, tuple) and key[0].startswith("gru/")
         ],
         "gru_launches_per_iter": {k: v / traced_iters for k, v in launches.items()},
+        "linear_dw_calls_per_iter": [
+            {"route": key[1], **dict(zip("GKMN", key[2])), "calls": v / traced_iters}
+            for key, v in sorted(counts.items(), key=str) if isinstance(key, tuple) and key[0] == "linear/dw"
+        ],
+        "linear_launches_per_iter": {k: v / traced_iters for k, v in linear_launches.items()},
         "peak_device_memory_gib": torch.cuda.max_memory_allocated(device) / 2**30 if on_gpu else None,
         "collective_ms_per_iter": collectives,
         **breakdown,

@@ -15,15 +15,17 @@ The counterpart of the JAX package's `utils/profiling.py`:
   spans of the same thread) and the time inside `sync/*` spans.
 - `count(name, n)`        — the counter registry (`counters()`,
   `reset_counters()`): the GRU kernels' launches (`ops/fused_gru.py`), the
-  recurrence's calls by shape, the rollout's policy steps, the host syncs
-  (`host_sync(name)`, a span that also counts).
+  recurrence's calls by shape, the f32 weight gradients by route and shape
+  and their kernels' launches (`ops/grouped_dw.py`), the rollout's policy
+  steps, the host syncs (`host_sync(name)`, a span that also counts).
 - `count_operations()`   — the operations and bytes of a region: what
   `torch.utils.flop_counter.FlopCounterMode` counts of PyTorch's ops, plus
-  the GRU kernels' operations, which the wrappers report from their shapes
-  (`ops/fused_gru.kernel_flops`): FlopCounterMode cannot see a `ctypes`
+  the hand-written kernels' operations (the GRU kernels' and the f32 weight
+  gradient's), which the wrappers report from their shapes
+  (`ops/kernel_lib.kernel_flops`): FlopCounterMode cannot see a `ctypes`
   launch; and the bytes of every dispatched op's tensor inputs and outputs
-  (views and ops that move no data count none) plus the GRU kernels'
-  (`ops/fused_gru.kernel_bytes`), the counterpart of XLA's "bytes
+  (views and ops that move no data count none) plus the kernels'
+  (`ops/kernel_lib.kernel_bytes`), the counterpart of XLA's "bytes
   accessed". `cost_analysis(fn, *a)` returns the counts of one call.
 - `device_memory_stats()` — `torch.cuda.memory_stats` of each visible GPU
   (`{}` on a machine without one).
@@ -52,6 +54,8 @@ from torch.profiler import ProfilerActivity, record_function
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
+from codebase_tpu_torch.ops import kernel_lib
+
 # every span the port opens, each read by `profile.py` (sub-ranges and host
 # spans) and named in PERF.md
 SPANS = (
@@ -59,7 +63,7 @@ SPANS = (
     "dqn/rollout", "dqn/reward_stream", "dqn/replay_add", "dqn/updates",
     "ac/rollout", "ac/reward_stream", "ac/update",
     # inside them (`profile.SUB_RANGES`)
-    "env/step", "dqn/sample", "dqn/optimizer", "gru/forward", "gru/backward",
+    "env/step", "dqn/sample", "dqn/optimizer", "gru/forward", "gru/backward", "linear/dw",
     # reads the host waits on the device for (`host_sync`), each also counted
     "sync/rollout_seed", "sync/early_exit", "sync/replay_filled", "sync/loss",
 )
@@ -252,32 +256,30 @@ def _bmm_flops(a_shape, b_shape, *_, out_shape=None, **kwargs) -> int:
 def count_operations():
     """Count the operations and bytes of the enclosed region; yields a dict
     whose `flops` (PyTorch's ops as `FlopCounterMode` counts them: matrix
-    products, convolutions, attention; plus the GRU kernels' operations),
-    `gru_kernel_flops` (those alone), `bytes` (`_ByteCounter`'s, plus the GRU
-    kernels' bytes) and `gru_kernel_bytes` (those alone) are filled in on
-    exit."""
+    products, convolutions, attention; plus the hand-written kernels'
+    operations: the GRU kernels' and the f32 weight gradient's),
+    `kernel_flops` (those alone), `bytes` (`_ByteCounter`'s, plus the
+    kernels' bytes) and `kernel_bytes` (those alone) are filled in on exit."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    from codebase_tpu_torch.ops import fused_gru
-
-    result = {"flops": 0.0, "gru_kernel_flops": 0.0, "bytes": 0.0, "gru_kernel_bytes": 0.0}
+    result = {"flops": 0.0, "kernel_flops": 0.0, "bytes": 0.0, "kernel_bytes": 0.0}
     bytes_mode = _ByteCounter()
     kernels = {"flops": 0.0, "bytes": 0.0}
     lock = threading.Lock()  # the backward's launches come from the autograd engine's thread
 
     def count(kernel, outputs, dims):
         with lock:
-            kernels["flops"] += fused_gru.kernel_flops(kernel, dims)
-            kernels["bytes"] += fused_gru.kernel_bytes(kernel, dims)
+            kernels["flops"] += kernel_lib.kernel_flops(kernel, dims)
+            kernels["bytes"] += kernel_lib.kernel_bytes(kernel, dims)
 
-    fused_gru.LAUNCH_OBSERVERS.append(count)
+    kernel_lib.LAUNCH_OBSERVERS.append(count)
     try:
         with FlopCounterMode(display=False, custom_mapping={torch.ops.aten.bmm: _bmm_flops}) as counter, \
                 bytes_mode:
             yield result
     finally:
-        fused_gru.LAUNCH_OBSERVERS.remove(count)
-    result["gru_kernel_flops"], result["gru_kernel_bytes"] = kernels["flops"], kernels["bytes"]
+        kernel_lib.LAUNCH_OBSERVERS.remove(count)
+    result["kernel_flops"], result["kernel_bytes"] = kernels["flops"], kernels["bytes"]
     result["flops"] = float(counter.get_total_flops()) + kernels["flops"]
     result["bytes"] = float(bytes_mode.bytes) + kernels["bytes"]
 

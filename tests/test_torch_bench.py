@@ -12,7 +12,7 @@ from codebase_tpu.config import load_config as jax_load_config
 from codebase_tpu.envs.factory import make_env as jax_make_env
 from codebase_tpu_torch import bench, bench_suite
 from codebase_tpu_torch.config import load_config
-from codebase_tpu_torch.ops import fused_gru
+from codebase_tpu_torch.ops import fused_gru, kernel_lib
 from codebase_tpu_torch.run import build_envs
 from codebase_tpu_torch.utils import profiling
 
@@ -158,10 +158,10 @@ def test_gru_launches_add_their_bytes_to_the_count():
         "gru_dw_kernel": K * H + K * H3 + weights,
     }
     for kernel, elements in want.items():
-        launch = profiling.cost_analysis(fused_gru._launched, kernel, {}, G=G, T=T, B=B, H=H)
-        assert launch["bytes"] == launch["gru_kernel_bytes"] == 4 * G * elements
+        launch = profiling.cost_analysis(kernel_lib.launched, kernel, {}, G=G, T=T, B=B, H=H)
+        assert launch["bytes"] == launch["kernel_bytes"] == 4 * G * elements
     assert fused_gru.kernel_bytes("gru_fwd_wide_kernel", dict(G=G, T=T, B=B, H=H)) == 4 * G * want["gru_fwd_kernel"]
-    launch = profiling.cost_analysis(fused_gru._launched, "gru_reduce_kernel", {}, G=G, P=5, E=7)
+    launch = profiling.cost_analysis(kernel_lib.launched, "gru_reduce_kernel", {}, G=G, P=5, E=7)
     assert launch["bytes"] == 4 * G * 6 * 7
     assert fused_gru.kernel_bytes("gru_backward", dict(G=G, T=T, B=B, H=H)) == 4 * G * (
         K * H3 + weights + 2 * B * H + 2 * K * H + K * H3 + weights + B * H)

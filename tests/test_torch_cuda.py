@@ -27,6 +27,7 @@ from codebase_tpu_torch.envs.factory import make_base_env
 from codebase_tpu_torch.envs.lbforaging import parse_lbf_name
 from codebase_tpu_torch.envs.vector import collect_episodes
 from codebase_tpu_torch.ops import fused_gru as fg
+from codebase_tpu_torch.ops import kernel_lib
 from codebase_tpu_torch.ops.running_stats import RunningMeanStd
 from codebase_tpu_torch.utils.device import resolve_device
 
@@ -133,8 +134,8 @@ def test_backward_is_deterministic_and_matches_its_plain_version(cuda_device, G,
 
 
 def _sass_functions(name):
-    tool = shutil.which("cuobjdump") or str(Path(fg._nvcc()).parent / "cuobjdump")
-    sass = subprocess.run([tool, "-sass", str(fg.build_library())], capture_output=True,
+    tool = shutil.which("cuobjdump") or str(Path(kernel_lib._nvcc()).parent / "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(kernel_lib.build_library())], capture_output=True,
                           text=True, check=True).stdout
     return [f for f in sass.split("Function : ")[1:] if name in f.splitlines()[0]]
 

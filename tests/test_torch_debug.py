@@ -23,7 +23,7 @@ from codebase_tpu.envs.factory import make_env as jax_make_env
 from codebase_tpu_torch.algos import ac, dqn
 from codebase_tpu_torch.config import load_config
 from codebase_tpu_torch.envs.factory import make_env
-from codebase_tpu_torch.ops import fused_gru
+from codebase_tpu_torch.ops import kernel_lib
 from codebase_tpu_torch.utils import debug
 from codebase_tpu_torch.utils.params import tree_leaves
 
@@ -137,11 +137,11 @@ def test_division_checks_raise_before_the_op():
 
 def test_kernel_outputs_are_scanned_only_in_debug_regions():
     nan = torch.full((2, 3), math.nan)
-    fused_gru._launched("gru_fwd_kernel", {"y": nan}, G=2, T=1, B=3, H=128)  # no region: no check, no sync
+    kernel_lib.launched("gru_fwd_kernel", {"y": nan}, G=2, T=1, B=3, H=128)  # no region: no check, no sync
     with debug.checks():
         with pytest.raises(FloatingPointError, match=r"gru_bwd_kernel wrote NaN into dgi \(2, 3\) \(G=2 T=1 B=3 H=128\)"):
-            fused_gru._launched("gru_bwd_kernel", {"dgi": nan}, G=2, T=1, B=3, H=128)
-        fused_gru._launched("gru_reduce_kernel", {"out": torch.zeros(2, 3)}, G=2, P=4, E=3)
+            kernel_lib.launched("gru_bwd_kernel", {"dgi": nan}, G=2, T=1, B=3, H=128)
+        kernel_lib.launched("gru_reduce_kernel", {"out": torch.zeros(2, 3)}, G=2, P=4, E=3)
     assert not debug.active()
 
 

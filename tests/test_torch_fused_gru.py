@@ -22,6 +22,7 @@ import torch
 from codebase_tpu.models.networks import gru_layer_init as jax_gru_layer_init
 from codebase_tpu.ops import fused_gru as jfg
 from codebase_tpu_torch.ops import fused_gru as fg
+from codebase_tpu_torch.ops import kernel_lib
 from codebase_tpu_torch.utils.params import params_from_numpy
 
 torch.set_num_threads(2)
@@ -92,7 +93,7 @@ def test_cpu_call_never_touches_the_kernel_library(monkeypatch):
         raise AssertionError("the kernel library was touched on a CPU call")
 
     monkeypatch.setattr(fg, "_library", boom)
-    monkeypatch.setattr(fg, "build_library", boom)
+    monkeypatch.setattr(kernel_lib, "build_library", boom)
     monkeypatch.setattr(fg, "FusedGRUSequence", boom)
     before = fg.launch_counts()
     t = [torch.tensor(a, requires_grad=True) for a in _inputs(2, 3, 8)[:4]]
@@ -181,7 +182,7 @@ def test_tf32_rounding_helper_keeps_ten_mantissa_bits():
 def test_forward_grid_fills_the_card(monkeypatch):
     """One block per SM holds W_hh, and no more blocks than 16-row tiles:
     the rollout shape walks 62 tiles a block, the update shape one."""
-    monkeypatch.setattr(fg, "_sms", lambda: 132)
+    monkeypatch.setattr(kernel_lib, "sms", lambda: 132)
     assert fg.forward_blocks_per_group(2, 65536, 16) == 66
     assert fg.forward_blocks_per_group(2, 1024, 16) == 64
     assert fg.forward_blocks_per_group(3, 1000, 16) == 44
@@ -440,11 +441,11 @@ def test_backward_grids_fill_the_card(monkeypatch, G, T, B):
     `rows` rows per tile of dW_hh (`dw_tiling`), every block with at least
     one stage, no more than DW_MAX_STAGES in one."""
     lib = _FakeLibrary()
-    monkeypatch.setattr(fg, "_sms", lambda: 132)
+    monkeypatch.setattr(kernel_lib, "sms", lambda: 132)
     monkeypatch.setattr(fg, "_library", lambda: lib)
-    monkeypatch.setattr(fg, "_check", lambda shapes, device: None)
-    monkeypatch.setattr(fg, "_stream", lambda device: None)
-    monkeypatch.setattr(fg, "_ptr", lambda t: None)
+    monkeypatch.setattr(kernel_lib, "check", lambda shapes, device: None)
+    monkeypatch.setattr(kernel_lib, "stream", lambda device: None)
+    monkeypatch.setattr(kernel_lib, "ptr", lambda t: None)
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
     gi = torch.empty((G, T, B, 3 * H), device="meta")
     y, h0 = torch.empty((G, T, B, H), device="meta"), torch.empty((G, B, H), device="meta")
@@ -467,11 +468,11 @@ def test_wide_forward_wrapper_launches_the_tiling(monkeypatch, G, T, B, hidden):
     split of `wide_forward_tiling` for the card's SM count, or the tiling
     it is given; it counts one wide launch."""
     lib = _FakeLibrary()
-    monkeypatch.setattr(fg, "_sms", lambda: 132)
+    monkeypatch.setattr(kernel_lib, "sms", lambda: 132)
     monkeypatch.setattr(fg, "_library", lambda: lib)
-    monkeypatch.setattr(fg, "_check", lambda shapes, device: None)
-    monkeypatch.setattr(fg, "_stream", lambda device: None)
-    monkeypatch.setattr(fg, "_ptr", lambda t: None)
+    monkeypatch.setattr(kernel_lib, "check", lambda shapes, device: None)
+    monkeypatch.setattr(kernel_lib, "stream", lambda device: None)
+    monkeypatch.setattr(kernel_lib, "ptr", lambda t: None)
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
     gi = torch.empty((G, T, B, 3 * hidden), device="meta")
     w, b = torch.empty((G, hidden, 3 * hidden), device="meta"), torch.empty((G, 3 * hidden), device="meta")
@@ -494,11 +495,11 @@ def test_wide_backward_wrapper_launches_the_tiling(monkeypatch, G, T, B, hidden)
     `wide_backward_tiling` for the card's SM count, or the tiling it is
     given; it counts one wide backward launch."""
     lib = _FakeLibrary()
-    monkeypatch.setattr(fg, "_sms", lambda: 132)
+    monkeypatch.setattr(kernel_lib, "sms", lambda: 132)
     monkeypatch.setattr(fg, "_library", lambda: lib)
-    monkeypatch.setattr(fg, "_check", lambda shapes, device: None)
-    monkeypatch.setattr(fg, "_stream", lambda device: None)
-    monkeypatch.setattr(fg, "_ptr", lambda t: None)
+    monkeypatch.setattr(kernel_lib, "check", lambda shapes, device: None)
+    monkeypatch.setattr(kernel_lib, "stream", lambda device: None)
+    monkeypatch.setattr(kernel_lib, "ptr", lambda t: None)
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
     gi = torch.empty((G, T, B, 3 * hidden), device="meta")
     w, b = torch.empty((G, hidden, 3 * hidden), device="meta"), torch.empty((G, 3 * hidden), device="meta")
@@ -605,11 +606,11 @@ def test_weight_gradient_split_at_every_hidden_size(monkeypatch, G, T, B, H_, P)
     update (j) 132 blocks a tile; at (x) the 196 tiles alone fill two waves.
     `stages` replaces the choice (for measurements)."""
     lib = _FakeLibrary()
-    monkeypatch.setattr(fg, "_sms", lambda: 132)
+    monkeypatch.setattr(kernel_lib, "sms", lambda: 132)
     monkeypatch.setattr(fg, "_library", lambda: lib)
-    monkeypatch.setattr(fg, "_check", lambda shapes, device: None)
-    monkeypatch.setattr(fg, "_stream", lambda device: None)
-    monkeypatch.setattr(fg, "_ptr", lambda t: None)
+    monkeypatch.setattr(kernel_lib, "check", lambda shapes, device: None)
+    monkeypatch.setattr(kernel_lib, "stream", lambda device: None)
+    monkeypatch.setattr(kernel_lib, "ptr", lambda t: None)
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
     gi = torch.empty((G, T, B, 3 * H_), device="meta")
     y, h0 = torch.empty((G, T, B, H_), device="meta"), torch.empty((G, B, H_), device="meta")

@@ -97,11 +97,11 @@ import torch, codebase_tpu_torch
 for m in pkgutil.walk_packages(codebase_tpu_torch.__path__, "codebase_tpu_torch."):
     importlib.import_module(m.name)
 from codebase_tpu_torch.models.multi_agent import MultiAgentNetwork
-from codebase_tpu_torch.ops import fused_gru
+from codebase_tpu_torch.ops import fused_gru, kernel_lib
 net = MultiAgentNetwork([7, 7], [128, 128], [4, 4], use_rnn=True)
 y, h = net(torch.zeros(2, 3, 5, 7))
 assert y.shape == (2, 3, 5, 4) and h.shape == (2, 1, 5, 128)
-assert fused_gru._lib is None and fused_gru.launch_counts() == {{"fwd": 0, "bwd": 0, "fwd_wide": 0, "bwd_wide": 0, "dw": 0, "reduce": 0}}
+assert kernel_lib._lib is None and fused_gru.launch_counts() == {{"fwd": 0, "bwd": 0, "fwd_wide": 0, "bwd_wide": 0, "dw": 0, "reduce": 0}}
 print("ok")
 """
     res = subprocess.run(

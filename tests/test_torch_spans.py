@@ -32,8 +32,8 @@ TINY = ["+algorithm=idqn", "env.name=lbforaging:Foraging-5x5-2p-1f-v3", "env.tim
         "algorithm.model.use_rnn=true", "algorithm.batch_size=2", "algorithm.buffer_size=8",
         "algorithm.training_start=0", "algorithm.updates_per_collect=2", "seed=0"]
 # the spans inside the iteration's ranges that this file holds to the card
-INNER = ("dqn/sample", "dqn/optimizer", "gru/forward", "gru/backward", "sync/rollout_seed", "sync/early_exit",
-         "sync/replay_filled", "sync/loss")
+INNER = ("dqn/sample", "dqn/optimizer", "gru/forward", "gru/backward", "linear/dw", "sync/rollout_seed",
+         "sync/early_exit", "sync/replay_filled", "sync/loss")
 
 
 @pytest.fixture(autouse=True)

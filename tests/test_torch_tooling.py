@@ -14,7 +14,7 @@ from codebase_tpu_torch import profile, run
 from codebase_tpu_torch.algos.registry import ALGORITHMS, get_algorithm, register_algorithm
 from codebase_tpu_torch.config import load_algorithm_preset
 from codebase_tpu_torch.models.networks import gru_layer_init
-from codebase_tpu_torch.ops import fused_gru
+from codebase_tpu_torch.ops import fused_gru, kernel_lib
 from codebase_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
@@ -60,12 +60,12 @@ def test_cost_analysis_counts_a_linear_and_a_gru_layer():
     recurrence = fused_gru.kernel_flops("gru_fwd_kernel", dict(G=G, T=T, B=B, H=H))
     # on the CPU the plain recurrence runs: FlopCounterMode counts its
     # per-step products, which are the forward kernel's operations
-    assert costs["flops"] == 2 * G * T * B * H * 3 * H + recurrence and costs["gru_kernel_flops"] == 0
+    assert costs["flops"] == 2 * G * T * B * H * 3 * H + recurrence and costs["kernel_flops"] == 0
     # a kernel launch (which FlopCounterMode cannot see) adds its own count
-    launch = profiling.cost_analysis(fused_gru._launched, "gru_bwd_kernel", {}, G=G, T=T, B=B, H=H)
-    assert launch["flops"] == launch["gru_kernel_flops"] == 2 * recurrence
+    launch = profiling.cost_analysis(kernel_lib.launched, "gru_bwd_kernel", {}, G=G, T=T, B=B, H=H)
+    assert launch["flops"] == launch["kernel_flops"] == 2 * recurrence
     assert fused_gru.kernel_flops("gru_reduce_kernel", dict(G=2, P=5, E=7)) == 2 * 4 * 7
-    assert fused_gru.LAUNCH_OBSERVERS == [fused_gru.debug.check_kernel]  # the counter is gone again
+    assert kernel_lib.LAUNCH_OBSERVERS == [kernel_lib.debug.check_kernel]  # the counter is gone again
 
 
 def test_rnn_kernel_bench_runs_on_the_cpu():
