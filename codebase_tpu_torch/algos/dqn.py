@@ -286,9 +286,13 @@ class DQNModel(nn.Module):
                 # states: each unit's agents' obs concatenated -> (U, T+1, B, N*D)
                 states = obss.reshape((U, N) + obss.shape[1:]).permute(0, 2, 3, 1, 4).reshape(U, T + 1, B, -1)
                 lead = (U,) if U > 1 else ()
-                chosen_tot = self.mixer(chosen.reshape(U * N, T, B), states[:, :-1].reshape(lead + (T, B, -1)))
+                mixer_call = ("qmix/mixer", (U, T * B, states.shape[-1]))
+                with profiling.span("qmix/mixer"):
+                    profiling.count(mixer_call)
+                    chosen_tot = self.mixer(chosen.reshape(U * N, T, B), states[:, :-1].reshape(lead + (T, B, -1)))
                 chosen_tot = chosen_tot.reshape(U, T, B)
-                with torch.no_grad():
+                with torch.no_grad(), profiling.span("qmix/mixer"):
+                    profiling.count(mixer_call)
                     target_tot = target.mixer(target_qs.reshape(U * N, T, B),
                                               states[:, 1:].reshape(lead + (T, B, -1))).reshape(U, T, B)
             with torch.no_grad():

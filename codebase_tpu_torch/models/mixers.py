@@ -11,6 +11,16 @@ torch-default Linear init U(+-sqrt(1/fan_in)) from the caller's generator.
 Given one generator per unit of a sweep, every leaf takes a leading unit
 axis (unit u's weights drawn from its own generator, as a one-unit mixer
 draws them) and the hypernetworks run as products batched over the units.
+
+Every product runs on the port's grouped f32 path (`networks.linear`, so
+`ops/matmul.grouped_matmul`: on the card the weight gradients go to
+`ops/grouped_dw`'s split-K kernels), with the units (one without a sweep)
+as the group axis. The four layers that read the state (`hyper_w_1[0]`,
+`hyper_w_final[0]`, `hyper_b_1`, `v[0]`) run as ONE product of the state
+with their weights side by side, formed at call time: the state, the
+widest input by far (N * obs wide over T * B rows), is read once in the
+forward and once in the weight gradient, and autograd splits the gradient
+back onto the four leaves.
 """
 
 from __future__ import annotations
@@ -19,13 +29,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from codebase_tpu_torch.models.networks import linear_init
+from codebase_tpu_torch.models.networks import linear, linear_init
 from codebase_tpu_torch.utils.params import load_tree, module_to_tree, stack_trees, tree_to_module
 
 
-def _linear(params, x):
-    """x (..., in) or (U, K, in) with a unit axis on the params."""
-    return x @ params["w"] + params["b"].unsqueeze(-2)
+def _grouped(leaf, n_units: int):
+    """A leaf with its unit axis: as held for a sweep's units, else (1, ...)."""
+    return leaf if n_units > 1 else leaf.unsqueeze(0)
 
 
 class QMixer(nn.Module):
@@ -74,12 +84,14 @@ class QMixer(nn.Module):
     def load_params(self, tree) -> None:
         load_tree(self.param_tree(), tree)
 
-    @staticmethod
-    def _hyper(layers, x):
-        x = _linear(layers[0], x)
-        if len(layers) == 2:
-            x = _linear(layers[1], torch.relu(x))
-        return x
+    def _linear(self, layer, x):
+        """x (U, K, in) -> (U, K, out) through one Linear of the tree."""
+        U = self.n_units
+        return linear(x, _grouped(layer["w"], U), _grouped(layer["b"], U))
+
+    def _hyper_rest(self, layers, x):
+        """A hypernetwork past its first layer (already applied to the state)."""
+        return self._linear(layers[1], torch.relu(x)) if len(layers) == 2 else x
 
     def forward(self, agent_qs, states):
         """agent_qs (N, T, B) per-agent chosen values, states (T, B, S) ->
@@ -87,13 +99,18 @@ class QMixer(nn.Module):
         (U, T, B, S) -> (U, T, B)."""
         p = self.param_tree()
         U, N, E = self.n_units, self.n_agents, self.embed_dim
-        lead = (U,) if U > 1 else ()
         T, B, S = states.shape[-3:]
-        x = states.reshape(lead + (T * B, S))
-        qs = agent_qs.reshape(U, N, T * B).transpose(1, 2).reshape(lead + (T * B, N))
-        w1 = self._hyper(p["hyper_w_1"], x).abs().reshape(lead + (T * B, N, E))
-        b1 = _linear(p["hyper_b_1"], x)  # (..., T*B, E)
-        hidden = F.elu(torch.einsum("...kn,...kne->...ke", qs, w1) + b1)
-        w_final = self._hyper(p["hyper_w_final"], x).abs()  # (..., T*B, E)
-        v = _linear(p["v"][1], torch.relu(_linear(p["v"][0], x)))  # (..., T*B, 1)
-        return (torch.einsum("...ke,...ke->...k", hidden, w_final) + v[..., 0]).reshape(lead + (T, B))
+        K = T * B
+        x = states.reshape(U, K, S)
+        qs = agent_qs.reshape(U, N, K).transpose(1, 2)  # (U, K, N)
+        # the four layers that read the state, as one product
+        first = (p["hyper_w_1"][0], p["hyper_w_final"][0], p["hyper_b_1"], p["v"][0])
+        w = torch.cat([_grouped(layer["w"], U) for layer in first], -1)
+        b = torch.cat([_grouped(layer["b"], U) for layer in first], -1)
+        h_w1, h_wf, b1, h_v = linear(x, w, b).split([layer["w"].shape[-1] for layer in first], -1)
+        w1 = self._hyper_rest(p["hyper_w_1"], h_w1).abs().reshape(U, K, N, E)
+        hidden = F.elu(torch.einsum("ukn,ukne->uke", qs, w1) + b1)
+        w_final = self._hyper_rest(p["hyper_w_final"], h_wf).abs()  # (U, K, E)
+        v = self._linear(p["v"][1], torch.relu(h_v))  # (U, K, 1)
+        q_tot = torch.einsum("uke,uke->uk", hidden, w_final) + v[..., 0]
+        return q_tot.reshape((U, T, B) if U > 1 else (T, B))

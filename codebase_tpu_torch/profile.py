@@ -26,9 +26,10 @@ split over the iteration's named ranges (the value-based family's
 rest of it being the policy), `dqn/sample` (the replay gather),
 `dqn/optimizer` (the clip and Adam), `gru/forward` and `gru/backward` (the
 GRU recurrence, in the rollout and the updates), `linear/dw` (the f32
-weight gradients of the backward, `ops/grouped_dw.py`) and the host syncs
-`sync/*`; the device's busy share, the GRU kernels' launches and time, the
-kernels with the most device time, and the peak device memory. From the
+weight gradients of the backward, `ops/grouped_dw.py`), `qmix/mixer` (the
+QMIX mixer's forward, online and target) and the host syncs `sync/*`; the
+device's busy share, the GRU kernels' launches and time, the kernels with
+the most device time, and the peak device memory. From the
 host-span pass: `host_spans` (per span name and iteration: calls, host ms,
 self ms less its child spans, and ms inside `sync/*` spans; a CUDA
 backward's spans are roots on the autograd engine's thread),
@@ -36,8 +37,10 @@ backward's spans are roots on the autograd engine's thread),
 `policy_steps_per_iter` (the rollout's steps run), `syncs_per_iter` (by
 name), `gru_calls_per_iter` (the recurrence's calls by direction and shape),
 `gru_launches_per_iter`, `linear_dw_calls_per_iter` (the f32 weight
-gradients by route, "kernel" or "cublas", and shape (G, K, M, N)) and
-`linear_launches_per_iter` (the weight gradient kernels' launches).
+gradients by route, "kernel" or "cublas", and shape (G, K, M, N)),
+`linear_launches_per_iter` (the weight gradient kernels' launches) and
+`mixer_calls_per_iter` (the QMIX mixer's calls by shape (U, K, S): units,
+rows, state width).
 
 The busy share is kernel time over the untraced iteration time: tracing
 slows the host's launch loop (`traced_iteration_ms`, and less so
@@ -352,6 +355,10 @@ def _profile(cfg, name, shard) -> dict:
             for key, v in sorted(counts.items(), key=str) if isinstance(key, tuple) and key[0] == "linear/dw"
         ],
         "linear_launches_per_iter": {k: v / traced_iters for k, v in linear_launches.items()},
+        "mixer_calls_per_iter": [
+            {**dict(zip("UKS", key[1])), "calls": v / traced_iters}
+            for key, v in sorted(counts.items(), key=str) if isinstance(key, tuple) and key[0] == "qmix/mixer"
+        ],
         "peak_device_memory_gib": torch.cuda.max_memory_allocated(device) / 2**30 if on_gpu else None,
         "collective_ms_per_iter": collectives,
         **breakdown,

@@ -16,8 +16,9 @@ The counterpart of the JAX package's `utils/profiling.py`:
 - `count(name, n)`        — the counter registry (`counters()`,
   `reset_counters()`): the GRU kernels' launches (`ops/fused_gru.py`), the
   recurrence's calls by shape, the f32 weight gradients by route and shape
-  and their kernels' launches (`ops/grouped_dw.py`), the rollout's policy
-  steps, the host syncs (`host_sync(name)`, a span that also counts).
+  and their kernels' launches (`ops/grouped_dw.py`), the QMIX mixer's
+  calls by shape (`algos/dqn.py`), the rollout's policy steps, the host
+  syncs (`host_sync(name)`, a span that also counts).
 - `count_operations()`   — the operations and bytes of a region: what
   `torch.utils.flop_counter.FlopCounterMode` counts of PyTorch's ops, plus
   the hand-written kernels' operations (the GRU kernels' and the f32 weight
@@ -63,7 +64,7 @@ SPANS = (
     "dqn/rollout", "dqn/reward_stream", "dqn/replay_add", "dqn/updates",
     "ac/rollout", "ac/reward_stream", "ac/update",
     # inside them (`profile.SUB_RANGES`)
-    "env/step", "dqn/sample", "dqn/optimizer", "gru/forward", "gru/backward", "linear/dw",
+    "env/step", "dqn/sample", "dqn/optimizer", "gru/forward", "gru/backward", "linear/dw", "qmix/mixer",
     # reads the host waits on the device for (`host_sync`), each also counted
     "sync/rollout_seed", "sync/early_exit", "sync/replay_filled", "sync/loss",
 )

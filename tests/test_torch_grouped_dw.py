@@ -36,6 +36,11 @@ PRODUCTS = ((15, 128), (128, 384), (128, 6))
 CELL_K = (106_496, 212_992)
 # portbench's limit on a leaf's gradient gap (portbench/configs/idqn_rnn_lbf.json)
 GRAD_GAP = 1.5e-4
+# the QMIX mixer's products an update of the MMM2 cell (M, N), at K = T B =
+# 102,400 rows: the four state layers as one (1,660 x their 32 + 32 + 64 +
+# 64), hyper_w_1's second layer, hyper_w_final's, the value head's last
+MIXER_PRODUCTS = ((1660, 192), (32, 640), (32, 64), (64, 1))
+MIXER_K = 102_400
 
 
 @pytest.fixture(autouse=True)
@@ -66,6 +71,29 @@ def test_route_is_a_function_of_the_shape_alone():
         False, True, True, False]
 
 
+def test_the_lbf_cells_keep_their_launches():
+    """The LBF cells' three products keep the route, variant, tile and split
+    of K they were measured with (an H100's 132 SMs)."""
+    launches = {(K, M, N): (gd.dw_route(2, K, M, N), *(gd.grouped_dw_tiling(2, K, M, N, 132)[k]
+                                                       for k in ("variant", "tile", "P")))
+                for K in CELL_K for M, N in PRODUCTS}
+    assert launches == {
+        (106_496, 15, 128): ("kernel", "ffma", (16, 128), 196), (106_496, 128, 384): ("kernel", "wgmma", (128, 192), 33),
+        (106_496, 128, 6): ("kernel", "ffma", (128, 8), 196), (212_992, 15, 128): ("kernel", "ffma", (16, 128), 196),
+        (212_992, 128, 384): ("kernel", "wgmma", (128, 192), 33), (212_992, 128, 6): ("kernel", "ffma", (128, 8), 196)}
+
+
+def test_every_weight_gradient_of_the_mmm2_update_takes_the_kernels():
+    """QMIX on MMM2 at the cell's batch: the critic's three products (G=10
+    unshared agents, K = (T+1) B = 103,424) and the mixer's four (G=1, or a
+    sweep's units) are all routed to the kernels, none to cuBLAS."""
+    critic = [(10, 101 * 1024, M, N) for M, N in ((166, 128), (128, 384), (128, 18))]
+    mixer = [(G, MIXER_K, M, N) for G in (1, 2) for M, N in MIXER_PRODUCTS]
+    assert {gd.dw_route(*shape) for shape in critic + mixer} == {"kernel"}
+    # the state product's last row tile is partial: 1,660 = 12 x 128 + 124
+    assert gd.grouped_dw_tiling(1, MIXER_K, 1660, 192, 132)["tiles"] == 13
+
+
 @pytest.mark.parametrize("G,K,M,N", [(2, 212_992, 15, 128), (2, 212_992, 128, 384), (2, 106_496, 128, 6),
                                      (1, 1_000_000, 128, 384), (64, 832, 128, 384), (10, 30_000, 512, 1536)])
 def test_partials_stay_under_their_bound_and_split_k_whole(G, K, M, N):
@@ -91,7 +119,7 @@ def test_cpu_product_never_touches_the_kernel_library(monkeypatch):
 
 
 @pytest.mark.parametrize("G,K,M,N", [(2, 1017, 15, 128), (2, 2049, 128, 6), (1, 700, 128, 384), (3, 333, 30, 7),
-                                     (2, 5000, 132, 200), (2, 97, 384, 15)])
+                                     (2, 5000, 132, 200), (2, 97, 384, 15), (1, 1000, 1660, 192), (2, 999, 32, 640)])
 @pytest.mark.parametrize("rows", [None, 32, 96])
 def test_plain_split_and_sum_equal_xt_dy(G, K, M, N, rows):
     """K ragged against every split; M and N edges of 15, 6 and 384 against
@@ -206,6 +234,27 @@ def test_kernels_keep_f32_precision(cuda_device, kernel):
     else:
         products = [line for line in lines if re.search(r"\b[HIDQ]G?MMA\b", line)]
         assert any("FFMA" in line for line in lines) and not products, products[:4]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("M,N", MIXER_PRODUCTS)
+def test_mixer_shapes_match_plain_and_f64(cuda_device, G, M, N):
+    """The mixer's products at the MMM2 cell's K (G=1, and a sweep's two
+    units): routed to the kernels and counted so; the partial last row tile
+    of 1,660 and the tiles past 32 rows and 640 columns written only where
+    dW is; within 1e-4 of the largest entry of an f64 x^T dy, as above, and
+    of the plain split and sum at the same tiling."""
+    x, dy = _inputs(G, MIXER_K, M, N, seed=7, device=cuda_device)
+    got = gd.weight_gradient(x, dy)
+    tiling = gd.grouped_dw_tiling(G, MIXER_K, M, N, kernel_lib.sms())
+    _, plain = gd.grouped_dw_plain(x, dy, tiling)
+    torch.cuda.synchronize()
+    assert profiling.counters()[("linear/dw", "kernel", (G, MIXER_K, M, N))] == 1
+    ref = torch.bmm(x.double().transpose(1, 2), dy.double())
+    scale = ref.abs().max().item()
+    torch.testing.assert_close(got.double(), ref, rtol=0, atol=1e-4 * scale)
+    torch.testing.assert_close(got, plain, rtol=0, atol=1e-4 * scale)
 
 
 def _leaf_gaps(got, ref):

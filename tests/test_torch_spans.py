@@ -184,7 +184,29 @@ def test_every_span_is_declared_and_opened():
     assert opened == set(profiling.SPANS)
     assert len(profiling.SPANS) == len(set(profiling.SPANS))
     assert ranges == ["utils/profiling.py"]
-    assert set(profile.SUB_RANGES) == set(INNER) | {"env/step"}
+    # the mixer's span is QMIX's alone: the IDQN iteration of the card test below opens none
+    assert set(profile.SUB_RANGES) == set(INNER) | {"env/step", "qmix/mixer"}
+
+
+def test_mixer_span_and_counter_twice_an_update():
+    """A QMIX update opens `qmix/mixer` twice, around the online and the
+    target mixer, each counted as ("qmix/mixer", (U, T*B, S))."""
+    assert "qmix/mixer" in profiling.SPANS
+    T, B, updates = 5, 2, 2
+    argv = ["+algorithm=qmix", "env.name=lbforaging:Foraging-5x5-2p-1f-v3", f"env.time_limit={T}",
+            "env.parallel_envs=4", "algorithm.model.use_rnn=true", f"algorithm.batch_size={B}",
+            "algorithm.buffer_size=8", "algorithm.training_start=0", f"algorithm.updates_per_collect={updates}",
+            "seed=0", "device=cpu"]
+    cfg = load_config(argv)
+    env, eval_env = build_envs(cfg)
+    cfg.algorithm.parallel_envs = int(cfg.env.parallel_envs)
+    init_state, train_iteration, _ = dqn.build_train_functions(env, eval_env, cfg.algorithm, T, torch.device("cpu"))
+    state = init_state(0)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        dqn_train.read_loss(train_iteration(state))
+    assert sum(e.name == "qmix/mixer" for e in prof.events()) == 2 * updates
+    mixer_calls = {k: n for k, n in profiling.counters().items() if isinstance(k, tuple) and k[0] == "qmix/mixer"}
+    assert mixer_calls == {("qmix/mixer", (1, T * B, sum(env.obs_dims))): 2 * updates}
 
 
 @pytest.mark.cuda
