@@ -63,6 +63,12 @@ exits non-zero:
              128 x 6; G=2, K = 26 x 4096 and 26 x 8192): against an f64
              x^T dy, two calls bitwise equal, and device ms beside the
              bound, the plain version, `torch.bmm` f32 and P.
+3c. grouped_mm — the f32 Linear's product kernels (`ops/grouped_mm.py`) at
+             the cells' forward and input-gradient products as routed
+             (`MM_PRODUCTS`): against an f64 x @ B + b, two calls bitwise
+             equal, and device ms beside the bound, the plain version and
+             `torch.bmm` f32 with the add; `import chip_smoke;
+             chip_smoke.grouped_mm_phase(smi, peaks)` runs it alone.
 Then fourteen train phases through `codebase_tpu_torch.run.main`, each with
 the counters (`utils/profiling`'s registry: the GRU kernels' launches, the
 f32 weight gradients' calls by route and shape and their kernels' launches)
@@ -75,7 +81,12 @@ iteration, as before the chunk rule):
                  (b) and (o); the update's three f32 weight gradients
                  (K = 26 x 1024) exactly 3 an update on the kernel route and
                  none to cuBLAS, one weight gradient kernel a call and a
-                 reduction for each whose split is more than one, counted.
+                 reduction for each whose split is more than one, counted;
+                 the f32 Linear's products (`check_linear_mm`): 6 forwards
+                 and 2 input gradients an update, each on the route
+                 `grouped_mm.mm_route` gives its shape, one `grouped_mm`
+                 launch a kernel-routed product, and the kernels against
+                 their plain version at every kernel-routed shape counted.
 5. train_qmix  — the QMIX preset (CooperativeReward) with reward
                  standardisation, the recurrent critic shared by the 3 agents
                  of lbforaging:Foraging-10x10-3p-3f-v3 (the kernels at G=3),
@@ -226,9 +237,10 @@ batch 1024) unless said:
                  caller's thread and on others (the autograd engine's).
 34. debug_nan    — under debug, a poisoned W_hh entry raises naming
                  gru_fwd_kernel, a NaN dy given to `gru_backward_cuda` at (b)
-                 names gru_bwd_kernel, a poisoned first-layer weight names an
-                 aten op, and an out-of-range gather raises IndexError before
-                 its launch (the card runs on after it).
+                 names gru_bwd_kernel, a poisoned first-layer weight names the
+                 product that reads it (grouped_mm_kernel on the kernel route,
+                 else an aten op), and an out-of-range gather raises
+                 IndexError before its launch (the card runs on after it).
 35. trace_idqn_rnn — 2 iterations with `trace_dir`: the trace parses and
                  holds the four GRU kernels' events and the ranges
                  dqn/rollout, dqn/updates and env/step; its bytes.
@@ -334,6 +346,7 @@ from codebase_tpu_torch.algos.common import unit_values  # noqa: E402
 from codebase_tpu_torch.envs import vector as port_vector  # noqa: E402
 from codebase_tpu_torch.ops import fused_gru as fg  # noqa: E402
 from codebase_tpu_torch.ops import grouped_dw as gd  # noqa: E402
+from codebase_tpu_torch.ops import grouped_mm as gm  # noqa: E402
 from codebase_tpu_torch.ops import kernel_lib  # noqa: E402
 from codebase_tpu_torch.ops.replay import batch_to_reference_layout, replay_sample_many  # noqa: E402
 from codebase_tpu_torch.ops.running_stats import RunningMeanStd  # noqa: E402
@@ -699,6 +712,65 @@ def grouped_dw_phase(smi, peaks) -> dict:
     return {"phase": "grouped_dw", "card": smi, "rows": rows}
 
 
+# the f32 Linear's forward and input-gradient products (`ops/grouped_mm.py`)
+# of the benchmark cells, (G, R, K, N, direction): the LBF replay32 update's
+# (R = 26 x 8192) and the collect's rollout step (R = 524,288 envs), the MMM2
+# update's (G=10, R = 101 x 1024) and the mixer's state product
+MM_PRODUCTS = {
+    "idqn_rnn_lbf.replay32": [(2, 212_992, 15, 128, "fwd"), (2, 212_992, 128, 384, "fwd"), (2, 212_992, 128, 6, "fwd"),
+                              (2, 212_992, 384, 128, "dx"), (2, 212_992, 6, 128, "dx")],
+    "idqn_rnn_lbf.collect": [(2, 524_288, 15, 128, "fwd"), (2, 524_288, 128, 384, "fwd"), (2, 524_288, 128, 6, "fwd")],
+    "qmix_rnn_mmm2.replay32": [(10, 103_424, 166, 128, "fwd"), (10, 103_424, 128, 384, "fwd"),
+                               (10, 103_424, 128, 18, "fwd"), (10, 103_424, 384, 128, "dx"),
+                               (10, 103_424, 18, 128, "dx"), (1, 102_400, 1660, 192, "fwd")],
+}
+
+
+def grouped_mm_phase(smi, peaks) -> dict:
+    """The product kernels at each cell's products, as routed: against an
+    f64 x @ B + b (1e-4 of the largest entry), two calls bitwise equal;
+    device ms beside the bound (3xTF32 operations at the TF32 peak, or x, B,
+    b and y's bytes at the HBM rate: `linear_mm_roofline`'s rule), the plain
+    version (`grouped_mm_plain`) and `torch.bmm` f32 with the add, as the
+    cuBLAS route runs them. The launches are counted in the train phases
+    (`check_linear_mm`)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rows = []
+    for cell, products in MM_PRODUCTS.items():
+        for G, R, K, N, direction in products:
+            trans = direction == "dx"
+            x = torch.randn((G, R, K), device=dev, generator=gen)
+            w = torch.randn((G, N, K) if trans else (G, K, N), device=dev, generator=gen) / K ** 0.5
+            b = None if trans else torch.randn((G, N), device=dev, generator=gen)
+            B = w.transpose(1, 2) if trans else w
+            route = gm.mm_route(G, R, K, N)
+            row = {"cell": cell, "direction": direction, "G": G, "R": R, "K": K, "N": N, "route": route,
+                   "library_ms": time_ms(lambda: torch.bmm(x, B) if b is None else torch.bmm(x, B) + b[:, None]),
+                   "library": "torch.bmm f32 (allow_tf32 False), then the broadcast add: cuBLAS"}
+            if route == "kernel":
+                got, again = gm.grouped_mm_cuda(x, w, b, trans), gm.grouped_mm_cuda(x, w, b, trans)
+                ref = torch.bmm(x.double(), B.double()) + (0 if b is None else b.double()[:, None])
+                torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    raise AssertionError(f"grouped_mm at {cell} {direction} {(K, N)}: two calls differ")
+                err = (got.double() - ref).abs().max().item() / ref.abs().max().item()
+                if err > 1e-4:
+                    raise AssertionError(f"grouped_mm at {cell} {direction} {(K, N)}: error {err:.3e}")
+                t_ops = 3 * gm.kernel_flops("grouped_mm_kernel", dict(G=G, R=R, K=K, N=N)) / peaks["tf32_flops"]
+                t_bytes = gm.kernel_bytes("grouped_mm_kernel", dict(G=G, R=R, K=K, N=N)) / peaks["hbm_bytes_per_s"]
+                ms = time_ms(lambda: gm.grouped_mm_cuda(x, w, b, trans))
+                row.update(tiling=gm.mm_tiling(G, R, K, N, kernel_lib.sms()), err_over_max=err, ms=ms,
+                           bound_ms=max(t_ops, t_bytes) * 1e3, bound_by="bytes" if t_bytes >= t_ops else "operations",
+                           roofline_pct=100 * max(t_ops, t_bytes) * 1e3 / ms,
+                           plain_ms=time_ms(lambda: gm.grouped_mm_plain(x, w, b, trans), reps=5))
+                del ref, got, again
+            rows.append(row)
+            del x, w, b, B
+            torch.cuda.empty_cache()
+    return {"phase": "grouped_mm", "card": smi, "rows": rows}
+
+
 def train_phase(phase, smi, argv, E, iters, per_iteration, T=25, dw_per_update=None):
     """Train through `codebase_tpu_torch.run.main` on the card for at least
     `iters` iterations of E envs (exactly `iters` when every episode runs
@@ -731,8 +803,11 @@ def train_phase(phase, smi, argv, E, iters, per_iteration, T=25, dw_per_update=N
         rows, state = port_run.main(argv)
         counts = fg.launch_counts()
         linear_launches = gd.launch_counts()
+        mm_launches = gm.launch_counts()
         dw_calls = {key[1:]: n for key, n in profiling.counters().items()
                     if isinstance(key, tuple) and key[0] == "linear/dw"}
+        mm_calls = {key: n for key, n in profiling.counters().items()
+                    if isinstance(key, tuple) and key[0] in gm.COUNTERS}
         torch.cuda.synchronize()
         RUNS[phase] = (argv[:-1], rows)
     ran = len(state.timings)
@@ -748,8 +823,12 @@ def train_phase(phase, smi, argv, E, iters, per_iteration, T=25, dw_per_update=N
     for k, v in counts.items():
         if v < per_iteration.get(k, 0) * ran or (k not in per_iteration and v):
             raise AssertionError(f"{phase}: launches {counts} over {ran} iterations; expected {per_iteration}")
+    mm_checked = None
     if dw_per_update is not None:
-        check_linear_dw(phase, dw_calls, linear_launches, int(unit_values(state.updates, 1)[0]), dw_per_update)
+        updates = int(unit_values(state.updates, 1)[0])
+        check_linear_dw(phase, dw_calls, linear_launches, updates, dw_per_update)
+        mm_checked = check_linear_mm(phase, mm_calls, mm_launches, updates, dx_per_update=dw_per_update - 1,
+                                     fwd_per_update=2 * dw_per_update)
     steady = state.timings[1:]
     emit({
         "phase": phase, "card": smi, "argv": argv[:-1],
@@ -761,6 +840,13 @@ def train_phase(phase, smi, argv, E, iters, per_iteration, T=25, dw_per_update=N
         "linear_dw_calls": [{"route": route, "shape": list(shape), "calls": n}
                             for (route, shape), n in sorted(dw_calls.items())],
         "linear_launches": linear_launches,
+        # the f32 Linear's forward and input-gradient products (`ops/grouped_mm.py`),
+        # counted: calls by direction, route and shape (G, R, K, N), their
+        # kernels' launches, and (IDQN) each kernel-routed shape against the plain version
+        "linear_mm_calls": [{"direction": d, "route": route, "shape": list(shape), "calls": n}
+                            for (d, route, shape), n in sorted(mm_calls.items())],
+        "linear_mm_launches": mm_launches,
+        "linear_mm_checked": mm_checked,
         "iteration_seconds": [s for _, s in state.timings],
         "env_steps_per_s_each": [n / s for n, s in state.timings],
         "env_steps_per_s_after_first": sum(n for n, _ in steady) / sum(s for _, s in steady) if steady else None,
@@ -787,6 +873,43 @@ def check_linear_dw(phase, calls, launches, updates, per_update) -> None:
             or launches != {"dw": sum(kernel.values()), "reduce": split}):
         raise AssertionError(f"{phase}: f32 weight gradients {calls} and launches {launches} over {updates} "
                              f"updates; expected {per_update} an update, all on the kernel route")
+
+
+def check_linear_mm(phase, calls, launches, updates, dx_per_update, fwd_per_update) -> list:
+    """The f32 Linear's forward and input-gradient products of a train
+    phase, as counted (`calls`: {(direction, route, (G, R, K, N)): calls}):
+    each on the route `grouped_mm.mm_route` gives its shape; exactly
+    `dx_per_update` input gradients an update and `fwd_per_update` forwards
+    (online and target) at the update's rows; one `grouped_mm` launch a
+    kernel-routed product (`launches`, `grouped_mm.launch_counts()`). Then
+    the kernels against their plain version (`grouped_mm_plain`) on the card
+    at every kernel-routed shape counted, rows cut to 4,096: within 1e-5 of
+    the largest entry. Returns those shapes with their errors."""
+    dx = {key: n for key, n in calls.items() if key[0] == "linear/dx"}
+    rows = {key[2][1] for key in dx}
+    forwards = sum(n for key, n in calls.items() if key[0] == "linear/fwd" and key[2][1] in rows)
+    wrong = {key: n for key, n in calls.items() if key[1] != gm.mm_route(*key[2])}
+    kernel = sum(n for key, n in calls.items() if key[1] == "kernel")
+    if (not updates or wrong or sum(dx.values()) != dx_per_update * updates or forwards != fwd_per_update * updates
+            or launches != {"mm": kernel}):
+        raise AssertionError(f"{phase}: f32 Linear products {calls} and launches {launches} over {updates} updates; "
+                             f"expected {fwd_per_update} forwards and {dx_per_update} input gradients an update, "
+                             f"each on its route ({wrong} off it) and one launch a kernel-routed product")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    checked = []
+    for direction, _, (G, R, K, N) in sorted(key for key in calls if key[1] == "kernel"):
+        trans, rows = direction == "linear/dx", min(R, 4096)
+        x = torch.randn((G, rows, K), device="cuda", generator=gen)
+        w = torch.randn((G, N, K) if trans else (G, K, N), device="cuda", generator=gen) / K ** 0.5
+        b = None if trans else torch.randn((G, N), device="cuda", generator=gen)
+        got, plain = gm.grouped_mm_cuda(x, w, b, trans), gm.grouped_mm_plain(x, w, b, trans)
+        err = (got - plain).abs().max().item() / plain.abs().max().item()
+        if err > 1e-5:
+            raise AssertionError(f"{phase}: grouped_mm at {direction} {(G, rows, K, N)}: {err:.3e} of the largest "
+                                 "entry off its plain version")
+        checked.append({"direction": direction, "shape": [G, rows, K, N], "err_over_max": err,
+                        "variant": gm.mm_variant(K, N)[0]})
+    return checked
 
 
 def gate_train_phase(phase, smi, name, iters):
@@ -1818,7 +1941,8 @@ def debug_nan_phase(phase, smi) -> None:
     one W_hh entry poisoned before the first iteration (the rollout's GRU
     forward at (a) writes NaN: the error names gru_fwd_kernel); a NaN `dy`
     handed to `gru_backward_cuda` at the update shape (b) (gru_bwd_kernel);
-    a poisoned weight of the first Linear (an aten op); an out-of-range
+    a poisoned weight of the first Linear (its product: `grouped_mm_kernel`
+    where `grouped_mm.mm_route` sends it, else an aten op); an out-of-range
     gather of Q values of 65536 envs (IndexError before the launch, after
     which the card still runs)."""
     dev = torch.device("cuda")
@@ -1833,7 +1957,9 @@ def debug_nan_phase(phase, smi) -> None:
         with torch.no_grad():
             (tree[leaf][0] if leaf == "rnn" else tree[leaf])[index].view(-1)[0] = math.nan
         fg.reset_launch_counts()
-        want = "gru_fwd_kernel wrote NaN" if case == "w_hh" else "of aten."
+        G, K, N = tree["first"]["w"].shape
+        product = "grouped_mm_kernel wrote NaN" if gm.mm_route(G, 65536, K, N) == "kernel" else "of aten."
+        want = "gru_fwd_kernel wrote NaN" if case == "w_hh" else product
         out[case] = {"error": _expect_raise(case, FloatingPointError, want, lambda: train_iteration(state)),
                      "launches": fg.launch_counts()}
         del state, tree
@@ -2188,6 +2314,9 @@ def main() -> None:
 
     # --- 3b. grouped_dw: the f32 weight gradients of the benchmark cells' updates
     emit(grouped_dw_phase(smi, peaks))
+
+    # --- 3c. grouped_mm: the f32 Linear's forward and input-gradient products of the cells
+    emit(grouped_mm_phase(smi, peaks))
 
     # --- 4. train: recurrent IDQN
     counts, _ = train_phase("train", smi, [

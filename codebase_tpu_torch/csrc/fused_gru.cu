@@ -2078,6 +2078,418 @@ grouped_dw_reduce_kernel(const float* __restrict__ partials, float* __restrict__
   }
 }
 
+// ---------------------------------------------------------------------------
+// Products of the grouped f32 Linear layers: y[g] = x[g] @ B[g] (+ b[g])
+// ---------------------------------------------------------------------------
+//
+// grouped_mm_kernel and grouped_mm_ffma_kernel replace no TPU kernel: XLA
+// forms these products there. They take the forward and the input gradient
+// of ops/matmul.py's f32 grouped Linear, x (G, R, K) @ B (G, K, N) + b
+// (G, N): B = w (G, K, N) in the forward, with the bias added in the
+// epilogue; B = w^T for the input gradient dX = dy @ w^T (w (G, N, K) read
+// transposed, no bias). R is the layer's rows, (T+1)B in an update and the
+// envs in a rollout step (212,992 and 524,288 in the LBF benchmark cells), K
+// and N the layer's widths (15, 128, 384, 6, ...). cuBLAS ran them as FFMA
+// GEMMs (TF32 is off for the process), each followed by a broadcast add of
+// the bias that read and wrote the output again (PERF.md). What bounds them
+// on an H100: the bytes of x read once and y written once (872 MB at the
+// GRU input projection, 128 -> 384, G=2, R=212,992: 0.26 ms at 3.35 TB/s)
+// and the 3xTF32 operations (0.25 ms there at 495 TFLOP/s). Design:
+// - grouped_mm_kernel: B and b are tiny, so a block stages its tile of N
+//   columns of B (BN = 64 or 128, ops/grouped_mm.py mm_variant, all of K
+//   zero-padded to k-blocks of 32) once, split into TF32 big and small
+//   parts, K-major in 128-byte-swizzled rows, into shared memory, and keeps
+//   it for every row tile it forms. Where K x BN outgrows shared memory (the
+//   QMIX mixer's 1,660-wide state) B comes in chunks of K: every tile's
+//   share of one chunk, then the next chunk's added into y;
+// - the grid is persistent: blocks of three warpgroups (two with 128
+//   columns: three would not fit their registers), each walking 64-row
+//   tiles of its group on its own (no barrier after the staging). A
+//   warpgroup reads its x rows from device memory straight into registers
+//   (wgmma's A-from-registers form: the rows of K = 15 or 166 are not
+//   16-byte aligned, so TMA cannot map them) and splits them there. The k
+//   order inside a 16-deep slice is permuted in A and B alike, so that a
+//   thread's A values of a slice are four consecutive floats of a row (one
+//   16-byte load where K % 4 == 0, two 8-byte or four 4-byte loads else);
+//   loads run two k-blocks ahead across tile boundaries, so one tile's
+//   epilogue overlaps the next tile's loads. The column tiles of a
+//   group read the same rows at about the same time, the second from the
+//   L2 (x loads marked evict-first ran slower);
+// - per k8 step three m64nBNk8 wgmma: small * big and big * small into a
+//   correction accumulator, big * big into the main one; the tile's first
+//   products overwrite them (scale_d 0). The tensor cores truncate each
+//   sum into the accumulator, so one chain of all three at y's magnitude
+//   gathered 2.7x the error of cuBLAS's f32 GEMM (1.0e-6 against 3.7e-7 of
+//   the largest entry at the GRU input projection, G=2, R=212,992, on an
+//   H100) and moved the QMIX mixer's gradients past the benchmark's limit
+//   on some seeds; the split chains read 3.8e-7. Their registers cost the
+//   128-column blocks a warpgroup: 0.752 ms there against 0.585 with one
+//   accumulator and three warpgroups (64-column blocks of three: 0.818);
+// - the epilogue adds b (staged with B) to the accumulator and stores the
+//   tile once, masking the ragged row and column edges. No atomics: two
+//   calls are bitwise equal.
+// - grouped_mm_ffma_kernel takes the thin products (N <= 32: the 6- and
+//   18-wide Q-value layers), bound by bytes: exact FFMA, one row a thread,
+//   x in stages of 32 k copied by cp.async into a ring of two (rows 36
+//   floats apart: conflict-free float4 reads), B (zero-padded to a multiple
+//   of 4 columns) and b in shared memory, read as broadcast float4.
+
+// warpgroups a block of grouped_mm_kernel with NC 64-column chunks: three
+// where their registers fit (more loads in flight), else two
+__host__ __device__ constexpr int mm_groups(int nc) { return nc == 1 ? 3 : 2; }
+constexpr int kMmRows = 64;                  // rows of a warpgroup's tile: one m64 product
+constexpr int kMmKBlock = 32;                // k of a staged 128-byte row of B
+constexpr int kMmChunk = 64;                 // columns of one m64n64k8 product
+constexpr int kMmMaxChunks = 2;              // a block's columns: up to 128
+
+// the kernel's dynamic shared memory (bytes) for K x BN of B: big and small
+// parts, the bias, 1 KB of slack to align the parts to 1024 bytes
+__host__ __device__ constexpr size_t mm_smem(int K, int bn) {
+  return (size_t)(2 * ((K + kMmKBlock - 1) / kMmKBlock) * kMmKBlock * bn + bn) * sizeof(float) + 1024;
+}
+
+// d (64 x 64, f32) += a (64 x 8, TF32, registers) * b (8 x 64, TF32, K-major
+// in shared memory at desc_b), one warpgroup; with scale_d 0, d = a * b
+__device__ __forceinline__ void wgmma_tf32_m64n64k8(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+// d (64 x 128) += a * b, as wgmma_tf32_m64n64k8
+__device__ __forceinline__ void wgmma_tf32_m64n128k8(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b,
+                                                     int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_wait_one() { asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory"); }
+// the accumulator's registers stay where the asynchronous products write them
+template <int NC>
+__device__ __forceinline__ void mm_fence_acc(float (&acc)[32 * NC]) {
+#pragma unroll
+  for (int i = 0; i < 32 * NC; ++i) asm volatile("" : "+f"(acc[i])::"memory");
+}
+// d (64 x 64 NC) += a * b: one m64n64k8 or m64n128k8 wgmma
+template <int NC>
+__device__ __forceinline__ void mm_wgmma(float (&d)[32 * NC], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
+  if constexpr (NC == 1) wgmma_tf32_m64n64k8(d, a, desc_b, scale_d);
+  if constexpr (NC == 2) wgmma_tf32_m64n128k8(d, a, desc_b, scale_d);
+}
+
+// The float offset, in a block's staged part of B, of B(k, n): k-block k /
+// 32, row n of 32 floats (128 bytes), 16-byte chunk swizzled by n % 8 (the
+// descriptor's 128-byte swizzle). Inside a 16-deep slice the k order is
+// permuted: logical column c of k8 step st holds k = 4 (c % 4) + 2 st + c / 4,
+// so a thread's A values of a slice (columns tig, tig + 4 of both steps)
+// are k = 4 tig .. 4 tig + 3.
+__device__ __forceinline__ int mm_b_at(int k, int n, int bn) {
+  const int r = k & 15, l = (k & 16) | (((r >> 1) & 1) << 3) | ((r & 1) << 2) | (r >> 2);
+  return (k >> 5) * bn * kMmKBlock + n * kMmKBlock + ((((l >> 2) ^ n) & 7) << 2) + (l & 3);
+}
+
+// four consecutive floats x[row, k .. k + 3] (zeros past R or K), by the
+// widest loads the row's alignment allows (VEC floats: 4 needs K % 4 == 0, 2
+// needs K % 2 == 0)
+template <int VEC>
+__device__ __forceinline__ void mm_load4(float* v, const float* __restrict__ row, bool in, int k, int K) {
+  if (VEC == 4) {
+    const float4 q = in && k < K ? __ldg(reinterpret_cast<const float4*>(row + k)) : make_float4(0.f, 0.f, 0.f, 0.f);
+    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+  } else if (VEC == 2) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float2 q = in && k + 2 * h < K ? __ldg(reinterpret_cast<const float2*>(row + k + 2 * h))
+                                           : make_float2(0.f, 0.f);
+      v[2 * h] = q.x, v[2 * h + 1] = q.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = in && k + i < K ? __ldg(row + k + i) : 0.f;
+  }
+}
+
+// grid (blocks, ceil(N / (64 NC)), G), 128 mm_groups(NC) threads, mm_smem(min(K,
+// KC), 64 NC) bytes of dynamic shared memory. B(k, n) = w[g, k, n] (trans 0:
+// w is (G, K, N)) or w[g, n, k] (trans 1: w is (G, N, K)); bias (G, N) or
+// null. Block (i, j, g) forms columns [64 NC j, 64 NC (j + 1)) of y[g] for
+// the 64-row tiles i * mm_groups(NC) + wg, stepping by gridDim.x * mm_groups(NC).
+// K is taken in chunks of KC rows of B (a multiple of 32; one chunk unless B
+// outgrows shared memory, as the QMIX mixer's 1,660-wide state does): the
+// block stages a chunk, its warpgroups form every tile's share, the first
+// chunk's epilogue writes acc + b and each later one adds acc to y.
+template <int NC, int VEC>
+__global__ void __launch_bounds__(128 * mm_groups(NC), 1)
+grouped_mm_kernel(const float* __restrict__ x, const float* __restrict__ w, const float* __restrict__ bias,
+                  float* __restrict__ y, int R, int K, int N, int KC, int trans) {
+  constexpr int BN = kMmChunk * NC, GROUPS = mm_groups(NC), THREADS = 128 * GROUPS;
+  extern __shared__ uint8_t mm_smem_raw[];
+  float* big = reinterpret_cast<float*>((reinterpret_cast<uintptr_t>(mm_smem_raw) + 1023) & ~(uintptr_t)1023);
+  const int kcap = (min(K, KC) + kMmKBlock - 1) / kMmKBlock * kMmKBlock;  // staged rows of B
+  float* small = big + kcap * BN;
+  float* sb = small + kcap * BN;
+  const int tid = threadIdx.x, g = blockIdx.z, n0 = blockIdx.y * BN;
+  const float* wg_ = w + (size_t)g * K * N;
+  const int wg = tid >> 7, wi = (tid >> 5) & 3, lane = tid & 31, gid = lane >> 2, tig = lane & 3;
+  const int tiles = (R + kMmRows - 1) / kMmRows, first = blockIdx.x * GROUPS + wg;
+  const int stride = gridDim.x * GROUPS;
+  const float* xg = x + (size_t)g * R * K;
+  float* yg = y + (size_t)g * R * N;
+  for (int n = tid; n < BN; n += THREADS) sb[n] = bias != nullptr && n0 + n < N ? bias[(size_t)g * N + n0 + n] : 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += KC) {
+    const int kn = min(KC, K - k0), nkb = (kn + kMmKBlock - 1) / kMmKBlock, kp = nkb * kMmKBlock;
+    const int steps = 2 * ((kn + 15) / 16);  // k8 steps: whole 16-deep slices
+    if (k0 > 0) __syncthreads();             // every warpgroup is done with the last chunk of B
+    // the chunk of B's tile, split: rows k0 .. k0 + kn
+    for (int i = tid; i < kp * BN; i += THREADS) {
+      const int k = trans ? i % kp : i / BN, n = trans ? i / kp : i % BN;
+      const float v = k < kn && n0 + n < N ? wg_[trans ? (size_t)(n0 + n) * K + k0 + k : (size_t)(k0 + k) * N + n0 + n]
+                                           : 0.f;
+      uint32_t vb, vs;
+      split_tf32(v, vb, vs);
+      const int at = mm_b_at(k, n, BN);
+      big[at] = __uint_as_float(vb);
+      small[at] = __uint_as_float(vs);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (first >= tiles) continue;
+
+    // the warpgroup's stream of (tile, k-block): position p
+    auto tile_of = [&](int p) { return first + (p / nkb) * stride; };
+    // the A values of position p: rows gid and gid + 8 of the warp's 16,
+    // both slices of the k-block, four consecutive k each
+    auto load = [&](int p, float (&raw)[16]) {
+      const int t = tile_of(p), kb = p % nkb;
+      if (t >= tiles) return;
+      const int r0 = t * kMmRows + 16 * wi + gid;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = r0 + 8 * half;
+          mm_load4<VEC>(raw + 8 * h + 4 * half, xg + (size_t)r * K, r < R, k0 + kb * kMmKBlock + 16 * h + 4 * tig,
+                        K);
+        }
+    };
+    using Frags = uint32_t[4][4];
+    // k8 step j of the k-block: a0 (row gid, column tig), a1 (gid + 8, tig),
+    // a2 (gid, tig + 4), a3 (gid + 8, tig + 4); column tig + 4 c' of step st
+    // is k = 4 tig + 2 st + c' of the slice
+    auto split = [&](const float (&raw)[16], Frags& fb, Frags& fs) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          split_tf32(raw[8 * (j >> 1) + 4 * (i & 1) + 2 * (j & 1) + (i >> 1)], fb[j][i], fs[j][i]);
+    };
+    // big * big in acc, the two correction products in corr, whose chain of
+    // truncated sums sits about 2^-11 below y's magnitude (the design note)
+    float acc[32 * NC], corr[32 * NC];
+#pragma unroll
+    for (int i = 0; i < 32 * NC; ++i) acc[i] = corr[i] = 0.f;
+
+    // position p's products from (cfb, cfs), whose raw values (craw) are
+    // then reloaded with position p + 2's; at a tile's last k-block its
+    // epilogue; then position p + 1's fragments into (nfb, nfs) from nraw.
+    // False at the stream's end.
+    auto step = [&](int p, float (&craw)[16], const float (&nraw)[16], Frags& cfb, Frags& cfs, Frags& nfb,
+                    Frags& nfs) {
+      const int t = tile_of(p), kb = p % nkb;
+      mm_fence_acc<NC>(acc);
+      mm_fence_acc<NC>(corr);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (4 * kb + j < steps) {
+          const float* bb = big + kb * BN * kMmKBlock + 8 * j;
+          const float* bs = small + kb * BN * kMmKBlock + 8 * j;
+          mm_wgmma<NC>(corr, cfs[j], wgmma_desc_sw128(bb), kb > 0 || j > 0);
+          mm_wgmma<NC>(corr, cfb[j], wgmma_desc_sw128(bs), 1);
+          mm_wgmma<NC>(acc, cfb[j], wgmma_desc_sw128(bb), kb > 0 || j > 0);
+        }
+      }
+      wgmma_commit();
+      mm_fence_acc<NC>(acc);
+      mm_fence_acc<NC>(corr);
+      load(p + 2, craw);
+      if (kb == nkb - 1) {
+        wgmma_wait_all();
+        mm_fence_acc<NC>(acc);
+        mm_fence_acc<NC>(corr);
+        const int r0 = t * kMmRows + 16 * wi + gid;
+#pragma unroll
+        for (int j = 0; j < 8 * NC; ++j) {
+          const int cl = 8 * j + 2 * tig, col = n0 + cl;
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int r = r0 + 8 * half;
+            if (r >= R || col >= N) continue;
+            float* at = yg + (size_t)r * N + col;
+            const bool two = col + 1 < N;
+            // the first chunk adds the bias, a later one the sum so far
+            const float p0 = k0 == 0 ? sb[cl] : at[0], p1 = k0 == 0 ? sb[cl + 1] : two ? at[1] : 0.f;
+            const int i0 = 4 * j + 2 * half;
+            const float v0 = (acc[i0] + corr[i0]) + p0, v1 = (acc[i0 + 1] + corr[i0 + 1]) + p1;
+            if ((N & 1) == 0) {
+              *reinterpret_cast<float2*>(at) = make_float2(v0, v1);
+            } else {
+              at[0] = v0;
+              if (two) at[1] = v1;
+            }
+          }
+        }
+      } else {
+        wgmma_wait_one();
+      }
+      // the fragments of position p - 1 (nfb, nfs) stay unchanged until the
+      // products that read them are done
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        asm volatile("" ::"r"(nfb[j][0]), "r"(nfb[j][1]), "r"(nfb[j][2]), "r"(nfb[j][3]), "r"(nfs[j][0]),
+                     "r"(nfs[j][1]), "r"(nfs[j][2]), "r"(nfs[j][3]));
+      if (tile_of(p + 1) >= tiles) {
+        wgmma_wait_all();
+        return false;
+      }
+      split(nraw, nfb, nfs);
+      return true;
+    };
+
+    float raw0[16], raw1[16];
+    uint32_t fb0[4][4], fs0[4][4], fb1[4][4], fs1[4][4];
+    load(0, raw0);
+    load(1, raw1);
+    split(raw0, fb0, fs0);
+    for (int p = 0;; p += 2) {  // two positions a turn: the register sets swap by name, not by index
+      if (!step(p, raw0, raw1, fb0, fs0, fb1, fs1)) break;
+      if (!step(p + 1, raw1, raw0, fb1, fs1, fb0, fs0)) break;
+    }
+  }
+}
+
+constexpr int kMmfThreads = 256;              // rows a block of grouped_mm_ffma_kernel: one a thread
+constexpr int kMmfK = 32;                     // k of a stage
+constexpr int kMmfStride = kMmfK + 4;         // a staged row's floats: conflict-free float4 reads
+constexpr int kMmfStages = 2;
+
+// the FFMA kernel's dynamic shared memory (bytes): the ring, then B (K
+// padded to stages, NP columns) and the bias
+__host__ __device__ constexpr size_t mm_ffma_smem(int K, int np) {
+  return (size_t)(kMmfStages * kMmfThreads * kMmfStride + ((K + kMmfK - 1) / kMmfK) * kMmfK * np + np) *
+         sizeof(float);
+}
+
+// grid (ceil(R / kMmfThreads), 1, G), kMmfThreads threads, mm_ffma_smem(K,
+// 4 NV) bytes; N <= 4 NV. B and bias as grouped_mm_kernel's. Thread t forms
+// row blockIdx.x * kMmfThreads + t of y[g].
+template <int NV>
+__global__ void __launch_bounds__(kMmfThreads)
+grouped_mm_ffma_kernel(const float* __restrict__ x, const float* __restrict__ w, const float* __restrict__ bias,
+                       float* __restrict__ y, int R, int K, int N, int trans) {
+  constexpr int NP = 4 * NV;
+  extern __shared__ float4 mmf_smem_raw[];
+  float* ring = reinterpret_cast<float*>(mmf_smem_raw);
+  float* sw = ring + kMmfStages * kMmfThreads * kMmfStride;
+  const int nst = (K + kMmfK - 1) / kMmfK, kp = nst * kMmfK;
+  float* sb = sw + kp * NP;
+  const int tid = threadIdx.x, g = blockIdx.z, row0 = blockIdx.x * kMmfThreads;
+  const float* xg = x + (size_t)g * R * K;
+  const int rows = min(kMmfThreads, R - row0);
+  // stage s: rows row0.. of k [32 s, 32 s + 32), zeros past R and K
+  auto load = [&](int s) {
+    if (s < nst) {
+      float* st = ring + (s % kMmfStages) * kMmfThreads * kMmfStride;
+      const int k0 = s * kMmfK;
+      if ((K & 3) == 0) {
+        for (int i = tid; i < kMmfThreads * (kMmfK / 4); i += kMmfThreads) {
+          const int r = i >> 3, k = k0 + 4 * (i & 7);
+          const bool ok = r < rows && k < K;
+          cp_async16(st + r * kMmfStride + 4 * (i & 7), ok ? xg + (size_t)(row0 + r) * K + k : xg, ok);
+        }
+      } else {
+        for (int i = tid; i < kMmfThreads * kMmfK; i += kMmfThreads) {
+          const int r = i >> 5, k = k0 + (i & 31);
+          const bool ok = r < rows && k < K;
+          cp_async4(st + r * kMmfStride + (i & 31), ok ? xg + (size_t)(row0 + r) * K + k : xg, ok);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  load(0);
+  const float* wg_ = w + (size_t)g * K * N;
+  for (int i = tid; i < kp * NP; i += kMmfThreads) {
+    const int k = i / NP, n = i % NP;
+    sw[i] = k < K && n < N ? wg_[trans ? (size_t)n * K + k : (size_t)k * N + n] : 0.f;
+  }
+  for (int n = tid; n < NP; n += kMmfThreads) sb[n] = bias != nullptr && n < N ? bias[(size_t)g * N + n] : 0.f;
+  float acc[NP];
+#pragma unroll
+  for (int n = 0; n < NP; ++n) acc[n] = 0.f;
+  for (int s = 0; s < nst; ++s) {
+    load(s + 1);
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* xs = ring + (s % kMmfStages) * kMmfThreads * kMmfStride + tid * kMmfStride;
+    const float* ws = sw + s * kMmfK * NP;
+#pragma unroll 2
+    for (int kq = 0; kq < kMmfK / 4; ++kq) {
+      const float4 a = *reinterpret_cast<const float4*>(xs + 4 * kq);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+#pragma unroll
+        for (int v = 0; v < NV; ++v) {
+          const float4 b = *reinterpret_cast<const float4*>(ws + (4 * kq + e) * NP + 4 * v);
+          acc[4 * v] = fmaf(av[e], b.x, acc[4 * v]);
+          acc[4 * v + 1] = fmaf(av[e], b.y, acc[4 * v + 1]);
+          acc[4 * v + 2] = fmaf(av[e], b.z, acc[4 * v + 2]);
+          acc[4 * v + 3] = fmaf(av[e], b.w, acc[4 * v + 3]);
+        }
+      }
+    }
+    __syncthreads();  // the slot is read no more before the next copy into it
+  }
+  cp_async_wait<0>();
+  if (tid >= rows) return;
+  float* out = y + ((size_t)g * R + row0 + tid) * N;
+#pragma unroll
+  for (int n = 0; n < NP; n += 2) {
+    if (n >= N) break;
+    const float v0 = acc[n] + sb[n], v1 = acc[n + 1] + sb[n + 1];
+    if ((N & 1) == 0) {
+      *reinterpret_cast<float2*>(out + n) = make_float2(v0, v1);
+    } else {
+      out[n] = v0;
+      if (n + 1 < N) out[n + 1] = v1;
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -2298,6 +2710,56 @@ int grouped_dw_reduce(const float* partials, float* out, int G, int P, int E, vo
   if (G < 1 || P < 1 || E < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   grouped_dw_reduce_kernel<<<dim3((E + 31) / 32, G), dim3(32, kRedRows), 0, s>>>(partials, out, P, E);
+  return (int)cudaGetLastError();
+}
+
+int grouped_mm_smem(int K, int bn) { return (int)mm_smem(K, bn); }
+int grouped_mm_ffma_smem(int K, int np) { return (int)mm_ffma_smem(K, np); }
+int grouped_mm_rows() { return kMmRows; }
+int grouped_mm_groups(int chunks) { return mm_groups(chunks); }
+int grouped_mm_ffma_rows() { return kMmfThreads; }
+
+// x (G, R, K), w (G, K, N) (trans 0) or (G, N, K) (trans 1), bias (G, N) or
+// null, y (G, R, N), 16-byte aligned: the wgmma kernel with columns of
+// `chunks` x 64 a block (1 or 2), K in chunks of kc rows of B (a multiple of
+// 32), on grid (blocks, ceil(N / (64 chunks)), G)
+int grouped_mm(const float* x, const float* w, const float* bias, float* y, int G, int R, int K, int N, int trans,
+               int chunks, int kc, int blocks, void* stream) {
+  if (G < 1 || R < 1 || K < 1 || N < 1 || chunks < 1 || chunks > kMmMaxChunks || blocks < 1 || kc < 1 ||
+      kc % kMmKBlock)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = mm_smem(min(K, kc), kMmChunk * chunks);
+  if (smem > kSmemPerBlock) return (int)cudaErrorInvalidValue;
+  using Kernel = void (*)(const float*, const float*, const float*, float*, int, int, int, int, int);
+  static const Kernel kernels[kMmMaxChunks][3] = {
+      {grouped_mm_kernel<1, 1>, grouped_mm_kernel<1, 2>, grouped_mm_kernel<1, 4>},
+      {grouped_mm_kernel<2, 1>, grouped_mm_kernel<2, 2>, grouped_mm_kernel<2, 4>}};
+  const Kernel kernel = kernels[chunks - 1][K % 4 == 0 ? 2 : K % 2 == 0 ? 1 : 0];
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int bn = kMmChunk * chunks;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  kernel<<<dim3(blocks, (N + bn - 1) / bn, G), 128 * mm_groups(chunks), smem, s>>>(x, w, bias, y, R, K, N, kc,
+                                                                                trans);
+  return (int)cudaGetLastError();
+}
+
+// the same product by the FFMA kernel, N <= np (a multiple of 4, at most
+// 32: the columns staged), on grid (ceil(R / grouped_mm_ffma_rows()), 1, G)
+int grouped_mm_ffma(const float* x, const float* w, const float* bias, float* y, int G, int R, int K, int N,
+                    int trans, int np, void* stream) {
+  if (G < 1 || R < 1 || K < 1 || N < 1 || N > np || np % 4 || np > 32) return (int)cudaErrorInvalidValue;
+  using Kernel = void (*)(const float*, const float*, const float*, float*, int, int, int, int);
+  static const Kernel kernels[8] = {grouped_mm_ffma_kernel<1>, grouped_mm_ffma_kernel<2>, grouped_mm_ffma_kernel<3>,
+                                    grouped_mm_ffma_kernel<4>, grouped_mm_ffma_kernel<5>, grouped_mm_ffma_kernel<6>,
+                                    grouped_mm_ffma_kernel<7>, grouped_mm_ffma_kernel<8>};
+  const Kernel kernel = kernels[np / 4 - 1];
+  const size_t smem = mm_ffma_smem(K, np);
+  if (smem > kSmemPerBlock) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  kernel<<<dim3((R + kMmfThreads - 1) / kMmfThreads, 1, G), kMmfThreads, smem, s>>>(x, w, bias, y, R, K, N, trans);
   return (int)cudaGetLastError();
 }
 

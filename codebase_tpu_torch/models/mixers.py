@@ -13,9 +13,10 @@ axis (unit u's weights drawn from its own generator, as a one-unit mixer
 draws them) and the hypernetworks run as products batched over the units.
 
 Every product runs on the port's grouped f32 path (`networks.linear`, so
-`ops/matmul.grouped_matmul`: on the card the weight gradients go to
-`ops/grouped_dw`'s split-K kernels), with the units (one without a sweep)
-as the group axis. The four layers that read the state (`hyper_w_1[0]`,
+`ops/matmul.grouped_linear`: on the card the forward and input gradient go
+to `ops/grouped_mm`'s kernels, the bias added in the forward's epilogue,
+and the weight gradients to `ops/grouped_dw`'s split-K kernels), with the
+units (one without a sweep) as the group axis. The four layers that read the state (`hyper_w_1[0]`,
 `hyper_w_final[0]`, `hyper_b_1`, `v[0]`) run as ONE product of the state
 with their weights side by side, formed at call time: the state, the
 widest input by far (N * obs wide over T * B rows), is read once in the

@@ -28,7 +28,7 @@ from typing import Tuple
 import torch
 
 from codebase_tpu_torch.ops.fused_gru import MAX_HIDDEN, gru_layer_sequence, kernel_variant
-from codebase_tpu_torch.ops.matmul import grouped_matmul
+from codebase_tpu_torch.ops.matmul import grouped_linear
 
 DTYPES = ("float32", "bfloat16")
 
@@ -92,10 +92,9 @@ def gru_layer_init(in_dim: int, hidden: int, generator: torch.Generator):
 
 
 def linear(x, w, b, compute_dtype="float32"):
-    """x (G, ..., in), w (G, in, out), b (G, out) -> (G, ..., out)."""
-    G = x.shape[0]
-    y = grouped_matmul(x.reshape(G, -1, x.shape[-1]), w, compute_dtype).view(*x.shape[:-1], w.shape[-1])
-    return y + b.view((G,) + (1,) * (x.ndim - 2) + (w.shape[-1],))
+    """x (G, ..., in), w (G, in, out), b (G, out) -> (G, ..., out)
+    (`matmul.grouped_linear`)."""
+    return grouped_linear(x, w, b, compute_dtype)
 
 
 def gru_cell(params, x, h, compute_dtype="float32"):

@@ -83,7 +83,7 @@ from codebase_tpu_torch.ops import kernel_lib
 from codebase_tpu_torch.ops.kernel_lib import (  # the weight gradient's sizes, shared with ops/grouped_dw.py
     DW_BLOCK_US, DW_CHUNK, DW_MAX_STAGES, DW_PARTIAL_BYTES_PER_US, DW_SMEM, DW_STAGE_US, DW_TILE_M, DW_TILE_N,
 )
-from codebase_tpu_torch.ops.matmul import grouped_matmul
+from codebase_tpu_torch.ops.matmul import grouped_linear
 from codebase_tpu_torch.utils import profiling
 
 # `launch_counts()`' keys and their counters in the registry
@@ -606,8 +606,5 @@ def gru_layer_sequence(params, x, h0, compute_dtype: str = "float32"):
     layer), then the fused recurrence, in f32 at every dtype.
     params {w_ih (G, in, 3H), w_hh, b_ih (G, 3H), b_hh},
     x (G, T, B, in), h0 (G, B, H) -> (y (G, T, B, H), hT (G, B, H))."""
-    G, T, B, D = x.shape
-    w_ih = params["w_ih"]
-    gi = grouped_matmul(x.reshape(G, T * B, D), w_ih, compute_dtype).view(G, T, B, w_ih.shape[-1])
-    gi = gi + params["b_ih"][:, None, None, :]
+    gi = grouped_linear(x, params["w_ih"], params["b_ih"], compute_dtype)
     return fused_gru_sequence(gi, params["w_hh"], params["b_hh"], h0.contiguous())

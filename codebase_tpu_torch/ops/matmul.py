@@ -18,19 +18,24 @@ input's cotangent is an f32 product of the incoming f32 cotangent with the
 other, bf16-valued, operand, rounded to bf16 (the dtype of the cast input)
 before it flows back through the cast.
 
-Under "float32" the product is `torch.bmm`. On CUDA tensors whose weight
-takes a gradient it runs as `_F32Matmul`: the forward and dX are
-`torch.bmm`, and the weight gradient `x^T dy`, a sum over the many rows of
-x into a small (G, K, N), is `grouped_dw.weight_gradient` (a hand-written
-split-K kernel where `grouped_dw.dw_route` sends the shape, else cuBLAS).
-The CPU keeps `torch.bmm` and its autograd.
+Under "float32" the product is `torch.bmm` on the CPU. On CUDA f32 tensors
+it runs as `_F32Linear` (`f32_linear(x, w, b)`, which `grouped_linear`, the
+port's Linear, calls with the layer's bias): the forward `x @ w + b` and the input
+gradient `dy @ w^T` are `grouped_mm.product` (a hand-written 3xTF32 kernel
+that adds the bias in its epilogue where `grouped_mm.mm_route` sends the
+shape, else cuBLAS and a separate add), the weight gradient `x^T dy`, a sum
+over the many rows of x into a small (G, K, N), is
+`grouped_dw.weight_gradient` (a hand-written split-K kernel where
+`grouped_dw.dw_route` sends the shape, else cuBLAS), and the bias gradient
+the column sum of dy. The CPU keeps `torch.bmm`, the add and their
+autograd.
 """
 
 from __future__ import annotations
 
 import torch
 
-from codebase_tpu_torch.ops import grouped_dw
+from codebase_tpu_torch.ops import grouped_dw, grouped_mm
 
 
 def _bf16_product(a, b):
@@ -63,24 +68,53 @@ class _BF16Matmul(torch.autograd.Function):
         return dx, dw
 
 
-class _F32Matmul(torch.autograd.Function):
-    """The f32 product on CUDA tensors: forward and dX `torch.bmm`, dW
-    `grouped_dw.weight_gradient`."""
+class _F32Linear(torch.autograd.Function):
+    """The f32 Linear on CUDA tensors: forward and dX `grouped_mm.product`,
+    dW `grouped_dw.weight_gradient`, db the column sum of dy."""
 
     @staticmethod
-    def forward(ctx, x, w):
+    def forward(ctx, x, w, b):
         ctx.save_for_backward(x, w)
-        return torch.bmm(x, w)
+        ctx.has_bias = b is not None
+        return grouped_mm.product(x, w, b, "linear/fwd")
 
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
-        dx = dw = None
+        dx = dw = db = None
         if ctx.needs_input_grad[0]:
-            dx = torch.bmm(dy, w.transpose(1, 2))
+            dx = grouped_mm.product(dy, w, None, "linear/dx")
         if ctx.needs_input_grad[1]:
             dw = grouped_dw.weight_gradient(x, dy)
-        return dx, dw
+        if ctx.has_bias and ctx.needs_input_grad[2]:
+            db = dy.sum(1)
+        return dx, dw, db
+
+
+def takes_f32_linear(x, w) -> bool:
+    """Whether `f32_linear` forms x @ w: CUDA tensors in f32."""
+    return x.is_cuda and x.dtype == torch.float32 and w.dtype == torch.float32
+
+
+def f32_linear(x, w, b=None):
+    """x (G, R, K) @ w (G, K, N) (+ b (G, N)) of CUDA f32 tensors, through
+    `_F32Linear` where a gradient is taken, else its forward alone."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, w, b)):
+        return _F32Linear.apply(x, w, b)
+    return grouped_mm.product(x, w, b, "linear/fwd")
+
+
+def grouped_linear(x, w, b, compute_dtype: str = "float32"):
+    """x (G, ..., K) @ w (G, K, N) + b (G, N) -> (G, ..., N): every Linear
+    layer and GRU input projection of the port. On CUDA f32 tensors one call
+    (`f32_linear`: the bias in the product's epilogue); elsewhere
+    `grouped_matmul`, then the add."""
+    G, N = x.shape[0], w.shape[-1]
+    x2 = x.reshape(G, -1, x.shape[-1])
+    if compute_dtype == "float32" and takes_f32_linear(x2, w):
+        return f32_linear(x2, w, b).view(*x.shape[:-1], N)
+    y = grouped_matmul(x2, w, compute_dtype).view(*x.shape[:-1], N)
+    return y + b.view((G,) + (1,) * (x.ndim - 2) + (N,))
 
 
 def grouped_matmul(x, w, compute_dtype: str = "float32"):
@@ -88,6 +122,6 @@ def grouped_matmul(x, w, compute_dtype: str = "float32"):
     with bf16 inputs and an f32 result under "bfloat16"."""
     if compute_dtype == "bfloat16":
         return _BF16Matmul.apply(x, w)
-    if x.is_cuda and x.dtype == torch.float32 and w.requires_grad and torch.is_grad_enabled():
-        return _F32Matmul.apply(x, w)
+    if takes_f32_linear(x, w):
+        return f32_linear(x, w)
     return torch.bmm(x, w)

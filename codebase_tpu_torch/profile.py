@@ -38,7 +38,10 @@ backward's spans are roots on the autograd engine's thread),
 name), `gru_calls_per_iter` (the recurrence's calls by direction and shape),
 `gru_launches_per_iter`, `linear_dw_calls_per_iter` (the f32 weight
 gradients by route, "kernel" or "cublas", and shape (G, K, M, N)),
-`linear_launches_per_iter` (the weight gradient kernels' launches) and
+`linear_mm_calls_per_iter` (the f32 Linear's forward and input-gradient
+products by direction, route and shape (G, R, K, N)),
+`linear_launches_per_iter` (the weight gradient and product kernels'
+launches) and
 `mixer_calls_per_iter` (the QMIX mixer's calls by shape (U, K, S): units,
 rows, state width).
 
@@ -77,7 +80,7 @@ from torch.autograd import DeviceType
 
 from codebase_tpu_torch.algos import ac, dqn, dqn_train
 from codebase_tpu_torch.config import load_config
-from codebase_tpu_torch.ops import fused_gru, grouped_dw
+from codebase_tpu_torch.ops import fused_gru, grouped_dw, grouped_mm
 from codebase_tpu_torch.parallel import mesh
 from codebase_tpu_torch.run import build_envs, check_divides, check_keys
 from codebase_tpu_torch.utils import profiling
@@ -304,7 +307,7 @@ def _profile(cfg, name, shard) -> dict:
         host_span_seconds = run(traced_iters)["seconds"]
     counts = profiling.counters()
     launches = fused_gru.launch_counts()
-    linear_launches = grouped_dw.launch_counts()
+    linear_launches = {**grouped_dw.launch_counts(), **grouped_mm.launch_counts()}
 
     if shard is not None:
         shard.times = {}  # each collective between device syncs, in the traced pass only
@@ -353,6 +356,11 @@ def _profile(cfg, name, shard) -> dict:
         "linear_dw_calls_per_iter": [
             {"route": key[1], **dict(zip("GKMN", key[2])), "calls": v / traced_iters}
             for key, v in sorted(counts.items(), key=str) if isinstance(key, tuple) and key[0] == "linear/dw"
+        ],
+        "linear_mm_calls_per_iter": [
+            {"direction": key[0].split("/")[1], "route": key[1], **dict(zip("GRKN", key[2])), "calls": v / traced_iters}
+            for key, v in sorted(counts.items(), key=str)
+            if isinstance(key, tuple) and key[0] in grouped_mm.COUNTERS
         ],
         "linear_launches_per_iter": {k: v / traced_iters for k, v in linear_launches.items()},
         "mixer_calls_per_iter": [

@@ -109,7 +109,7 @@ def test_cpu_product_never_touches_the_kernel_library(monkeypatch):
         raise AssertionError("the kernel library was touched on a CPU call")
 
     for mod, name in ((kernel_lib, "library"), (kernel_lib, "build_library"), (gd, "_library"), (gd, "grouped_dw_cuda"),
-                      (gd, "weight_gradient"), (matmul._F32Matmul, "apply")):
+                      (gd, "weight_gradient"), (matmul._F32Linear, "apply")):
         monkeypatch.setattr(mod, name, boom)
     x, _ = _inputs(2, 9, 15, 1)
     w = torch.randn(2, 15, 128, requires_grad=True)
@@ -167,7 +167,7 @@ def test_counters_rise_once_a_call_and_launch_counts_keep_their_keys(monkeypatch
     for K, route in ((4096, "kernel"), (100, "cublas")):
         x, _ = _inputs(2, K, 15, 1)
         w = torch.randn(2, 15, 128, requires_grad=True)
-        y = matmul._F32Matmul.apply(x, w)
+        y = matmul._F32Linear.apply(x, w, None)
         (dw,) = torch.autograd.grad(y.square().sum(), w)
         ref = torch.bmm(x.transpose(1, 2), 2 * y.detach())
         torch.testing.assert_close(dw, ref, rtol=0, atol=1e-5 * ref.abs().max().item())

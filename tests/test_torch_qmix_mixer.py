@@ -4,7 +4,7 @@ weights: Q_tot and the gradient of every leaf and of the agents' values,
 for one and two hypernetwork layers and for one unit and a sweep's two.
 
 On the CPU the products are `torch.bmm`; the "split_k" cases put the CPU
-in the card's place (the product's backward through `matmul._F32Matmul`,
+in the card's place (the product's backward through `matmul._F32Linear`,
 the split-K kernels by their plain version, every shape routed to them), so
 the four state layers' one product and the weight gradients' shapes are
 checked here too. The last test needs a CUDA GPU and skips without one; it
@@ -20,6 +20,7 @@ import torch
 from codebase_tpu_torch.models import networks
 from codebase_tpu_torch.models.mixers import QMixer
 from codebase_tpu_torch.ops import grouped_dw as gd
+from codebase_tpu_torch.ops import grouped_mm as gm
 from codebase_tpu_torch.ops import matmul
 from codebase_tpu_torch.utils import profiling
 from codebase_tpu_torch.utils.params import tree_leaves
@@ -42,16 +43,17 @@ def fresh_counters():
 
 @pytest.fixture
 def split_k(monkeypatch):
-    """The card's f32 product on the CPU: `_F32Matmul` where a weight takes
-    a gradient, its dW by the kernels' plain split and sum, any K routed to
-    them."""
+    """The card's f32 product on the CPU: `_F32Linear` where a weight takes
+    a gradient (its forward and dX `torch.bmm`), its dW by the kernels' plain
+    split and sum, any K routed to them."""
 
     def product(x, w, compute_dtype="float32"):
         if w.requires_grad and torch.is_grad_enabled():
-            return matmul._F32Matmul.apply(x, w)
+            return matmul._F32Linear.apply(x, w, None)
         return torch.bmm(x, w)
 
-    monkeypatch.setattr(networks, "grouped_matmul", product)
+    monkeypatch.setattr(matmul, "grouped_matmul", product)
+    monkeypatch.setattr(gm, "KERNEL_MIN_ROWS", dict.fromkeys(gm.KERNEL_MIN_ROWS, 2**62))  # forward, dX: bmm
     monkeypatch.setattr(gd, "KERNEL_MIN_K", {"ffma": 1, "wgmma": 1})
     monkeypatch.setattr(gd, "grouped_dw_cuda", lambda x, dy: gd.grouped_dw_plain(
         x, dy, gd.grouped_dw_tiling(*x.shape, dy.shape[-1], 132))[0])
