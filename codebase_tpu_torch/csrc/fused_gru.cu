@@ -1,8 +1,18 @@
-// Fused GRU recurrence over a whole sequence, forward and backward, for
-// Hopper (sm_90a). Built by nvcc into a shared library with a plain C
-// interface and loaded with ctypes (codebase_tpu_torch/ops/fused_gru.py).
+// The port's hand-written kernels for Hopper (sm_90a), built by nvcc into
+// one shared library with a plain C interface and loaded with ctypes
+// (codebase_tpu_torch/ops/kernel_lib.py). Three families:
+// - gru_*: the fused GRU recurrence over a whole sequence, forward and
+//   backward (ops/fused_gru.py);
+// - grouped_dw*: the weight gradient of the grouped f32 Linear products
+//   (ops/grouped_dw.py);
+// - grouped_mm*: the forward and input gradient of those products, with
+//   the bias in the epilogue (ops/grouped_mm.py).
+// The two long-K weight-gradient kernels, gru_dw_kernel and
+// grouped_dw_kernel, run one pipeline (dw_pipeline), each with a policy of
+// its own for what differs. The families after the GRU's replace no TPU
+// kernel (XLA forms those products there); their sections are at the end.
 //
-// Replaces the TPU kernels of codebase_tpu/ops/fused_gru.py:
+// The GRU family replaces the TPU kernels of codebase_tpu/ops/fused_gru.py:
 //   gru_fwd_kernel    <- _fwd_kernel (body :80-102, launched by
 //                        _fused_gru_fwd_impl :225-264)
 //   gru_bwd_kernel    <- _bwd_kernel (body :105-168, launched by
@@ -12,10 +22,6 @@
 //   gru_reduce_kernel <- its in-order dW_hh/db_hh accumulation (:123-126,
 //                        :166-167), which on the TPU is race-free only
 //                        because grid steps run in order.
-// Beside them, in the same library, the weight gradient of the grouped f32
-// Linear products (grouped_dw_kernel, grouped_dw_ffma_kernel,
-// grouped_dw_reduce_kernel; their section at the end), which replaces no
-// TPU kernel.
 //
 // Function (torch gate order [r, z, n]), per group g and batch row b:
 //   gh  = h_{t-1} @ W_hh + b_hh
@@ -88,9 +94,7 @@
 // B=256 H=512 at the 495 TFLOP/s TF32 peak; its bytes, 2.5 GB, take 0.76
 // ms) and the stream of h_prev and dgh out of the L2 into every block, for
 // every tile of dW_hh: G * tiles * K * (128 + 192) * 4 bytes, 12.7 GB there.
-// Its first design (64 x 192 tiles, per-thread cp.async, mma.sync on 8
-// warps, each warp re-splitting its A and B fragments) streamed 20.3 GB and
-// trailed one f32 torch.bmm at the wide sizes. Design:
+// Design (dw_pipeline's, which grouped_dw_kernel shares):
 // - tiles of 128 x 192 (two consumer warpgroups of 64 rows; 192 divides 3H
 //   at every H the kernels take), each over a share of K's stages of 32
 //   rows (ops/fused_gru.py dw_tiling: P blocks a tile, so that the grid
@@ -208,6 +212,9 @@
 #include <cuda_runtime.h>
 #include <cudaTypedefs.h>
 #include <stdint.h>
+
+#include <array>
+#include <tuple>
 
 namespace {
 
@@ -1393,7 +1400,8 @@ using BwdWideKernel = decltype(&gru_bwd_wide_kernel<1>);
 
 // ---------------------------------------------------------------------------
 // Backward, kernel 2: dW_hh = sum_k h_prev[k]^T dgh[k], a long-K product
-// (wgmma, 3xTF32, fp32 stages by TMA)
+// (wgmma, 3xTF32, fp32 stages by TMA), on the pipeline grouped_dw_kernel
+// shares
 // ---------------------------------------------------------------------------
 
 constexpr int kDwK = 32;                   // rows of k a stage: one 128-byte row of TF32 in B
@@ -1410,6 +1418,9 @@ constexpr int kDwThreads = kDwConsumers + 128;         // and a producer warpgro
 constexpr int kDwTasks = kDwN * kDwK / 4 / kDwConsumers;  // split tasks a thread: 6 (n, 4 k)
 constexpr size_t kDwBarOffset = (size_t)(kDwStages * kDwStageFloats + 4 * kDwSplitFloats) * 4;
 constexpr size_t kDwSmem = kDwBarOffset + 2 * kDwStages * 8 + 1024;  // + slack to align to 1024
+// the most stages a run of grouped_dw_kernel sums in its accumulator before
+// it is added into the partial (ops/kernel_lib.py DW_MAX_STAGES)
+constexpr int kGdwMaxRun = 128;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -1498,21 +1509,30 @@ __device__ __forceinline__ int dw_unit(int wg, int wi, int gid, int half) {
   return 64 * wg + 32 * (wi >> 1) + (gid & 3) + 4 * (2 * half + (wi & 1)) + 16 * (gid >> 2);
 }
 
-// grid ((H / kDwM) * (3H / kDwN), P, G), kDwThreads threads, kDwSmem bytes
-// of dynamic shared memory. h_prev's rows come in two segments, h0[g] (B
-// rows) and y[g] rows 0 .. (T - 1)B - 1, each cut into stages of kDwK rows
-// (the last one of each ragged: the tensor maps end there and TMA fills the
-// rest with zeros); stage s of the ceil(B / kDwK) + ceil((T - 1)B / kDwK)
-// stages holds those rows of h_prev and the same rows of dgh = [dgi[..., :2H]
-// | dgh_n]. Block (tile, p, g) sums stages [p * spb, (p + 1) * spb) for its
-// kDwM x kDwN tile of dW_hh[g] and writes them into partials[g, p] (laid out
-// [dW_hh (H x 3H) | db_hh (3H)]); the blocks of the first row of tiles also
-// sum db_hh over their columns. The tiles run fastest in the grid, so the
-// blocks in flight together read the same rows of h_prev and dgh.
-__global__ void __launch_bounds__(kDwThreads, 1)
-gru_dw_kernel(const __grid_constant__ CUtensorMap h0_map, const __grid_constant__ CUtensorMap y_map,
-              const __grid_constant__ CUtensorMap dgi_map, const __grid_constant__ CUtensorMap dghn_map,
-              float* __restrict__ partials, int T, int B, int H, int spb) {
+// The long-K pipeline of gru_dw_kernel and grouped_dw_kernel: dW = A^T B
+// over K rows, A's M columns and B's N columns of each row brought in by
+// TMA. Grid (ceil(M / kDwM) * ceil(N / kDwN), P, G), kDwThreads threads,
+// kDwSmem bytes of dynamic shared memory. Block (tile, p, g) sums stages
+// [p * spb, (p + 1) * spb) of kDwK rows for its kDwM x kDwN tile of dW[g]
+// into partials[g, p]: dW (M x N, row-major), then, with column sums, B's
+// N column sums. Every block has at least one stage (the host checks the
+// split). The tiles run fastest in the grid, so the blocks in flight
+// together read the same rows of A and B.
+//
+// Rows, the kernel's policy, supplies what differs between the kernels:
+// - stages(), the stages of K; fetch(st, s, m0, n0, g, bar), the TMA of
+//   stage s's boxes of the tile (A's in the first kDwHBoxes, B's after
+//   them) into the fp32 stage st, completing on bar, whose bytes it sets;
+//   rows and columns past the data read as zeros;
+// - kColumnSums: the split pass also sums each column of B over the
+//   stage's valid(s) rows, in the blocks of the first row of tiles, and
+//   the partial ends with those sums (the GRU's db_hh);
+// - kRuns: a block sums its stages in runs of equal, even length (a run
+//   starts on fragment set 0), at most kGdwMaxRun, each begun by a product
+//   with scale_d 0 and added into the partial at its end, the first run
+//   storing it. Without it, one run into an accumulator zeroed first.
+template <class Rows>
+__device__ __forceinline__ void dw_pipeline(const Rows& rows, float* __restrict__ partials, int M, int N, int spb) {
   extern __shared__ uint8_t dw_smem_raw[];
   float* smem = reinterpret_cast<float*>((reinterpret_cast<uintptr_t>(dw_smem_raw) + 1023) & ~(uintptr_t)1023);
   float* ring = smem;                                      // kDwStages fp32 stages
@@ -1521,11 +1541,9 @@ gru_dw_kernel(const __grid_constant__ CUtensorMap h0_map, const __grid_constant_
   uint64_t* empty = full + kDwStages;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int p = blockIdx.y, g = blockIdx.z;
-  const int H3 = 3 * H, tiles_n = H3 / kDwN;
+  const int tiles_n = (N + kDwN - 1) / kDwN;
   const int m0 = (blockIdx.x / tiles_n) * kDwM, n0 = (blockIdx.x % tiles_n) * kDwN;
-  const int s_h0 = (B + kDwK - 1) / kDwK, ky = (T - 1) * B;
-  const int n_stages = s_h0 + (ky + kDwK - 1) / kDwK;
-  const int s0 = p * spb, ns = max(0, min(n_stages, s0 + spb) - s0);
+  const int s0 = p * spb, ns = max(0, min(rows.stages(), s0 + spb) - s0);
 
   if (tid == 0) {
     for (int i = 0; i < kDwStages; ++i) {
@@ -1537,31 +1555,14 @@ gru_dw_kernel(const __grid_constant__ CUtensorMap h0_map, const __grid_constant_
   __syncthreads();
 
   if (warp >= kDwConsumers / 32) {
-    // producer: one thread issues every stage's 10 boxes; the warpgroup
-    // gives its registers to the consumers
+    // producer: one thread starts every stage's boxes; the warpgroup gives
+    // its registers to the consumers
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (tid == kDwConsumers) {
       for (int s = 0; s < ns; ++s) {
         const int slot = s % kDwStages;
         if (s >= kDwStages) mbar_wait(&empty[slot], (s / kDwStages - 1) & 1);
-        mbar_expect_tx(&full[slot], kDwStageBytes);
-        const int gs = s0 + s;
-        const bool in_h0 = gs < s_h0;
-        const int row = in_h0 ? gs * kDwK : (gs - s_h0) * kDwK;  // row in its segment
-        const int drow = in_h0 ? row : B + row;                   // row of dgh
-        float* st = ring + slot * kDwStageFloats;
-#pragma unroll
-        for (int j = 0; j < kDwHBoxes; ++j)
-          tma_load_3d(st + j * kDwBoxFloats, in_h0 ? &h0_map : &y_map, m0 + kDwBox * j, row, g, &full[slot]);
-#pragma unroll
-        for (int j = 0; j < kDwGBoxes; ++j) {
-          const int col = n0 + kDwBox * j;
-          float* dst = st + (kDwHBoxes + j) * kDwBoxFloats;
-          if (col < 2 * H)
-            tma_load_3d(dst, &dgi_map, col, drow, g, &full[slot]);
-          else
-            tma_load_3d(dst, &dghn_map, col - 2 * H, drow, g, &full[slot]);
-        }
+        rows.fetch(ring + slot * kDwStageFloats, s0 + s, m0, n0, g, &full[slot]);
       }
     }
     return;
@@ -1570,7 +1571,7 @@ gru_dw_kernel(const __grid_constant__ CUtensorMap h0_map, const __grid_constant_
   // consumers: warpgroup wg forms rows [64 wg, 64 wg + 64) of the tile
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
   const int wg = warp >> 2, wi = warp & 3, gid = lane >> 2, tig = lane & 3;
-  // A-fragment offsets in a stage's h boxes, k8 step 0: a0 (row gid, k tig),
+  // A-fragment offsets in a stage's A boxes, k8 step 0: a0 (row gid, k tig),
   // a1 (row gid + 8, k tig), a2 (row gid, k tig + 4), a3 (row gid + 8, k tig + 4)
   int a_off[4];
 #pragma unroll
@@ -1585,30 +1586,27 @@ gru_dw_kernel(const __grid_constant__ CUtensorMap h0_map, const __grid_constant_
 #pragma unroll
   for (int i = 0; i < kDwTasks; ++i) db[i] = 0.f;
 
-  // the split pass of stage s: each fp32 dgh value of the stage is read once,
+  // the split pass of stage s: each fp32 B value of the stage is read once,
   // split into its TF32 parts, and written K-major (row n, 32 k) with the
   // 128-byte swizzle the wgmma descriptor names; task t of warp w covers
-  // column n = 32 (p / 8) + lane, rows 4 (p % 8) .. + 3, p = 6w + t. The
-  // column sums of the stage's valid rows go to db.
+  // column n = 32 (p / 8) + lane, rows 4 (p % 8) .. + 3, p = 6w + t. With
+  // column sums, those of the stage's valid rows go to db.
   auto split_stage = [&](int s) {
     const int slot = s % kDwStages;
     mbar_wait(&full[slot], (s / kDwStages) & 1);
-    const int gs = s0 + s;
-    const int valid = gs < s_h0 ? min(kDwK, B - gs * kDwK) : min(kDwK, ky - (gs - s_h0) * kDwK);
-    const float* gsrc = ring + slot * kDwStageFloats + kDwHBoxes * kDwBoxFloats;
+    const float* bsrc = ring + slot * kDwStageFloats + kDwHBoxes * kDwBoxFloats;
     float* big = split + (s & 1) * 2 * kDwSplitFloats;
     float* small = big + kDwSplitFloats;
 #pragma unroll
     for (int t = 0; t < kDwTasks; ++t) {
       const int task = kDwTasks * warp + t, cg = task >> 3, kq = task & 7, n = kDwBox * cg + lane;
-      float v[4];
       uint32_t vb[4], vs[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int k = 4 * kq + e;
-        v[e] = gsrc[cg * kDwBoxFloats + dw_box_at(k, lane)];
-        db[t] += k < valid ? v[e] : 0.f;
-        split_tf32(v[e], vb[e], vs[e]);
+        const float v = bsrc[cg * kDwBoxFloats + dw_box_at(k, lane)];
+        if constexpr (Rows::kColumnSums) db[t] += k < rows.valid(s0 + s) ? v : 0.f;
+        split_tf32(v, vb[e], vs[e]);
       }
       const int at = n * kDwK + ((kq ^ (n & 7)) << 2);
       *reinterpret_cast<uint4*>(big + at) = make_uint4(vb[0], vb[1], vb[2], vb[3]);
@@ -1621,28 +1619,30 @@ gru_dw_kernel(const __grid_constant__ CUtensorMap h0_map, const __grid_constant_
   // the A fragments of stage s (k8 steps 0..3), split into TF32 parts
   using Frags = uint32_t[4][4];
   auto load_a = [&](int s, Frags& ab, Frags& as) {
-    const float* hsrc = ring + (s % kDwStages) * kDwStageFloats;
+    const float* asrc = ring + (s % kDwStages) * kDwStageFloats;
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) split_tf32(hsrc[a_off[i] + 8 * kDwBox * j], ab[j][i], as[j][i]);
+      for (int i = 0; i < 4; ++i) split_tf32(asrc[a_off[i] + 8 * kDwBox * j], ab[j][i], as[j][i]);
   };
-  // stage s's products from its A fragments (cur), while the next stage is
-  // split and its A fragments are read into nxt: the fp32 stage s + 1 is
-  // released as soon as it is read, and the products wait only on the
-  // barrier that hands over the split buffers
-  auto step = [&](int s, Frags& cur_b, Frags& cur_s, Frags& nxt_b, Frags& nxt_s) {
+  // stage s of the run [r0, r1): its products from its A fragments (cur),
+  // while the next stage is split and its A fragments are read into nxt:
+  // the fp32 stage s + 1 is released as soon as it is read, and the
+  // products wait only on the barrier that hands over the split buffers.
+  // With runs, the run's first product overwrites the accumulator (scale_d
+  // 0), so that no other instruction writes it between the products.
+  auto step = [&](int s, int r0, int r1, Frags& cur_b, Frags& cur_s, Frags& nxt_b, Frags& nxt_s) {
     const float* big = split + (s & 1) * 2 * kDwSplitFloats;
     const float* small = big + kDwSplitFloats;
     wgmma_fence();
 #pragma unroll
     for (int j = 0; j < 4; ++j) {  // k8 steps: 32 bytes along each 128-byte row
-      wgmma_tf32_m64n192k8(acc, cur_s[j], wgmma_desc_sw128(big + 8 * j));
+      wgmma_tf32_m64n192k8(acc, cur_s[j], wgmma_desc_sw128(big + 8 * j), !Rows::kRuns || j > 0 || s > r0);
       wgmma_tf32_m64n192k8(acc, cur_b[j], wgmma_desc_sw128(small + 8 * j));
       wgmma_tf32_m64n192k8(acc, cur_b[j], wgmma_desc_sw128(big + 8 * j));
     }
     wgmma_commit();
-    if (s + 1 < ns) {
+    if (s + 1 < r1) {
       split_stage(s + 1);
       load_a(s + 1, nxt_b, nxt_s);
       __syncwarp();
@@ -1657,39 +1657,109 @@ gru_dw_kernel(const __grid_constant__ CUtensorMap h0_map, const __grid_constant_
     consumers_sync();  // both warpgroups are done with buffer s & 1 and have split s + 1
   };
 
+  auto partial = [&] {
+    return partials + ((size_t)g * gridDim.y + p) * ((size_t)M * N + (Rows::kColumnSums ? N : 0));
+  };
+  // the run [r0, r1): its stages summed in the accumulator, which is then
+  // stored into the partial, or added where an earlier run has stored, one
+  // half of the tile's rows at a time. Between runs only the accumulator is
+  // live: the next run's first stage is split and read after the add.
   uint32_t ab0[4][4], as0[4][4], ab1[4][4], as1[4][4];
-  if (ns > 0) {
-    split_stage(0);
-    load_a(0, ab0, as0);
+  auto sum_run = [&](int r0, int r1) {
+    split_stage(r0);
+    load_a(r0, ab0, as0);
     __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[0]);
-  }
-  consumers_sync();
-  for (int s = 0; s < ns; s += 2) {  // two stages a turn: the fragment sets swap by name, not by index
-    step(s, ab0, as0, ab1, as1);
-    if (s + 1 < ns) step(s + 1, ab1, as1, ab0, as0);
+    if (lane == 0) mbar_arrive(&empty[r0 % kDwStages]);
+    consumers_sync();
+    for (int s = r0; s < r1; s += 2) {  // two stages a turn: the fragment sets swap by name, not by index
+      step(s, r0, r1, ab0, as0, ab1, as1);
+      if (s + 1 < r1) step(s + 1, r0, r1, ab1, as1, ab0, as0);
+    }
+    float* out = partial();
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = m0 + dw_unit(wg, wi, gid, half);
+#pragma unroll
+      for (int j = 0; j < 24; ++j) {
+        const int c = n0 + 8 * j + 2 * tig;
+        if (r < M && c < N) {  // N % 4 == 0: c + 1 < N too
+          float2* at = reinterpret_cast<float2*>(out + (size_t)r * N + c);
+          float2 v = make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+          if (Rows::kRuns && r0 > 0) {
+            const float2 o = *at;
+            v = make_float2(o.x + v.x, o.y + v.y);
+          }
+          *at = v;
+        }
+      }
+      asm volatile("" ::: "memory");  // one half's reads in flight at a time
+    }
+  };
+  if constexpr (Rows::kRuns) {
+    const int runs = max(1, (ns + kGdwMaxRun - 1) / kGdwMaxRun);
+    const int run = ((ns + runs - 1) / runs + 1) & ~1;
+    for (int r0 = 0; r0 < ns; r0 += run) sum_run(r0, min(ns, r0 + run));
+  } else {
+    sum_run(0, ns);
   }
 
-  float* out = partials + ((size_t)g * gridDim.y + p) * ((size_t)H * H3 + H3);
+  if constexpr (Rows::kColumnSums) {
+    if (m0 == 0) {  // the tasks' sums, added in a fixed order (k quads 0..7)
+      float* sums = split;  // no wgmma reads the split buffers any more
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    float* row = out + (size_t)(m0 + dw_unit(wg, wi, gid, half)) * H3 + n0 + 2 * tig;
+      for (int t = 0; t < kDwTasks; ++t) sums[(kDwTasks * warp + t) * 32 + lane] = db[t];
+      consumers_sync();
+      if (tid < kDwN) {
+        float sum = 0.f;
 #pragma unroll
-    for (int j = 0; j < 24; ++j)
-      *reinterpret_cast<float2*>(row + 8 * j) = make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
-  }
-  if (m0 == 0) {  // db_hh: the tasks' sums, added in a fixed order (k quads 0..7)
-    float* dbs = split;  // no wgmma reads the split buffers any more
-#pragma unroll
-    for (int t = 0; t < kDwTasks; ++t) dbs[(kDwTasks * warp + t) * 32 + lane] = db[t];
-    consumers_sync();
-    if (tid < kDwN) {
-      float sum = 0.f;
-#pragma unroll
-      for (int kq = 0; kq < 8; ++kq) sum += dbs[((tid >> 5) * 8 + kq) * 32 + (tid & 31)];
-      out[(size_t)H * H3 + n0 + tid] = sum;
+        for (int kq = 0; kq < 8; ++kq) sum += sums[((tid >> 5) * 8 + kq) * 32 + (tid & 31)];
+        partial()[(size_t)M * N + n0 + tid] = sum;
+      }
     }
   }
+}
+
+// gru_dw_kernel's rows: h_prev (A) comes in two segments, h0[g] (B rows)
+// and y[g] rows 0 .. (T - 1)B - 1, each cut into stages of kDwK rows (the
+// last one of each ragged: the tensor maps end there and TMA fills the rest
+// with zeros); a stage never straddles them. dgh (B) = [dgi[..., :2H] |
+// dgh_n] on the same rows (dgi's and dgh_n's rows of y's segment start at
+// B). The partial is [dW_hh (H x 3H) | db_hh (3H)].
+struct GruDwRows {
+  static constexpr bool kColumnSums = true, kRuns = false;
+  const CUtensorMap *h0, *y, *dgi, *dghn;
+  int B, H, s_h0, ky;  // h0's stages, y's rows
+  __device__ int stages() const { return s_h0 + (ky + kDwK - 1) / kDwK; }
+  __device__ int valid(int s) const {
+    return s < s_h0 ? min(kDwK, B - s * kDwK) : min(kDwK, ky - (s - s_h0) * kDwK);
+  }
+  __device__ void fetch(float* st, int s, int m0, int n0, int g, uint64_t* bar) const {
+    mbar_expect_tx(bar, kDwStageBytes);
+    const bool in_h0 = s < s_h0;
+    const int row = in_h0 ? s * kDwK : (s - s_h0) * kDwK;  // row in its segment
+    const int drow = in_h0 ? row : B + row;                 // row of dgh
+#pragma unroll
+    for (int j = 0; j < kDwHBoxes; ++j) tma_load_3d(st + j * kDwBoxFloats, in_h0 ? h0 : y, m0 + kDwBox * j, row, g, bar);
+#pragma unroll
+    for (int j = 0; j < kDwGBoxes; ++j) {
+      const int col = n0 + kDwBox * j;
+      float* dst = st + (kDwHBoxes + j) * kDwBoxFloats;
+      if (col < 2 * H)
+        tma_load_3d(dst, dgi, col, drow, g, bar);
+      else
+        tma_load_3d(dst, dghn, col - 2 * H, drow, g, bar);
+    }
+  }
+};
+
+// grid ((H / kDwM) * (3H / kDwN), P, G): dw_pipeline over the ceil(B / kDwK)
+// + ceil((T - 1)B / kDwK) stages of h_prev and dgh
+__global__ void __launch_bounds__(kDwThreads, 1)
+gru_dw_kernel(const __grid_constant__ CUtensorMap h0_map, const __grid_constant__ CUtensorMap y_map,
+              const __grid_constant__ CUtensorMap dgi_map, const __grid_constant__ CUtensorMap dghn_map,
+              float* __restrict__ partials, int T, int B, int H, int spb) {
+  const GruDwRows rows{&h0_map, &y_map, &dgi_map, &dghn_map, B, H, (B + kDwK - 1) / kDwK, (T - 1) * B};
+  dw_pipeline(rows, partials, H, 3 * H, spb);
 }
 
 // ---------------------------------------------------------------------------
@@ -1735,19 +1805,16 @@ __global__ void gru_reduce_kernel(const float* __restrict__ partials, float* __r
 //   196 ways is 3,840 chains of 196 loads). A name of its own keeps this
 //   work out of the GRU kernels' time, which readers match by name;
 // - grouped_dw_kernel takes M and N that are multiples of 4 (rows TMA can
-//   map: 16-byte strides): gru_dw_kernel's design with one tensor map for x
-//   and one for dy. Tiles of 128 x 192 of dW, a TMA ring of 32-row stages,
-//   A = x^T from registers, B = dy through the split pass, three m64n192k8
-//   wgmma a k8 step. A block sums its stages in runs of equal length, at
-//   most kGdwMaxRun: a run's first product overwrites the accumulator, and
-//   at its end the accumulator is added into the block's partial. So the
-//   error the accumulator gathers (about 2.4e-7 of the largest entry a
-//   stage, gru_dw_kernel's note) stays within gru_dw_kernel's bound however
-//   many rows a block sums, and the partials stay few (under 16 MB). A run's
-//   end costs about 24 us on an H100 (the add, and a stage split and read
-//   outside the pipeline): runs of 32 stages took 0.544 ms at 128 x 384,
-//   K=212,992, one run 0.398 ms. Boxes wholly past M or N are not loaded;
-//   the tile's rows and columns past M and N are not stored;
+//   map: 16-byte strides): the long-K pipeline gru_dw_kernel runs
+//   (dw_pipeline), with A = x^T and B = dy, one tensor map each. A block
+//   sums its stages in runs of equal length, at most kGdwMaxRun, each added
+//   into the block's partial at its end. So the error the accumulator
+//   gathers (about 2.4e-7 of the largest entry a stage, gru_dw_kernel's
+//   note) stays within gru_dw_kernel's bound however many rows a block
+//   sums, and the partials stay few (under 16 MB). A run's end costs about
+//   24 us on an H100 (the add, and a stage split and read outside the
+//   pipeline): runs of 32 stages took 0.544 ms at 128 x 384, K=212,992, one
+//   run 0.398 ms. The tile's rows and columns past M and N are not stored;
 // - grouped_dw_ffma_kernel takes any M and N, among them the 15-wide
 //   observations (60-byte rows) and the 6-wide Q-value gradients (24-byte
 //   rows) that TMA cannot map. Exact FFMA, bound by bytes: the tile's
@@ -1759,172 +1826,32 @@ __global__ void gru_reduce_kernel(const float* __restrict__ partials, float* __r
 //   the product (ops/grouped_dw.py ffma_tile): 16 x 128 for 15 x 128, 128
 //   x 8 for 128 x 6.
 
-// the most stages grouped_dw_kernel's accumulator sums before it is added
-// into the partial (ops/fused_gru.py DW_MAX_STAGES)
-constexpr int kGdwMaxRun = 128;
+// grouped_dw_kernel's rows: x[g] (A) and dy[g] (B), K rows each, cut into
+// stages of kDwK rows (the last one ragged: the tensor maps end there and
+// TMA fills the rest with zeros); boxes wholly past M or N are not loaded.
+// The partial is dW (M x N).
+struct LinearDwRows {
+  static constexpr bool kColumnSums = false, kRuns = true;
+  const CUtensorMap *x, *dy;
+  int K, M, N;
+  __device__ int stages() const { return (K + kDwK - 1) / kDwK; }
+  __device__ void fetch(float* st, int s, int m0, int n0, int g, uint64_t* bar) const {
+    // the boxes of the tile that hold columns of x and of dy
+    const int xb = min(kDwHBoxes, (M - m0 + kDwBox - 1) / kDwBox);
+    const int yb = min(kDwGBoxes, (N - n0 + kDwBox - 1) / kDwBox);
+    mbar_expect_tx(bar, (xb + yb) * kDwBoxFloats * 4);
+    const int row = s * kDwK;
+    for (int j = 0; j < xb; ++j) tma_load_3d(st + j * kDwBoxFloats, x, m0 + kDwBox * j, row, g, bar);
+    for (int j = 0; j < yb; ++j) tma_load_3d(st + (kDwHBoxes + j) * kDwBoxFloats, dy, n0 + kDwBox * j, row, g, bar);
+  }
+};
 
-// grid (ceil(M / kDwM) * ceil(N / kDwN), P, G), kDwThreads threads, kDwSmem
-// bytes of dynamic shared memory. K's rows are cut into stages of kDwK (the
-// last one ragged: the tensor maps end there and TMA fills the rest with
-// zeros); block (tile, p, g) sums stages [p * spb, (p + 1) * spb) for its
-// kDwM x kDwN tile of dW[g] into partials[g, p] (M x N). The tiles run
-// fastest in the grid, so the blocks in flight together read the same rows.
+// grid (ceil(M / kDwM) * ceil(N / kDwN), P, G): dw_pipeline over the
+// ceil(K / kDwK) stages of x and dy
 __global__ void __launch_bounds__(kDwThreads, 1)
 grouped_dw_kernel(const __grid_constant__ CUtensorMap x_map, const __grid_constant__ CUtensorMap dy_map,
                   float* __restrict__ partials, int K, int M, int N, int spb) {
-  extern __shared__ uint8_t gdw_smem_raw[];
-  float* smem = reinterpret_cast<float*>((reinterpret_cast<uintptr_t>(gdw_smem_raw) + 1023) & ~(uintptr_t)1023);
-  float* ring = smem;                                      // kDwStages fp32 stages
-  float* split = smem + kDwStages * kDwStageFloats;        // [2 buffers][big, small]
-  uint64_t* full = reinterpret_cast<uint64_t*>(reinterpret_cast<uint8_t*>(smem) + kDwBarOffset);
-  uint64_t* empty = full + kDwStages;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int p = blockIdx.y, g = blockIdx.z;
-  const int tiles_n = (N + kDwN - 1) / kDwN;
-  const int m0 = (blockIdx.x / tiles_n) * kDwM, n0 = (blockIdx.x % tiles_n) * kDwN;
-  const int n_stages = (K + kDwK - 1) / kDwK;
-  const int s0 = p * spb, ns = max(0, min(n_stages, s0 + spb) - s0);
-  // the boxes of the tile that hold columns of x and of dy
-  const int xb = min(kDwHBoxes, (M - m0 + kDwBox - 1) / kDwBox);
-  const int yb = min(kDwGBoxes, (N - n0 + kDwBox - 1) / kDwBox);
-
-  if (tid == 0) {
-    for (int i = 0; i < kDwStages; ++i) {
-      mbar_init(&full[i], 1);
-      mbar_init(&empty[i], kDwConsumers / 32);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  if (warp >= kDwConsumers / 32) {
-    // producer: one thread issues every stage's boxes; the warpgroup gives
-    // its registers to the consumers
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (tid == kDwConsumers) {
-      for (int s = 0; s < ns; ++s) {
-        const int slot = s % kDwStages;
-        if (s >= kDwStages) mbar_wait(&empty[slot], (s / kDwStages - 1) & 1);
-        mbar_expect_tx(&full[slot], (xb + yb) * kDwBoxFloats * 4);
-        const int row = (s0 + s) * kDwK;
-        float* st = ring + slot * kDwStageFloats;
-        for (int j = 0; j < xb; ++j) tma_load_3d(st + j * kDwBoxFloats, &x_map, m0 + kDwBox * j, row, g, &full[slot]);
-        for (int j = 0; j < yb; ++j)
-          tma_load_3d(st + (kDwHBoxes + j) * kDwBoxFloats, &dy_map, n0 + kDwBox * j, row, g, &full[slot]);
-      }
-    }
-    return;
-  }
-
-  // consumers: warpgroup wg forms rows [64 wg, 64 wg + 64) of the tile
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-  const int wg = warp >> 2, wi = warp & 3, gid = lane >> 2, tig = lane & 3;
-  // A-fragment offsets in a stage's x boxes, k8 step 0 (gru_dw_kernel's)
-  int a_off[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int u = dw_unit(wg, wi, gid, i & 1), k = tig + 4 * (i >> 1);
-    a_off[i] = (u / kDwBox) * kDwBoxFloats + dw_box_at(k, u % kDwBox);
-  }
-  float acc[96];
-#pragma unroll
-  for (int i = 0; i < 96; ++i) acc[i] = 0.f;
-
-  // the split pass of stage s (gru_dw_kernel's, with no column sums)
-  auto split_stage = [&](int s) {
-    const int slot = s % kDwStages;
-    mbar_wait(&full[slot], (s / kDwStages) & 1);
-    const float* gsrc = ring + slot * kDwStageFloats + kDwHBoxes * kDwBoxFloats;
-    float* big = split + (s & 1) * 2 * kDwSplitFloats;
-    float* small = big + kDwSplitFloats;
-#pragma unroll
-    for (int t = 0; t < kDwTasks; ++t) {
-      const int task = kDwTasks * warp + t, cg = task >> 3, kq = task & 7, n = kDwBox * cg + lane;
-      uint32_t vb[4], vs[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) split_tf32(gsrc[cg * kDwBoxFloats + dw_box_at(4 * kq + e, lane)], vb[e], vs[e]);
-      const int at = n * kDwK + ((kq ^ (n & 7)) << 2);
-      *reinterpret_cast<uint4*>(big + at) = make_uint4(vb[0], vb[1], vb[2], vb[3]);
-      *reinterpret_cast<uint4*>(small + at) = make_uint4(vs[0], vs[1], vs[2], vs[3]);
-    }
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  };
-  using Frags = uint32_t[4][4];
-  auto load_a = [&](int s, Frags& ab, Frags& as) {
-    const float* xsrc = ring + (s % kDwStages) * kDwStageFloats;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) split_tf32(xsrc[a_off[i] + 8 * kDwBox * j], ab[j][i], as[j][i]);
-  };
-  // stage s of the run ending before r1: its products while stage s + 1 is
-  // split and read (gru_dw_kernel's step); the run's first product
-  // overwrites the accumulator (scale_d 0), so that no other instruction
-  // writes it between the products
-  auto step = [&](int s, int r0, int r1, Frags& cur_b, Frags& cur_s, Frags& nxt_b, Frags& nxt_s) {
-    const float* big = split + (s & 1) * 2 * kDwSplitFloats;
-    const float* small = big + kDwSplitFloats;
-    wgmma_fence();
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wgmma_tf32_m64n192k8(acc, cur_s[j], wgmma_desc_sw128(big + 8 * j), j > 0 || s > r0);
-      wgmma_tf32_m64n192k8(acc, cur_b[j], wgmma_desc_sw128(small + 8 * j));
-      wgmma_tf32_m64n192k8(acc, cur_b[j], wgmma_desc_sw128(big + 8 * j));
-    }
-    wgmma_commit();
-    if (s + 1 < r1) {
-      split_stage(s + 1);
-      load_a(s + 1, nxt_b, nxt_s);
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[(s + 1) % kDwStages]);
-    }
-    wgmma_wait_all();
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      asm volatile("" ::"r"(cur_b[j][0]), "r"(cur_b[j][1]), "r"(cur_b[j][2]), "r"(cur_b[j][3]), "r"(cur_s[j][0]),
-                   "r"(cur_s[j][1]), "r"(cur_s[j][2]), "r"(cur_s[j][3]));
-    consumers_sync();
-  };
-
-  // runs of equal, even length (a run starts on fragment set 0), at most
-  // kGdwMaxRun, each summed in the accumulator and then added into the
-  // partial (the first run stores it), one half of the tile's rows at a
-  // time. Between runs only the accumulator is live: the next run's first
-  // stage is split and read after the add.
-  float* out = partials + ((size_t)g * gridDim.y + p) * M * N;
-  const int runs = max(1, (ns + kGdwMaxRun - 1) / kGdwMaxRun);
-  const int run = ((ns + runs - 1) / runs + 1) & ~1;
-  uint32_t ab0[4][4], as0[4][4], ab1[4][4], as1[4][4];
-  for (int r0 = 0; r0 < ns; r0 += run) {
-    const int r1 = min(ns, r0 + run);
-    split_stage(r0);
-    load_a(r0, ab0, as0);
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[r0 % kDwStages]);
-    consumers_sync();
-    for (int s = r0; s < r1; s += 2) {  // two stages a turn: the fragment sets swap by name, not by index
-      step(s, r0, r1, ab0, as0, ab1, as1);
-      if (s + 1 < r1) step(s + 1, r0, r1, ab1, as1, ab0, as0);
-    }
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = m0 + dw_unit(wg, wi, gid, half);
-#pragma unroll
-      for (int j = 0; j < 24; ++j) {
-        const int c = n0 + 8 * j + 2 * tig;
-        if (r < M && c < N) {  // N % 4 == 0: c + 1 < N too
-          float2* at = reinterpret_cast<float2*>(out + (size_t)r * N + c);
-          float2 v = make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
-          if (r0 > 0) {
-            const float2 o = *at;
-            v = make_float2(o.x + v.x, o.y + v.y);
-          }
-          *at = v;
-        }
-      }
-      asm volatile("" ::: "memory");  // one half's reads in flight at a time
-    }
-  }
+  dw_pipeline(LinearDwRows{&x_map, &dy_map, K, M, N}, partials, M, N, spb);
 }
 
 constexpr int kFfThreads = 256;
@@ -2619,6 +2546,35 @@ static bool dw_tensor_map(CUtensorMap* map, const float* base, int cols, int row
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+extern "C++" {  // a template cannot have C linkage
+
+// One operand of a long-K kernel: a (G, rows, cols) f32 tensor whose groups
+// lie group_stride floats apart
+struct DwOperand {
+  const float* base;
+  int cols, rows;
+  long long group_stride;
+};
+
+// The launch of a long-K kernel (dw_pipeline): the operands' tensor maps,
+// kDwSmem bytes of dynamic shared memory, and kernel(maps..., rest...) on
+// grid (tiles, P, G) on the stream
+template <class Kernel, size_t NM, class... Rest>
+int dw_launch(Kernel kernel, const DwOperand (&ops)[NM], int G, int tiles, int P, void* stream, Rest... rest) {
+  std::array<CUtensorMap, NM> maps;
+  for (size_t i = 0; i < NM; ++i)
+    if (!dw_tensor_map(&maps[i], ops[i].base, ops[i].cols, ops[i].rows, G, ops[i].group_stride))
+      return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDwSmem);
+  if (e != cudaSuccess) return (int)e;
+  std::apply([&](const auto&... m) {
+    kernel<<<dim3(tiles, P, G), kDwThreads, kDwSmem, static_cast<cudaStream_t>(stream)>>>(m..., rest...);
+  }, maps);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C++"
+
 int gru_dw_smem() { return (int)kDwSmem; }
 
 // the weight gradient's stages of kDwK rows over K = T * B: those of h0's
@@ -2634,19 +2590,11 @@ int gru_dw(const float* h0, const float* y, const float* dgi, const float* dgh_n
     return (int)cudaErrorInvalidValue;
   const int spb = rows / kDwK, stages = gru_dw_stages(T, B);
   if ((long long)P * spb < stages || (long long)(P - 1) * spb >= stages) return (int)cudaErrorInvalidValue;
-  CUtensorMap h0_map, y_map, dgi_map, dghn_map;
   const long long K = (long long)T * B;
-  if (!dw_tensor_map(&h0_map, h0, H, B, G, (long long)B * H) ||
-      !dw_tensor_map(&y_map, y, H, T > 1 ? (T - 1) * B : 1, G, K * H) ||
-      !dw_tensor_map(&dgi_map, dgi, 3 * H, (int)K, G, K * 3 * H) ||
-      !dw_tensor_map(&dghn_map, dgh_n, H, (int)K, G, K * H))
-    return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(gru_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDwSmem);
-  if (e != cudaSuccess) return (int)e;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  gru_dw_kernel<<<dim3(gru_dw_tiles(H), P, G), kDwThreads, kDwSmem, s>>>(h0_map, y_map, dgi_map, dghn_map,
-                                                                         partials, T, B, H, spb);
-  return (int)cudaGetLastError();
+  return dw_launch(gru_dw_kernel,
+                   {{h0, H, B, (long long)B * H}, {y, H, T > 1 ? (T - 1) * B : 1, K * H},
+                    {dgi, 3 * H, (int)K, K * 3 * H}, {dgh_n, H, (int)K, K * H}},
+                   G, gru_dw_tiles(H), P, stream, partials, T, B, H, spb);
 }
 
 int gru_reduce(const float* partials, float* out, int G, int P, int E, void* stream) {
@@ -2676,15 +2624,9 @@ int grouped_dw(const float* x, const float* dy, float* partials, int G, int K, i
                void* stream) {
   if (G < 1 || K < 1 || M < 1 || N < 1 || M % 4 || N % 4 || !split_ok(K, kDwK, P, stages))
     return (int)cudaErrorInvalidValue;
-  CUtensorMap x_map, dy_map;
-  if (!dw_tensor_map(&x_map, x, M, K, G, (long long)K * M) || !dw_tensor_map(&dy_map, dy, N, K, G, (long long)K * N))
-    return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(grouped_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDwSmem);
-  if (e != cudaSuccess) return (int)e;
   const int tiles = ((M + kDwM - 1) / kDwM) * ((N + kDwN - 1) / kDwN);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  grouped_dw_kernel<<<dim3(tiles, P, G), kDwThreads, kDwSmem, s>>>(x_map, dy_map, partials, K, M, N, stages);
-  return (int)cudaGetLastError();
+  return dw_launch(grouped_dw_kernel, {{x, M, K, (long long)K * M}, {dy, N, K, (long long)K * N}}, G, tiles, P,
+                   stream, partials, K, M, N, stages);
 }
 
 // x (G, K, M), dy (G, K, N), 16-byte aligned: the FFMA kernel at tiles of

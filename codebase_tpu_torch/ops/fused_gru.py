@@ -65,11 +65,11 @@ are counted apart from its kernels, by direction and shape, so the count
 stays whatever kernels implement it: `("gru/forward", (G, T, B, H))` at
 each `fused_gru_sequence` call, `("gru/backward", (G, T, B, H))` at each
 kernel backward; on the card each runs inside the span of the same name.
-After each launch the wrapper hands the kernel's name, outputs and shape
-to `kernel_lib.launched`: in a debug region (`utils/debug.py`) a NaN in an
-output raises naming the kernel, and `utils/profiling.cost_analysis` counts
-its operations and bytes by this module's `kernel_flops` and
-`kernel_bytes`. No PyTorch tool sees these `ctypes` launches otherwise.
+Each wrapper launches through `kernel_lib.launch`, which counts the launch
+and hands the kernel's name, outputs and shape to `kernel_lib.launched`: in
+a debug region (`utils/debug.py`) a NaN in an output raises naming the
+kernel, and `utils/profiling.cost_analysis` counts its operations and bytes
+by this module's `kernel_flops` and `kernel_bytes`.
 """
 
 from __future__ import annotations
@@ -416,16 +416,13 @@ def gru_fwd_cuda(gi, w_hh, b_hh, h0, tiling=None):
     hT = torch.empty((G, B, H), device=dev)
     args = (*map(kernel_lib.ptr, (gi, w_hh, b_hh, h0, y, hT)), G, T, B, H)
     wide = kernel_variant(H) == "wide"
-    with torch.cuda.device(dev):
-        if wide:
-            tile = tiling or wide_forward_tiling(G, T, B, H, kernel_lib.sms())
-            code = lib.gru_fwd_wide(*args, tile["rows"], tile["units"], kernel_lib.stream(dev))
-        else:
-            code = lib.gru_fwd(*args, forward_blocks_per_group(G, B, lib.gru_fwd_rows()), kernel_lib.stream(dev))
-    kernel_lib.raise_on(code, "gru_fwd_wide launch" if wide else "gru_fwd launch")
-    profiling.count(LAUNCHES["fwd_wide" if wide else "fwd"])
-    kernel_lib.launched("gru_fwd_wide_kernel" if wide else "gru_fwd_kernel", {"y": y, "hT": hT},
-                        G=G, T=T, B=B, H=H)
+    if wide:
+        tile = tiling or wide_forward_tiling(G, T, B, H, kernel_lib.sms())
+        fn, args = lib.gru_fwd_wide, (*args, tile["rows"], tile["units"])
+    else:
+        fn, args = lib.gru_fwd, (*args, forward_blocks_per_group(G, B, lib.gru_fwd_rows()))
+    kernel_lib.launch("gru_fwd_wide_kernel" if wide else "gru_fwd_kernel", fn, args,
+                      LAUNCHES["fwd_wide" if wide else "fwd"], {"y": y, "hT": hT}, G=G, T=T, B=B, H=H)
     return y, hT
 
 
@@ -448,16 +445,14 @@ def gru_bwd_cuda(gi, w_hh, b_hh, h0, y, dy, dhT, tiling=None):
     dgh_n = torch.empty_like(y)
     args = (*map(kernel_lib.ptr, (gi, w_hh, b_hh, h0, y, dy, dhT, dgi, dh0, dgh_n)), G, T, B, H)
     wide = kernel_variant(H) == "wide"
-    with torch.cuda.device(dev):
-        if wide:
-            tile = tiling or wide_backward_tiling(G, T, B, H, kernel_lib.sms())
-            code = lib.gru_bwd_wide(*args, tile["rows"], kernel_lib.stream(dev))
-        else:
-            code = lib.gru_bwd(*args, forward_blocks_per_group(G, B, lib.gru_fwd_rows()), kernel_lib.stream(dev))
-    kernel_lib.raise_on(code, "gru_bwd_wide launch" if wide else "gru_bwd launch")
-    profiling.count(LAUNCHES["bwd_wide" if wide else "bwd"])
-    kernel_lib.launched("gru_bwd_wide_kernel" if wide else "gru_bwd_kernel",
-                        {"dgi": dgi, "dh0": dh0, "dgh_n": dgh_n}, G=G, T=T, B=B, H=H)
+    if wide:
+        tile = tiling or wide_backward_tiling(G, T, B, H, kernel_lib.sms())
+        fn, args = lib.gru_bwd_wide, (*args, tile["rows"])
+    else:
+        fn, args = lib.gru_bwd, (*args, forward_blocks_per_group(G, B, lib.gru_fwd_rows()))
+    kernel_lib.launch("gru_bwd_wide_kernel" if wide else "gru_bwd_kernel", fn, args,
+                      LAUNCHES["bwd_wide" if wide else "bwd"], {"dgi": dgi, "dh0": dh0, "dgh_n": dgh_n},
+                      G=G, T=T, B=B, H=H)
     return dgi, dh0, dgh_n
 
 
@@ -517,17 +512,12 @@ def gru_dw_cuda(h0, y, dgi, dgh_n, stages=None):
          "dgh_n": (dgh_n, (G, T, B, H))},
         dev,
     )
-    lib = _library()
     spb = stages or dw_tiling(G, T, B, H, kernel_lib.sms())["stages"]
     P, rows = -(-dw_stages(T, B) // spb), spb * DW_CHUNK
     partials = torch.empty((G, P, H * 3 * H + 3 * H), device=dev)
-    with torch.cuda.device(dev):
-        code = lib.gru_dw(
-            *map(kernel_lib.ptr, (h0, y, dgi, dgh_n, partials)), G, T, B, H, P, rows, kernel_lib.stream(dev),
-        )
-    kernel_lib.raise_on(code, "gru_dw launch")
-    profiling.count(LAUNCHES["dw"])
-    kernel_lib.launched("gru_dw_kernel", {"partials": partials}, G=G, T=T, B=B, H=H)
+    kernel_lib.launch("gru_dw_kernel", _library().gru_dw,
+                      (*map(kernel_lib.ptr, (h0, y, dgi, dgh_n, partials)), G, T, B, H, P, rows),
+                      LAUNCHES["dw"], {"partials": partials}, G=G, T=T, B=B, H=H)
     return partials
 
 
@@ -539,13 +529,9 @@ def reduce_partials_cuda(partials):
     G, P, E = partials.shape
     dev = partials.device
     kernel_lib.check({"partials": (partials, (G, P, E))}, dev)
-    lib = _library()
     out = torch.empty((G, E), device=dev)
-    with torch.cuda.device(dev):
-        code = lib.gru_reduce(kernel_lib.ptr(partials), kernel_lib.ptr(out), G, P, E, kernel_lib.stream(dev))
-    kernel_lib.raise_on(code, "gru_reduce launch")
-    profiling.count(LAUNCHES["reduce"])
-    kernel_lib.launched("gru_reduce_kernel", {"out": out}, G=G, P=P, E=E)
+    args = (kernel_lib.ptr(partials), kernel_lib.ptr(out), G, P, E)
+    kernel_lib.launch("gru_reduce_kernel", _library().gru_reduce, args, LAUNCHES["reduce"], {"out": out}, G=G, P=P, E=E)
     return out
 
 

@@ -11,8 +11,10 @@ no TPU kernel, XLA forms these products there) split K over many blocks, each su
 a partial of its own, and sum the partials in a fixed order:
 
 - `grouped_dw_kernel` ("wgmma") where M and N are multiples of 4 and the
-  product fills a third of a 128 x 192 tile: `gru_dw_kernel`'s design (TMA ring,
-  3xTF32 on `wgmma`) with one tensor map for x and one for dy;
+  product fills a third of a 128 x 192 tile: the long-K pipeline it shares
+  with `gru_dw_kernel` (`dw_pipeline`: tiles of 128 x 192, a TMA ring of
+  32-row stages, 3xTF32 on `wgmma`), with A = x and B = dy and a block's
+  stages summed in runs of at most `kernel_lib.DW_MAX_STAGES`;
 - `grouped_dw_ffma_kernel` ("ffma") for the rest, the narrow products
   among them (15-wide observations, 6-wide Q-value gradients, whose rows
   TMA cannot map): exact FFMA over zero-padded `cp.async` stages, bound by
@@ -25,7 +27,7 @@ a partial of its own, and sum the partials in a fixed order:
 a shape to the kernels or to cuBLAS, from the shape alone: below
 `KERNEL_MIN_K` rows (by variant) cuBLAS is as fast (the crossover measured
 on an H100, PERF.md). `grouped_dw_tiling` picks the variant, its tile and the split of
-K. A CPU tensor never reaches this module: `grouped_matmul` keeps
+K. A CPU tensor never reaches this module: `matmul.grouped_linear` keeps
 `torch.bmm` there. A CUDA tensor on the kernel route launches the kernels
 or raises; there is no fallback. `grouped_dw_plain` is the plain version of
 the kernels' split and sum, the reference of the tests.
@@ -46,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from codebase_tpu_torch.ops import kernel_lib
+from codebase_tpu_torch.ops.kernel_lib import aligned
 from codebase_tpu_torch.utils import profiling
 
 LAUNCHES = {"dw": "linear_launch/dw", "reduce": "linear_launch/reduce"}
@@ -287,18 +290,14 @@ def grouped_dw_cuda(x, dy):
     kernel_lib.check({"x": (x, (G, K, M)), "dy": (dy, (G, K, N))}, dev)
     lib = _library()
     tile = grouped_dw_tiling(G, K, M, N, kernel_lib.sms())
-    wgmma, P = tile["variant"] == "wgmma", tile["P"]
+    P = tile["P"]
     partials = torch.empty((G, P, M, N), device=dev)
     args = (kernel_lib.ptr(x), kernel_lib.ptr(dy), kernel_lib.ptr(partials), G, K, M, N)
-    with torch.cuda.device(dev):
-        if wgmma:
-            code = lib.grouped_dw(*args, P, tile["stages"], kernel_lib.stream(dev))
-        else:
-            code = lib.grouped_dw_ffma(*args, *tile["tile"], P, tile["stages"], kernel_lib.stream(dev))
-    kernel = "grouped_dw_kernel" if wgmma else "grouped_dw_ffma_kernel"
-    kernel_lib.raise_on(code, f"{kernel} launch")
-    profiling.count(LAUNCHES["dw"])
-    kernel_lib.launched(kernel, {"partials": partials}, G=G, K=K, M=M, N=N)
+    if tile["variant"] == "wgmma":
+        kernel, fn, args = "grouped_dw_kernel", lib.grouped_dw, (*args, P, tile["stages"])
+    else:
+        kernel, fn, args = "grouped_dw_ffma_kernel", lib.grouped_dw_ffma, (*args, *tile["tile"], P, tile["stages"])
+    kernel_lib.launch(kernel, fn, args, LAUNCHES["dw"], {"partials": partials}, G=G, K=K, M=M, N=N)
     return partials
 
 
@@ -310,20 +309,11 @@ def grouped_dw_reduce_cuda(partials):
     G, P, M, N = partials.shape
     dev = partials.device
     kernel_lib.check({"partials": (partials, (G, P, M, N))}, dev)
-    lib = _library()
     out = torch.empty((G, M, N), device=dev)
-    with torch.cuda.device(dev):
-        code = lib.grouped_dw_reduce(kernel_lib.ptr(partials), kernel_lib.ptr(out), G, P, M * N, kernel_lib.stream(dev))
-    kernel_lib.raise_on(code, "grouped_dw_reduce_kernel launch")
-    profiling.count(LAUNCHES["reduce"])
-    kernel_lib.launched("grouped_dw_reduce_kernel", {"out": out}, G=G, P=P, E=M * N)
+    kernel_lib.launch("grouped_dw_reduce_kernel", _library().grouped_dw_reduce,
+                      (kernel_lib.ptr(partials), kernel_lib.ptr(out), G, P, M * N), LAUNCHES["reduce"], {"out": out},
+                      G=G, P=P, E=M * N)
     return out
-
-
-def _aligned(t):
-    """t contiguous at a 16-byte-aligned address (a copy where it is not)."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def weight_gradient(x, dy):
@@ -338,5 +328,5 @@ def weight_gradient(x, dy):
     with profiling.span("linear/dw"):
         if route == "cublas":
             return torch.bmm(x.transpose(1, 2), dy)
-        partials = grouped_dw_cuda(_aligned(x), _aligned(dy))
+        partials = grouped_dw_cuda(aligned(x), aligned(dy))
         return partials[:, 0] if partials.shape[1] == 1 else grouped_dw_reduce_cuda(partials)

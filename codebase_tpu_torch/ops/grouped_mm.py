@@ -49,6 +49,7 @@ import functools
 import torch
 
 from codebase_tpu_torch.ops import kernel_lib
+from codebase_tpu_torch.ops.kernel_lib import aligned
 from codebase_tpu_torch.utils import profiling
 
 LAUNCHES = {"mm": "linear_launch/mm"}
@@ -259,22 +260,12 @@ def grouped_mm_cuda(x, w, b=None, trans=False):
     y = torch.empty((G, R, N), device=dev)
     bias = kernel_lib.ptr(b) if b is not None else None
     args = (kernel_lib.ptr(x), kernel_lib.ptr(w), bias, kernel_lib.ptr(y), G, R, K, N, int(trans))
-    with torch.cuda.device(dev):
-        if tile["variant"] == "wgmma":
-            code = lib.grouped_mm(*args, tile["chunks"], tile["kc"], tile["grid"][0], kernel_lib.stream(dev))
-        else:
-            code = lib.grouped_mm_ffma(*args, tile["np"], kernel_lib.stream(dev))
-    kernel = "grouped_mm_kernel" if tile["variant"] == "wgmma" else "grouped_mm_ffma_kernel"
-    kernel_lib.raise_on(code, f"{kernel} launch")
-    profiling.count(LAUNCHES["mm"])
-    kernel_lib.launched(kernel, {"y": y}, G=G, R=R, K=K, N=N)
+    if tile["variant"] == "wgmma":
+        kernel, fn, args = "grouped_mm_kernel", lib.grouped_mm, (*args, tile["chunks"], tile["kc"], tile["grid"][0])
+    else:
+        kernel, fn, args = "grouped_mm_ffma_kernel", lib.grouped_mm_ffma, (*args, tile["np"])
+    kernel_lib.launch(kernel, fn, args, LAUNCHES["mm"], {"y": y}, G=G, R=R, K=K, N=N)
     return y
-
-
-def _aligned(t):
-    """t contiguous at a 16-byte-aligned address (a copy where it is not)."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def product(x, w, b=None, counter: str = "linear/fwd"):
@@ -292,4 +283,4 @@ def product(x, w, b=None, counter: str = "linear/fwd"):
     if route == "cublas":
         y = torch.bmm(x, w.transpose(1, 2) if trans else w)
         return y if b is None else y + b[:, None, :]
-    return grouped_mm_cuda(_aligned(x), _aligned(w), None if b is None else _aligned(b), trans)
+    return grouped_mm_cuda(aligned(x), aligned(w), None if b is None else aligned(b), trans)

@@ -1,25 +1,30 @@
-"""The port's hand-written CUDA kernel library: its build, its load and a launch's plumbing.
+"""The port's hand-written CUDA kernel library: its build, its load and the launch of its kernels.
 
-Every hand-written kernel of the port sits in `csrc/fused_gru.cu`: the GRU
-recurrence's (`ops/fused_gru.py`) and the f32 weight gradient's
-(`ops/grouped_dw.py`). `build_library` compiles it with nvcc for sm_90a
-into `codebase_tpu_torch/_build/` at first use (a library built from the
-same source and flags is reused), and `library(declare)` loads it once with
+Every hand-written kernel of the port sits in `csrc/fused_gru.cu`, in three
+families: the GRU recurrence's `gru_*` (`ops/fused_gru.py`), the f32 weight
+gradient's `grouped_dw*` (`ops/grouped_dw.py`) and the f32 Linear's
+forward and input gradient, `grouped_mm*` (`ops/grouped_mm.py`).
+`build_library` compiles it with nvcc for sm_90a into
+`codebase_tpu_torch/_build/` at first use (a library built from the same
+source and flags is reused), and `library(declare)` loads it once with
 ctypes; each module passes its own `declare(lib)`, which sets its
 functions' ctypes signatures and checks the library's sizes against its
 own, once. Nothing here runs at import.
 
-What every launch shares: `check` (the tensors a kernel takes: CUDA, f32,
-contiguous, 16-byte aligned, of the expected shape), `ptr`, `stream`,
-`raise_on` (a launch's error code), `sms`, and `launched(kernel, outputs,
-**dims)`, which hands each launch's kernel name, outputs and shape to
-`LAUNCH_OBSERVERS`: in a debug region (`utils/debug.py`) a NaN in an output
-raises naming the kernel, and while `utils/profiling.count_operations`
-counts, it adds the launch's operations and bytes (`kernel_flops`,
-`kernel_bytes`, by the rules each module enters in `COSTS` for its kernels).
-No PyTorch tool sees these `ctypes` launches otherwise.
+Every wrapper checks its tensors with `check` (CUDA, f32, contiguous,
+16-byte aligned, of the expected shape; `aligned` makes a tensor so), and
+launches through `launch`: the library function on the tensors' device
+with its current stream appended, `raise_on` its error code naming the
+kernel, the launch counted in `utils/profiling`'s counter registry, and
+`launched(kernel, outputs, **dims)`, which hands each launch's kernel name,
+outputs and shape to `LAUNCH_OBSERVERS`: in a debug region
+(`utils/debug.py`) a NaN in an output raises naming the kernel, and while
+`utils/profiling.count_operations` counts, it adds the launch's operations
+and bytes (`kernel_flops`, `kernel_bytes`, by the rules each module enters
+in `COSTS` for its kernels). No PyTorch tool sees these `ctypes` launches
+otherwise. `ptr`, `stream` and `sms` are the launches' arguments.
 
-The `DW_*` sizes are those of the long-K weight-gradient design that
+The `DW_*` sizes are those of the long-K weight-gradient pipeline that
 `gru_dw_kernel` and `grouped_dw_kernel` share: tiles of DW_TILE_M x
 DW_TILE_N of dW, stages of DW_CHUNK rows in a TMA ring of DW_STAGES fp32
 stages (40 KB each) beside two pairs of TF32 B buffers (24 KB each),
@@ -43,7 +48,7 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
-from codebase_tpu_torch.utils import debug
+from codebase_tpu_torch.utils import debug, profiling
 
 DW_CHUNK = 32
 DW_TILE_M, DW_TILE_N = 128, 192
@@ -154,6 +159,25 @@ def ptr(t) -> ctypes.c_void_p:
 
 def sms() -> int:
     return torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+
+
+def aligned(t):
+    """t contiguous at a 16-byte-aligned address (a copy where it is not)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def launch(kernel: str, fn: Callable, args: tuple, counter: str, outputs: dict, **dims) -> None:
+    """Launch `kernel` by the library function `fn`: `fn(*args, stream)` on
+    the device of `outputs` ({name: tensor}) with its current stream; a
+    nonzero code raises naming the kernel. Then the launch counts under
+    `counter` and goes to `launched` with its outputs and shape `dims`."""
+    dev = next(iter(outputs.values())).device
+    with torch.cuda.device(dev):
+        code = fn(*args, stream(dev))
+    raise_on(code, f"{kernel} launch")
+    profiling.count(counter)
+    launched(kernel, outputs, **dims)
 
 
 def launched(kernel: str, outputs: dict, **dims) -> None:

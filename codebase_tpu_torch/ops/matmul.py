@@ -18,9 +18,9 @@ input's cotangent is an f32 product of the incoming f32 cotangent with the
 other, bf16-valued, operand, rounded to bf16 (the dtype of the cast input)
 before it flows back through the cast.
 
-Under "float32" the product is `torch.bmm` on the CPU. On CUDA f32 tensors
-it runs as `_F32Linear` (`f32_linear(x, w, b)`, which `grouped_linear`, the
-port's Linear, calls with the layer's bias): the forward `x @ w + b` and the input
+Under "float32" the product is `torch.bmm`. The port's Linear,
+`grouped_linear(x, w, b)`, runs on CUDA f32 tensors as `_F32Linear`
+(`f32_linear`, with the layer's bias): the forward `x @ w + b` and the input
 gradient `dy @ w^T` are `grouped_mm.product` (a hand-written 3xTF32 kernel
 that adds the bias in its epilogue where `grouped_mm.mm_route` sends the
 shape, else cuBLAS and a separate add), the weight gradient `x^T dy`, a sum
@@ -118,10 +118,9 @@ def grouped_linear(x, w, b, compute_dtype: str = "float32"):
 
 
 def grouped_matmul(x, w, compute_dtype: str = "float32"):
-    """x (G, M, K) @ w (G, K, N): in the inputs' dtype under "float32",
-    with bf16 inputs and an f32 result under "bfloat16"."""
+    """x (G, M, K) @ w (G, K, N): `torch.bmm` in the inputs' dtype under
+    "float32", with bf16 inputs and an f32 result under "bfloat16". The f32
+    Linear of CUDA tensors is `grouped_linear`'s."""
     if compute_dtype == "bfloat16":
         return _BF16Matmul.apply(x, w)
-    if takes_f32_linear(x, w):
-        return f32_linear(x, w)
     return torch.bmm(x, w)

@@ -33,7 +33,7 @@ import torch
 
 from codebase_tpu_torch.models.networks import gru_layer_init
 from codebase_tpu_torch.ops.fused_gru import gru_layer_sequence, gru_sequence_plain
-from codebase_tpu_torch.ops.matmul import grouped_matmul
+from codebase_tpu_torch.ops.matmul import grouped_linear
 from codebase_tpu_torch.utils.device import resolve_device, sync
 
 
@@ -60,8 +60,7 @@ def _losses(params, gru, x, h0):
         return torch.autograd.grad((y**2).sum() + (hT**2).sum(), leaves)
 
     def plain():
-        T, B, H = x.shape
-        gi = grouped_matmul(x.reshape(1, T * B, H), params["w_ih"]).view(1, T, B, 3 * H) + params["b_ih"][:, None, None]
+        gi = grouped_linear(x[None], params["w_ih"], params["b_ih"])
         y, hT = gru_sequence_plain(gi, params["w_hh"], params["b_hh"], h0[None])
         return torch.autograd.grad((y**2).sum() + (hT**2).sum(), leaves)
 

@@ -1,6 +1,7 @@
 """The weight gradient of the f32 grouped product (`ops/grouped_dw.py`):
-its route, its plain split and sum, the wrappers' refusals and its counters
-on the CPU; on the card, the kernels against an f64 `x^T dy` and a
+its route, its plain split and sum, the wrappers' refusals, its counters
+and the launch helper every kernel wrapper shares (`kernel_lib.launch`) on
+the CPU; on the card, the kernels against an f64 `x^T dy` and a
 recurrent IDQN update's gradients with the kernels against cuBLAS's. The
 card tests skip without a CUDA GPU; this file imports no JAX, so on the
 card:
@@ -8,6 +9,7 @@ card:
     python -m pytest --noconftest tests/test_torch_grouped_dw.py -q -m cuda
 """
 
+import contextlib
 import inspect
 import re
 import shutil
@@ -175,6 +177,27 @@ def test_counters_rise_once_a_call_and_launch_counts_keep_their_keys(monkeypatch
     profiling.count(gd.LAUNCHES["dw"], 3)
     assert gd.launch_counts() == {"dw": 3, "reduce": 0}
     assert fg.launch_counts() == dict.fromkeys(fg.LAUNCHES, 0)
+
+
+def test_launch_helper_calls_then_raises_or_counts_and_observes(monkeypatch):
+    """`kernel_lib.launch`, which every kernel wrapper launches through, on a
+    fake library function: the arguments with the outputs' device's stream
+    appended, under that device; a nonzero code raises naming the kernel,
+    before any count; else the counter rises once and `LAUNCH_OBSERVERS`
+    see the kernel, its outputs and its shape."""
+    devices, calls, seen = [], [], []
+    monkeypatch.setattr(torch.cuda, "device", lambda device: devices.append(device) or contextlib.nullcontext())
+    monkeypatch.setattr(kernel_lib, "stream", lambda device: ("stream", device))
+    monkeypatch.setattr(kernel_lib, "LAUNCH_OBSERVERS", [lambda *launch: seen.append(launch)])
+    outputs = {"partials": torch.zeros(2, 3)}
+    cpu = torch.device("cpu")
+    with pytest.raises(RuntimeError, match="grouped_dw_kernel launch failed: CUDA error 1"):
+        kernel_lib.launch("grouped_dw_kernel", lambda *a: calls.append(a) or 1, (7, 8), "test/launch", outputs, G=2)
+    assert (devices, calls, profiling.counters(), seen) == ([cpu], [(7, 8, ("stream", cpu))], {}, [])
+    kernel_lib.launch("grouped_dw_kernel", lambda *a: calls.append(a) or 0, (7, 8), "test/launch", outputs, G=2, K=3)
+    assert calls[-1] == (7, 8, ("stream", cpu)) and devices == [cpu, cpu]
+    assert profiling.counters() == {"test/launch": 1}
+    assert seen == [("grouped_dw_kernel", outputs, {"G": 2, "K": 3})]
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,7 @@ weights: Q_tot and the gradient of every leaf and of the agents' values,
 for one and two hypernetwork layers and for one unit and a sweep's two.
 
 On the CPU the products are `torch.bmm`; the "split_k" cases put the CPU
-in the card's place (the product's backward through `matmul._F32Linear`,
+in the card's place (the Linear through `matmul._F32Linear`,
 the split-K kernels by their plain version, every shape routed to them), so
 the four state layers' one product and the weight gradients' shapes are
 checked here too. The last test needs a CUDA GPU and skips without one; it
@@ -43,16 +43,10 @@ def fresh_counters():
 
 @pytest.fixture
 def split_k(monkeypatch):
-    """The card's f32 product on the CPU: `_F32Linear` where a weight takes
-    a gradient (its forward and dX `torch.bmm`), its dW by the kernels' plain
-    split and sum, any K routed to them."""
-
-    def product(x, w, compute_dtype="float32"):
-        if w.requires_grad and torch.is_grad_enabled():
-            return matmul._F32Linear.apply(x, w, None)
-        return torch.bmm(x, w)
-
-    monkeypatch.setattr(matmul, "grouped_matmul", product)
+    """The card's f32 Linear on the CPU: `matmul.f32_linear` (`_F32Linear`
+    where a weight takes a gradient; its forward and dX `torch.bmm`), its dW
+    by the kernels' plain split and sum, any K routed to them."""
+    monkeypatch.setattr(matmul, "takes_f32_linear", lambda x, w: x.dtype == w.dtype == torch.float32)
     monkeypatch.setattr(gm, "KERNEL_MIN_ROWS", dict.fromkeys(gm.KERNEL_MIN_ROWS, 2**62))  # forward, dX: bmm
     monkeypatch.setattr(gd, "KERNEL_MIN_K", {"ffma": 1, "wgmma": 1})
     monkeypatch.setattr(gd, "grouped_dw_cuda", lambda x, dy: gd.grouped_dw_plain(
