@@ -22,6 +22,12 @@ Random draws: the rollout (reset, policy, env step) draws from a generator
 of its own, seeded by one draw of the caller's, so the caller's generator
 ends in the same state whether or not the loop stops early (the JAX package
 presplits one key per step, and a skipped step leaves the rest untouched).
+
+The env step: on the card, a rollout that is not a rank's part of a
+data-parallel one replays the step as a CUDA graph, one per env and width
+(`envs/step_graph.py`), bitwise the eager step; the policy, the masked
+writes, the early exit's test and the reset run eagerly around it. The CPU
+steps eagerly.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from typing import Callable
 
 import torch
 
+from codebase_tpu_torch.envs import step_graph
 from codebase_tpu_torch.envs.api import Environment
 from codebase_tpu_torch.parallel import mesh
 from codebase_tpu_torch.utils import profiling
@@ -100,17 +107,22 @@ def collect_episodes(
     early exit stops when no env of any rank runs (one `all_reduce` a
     step), so every rank's generators stay in step.
     """
+    graphed = step_graph.graphs_step(generator.device, shard is not None, step_graph.ops_watched())
+    graph = step_graph.for_env(env, n_envs, generator.device) if graphed else None
     with mesh.drawing(shard) as shard:
         return _collect(env, policy, policy_carry, generator, n_envs, time_limit, use_proper_termination,
-                        resolve_early_exit(early_exit, env, n_envs), shard)
+                        resolve_early_exit(early_exit, env, n_envs), shard, graph)
 
 
-def _collect(env, policy, carry, generator, n_envs, time_limit, use_proper_termination, early_exit, shard):
+def _collect(env, policy, carry, generator, n_envs, time_limit, use_proper_termination, early_exit, shard,
+             graph):
     seed = torch.randint(2**62, (), generator=generator, device=generator.device)
     with profiling.host_sync("sync/rollout_seed"):
         seed = int(seed)
-    generator = torch.Generator(device=generator.device).manual_seed(seed)
+    generator = (graph.generator if graph else torch.Generator(device=generator.device)).manual_seed(seed)
     states, ts = env.reset_batch(generator, n_envs)
+    step = graph.start(env, states, ts.action_mask) if graph else step_graph.eager_steps(env, states)
+    del states  # the step holds the state from here
     obs0, mask0 = ts.obs, ts.action_mask
     running = torch.ones((n_envs,), dtype=torch.bool, device=ts.obs.device)
     out = {k: [] for k in ("obs", "actions", "rewards", "stat_rewards", "dones", "filled", "action_mask")}
@@ -122,7 +134,7 @@ def _collect(env, policy, carry, generator, n_envs, time_limit, use_proper_termi
                 break
         carry, actions = policy(carry, ts.obs, ts.action_mask, generator)
         with profiling.span("env/step"):
-            states, ts = env.step_batch(states, actions, generator, ts.action_mask)
+            ts = step(actions, generator, ts.action_mask)
         done = ts.done  # (E,)
         proper_done = ts.terminated if use_proper_termination else done
         rmask = running.float()

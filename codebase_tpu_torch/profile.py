@@ -34,7 +34,9 @@ host-span pass: `host_spans` (per span name and iteration: calls, host ms,
 self ms less its child spans, and ms inside `sync/*` spans; a CUDA
 backward's spans are roots on the autograd engine's thread),
 `host_span_iteration_ms`, and the counters per iteration:
-`policy_steps_per_iter` (the rollout's steps run), `syncs_per_iter` (by
+`policy_steps_per_iter` (the rollout's steps run),
+`env_steps_by_path_per_iter` (the env steps' `graph_captures`,
+`graph_replays` and `eager` steps, `envs/step_graph.py`), `syncs_per_iter` (by
 name), `gru_calls_per_iter` (the recurrence's calls by direction and shape),
 `gru_launches_per_iter`, `linear_dw_calls_per_iter` (the f32 weight
 gradients by route, "kernel" or "cublas", and shape (G, K, M, N)),
@@ -50,11 +52,14 @@ slows the host's launch loop (`traced_iteration_ms`, and less so
 `host_span_iteration_ms`) but not the kernels.
 Device numbers need `device=cuda`; on the CPU they read null.
 
-`iteration_flops` counts the operations of the traced iterations, an
-iteration's share (`utils/profiling.count_operations`: PyTorch's ops, plus
-the GRU kernels' from their shapes), the counterpart of the JAX report's
-`chunk_flops`; `tflops_per_s` is that over the untraced iteration time.
-The count slows only the traced pass's host loop, as tracing does.
+`iteration_flops` counts the operations of as many iterations as the
+traced pass runs, an iteration's share (`utils/profiling.count_operations`:
+PyTorch's ops, plus the GRU kernels' from their shapes), the counterpart of
+the JAX report's `chunk_flops`; `tflops_per_s` is that over the untraced
+iteration time.
+The count runs in a pass of its own before the traced one: it slows the
+host loop, and its dispatch modes keep the env step eager, where the other
+passes replay the step's CUDA graph on the card.
 `profile.trace_dir` writes the traced iterations as a Chrome/Perfetto JSON
 file there.
 
@@ -309,9 +314,11 @@ def _profile(cfg, name, shard) -> dict:
     launches = fused_gru.launch_counts()
     linear_launches = {**grouped_dw.launch_counts(), **grouped_mm.launch_counts()}
 
+    with profiling.count_operations() as ops:  # a pass of its own: its modes keep the env step eager
+        run(traced_iters)
     if shard is not None:
         shard.times = {}  # each collective between device syncs, in the traced pass only
-    with profiling.trace(trace_dir) as prof, profiling.count_operations() as ops:
+    with profiling.trace(trace_dir) as prof:
         traced_seconds = run(traced_iters)["seconds"]
     iteration_flops = ops["flops"] / traced_iters
     collectives = {k: s * 1e3 / traced_iters for k, (s, _) in shard.times.items()} if shard is not None else None
@@ -346,6 +353,8 @@ def _profile(cfg, name, shard) -> dict:
         "host_span_iteration_ms": host_span_seconds / traced_iters * 1e3,
         "host_spans": spans.report(traced_iters),
         "policy_steps_per_iter": counts.get("rollout/policy_steps", 0) / traced_iters,
+        "env_steps_by_path_per_iter": {k: counts.get(f"env/step_{k}", 0) / traced_iters
+                                       for k in ("graph_captures", "graph_replays", "eager")},
         "syncs_per_iter": {k: counts[k] / traced_iters
                            for k in sorted(k for k in counts if isinstance(k, str) and k.startswith("sync/"))},
         "gru_calls_per_iter": [

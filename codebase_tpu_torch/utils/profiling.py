@@ -17,8 +17,9 @@ The counterpart of the JAX package's `utils/profiling.py`:
   `reset_counters()`): the GRU kernels' launches (`ops/fused_gru.py`), the
   recurrence's calls by shape, the f32 weight gradients by route and shape
   and their kernels' launches (`ops/grouped_dw.py`), the QMIX mixer's
-  calls by shape (`algos/dqn.py`), the rollout's policy steps, the host
-  syncs (`host_sync(name)`, a span that also counts).
+  calls by shape (`algos/dqn.py`), the rollout's policy steps, its env
+  steps by path (`envs/step_graph.py`: graph captures, replays, eager
+  steps), the host syncs (`host_sync(name)`, a span that also counts).
 - `count_operations()`   — the operations and bytes of a region: what
   `torch.utils.flop_counter.FlopCounterMode` counts of PyTorch's ops, plus
   the hand-written kernels' operations (the GRU kernels' and the f32 weight

@@ -101,6 +101,9 @@ def test_profile_cli_on_cpu_reports_host_ranges_and_no_device_numbers(tmp_path, 
     assert all(r["host_ms_per_iter_traced"] > 0 for r in ranges.values())
     assert report["gru_launches_per_iter"] == {"fwd": 0, "bwd": 0, "fwd_wide": 0, "bwd_wide": 0, "dw": 0, "reduce": 0}
     assert report["sub_ranges"]["env/step"]["host_ms_per_iter_traced"] > 0
+    # the CPU steps eagerly: no graph captured or replayed
+    assert report["env_steps_by_path_per_iter"] == {"graph_captures": 0, "graph_replays": 0,
+                                                    "eager": report["policy_steps_per_iter"]}
 
 
 def test_profile_cli_takes_qmix_and_reads_the_reward_stream_range(tmp_path, monkeypatch):

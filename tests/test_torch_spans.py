@@ -164,8 +164,8 @@ def test_train_iteration_counts_its_syncs_and_recurrence_calls():
     step()
     counts = profiling.counters()
     assert {k: n for k, n in counts.items() if isinstance(k, str)} == {
-        "dqn/iterations": 1, "rollout/policy_steps": 5, "sync/rollout_seed": 1, "sync/replay_filled": 1,
-        "sync/loss": 1}
+        "dqn/iterations": 1, "rollout/policy_steps": 5, "env/step_eager": 5, "sync/rollout_seed": 1,
+        "sync/replay_filled": 1, "sync/loss": 1}
     # the rollout's 5 steps at T=1; per update the online and target forwards over T+1
     assert {k: n for k, n in counts.items() if isinstance(k, tuple)} == {
         ("gru/forward", (2, 1, 4, 128)): 5, ("gru/forward", (2, 6, 2, 128)): 4}
@@ -222,3 +222,7 @@ def test_each_inner_span_holds_device_work_on_the_card(tmp_path, monkeypatch):
     assert all(ms and ms > 0 for ms in held.values()), held
     assert {c["direction"] for c in report["gru_calls_per_iter"]} == {"forward", "backward"}
     assert report["gru_launches_per_iter"]["bwd"] == 2  # one an update
+    # every env step a replay of the graph captured in the warm-up, its kernels inside `env/step`
+    assert report["env_steps_by_path_per_iter"] == {"graph_captures": 0, "eager": 0,
+                                                    "graph_replays": report["policy_steps_per_iter"]}
+    assert report["sub_ranges"]["env/step"]["kernel_ms_per_iter"] > 0
