@@ -1,46 +1,9 @@
-"""What decides `correct`: the taps on the first train iteration, and the
-comparison of what they recorded with the plain reference.
-
-Set-up drives the train state through its first iteration with the same
-call the window makes (`train_iteration(state)`), with taps that record and
-change nothing:
-
-- a forward hook on the online critic keeps the Q-values the rollout's
-  policy formed (the GRU kernels at T=1, step by step) for a sample of envs
-  drawn from the seed;
-- the model's `unit_losses` is wrapped for that iteration: it keeps each
-  of the first three updates' batch (as the update got it) and loss, the
-  optimizer's first moments after the first step (the first gradient as
-  Adam got it, clipped: `mu / (1 - b1)`), and the parameters after the third
-  step, read at the start of the fourth;
-- the env's `reset_batch` is wrapped for that iteration: it keeps every
-  env's reset state (SMAClite's state is not in its observations);
-- after the iteration, the replay slots that the rollout filled are read
-  back for the sampled envs, with the target network's parameters.
-
-Once the window has closed, the reference (`reference/`) replays the
-sampled episodes, of the rollout and of each recorded batch, through the
-env's rules, forms the Q-values from the seed's weights, and takes three
-updates from the seed's weights on the recorded batches, and the numbers
-below are compared with their limits (the configuration file's):
-
-- `env_mismatch`: entries of the sampled episodes (obs, rewards, dones,
-  filled, padding), rollout and batch rows, that the rules do not give; 0.
-- `reset_faults`: first observations that break the reset's rules; 0.
-- `q_gap`: the widest gap between the program's rollout Q-values and the
-  reference's, over the filled steps, in units of the reference's RMS.
-- `loss_gap`: the widest relative gap of the first three updates' losses.
-- `grad_gap`: the widest gap, over the leaves, between the norms of the
-  first (clipped) gradient, over the larger of the reference leaf's norm
-  and the median leaf's.
-- `change_gap`: the same for the norm of each leaf's change over the three
-  steps, leaving out the leaves whose reference gradient is under a
-  thousandth of the median leaf's (they move by round-off alone).
-- `target_moved`: target parameters that differ from the seed's weights
-  after the first iteration (no hard copy is due before update 200); 0.
-
-`run.py` adds two exact numbers of the hard target copy, read after the
-window (`Cell.target_copies`): `target_schedule` and `target_copy_gap`; 0.
+"""What decides `correct`, the parts every family shares: the seed's weights
+in the program's parameters, the reset tap, the episodes of the sampled envs
+against the env's rules (`reference/`), the worst-leaf rule and the
+verdict. Each family's taps on its first train iteration, its comparison
+with the plain reference (`judge`) and its numbers are in
+`families/<family>.py`.
 """
 
 from __future__ import annotations
@@ -52,13 +15,11 @@ import numpy as np
 import torch
 
 from portbench.reference import lbf as ref_lbf
-from portbench.reference import qnet
 from portbench.reference import smaclite as ref_smaclite
 
 # the sampled envs, and the sampled rows of each followed batch, unless the
 # configuration's reference sets `check_rows`
 CHECK_ENVS = 256
-FOLLOWED_UPDATES = 3
 
 
 def seed_generator(seed: int, stream: int, device) -> torch.Generator:
@@ -103,9 +64,10 @@ def weight_bounds(tree, out=None):
 
 @torch.no_grad()
 def make_weights(model_tree, target_tree, seed: int, device):
-    """Fill the program's parameters (online and target alike) with weights
-    drawn on the device from the seed, in one draw; returns the weights as
-    a tree of CPU tensors that the reference starts from."""
+    """Fill the program's parameters (online and target alike: the target
+    tree holds some or all of the online tree's paths) with weights drawn
+    on the device from the seed, in one draw; returns the weights as a tree
+    of CPU tensors that the reference starts from."""
     leaves = list(tree_items(model_tree))
     bounds = weight_bounds(model_tree)
     total = sum(t.numel() for _, t in leaves)
@@ -144,37 +106,22 @@ def to_device(tree, device):
     return tree.to(device, copy=True)
 
 
-class Taps:
-    """Records the first train iteration (see the module's docstring)."""
+class ResetTap:
+    """Wraps the env's `reset_batch` while open: keeps the first rollout's
+    reset states, every env's, on the host (SMAClite's state is not in its
+    observations)."""
 
-    def __init__(self, state, env, n_envs: int, seed: int, check_rows: int = CHECK_ENVS):
-        self.state, self.env = state, env
-        rng = np.random.default_rng(int(seed))
-        self.check_rows = check_rows
-        self.envs = np.sort(rng.choice(n_envs, size=min(check_rows, n_envs), replace=False))
-        self.rng = rng
-        self.n_envs = n_envs
-        self.q = []  # the rollout's Q-values of the sampled envs, one (N, K, A) a step
-        self.batches, self.losses = [], []
-        self.first_moments = None
-        self.params_after = None
-        self.resets = None  # the first rollout's reset states, every env's
-        self.calls = 0
+    def __init__(self, env):
+        self.env, self.resets = env, None
 
     def __enter__(self):
-        state = self.state
-        self._idx = torch.as_tensor(self.envs, device=state.buffer.obs.device)
-        self._hook = state.model.critic.register_forward_hook(self._on_critic)
-        self._unit_losses = state.model.unit_losses
-        state.model.unit_losses = self._on_unit_losses
         self._reset_batch = self.env.reset_batch
         object.__setattr__(self.env, "reset_batch", self._on_reset)  # the env spec is a frozen dataclass
         return self
 
     def __exit__(self, *exc):
-        self._hook.remove()
-        del self.state.model.unit_losses
         object.__delattr__(self.env, "reset_batch")
+        self.env = self._reset_batch = None
         return False
 
     def _on_reset(self, generator, n):
@@ -184,55 +131,8 @@ class Taps:
             self.resets = {k: host(v) for k, v in vars(inner).items() if isinstance(v, torch.Tensor)}
         return state, ts
 
-    def _on_critic(self, module, args, output):
-        x = args[0]  # (N, T, E, D)
-        if self.calls == 0 and x.shape[1] == 1 and x.shape[2] == self.n_envs:
-            self.q.append(output[0][:, 0].index_select(1, self._idx).detach().clone())
 
-    @torch.no_grad()
-    def _on_unit_losses(self, target, batch, ret_rms, shard=None):
-        k = self.calls
-        self.calls += 1
-        opt = self.state.opt
-        if k == 1:
-            self.first_moments = [host(m) / (1.0 - opt.b1) for m in opt.mu]
-        if k == FOLLOWED_UPDATES:
-            self.params_after = [host(p) for p in self.state.model.param_leaves()]
-        with torch.enable_grad():
-            losses, rms = self._unit_losses(target, batch, ret_rms, shard)
-        if k < FOLLOWED_UPDATES:
-            self.batches.append({key: (None if v is None else host(v)) for key, v in batch.items()})
-            self.losses.append(losses.detach().clone())
-        return losses, rms
-
-    def finish(self):
-        """After the iteration: the sampled envs' replay slots (the first
-        insert fills slots 0..E-1 with envs 0..E-1), the target's
-        parameters, everything on the host."""
-        buf = self.state.buffer
-        idx = self._idx
-        self.rollout = {
-            "obs": host(buf.obs.index_select(0, idx).float()),
-            "actions": host(buf.actions.index_select(0, idx)),
-            "rewards": host(buf.rewards.index_select(0, idx)),
-            "dones": host(buf.dones.index_select(0, idx)),
-            "filled": host(buf.filled.index_select(0, idx)),
-            "action_mask": None if buf.action_mask is None else host(buf.action_mask.index_select(0, idx).float()),
-        }
-        self.q = host(torch.stack(self.q)) if self.q else None  # (T, N, K, A)
-        self.losses = [float(x.sum()) for x in self.losses]
-        rows = self.check_rows
-        self.batch_rows = [np.sort(self.rng.choice(b["filled"].shape[-1], size=min(rows, b["filled"].shape[-1]),
-                                                   replace=False)) for b in self.batches]
-        self.target_after = [host(p) for p in self.state.target.param_leaves()]
-        # the program's state is the program's: nothing here keeps it alive
-        self.state = self.env = self._idx = self._hook = self._unit_losses = self._reset_batch = None
-        if len(self.batches) < FOLLOWED_UPDATES or self.params_after is None:
-            raise RuntimeError(f"the first iteration made {self.calls} updates; the check follows "
-                               f"{FOLLOWED_UPDATES} and reads the parameters at the start of the next")
-
-
-def _worst_leaf_gap(prog, ref, keep=None):
+def worst_leaf_gap(prog, ref, keep=None):
     """max over leaves of |prog - ref| / max(ref, median(ref))."""
     med = statistics.median(ref)
     gaps = [abs(p - r) / max(r, med, 1e-30) for i, (p, r) in enumerate(zip(prog, ref))
@@ -240,121 +140,36 @@ def _worst_leaf_gap(prog, ref, keep=None):
     return max(gaps) if gaps else 0.0
 
 
-def _batch_rows(batch, rows):
-    """Episode-major rows of a reference-layout batch, for the env check."""
-    pick = torch.as_tensor(rows)
-    return {
-        "obs": batch["obss"][:, :, pick].permute(2, 1, 0, 3).numpy(),
-        "actions": batch["actions"][:, :, pick].permute(2, 1, 0).numpy(),
-        "rewards": batch["rewards"][:, :, pick].permute(2, 1, 0).numpy(),
-        "dones": batch["dones"][:, pick].T.numpy(),
-        "filled": batch["filled"][:, pick].T.numpy(),
-        "action_mask": (None if batch.get("action_mask") is None
-                        else batch["action_mask"][:, :, pick].permute(2, 1, 0, 3).numpy()),
-    }
+def reset_of(resets: dict, e: int) -> dict:
+    """Env `e`'s reset state, from the reset tap's host tensors."""
+    return {k: v.numpy()[..., e] for k, v in resets.items() if k != "t"}
 
 
-def env_numbers(taps: Taps, env: dict):
-    """(mismatches, reset faults, first mismatch) of the sampled rollout
-    episodes and batch rows against the env's rules (`reference/`)."""
-    r = {k: (None if v is None else np.asarray(v)) for k, v in taps.rollout.items()}
-    rows = [r] + [_batch_rows(b, pick) for b, pick in zip(taps.batches, taps.batch_rows)]
+def episode_numbers(env: dict, episodes: dict, resets=None):
+    """(mismatches, reset faults, first mismatch or None) of padded
+    episodes against the env's rules. Episode-major numpy arrays: obs (K,
+    T+1, N, D), actions, rewards (K, T, N), dones (K, T+1), filled (K, T),
+    action_mask (K, T+1, N, A) or None; `resets` the episodes' reset states
+    (`reset_of`), which SMAClite needs."""
+    x = episodes
     if env["kind"] == "lbf":
-        results = [ref_lbf.check_episodes(env, x["obs"], x["actions"], x["rewards"], x["dones"], x["filled"])
-                   for x in rows]
-    elif env["kind"] == "smaclite":
-        resets = {k: v.numpy() for k, v in taps.resets.items()}
-
-        def reset_of(e):
-            return {k: v[..., e] for k, v in resets.items() if k != "t"}
-
-        # a batch row's episode: the env whose reset put its allies where
-        # the row's first observation sees them (own row and col / map size)
-        key_of_env = {tuple(np.concatenate([resets["ally_r"][:, e], resets["ally_c"][:, e]])): e
-                      for e in range(resets["ally_r"].shape[-1])}
-        results = [ref_smaclite.check_episodes(env, r["obs"], r["actions"], r["rewards"], r["dones"], r["filled"],
-                                               r["action_mask"], [reset_of(e) for e in taps.envs])]
-        for x in rows[1:]:
-            keys = [tuple(np.concatenate([np.rint(o[:, 2] * env["rows"]), np.rint(o[:, 3] * env["cols"])]).astype(int))
-                    for o in x["obs"][:, 0]]
-            found = [key_of_env.get(k) for k in keys]
-            missing = sum(e is None for e in found)
-            keep = [i for i, e in enumerate(found) if e is not None]
-            res = ref_smaclite.check_episodes(env, *(x[k][keep] for k in ("obs", "actions", "rewards", "dones", "filled",
-                                                                          "action_mask")),
-                                              [reset_of(found[i]) for i in keep])
-            results.append((res[0] + missing, res[1], res[2] or (f"{missing} batch rows match no episode"
-                                                                if missing else None)))
-    else:
-        raise ValueError(f"no reference for env kind {env['kind']!r}")
-    return (sum(x[0] for x in results), sum(x[1] for x in results),
-            next((x[2] for x in results if x[2]), None))
+        return ref_lbf.check_episodes(env, x["obs"], x["actions"], x["rewards"], x["dones"], x["filled"])
+    if env["kind"] == "smaclite":
+        return ref_smaclite.check_episodes(env, x["obs"], x["actions"], x["rewards"], x["dones"], x["filled"],
+                                           x["action_mask"], resets)
+    raise ValueError(f"no reference for env kind {env['kind']!r}")
 
 
-def follow_updates(w0, batches, spec, device, precision, half_batch=False):
-    """Three reference updates from the seed's weights on the recorded
-    batches: (losses, first clipped gradient, leaves after three steps) in
-    the program's leaf order. The target stays at the seed's weights."""
-    params = to_device(w0, device)
-    target = to_device(w0, device)
-    leaves = [t for _, t in tree_items(params)]
-    for t in leaves:
-        t.requires_grad_(True)
-    clip_mask = [p.startswith("/critic") for p, _ in tree_items(params)] if spec.get("mixer") else None
-    opt = qnet.Adam(leaves, spec["lr"], spec["grad_clip"], clip_mask)
-    losses, first_grad = [], None
-    for b in batches:
-        b = {k: (None if v is None else v.to(device)) for k, v in b.items()}
-        loss = qnet.double_q_loss(params, target, b, spec["gamma"], spec.get("mixer"), precision, half_batch)
-        grads = torch.autograd.grad(loss, leaves)
-        clipped = opt.step(leaves, grads)
-        losses.append(float(loss.detach()))
-        if first_grad is None:
-            first_grad = [host(g) for g in clipped]
-    return losses, first_grad, [host(t) for t in leaves]
-
-
-def judge(taps: Taps, w0, spec: dict, device, mode: str = "program"):
-    """The numbers compared, for the program (`mode` "program") or for the
-    reference put in its place: "control" (TF32 products) or the planted
-    fault "half_batch" (the loss over half the rows). Returns {name:
-    number}."""
-    numbers = {}
-    rollout = taps.rollout
-    bad, faults, taps.env_first_mismatch = env_numbers(taps, spec["env"])
-    numbers["env_mismatch"] = float(bad)
-    numbers["reset_faults"] = float(faults)
-
-    with torch.no_grad():
-        obs = rollout["obs"].permute(2, 1, 0, 3).to(device)  # (N, T+1, K, D)
-        q_ref = qnet.q_values(to_device(w0["critic"], device), obs, qnet.F32)[:, :-1].cpu()  # (N, T, K, A)
-        if mode == "control":
-            q_prog = qnet.q_values(to_device(w0["critic"], device), obs, qnet.TF32)[:, :-1].cpu()
-        else:
-            q_prog = taps.q.permute(1, 0, 2, 3)  # (N, T, K, A)
-    T = min(q_prog.shape[1], q_ref.shape[1])
-    live = rollout["filled"].T[:T].bool()  # (T, K)
-    diff = (q_prog[:, :T] - q_ref[:, :T]).abs()[:, live]
-    scale = q_ref[:, :T][:, live].pow(2).mean().sqrt()
-    numbers["q_gap"] = float(diff.max() / scale) if diff.numel() else 0.0
-
-    ref_losses, ref_g, ref_after = follow_updates(w0, taps.batches, spec, device, qnet.F32)
-    w0_leaves = [t for _, t in tree_items(w0)]
-    if mode == "program":
-        prog_losses, prog_g, prog_after = taps.losses, taps.first_moments, taps.params_after
-    else:
-        precision = qnet.TF32 if mode == "control" else qnet.F32
-        prog_losses, prog_g, prog_after = follow_updates(w0, taps.batches, spec, device, precision,
-                                                         half_batch=mode == "half_batch")
-    numbers["loss_gap"] = max(abs(p - r) / max(abs(r), 1e-30) for p, r in zip(prog_losses, ref_losses))
-    g_ref = [float(g.norm()) for g in ref_g]
-    numbers["grad_gap"] = _worst_leaf_gap([float(g.norm()) for g in prog_g], g_ref)
-    med_g = statistics.median(g_ref)
-    moving = [g >= 1e-3 * med_g for g in g_ref]
-    numbers["change_gap"] = _worst_leaf_gap([float((a - w).norm()) for a, w in zip(prog_after, w0_leaves)],
-                                            [float((a - w).norm()) for a, w in zip(ref_after, w0_leaves)], moving)
-    numbers["target_moved"] = float(sum(int((t != w).sum()) for t, w in zip(taps.target_after, w0_leaves)))
-    return numbers
+def step_numbers(env: dict, episodes: dict, device):
+    """(mismatches, first mismatch or None) of every transition of every
+    env, each from the program's observation before it (`ref_lbf.check_steps`),
+    for an env whose state is all in one observation; None for another
+    (SMAClite's units' health and cooldowns are not in the observations).
+    `episodes` as `episode_numbers` takes them, every env's."""
+    if env["kind"] != "lbf":
+        return None
+    x = episodes
+    return ref_lbf.check_steps(env, x["obs"], x["actions"], x["rewards"], x["dones"], x["filled"], device)
 
 
 def verdict(numbers: dict, limits: dict):
@@ -363,3 +178,9 @@ def verdict(numbers: dict, limits: dict):
     checks = {k: [v, limits.get(k)] for k, v in numbers.items()}
     ok = all(lim is not None and math.isfinite(v) and v <= lim for v, lim in checks.values())
     return ok, checks
+
+
+def sampled_envs(seed: int, n_envs: int, check_rows: int):
+    """(the generator of the harness's draws, the sorted sampled envs)."""
+    rng = np.random.default_rng(int(seed))
+    return rng, np.sort(rng.choice(n_envs, size=min(check_rows, n_envs), replace=False))

@@ -1,18 +1,13 @@
-"""The yardstick's arithmetic: peaks, useful flops, and a GRU layer's least time.
+"""The yardstick's arithmetic: peaks, multiply-adds, and a GRU layer's least time.
 
 Frozen here so that a change to the program cannot change what it is
 measured against.
 
 - `PEAKS`: one NVIDIA H100 SXM (80 GB HBM3), dense rates without sparsity,
   from NVIDIA's data sheet, at the card's full 700 W power limit.
-- `useful_flops`: the matrix products of the networks that the layers of
-  `RNNSpec` build. For `layers: [128, 128]` with `use_rnn` that is one
-  Linear in->128, ONE GRU(128) and one Linear 128->actions (`RNNSpec` builds
-  `len(layers) - 1` recurrent layers). The rollout counts one forward per
-  collected env step; each update counts the online forward, the target
-  forward and the backward (twice a forward) over (T+1)*B rows; QMIX adds
-  its mixer and hypernetworks over T*B rows, four forwards' worth (online
-  forward, backward, target forward).
+- `network_macs_per_row`, `mixer_macs_per_row`: the multiply-adds of the
+  networks that the layers of `RNNSpec` build, and of the QMIX mixer, on one
+  row; each family's `useful_flops` (`families/`) counts its rows.
 - `gru_bounds`: the least time of one GRU layer call, the larger of its
   operations at the tensor cores' 3xTF32 rate (three TF32 products for each
   f32-accurate product) and its bytes (each input read once, each output
@@ -77,22 +72,6 @@ def mixer_macs_per_row(n_agents: int, state_dim: int, embed_dim: int, hypernet_l
         hw1 = S * N * E
         hwf = S * E
     return hw1 + hwf + S * E + (S * E + E) + (N * E + E)
-
-
-def useful_flops(model: dict, time_limit: int, batch_size: int, updates_per_collect: int):
-    """(flops per collected env step, flops per train iteration's updates).
-
-    `model`: obs_dims, action_dims (one per agent), layers, use_rnn, and for
-    QMIX `mixer` {n_agents, state_dim, embed_dim, hypernet_layers,
-    hypernet_embed}."""
-    per_step = sum(network_macs_per_row(d, model["layers"], a, model["use_rnn"])
-                   for d, a in zip(model["obs_dims"], model["action_dims"]))
-    rollout = 2.0 * per_step
-    T, B, U = int(time_limit), int(batch_size), int(updates_per_collect)
-    update = U * B * (T + 1) * per_step * 2.0 * 4.0  # online fwd, target fwd, backward (2x)
-    if model.get("mixer"):
-        update += U * B * T * mixer_macs_per_row(**model["mixer"]) * 2.0 * 4.0
-    return rollout, update
 
 
 def gru_kernel_flops(kernel: str, G: int, T: int, B: int, H: int) -> float:

@@ -1,8 +1,11 @@
 """Env steps collected in the window over the window's seconds.
 
-The steps are the iterations' filled steps, as the train state's
-`env_steps` counts them; the window starts after a device sync and ends in
-one. All the work over all the time: no best window, no median of chunks.
+The steps are what the train state's `env_steps` adds over the window's
+iterations: the DQN family counts the filled steps; the actor-critic family
+counts each iteration's longest episode times its envs (`algos/ac.py`), the
+steps after a shorter episode ended included. The window starts after a
+device sync and ends in one. All the work over all the time: no best
+window, no median of chunks.
 """
 
 NAME = "env_steps_per_s"

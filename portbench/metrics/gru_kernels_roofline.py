@@ -1,13 +1,16 @@
 """The GRU layer's share of its roofline, in percent: the least time of the
-GRU calls an iteration makes (`counts.gru_bounds`, from the shapes and the
-steps actually run), over the device time of the GRU kernels per traced
-iteration.
+GRU calls an iteration makes (`counts.gru_bounds` for each call of the
+cell's family's call model, `families/<family>.py` `gru_least_seconds`,
+from the shapes and the rollout steps actually run), over the device time of
+the GRU kernels per traced iteration.
 
-The calls: one forward at T=1 over the E envs for each rollout step run
-(the forward launches beyond the updates' two each), and per update the
-online and target forwards over (T+1, B) and one backward."""
-
-from portbench import counts
+The DQN family's calls: one forward at T=1 over the E envs for each rollout
+step run (the forward launches beyond the updates' two each), and per update
+the online and target forwards over (T+1, B) and one backward. The
+actor-critic family's: the actor's forward at T=1 for each rollout step
+run, the target critic's forward over (T+1, E), for PPO the pre-update
+actor forward over (T, E), and each epoch's forward and backward of the
+actor and the critic over (T, E)."""
 
 NAME = "gru_kernels_roofline"
 UNIT = "%"
@@ -18,17 +21,11 @@ KERNELS = ("gru_fwd_kernel", "gru_bwd_kernel", "gru_dw_kernel", "gru_reduce_kern
 
 
 def read(ctx):
-    t, peaks = ctx["trace"], ctx["peaks"]
-    if not t or not peaks:
+    t, least_seconds = ctx["trace"], ctx.get("gru_least_seconds")
+    if not t or not least_seconds:
         return None
-    s = ctx["shapes"]
     calls = {k: sum(c for n, (c, _) in t["by_name"].items() if k in n) for k in KERNELS}
     device_s = sum(us for n, (_, us) in t["by_name"].items() if any(k in n for k in KERNELS)) / 1e6
     if not device_s:
         return None
-    rollout_steps = calls["gru_fwd_kernel"] - 2 * s["U"]
-    fwd_roll, _ = counts.gru_bounds("fwd", s["G"], 1, s["E"], s["H"], peaks)
-    fwd_upd, _ = counts.gru_bounds("fwd", s["G"], s["T"] + 1, s["B"], s["H"], peaks)
-    bwd_upd, _ = counts.gru_bounds("bwd", s["G"], s["T"] + 1, s["B"], s["H"], peaks)
-    least = rollout_steps * fwd_roll + s["U"] * (2 * fwd_upd + bwd_upd)
-    return 100.0 * least / device_s
+    return 100.0 * least_seconds(calls) / device_s

@@ -5,9 +5,11 @@ operation whose name holds `grouped_dw` (the split-K kernels and their
 reduction).
 
 The weight gradients: the program's `("linear/dw", "kernel", (G, K, M, N))`
-counters (each a dW[g] = x[g]^T dy[g] of G groups of K rows, M x N) over
-its `dqn/iterations` counter, both counted since the process started, as
-`host_syncs_per_iter` reads them. A product's least time is the larger of
+counters (each a dW[g] = x[g]^T dy[g] of G groups of K rows, M x N),
+counted since the process started, over the train iterations since then
+(`ctx["iterations"]`: the DQN family's `dqn/iterations` counter, as
+`host_syncs_per_iter` reads it; for the actor-critic family, which counts
+none, the iterations the harness ran). A product's least time is the larger of
 its operations at the tensor cores' 3xTF32 rate (3 * 2GKMN over the TF32
 peak) and its f32 bytes, x and dy read once and dW written once
 (4G(KM + KN + MN)), at the HBM rate: the rule of `counts.gru_bounds`,
@@ -38,7 +40,7 @@ def read(ctx):
     if not hasattr(profiling, "counters"):
         return None
     counts = profiling.counters()
-    iters = counts.get("dqn/iterations")
+    iters = ctx.get("iterations")
     if not iters:
         return None
     least = sum(n * least_seconds(*key[2], peaks) for key, n in counts.items()

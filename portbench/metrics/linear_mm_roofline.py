@@ -5,8 +5,10 @@ iteration of every operation whose name holds `grouped_mm`.
 
 The products: the program's `("linear/fwd" | "linear/dx", "kernel", (G, R,
 K, N))` counters (each x[g] (R x K) @ B[g] (K x N) of G groups, the bias
-added in the forward) over its `dqn/iterations` counter, both counted since
-the process started, as `host_syncs_per_iter` reads them. A product's least
+added in the forward), counted since the process started, over the train
+iterations since then (`ctx["iterations"]`: the DQN family's
+`dqn/iterations` counter, as `host_syncs_per_iter` reads it; for the
+actor-critic family, which counts none, the iterations the harness ran). A product's least
 time is the larger of its operations at the tensor cores' 3xTF32 rate (3 *
 2GRKN over the TF32 peak) and its f32 bytes, x and B read once and y written
 once with the bias (4G(RK + KN + RN + N)), at the HBM rate, whichever kernel
@@ -38,7 +40,7 @@ def read(ctx):
     if not hasattr(profiling, "counters"):
         return None
     counts = profiling.counters()
-    iters = counts.get("dqn/iterations")
+    iters = ctx.get("iterations")
     if not iters:
         return None
     least = sum(n * least_seconds(*key[2], peaks) for key, n in counts.items()

@@ -1,10 +1,11 @@
 """The whole step's share of the card's peak, in percent.
 
-Useful flops (`counts.useful_flops`: the networks' products as the layers
-of `RNNSpec` build them, one forward per collected env step, online and
-target forwards and the backward per update) of the untraced window, over
-its seconds, over the peak of the configuration's precision (f32: the
-dense TF32 rate over three, 165 TFLOP/s on an H100 SXM at 700 W)."""
+Useful flops (the cell's family's `useful_flops`, `families/<family>.py`:
+the networks' products as the layers of `RNNSpec` build them, counted with
+`counts.network_macs_per_row`; the rollout's forwards per collected env
+step, and each train iteration's update) of the untraced window, over its
+seconds, over the peak of the configuration's precision (f32: the dense
+TF32 rate over three, 165 TFLOP/s on an H100 SXM at 700 W)."""
 
 from portbench import counts
 

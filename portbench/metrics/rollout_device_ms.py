@@ -1,17 +1,18 @@
-"""Device milliseconds per traced iteration inside the program's range
-`dqn/rollout`: the time of the device operations whose start lies in the range's
-device-side span."""
+"""Device milliseconds per traced iteration inside the program's range of
+the rollout, as the cell's family names it (`families/<family>.py`
+`RANGES["rollout"]`: `dqn/rollout`, `ac/rollout`): the time of the device
+operations whose start lies in the range's device-side span."""
 
 NAME = "rollout_device_ms"
 UNIT = "ms"
 LAYER = "rollout"
 MOVES = "env_steps_per_s"
 SOURCE = "device_trace"
-RANGE = "dqn/rollout"
+LAYER_KEY = "rollout"
 
 
 def read(ctx):
-    t = ctx["trace"]
-    if not t or not t["range_us_per_iter"].get(RANGE):
+    t, name = ctx["trace"], ctx["ranges"].get(LAYER_KEY)
+    if not t or not name or not t["range_us_per_iter"].get(name):
         return None
-    return t["range_us_per_iter"][RANGE] / 1e3
+    return t["range_us_per_iter"][name] / 1e3

@@ -4,14 +4,16 @@
 
 For each seed: the cell's set-up as a run makes it (train state, weights
 from the seed, the checked first iteration), the program's state freed,
-then the check's numbers for each mode: "program" (what a run compares),
-"control" (the reference in the program's place with TF32 products, the
-next precision down) and "half_batch" (the reference in the program's
-place with the loss over half of each batch's rows, a planted fault). No
-measured window: the numbers come from the first iteration alone. One JSON
-line a seed and mode, then one with each number's largest program reading
-and smallest control and fault readings. The benchmark's runs do not run
-this.
+then the check's numbers for each mode (`families/<family>.judge`):
+"program" (what a run compares), "control" (the reference in the program's
+place with TF32 products, the next precision down) and "half_batch" (the
+reference in the program's place with the loss over half of each batch's
+rows, or for the actor-critic family over half of the rollout's envs: a
+planted fault). No measured window: the numbers come from the first
+iteration alone (the after-window checks are exact and not read here). One
+JSON line a seed and mode, then one with each number's largest program
+reading and smallest control and fault readings. The benchmark's runs do
+not run this.
 """
 
 from __future__ import annotations
@@ -29,18 +31,17 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
-    from portbench import check, run, spec
+    from portbench import run, spec
 
     workload = spec.workload(args.workload)
     config = spec.config(workload["config"])
-    ref = config["reference"]
     modes = args.modes.split(",")
     readings = {m: [] for m in modes}
     for seed in (int(s) for s in args.seeds.split(",")):
         cell = run.Cell(workload, config, seed, args.device)
         cell.free()
         for mode in modes:
-            numbers = check.judge(cell.taps, cell.w0, ref, cell.device, mode)
+            numbers = cell.judge(mode)
             readings[mode].append(numbers)
             print(json.dumps({"workload": args.workload, "seed": seed, "mode": mode, "numbers": numbers}), flush=True)
     summary = {}

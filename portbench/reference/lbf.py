@@ -24,6 +24,7 @@ covers the grid), and the food spawned at reset is the sum of their levels.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 NONE, NORTH, SOUTH, WEST, EAST, LOAD = range(6)
 MOVES = {NORTH: (-1, 0), SOUTH: (1, 0), WEST: (0, -1), EAST: (0, 1)}
@@ -162,3 +163,126 @@ def check_episodes(env: dict, obs, actions, rewards, dones, filled):
                 first = f"episode {k}: {name} differs in {n} entries"
             bad += n
     return bad, faults, first
+
+
+def _encode(rows, cols, players, foods, active):
+    """One observation (every agent's, `sight` covering the grid) of states
+    given as tensors: players (M, N, 3), foods (M, F, 3), active (M, F) ->
+    (M, 3F + 3N): the active foods row-major, (-1, -1, 0) slots after them,
+    then the players in index order."""
+    key = torch.where(active, foods[..., 0] * cols + foods[..., 1], torch.full_like(foods[..., 0], rows * cols))
+    order = key.argsort(dim=1, stable=True)
+    sorted_foods = foods.gather(1, order[..., None].expand_as(foods))
+    empty = torch.tensor([-1, -1, 0], dtype=foods.dtype, device=foods.device)
+    sorted_foods = torch.where(active.gather(1, order)[..., None], sorted_foods, empty)
+    return torch.cat([sorted_foods.flatten(1), players.flatten(1)], 1)
+
+
+def _decode(o, max_food, n_agents):
+    """(players (M, N, 3), foods (M, F, 3), active (M, F)) of agent 0's view."""
+    o = o.round().long()
+    foods = o[:, : 3 * max_food].reshape(-1, max_food, 3)
+    return o[:, 3 * max_food:].reshape(-1, n_agents, 3), foods, foods[..., 2] > 0
+
+
+def _reset_faults(env, players, foods, active):
+    """Reset faults of states (M, ...), each env's count: `Episode.reset_faults`
+    over a batch."""
+    rows, cols, n = env["rows"], env["cols"], env["n_agents"]
+    r, c, lvl = players.unbind(-1)
+    same = (r[:, :, None] == r[:, None, :]) & (c[:, :, None] == c[:, None, :])
+    faults = (same.sum((1, 2)) > n).long()
+    faults += ((r < 0) | (r >= rows) | (c < 0) | (c >= cols) | (lvl < env["min_player_level"])
+               | (lvl > env["max_player_level"])).sum(1)
+    bound = lvl.sort(1).values[:, :3].sum(1).clamp(min=2)[:, None]
+    fr, fc, fl = foods.unbind(-1)
+    on_player = ((fr[:, :, None] == r[:, None, :]) & (fc[:, :, None] == c[:, None, :])).any(2)
+    placed = (fr < 1) | (fr > rows - 2) | (fc < 1) | (fc > cols - 2) | on_player
+    faults += (active & placed).sum(1) + (active & ((fl < 1) | (fl >= bound))).sum(1)
+    near = ((fr[:, :, None] - fr[:, None, :]).abs() <= 1) & ((fc[:, :, None] - fc[:, None, :]).abs() <= 1)
+    near &= active[:, :, None] & active[:, None, :] & ~torch.eye(foods.shape[1], dtype=torch.bool, device=foods.device)
+    return faults + near.sum((1, 2))
+
+
+def _step(env, players, foods, active, actions, spawned, t, time_limit):
+    """One step of states (M, ...) under `Episode.step`'s rules: -> (players,
+    active, rewards (M, N) float64, done (M,))."""
+    rows, cols = env["rows"], env["cols"]
+    dev = players.device
+    dr = torch.tensor([0, -1, 1, 0, 0, 0], device=dev)[actions]
+    dc = torch.tensor([0, 0, 0, -1, 1, 0], device=dev)[actions]
+    r, c, lvl = players.unbind(-1)
+    fr, fc, fl = foods.unbind(-1)
+    tr, tc = r + dr, c + dc
+    into_food = (active[:, None, :] & (fr[:, None, :] == tr[..., None]) & (fc[:, None, :] == tc[..., None])).any(2)
+    moving = (actions >= NORTH) & (actions <= EAST) & (tr >= 0) & (tr < rows) & (tc >= 0) & (tc < cols) & ~into_food
+    tr, tc = torch.where(moving, tr, r), torch.where(moving, tc, c)
+    claims = ((tr[:, :, None] == tr[:, None, :]) & (tc[:, :, None] == tc[:, None, :])).sum(2)
+    r, c = torch.where(claims == 1, tr, r), torch.where(claims == 1, tc, c)
+    chosen = torch.zeros(actions.shape + active.shape[1:], dtype=torch.bool, device=dev)  # (M, N, F)
+    found = torch.zeros_like(actions, dtype=torch.bool)
+    for ddr, ddc in LOAD_ORDER:
+        hit = active[:, None, :] & (fr[:, None, :] == (r + ddr)[..., None]) & (fc[:, None, :] == (c + ddc)[..., None])
+        take = (actions == LOAD) & ~found & hit.any(2)
+        chosen |= take[..., None] & hit
+        found |= take
+    total = (chosen * lvl[..., None]).sum(1)  # (M, F)
+    collected = active & chosen.any(1) & (total >= fl)
+    share = torch.where(collected, fl.double() / (total.clamp(min=1).double() * spawned[:, None]), 0.0)
+    rewards = (chosen * share[:, None, :]).sum(2) * lvl.double()
+    active = active & ~collected
+    done = ~active.any(1) | (t + 1 >= env["max_episode_steps"]) | (t + 1 >= time_limit)
+    return torch.stack([r, c, lvl], -1), active, rewards, done
+
+
+def check_steps(env: dict, obs, actions, rewards, dones, filled, device="cpu"):
+    """Every transition of every env against the rules, each from the
+    program's own observation before it, in bulk: the whole rollout, where
+    `check_episodes` replays a sample one episode at a time. Needs `sight`
+    to cover the grid (the state is then all in one observation).
+    Episode-major tensors as `check_episodes` takes them. Counts entries
+    that differ (the next observation of every agent, rewards, dones, the
+    filled steps, padding, actions out of range) and reset faults of the
+    first observations. Returns (count, first mismatch description or
+    None)."""
+    if env["sight"] < max(env["rows"], env["cols"]) - 1:
+        raise ValueError("check_steps reads the state from one observation: sight must cover the grid")
+    F, N = env["max_food"], env["n_agents"]
+    obs = torch.as_tensor(obs).to(device, torch.float32)
+    actions = torch.as_tensor(actions).to(device).long()
+    rewards, dones, filled = (torch.as_tensor(x).to(device, torch.float64) for x in (rewards, dones, filled))
+    K, T = filled.shape
+    counts = {}
+
+    def tally(name, n):
+        counts[name] = counts.get(name, 0) + int(n)
+
+    players0, foods0, active0 = _decode(obs[:, 0, 0], F, N)
+    tally("reset faults", _reset_faults(env, players0, foods0, active0).sum())
+    want0 = _encode(env["rows"], env["cols"], players0, foods0, active0).float()
+    tally("first obs", (obs[:, 0] != want0[:, None]).sum())
+    spawned = (foods0[..., 2] * active0).sum(1).double()  # (K,)
+
+    live = filled.bool()
+    want_filled = torch.cat([torch.ones_like(live[:, :1]), live[:, :-1] & (dones[:, 1:-1] == 0)], 1)
+    tally("filled", (live != want_filled).sum())
+    tally("first done", (dones[:, 0] != 0).sum())
+    tally("actions out of range", ((actions < NONE) | (actions > LOAD)).sum())
+    dead = ~live
+    tally("padded actions", (actions[dead] != 0).sum())
+    tally("padded obs", (obs[:, 1:][dead] != 0).sum())
+    tally("padded rewards", (rewards[dead] != 0).sum())
+    tally("padded dones", (dones[:, 1:][dead] != 0).sum())
+
+    k, t = live.nonzero(as_tuple=True)
+    players, foods, active = _decode(obs[k, t, 0], F, N)
+    nxt_players, nxt_active, want_r, done = _step(env, players, foods, active, actions[k, t].clamp(NONE, LOAD),
+                                                  spawned[k], t, T)
+    want_obs = _encode(env["rows"], env["cols"], nxt_players, foods, nxt_active).float()
+    tally("obs", (obs[k, t + 1] != want_obs[:, None]).sum())
+    # the program's rewards are f32 quotients: equal to rounding
+    tally("rewards", ((rewards[k, t] - want_r).abs() > 1e-6).sum())
+    tally("dones", (dones[k, t + 1] != done.double()).sum())
+    bad = sum(counts.values())
+    first = next((f"{name}: {n} entries" for name, n in counts.items() if n), None)
+    return bad, first

@@ -3,16 +3,18 @@
     python3 -m portbench.run --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 from the root of a checkout that holds the port (`codebase_tpu_torch`).
-The run builds the cell's train state (`algos/dqn.build_train_functions`
-from the composed config, the envs from `run.build_envs`), fills its
-weights on the card from the seed, drives the first train iteration with
-the check's taps (`check.py`), warms up one more iteration, then calls
-`train_iteration(state)` as the port's host loop does (a device sync, the
-iteration, the loss read back) until `--seconds` have passed, and ends the
-window in a device sync. With `--trace 1` a few more iterations then run
-under `torch.profiler`, read in memory (`trace.py`). Once the window has
-closed and the peak memory has been read, the program's state is freed and
-the plain reference judges what the taps recorded.
+The run builds the cell's train state through the family that its
+configuration names (`families/<family>.py`: the program's
+`build_train_functions` from the composed config, the envs from
+`run.build_envs`), fills its weights on the card from the seed, drives the
+first train iteration with the family's taps, warms up one more iteration,
+then calls `train_iteration(state)` as the port's host loop does (a device
+sync, the iteration, the loss read back) until `--seconds` have passed, and
+ends the window in a device sync. With `--trace 1` a few more iterations
+then run under `torch.profiler`, read in memory (`trace.py`). Once the
+window has closed and the peak memory has been read, the family's exact
+checks run a last iteration or two, the program's state is freed and the
+plain reference judges what the taps recorded.
 
 The last line of standard output is one JSON object: `correct`,
 `attempted` (the window's iterations), `failed`, `metrics` (the cell's
@@ -29,7 +31,6 @@ import time
 PROCESS_START = time.perf_counter()
 
 import argparse  # noqa: E402
-import gc  # noqa: E402
 import json  # noqa: E402
 import sys  # noqa: E402
 
@@ -62,35 +63,34 @@ def sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+# train iterations the harness ran since the process started (the checked
+# first iteration, warm-up, window, traced stretch and after-window checks)
+ITERATIONS = {"run": 0}
+
+
 class Cell:
-    """One cell's train state, built, weighted from the seed and driven
-    through its checked first iteration and warm-up."""
+    """One cell's train state (its family's, `families/`), built, weighted
+    from the seed and driven through its checked first iteration."""
 
     def __init__(self, workload: dict, config: dict, seed: int, device_name: str):
-        from codebase_tpu_torch.algos.dqn import build_train_functions
         from codebase_tpu_torch.config import load_config
         from codebase_tpu_torch.run import build_envs
         from codebase_tpu_torch.utils.device import resolve_device
 
-        from portbench import check
+        from portbench import families
 
+        self.family = families.load(config["family"])
         self.marks = [("program imports", time.perf_counter())]
         cfg = load_config(compose(workload, config, seed, device_name))
         self.device = resolve_device(device_name)  # also turns TF32 off for f32 products
-        self.cfg = cfg
         env, eval_env = build_envs(cfg)
         self.marks.append(("config and envs", time.perf_counter()))
-        self.env = env
-        self.T = int(cfg.env.time_limit)
-        self.n_envs = int(cfg.algorithm.parallel_envs)
-        self.updates_per_iter = int(workload["traffic"]["updates_per_collect"])
+        self.reference = config["reference"]
         self.iters = 0
-        init_state, self.train_iteration, _ = build_train_functions(env, eval_env, cfg.algorithm, self.T, self.device)
-        self.state = init_state(seed)
+        self.train = self.family.Train(cfg, env, eval_env, self.device, workload["traffic"], seed)
         self.marks.append(("train state", time.perf_counter()))
-        self.w0 = check.make_weights(self.state.model.param_tree(), self.state.target.param_tree(), seed,
-                                     self.device)
-        with check.Taps(self.state, env, self.n_envs, seed, int(config["reference"].get("check_rows", 256))) as self.taps:
+        self.w0 = self.train.make_weights(seed)
+        with self.train.taps(seed, self.reference) as self.taps:
             self.iterate()
         self.taps.finish()
         sync(self.device)
@@ -99,45 +99,20 @@ class Cell:
     def iterate(self) -> None:
         """One iteration as the port's host loop runs it."""
         sync(self.device)
-        metrics = self.train_iteration(self.state)
-        float(metrics["loss"])  # the host loop reads the loss back, which waits for the updates
+        self.train.read_back(self.train.train_iteration(self.train.state))
         self.iters += 1
+        ITERATIONS["run"] += 1
 
     def env_steps(self) -> int:
-        return int(self.state.env_steps)
+        return self.train.env_steps()
 
-    def model(self) -> dict:
-        """What the useful-flops count needs, from the configuration."""
-        acfg = self.cfg.algorithm
-        model = {"obs_dims": list(self.env.obs_dims), "action_dims": list(self.env.action_dims),
-                 "layers": list(acfg.model.layers), "use_rnn": bool(acfg.model.use_rnn)}
-        if acfg.model.name == "qmix":
-            mx = acfg.model.mixing
-            model["mixer"] = {"n_agents": self.env.n_agents, "state_dim": sum(self.env.obs_dims),
-                              "embed_dim": int(mx.embed_dim), "hypernet_layers": int(mx.hypernet_layers),
-                              "hypernet_embed": int(mx.hypernet_embed)}
-        return model
-
-    def target_copies(self, interval: int) -> dict:
-        """After the window, whether the hard target copies come when due
-        and copy the online parameters. `target_schedule`: the program's
-        update count off the iterations run, plus its last copy off the last
-        multiple of `interval` (both 0). Then the program's counter is set
-        so that a copy falls due at the last update of one more iteration,
-        and `target_copy_gap` is the largest gap between the target and the
-        online parameters after it (a copy: 0)."""
-        state, per_iter = self.state, self.updates_per_iter
-        n, last = int(state.updates), int(state.last_target_update)
-        schedule = abs(n - per_iter * self.iters) + abs(last - interval * (n // interval))
-        state.last_target_update = n + per_iter - interval
-        self.iterate()
-        gap = max(float((t - p).detach().abs().max())
-                  for t, p in zip(state.target.param_leaves(), state.model.param_leaves()))
-        return {"target_schedule": float(schedule), "target_copy_gap": gap}
+    def judge(self, mode: str = "program") -> dict:
+        """The numbers compared (`families/<family>.judge`), once the
+        program's state is freed."""
+        return self.family.judge(self.taps, self.w0, self.reference, self.device, mode)
 
     def free(self) -> None:
-        del self.state, self.train_iteration
-        gc.collect()
+        self.train.free()
         if self.device.type == "cuda":
             import torch
 
@@ -160,7 +135,8 @@ def measure(cell: Cell, seconds: float) -> dict:
 
 
 def traced(cell: Cell, iters: int):
-    """`iters` iterations under the profiler: (trace summary, seconds)."""
+    """`iters` iterations under the profiler: (trace summary, seconds). The
+    program's ranges read are the cell's family's, and `env/step`."""
     from torch.profiler import ProfilerActivity, profile
 
     from portbench import trace
@@ -173,7 +149,7 @@ def traced(cell: Cell, iters: int):
             cell.iterate()
         sync(cell.device)
         seconds = time.perf_counter() - t0
-    return trace.summarise(prof.events(), iters), seconds
+    return trace.summarise(prof.events(), iters, (*cell.family.RANGES.values(), "env/step")), seconds
 
 
 def run_cell(name: str, seed: int, seconds: float, trace: bool, device_name: str = "cuda",
@@ -202,23 +178,22 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device_name: str
     if trace:
         summary, traced_s = traced(cell, TRACED_ITERS)
     peak_bytes = torch.cuda.max_memory_allocated() if on_card else 0
-    copies = cell.target_copies(int(config["model"]["target_update_interval_or_tau"]))
-    traffic = workload["traffic"]
-    model = cell.model()
-    rollout_flops, update_flops = counts.useful_flops(model, cell.T, traffic["batch_size"],
-                                                      traffic["updates_per_collect"])
+    exact = cell.train.after_window(cell)
+    rollout_flops, update_flops = cell.train.useful_flops()
     kind = torch.cuda.get_device_name() if on_card else "cpu"
+    peaks = counts.PEAKS.get(kind)
     ctx = {
         "window": window, "setup_s": setup_s, "peak_bytes": peak_bytes, "trace": summary,
         "flops": {"rollout_per_env_step": rollout_flops, "updates_per_iter": update_flops},
-        "dtype": config["dtype"], "peaks": counts.PEAKS.get(kind),
-        "shapes": {"T": cell.T, "E": cell.n_envs, "B": int(traffic["batch_size"]),
-                   "U": int(traffic["updates_per_collect"]), "G": len(model["obs_dims"]),
-                   "H": int(model["layers"][0])},
+        "dtype": config["dtype"], "peaks": peaks, "ranges": cell.family.RANGES,
+        "iterations": cell.train.iterations(ITERATIONS["run"]),
+        "gru_least_seconds": (lambda calls: cell.train.gru_least_seconds(calls, peaks)) if peaks else None,
     }
     cell.free()
-    numbers = check.judge(cell.taps, cell.w0, config["reference"], cell.device)
-    numbers.update(copies)
+    judged = time.perf_counter()
+    numbers = cell.judge()
+    judged = time.perf_counter() - judged
+    numbers.update(exact)
     correct, checks = check.verdict(numbers, config["limits"])
     metrics = {}
     for mname in spec.run_metrics(bench, trace):
@@ -243,7 +218,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device_name: str
     marks += cell.marks
     lines = ["set-up s: " + ", ".join(f"{name} {b - a:.2f}" for (_, a), (name, b) in zip(marks[:-1], marks[1:]))]
     lines += [f"window: {window['iters']} iterations in {window['seconds']:.4f} s, iteration ms min "
-             f"{1e3 * its[0]:.2f} median {1e3 * its[len(its) // 2]:.2f} max {1e3 * its[-1]:.2f}"]
+             f"{1e3 * its[0]:.2f} median {1e3 * its[len(its) // 2]:.2f} max {1e3 * its[-1]:.2f}",
+              f"reference s: {judged:.2f}"]
     lines += [f"check {k}: {v} (limit {lim})" for k, (v, lim) in checks.items()]
     if cell.taps.env_first_mismatch:
         lines.insert(0, f"first env mismatch: {cell.taps.env_first_mismatch}")

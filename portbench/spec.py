@@ -3,14 +3,20 @@
 - `BENCHMARK.json` at the root of the checkout: the cells and the metrics;
 - `portbench/workloads/<cell>.json`: a cell's configuration, traffic
   parameters, chips and why;
-- `portbench/configs/<config>.json`: a configuration's preset, overrides,
-  source, assumed sizes, reduced keys, the reference's constants and the
-  limits of the numbers that decide `correct`;
+- `portbench/configs/<config>.json`: a configuration's train-loop family
+  (`family`: `dqn` or `ac`, the module `portbench/families/<family>.py`
+  that builds its train state, taps and judges it, and holds its per-layer
+  arithmetic), preset, overrides, source, assumed sizes, reduced keys, the
+  reference's constants and the limits of the numbers that decide
+  `correct`;
 - `portbench/metrics/<metric>.py`: one metric each, with `NAME`, `UNIT`,
   `LAYER`, `MOVES`, `SOURCE` and `read(ctx)`, which returns the value or
   None when the run holds nothing for it to read.
 
 A new cell, configuration or metric is a new file; nothing here changes.
+A configuration of a family the harness has (a further IA2C, MAA2C, IPPO
+or MAPPO, VDN or QMIX) is a configuration file and a workload file, with
+a reference env under `portbench/reference/` where its env is new.
 """
 
 from __future__ import annotations

@@ -16,7 +16,7 @@ def need_card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cell", ["idqn_rnn_lbf.collect", "idqn_rnn_lbf.replay32"])
+@pytest.mark.parametrize("cell", ["idqn_rnn_lbf.collect", "idqn_rnn_lbf.replay32", "mappo_rnn_lbf.collect"])
 def test_card_run_is_correct(cell):
     need_card()
     result, lines = run.run_cell(cell, 2**33 + 21, 0.5, True, "cuda", workload=tiny_workload(cell))
@@ -32,6 +32,19 @@ def test_card_control_fails():
     config = spec.config(workload["config"])
     cell = run.Cell(workload, config, 2**33 + 22, "cuda")
     cell.free()
-    correct, checks = check.verdict(check.judge(cell.taps, cell.w0, config["reference"], cell.device,
-                                                "control"), config["limits"])
+    correct, checks = check.verdict(cell.judge("control"), config["limits"])
     assert not correct, checks
+
+
+@pytest.mark.cuda
+def test_card_ac_control_and_fault_fail():
+    """The MAPPO cell at a test's size: the reference in TF32, and the
+    reference over half the envs, in the program's place are not correct."""
+    need_card()
+    workload = tiny_workload("mappo_rnn_lbf.collect")
+    config = spec.config(workload["config"])
+    cell = run.Cell(workload, config, 2**33 + 23, "cuda")
+    cell.free()
+    for mode in ("control", "half_batch"):
+        correct, checks = check.verdict(cell.judge(mode), config["limits"])
+        assert not correct, (mode, checks)

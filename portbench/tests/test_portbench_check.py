@@ -106,24 +106,26 @@ def test_reference_in_the_programs_place_fails(mode):
     config = spec.config(workload["config"])
     cell = run.Cell(workload, config, SEED, "cpu")
     cell.free()
-    numbers = check.judge(cell.taps, cell.w0, config["reference"], cell.device, mode)
-    correct, checks = check.verdict(numbers, config["limits"])
+    correct, checks = check.verdict(cell.judge(mode), config["limits"])
     assert not correct, checks
 
 
-def test_reference_env_agrees_with_the_port_on_random_play():
-    """The port's LBF, stepped with random actions, against the rules."""
+def _random_play(K, T, seed, load_share=None):
+    """The port's LBF 8x8-2p-3f stepped with random actions (LOAD with
+    probability `load_share` where given), padded episode-major numpy
+    arrays as the check takes them."""
     from codebase_tpu_torch.envs.factory import make_env
 
-    env = make_env("lbforaging:Foraging-8x8-2p-3f-v3", time_limit=25)
-    gen = torch.Generator().manual_seed(5)
-    K, T = 200, 25
+    env = make_env("lbforaging:Foraging-8x8-2p-3f-v3", time_limit=T)
+    gen = torch.Generator().manual_seed(seed)
     state, ts = env.reset_batch(gen, K)
     obs, acts, rews, dones = [ts.obs], [], [], []
     running = torch.ones(K, dtype=torch.bool)
     filled = []
     for _ in range(T):
         a = torch.randint(0, 6, (K, 2), generator=gen)
+        if load_share is not None:
+            a = torch.where(torch.rand((K, 2), generator=gen) < load_share, ref_lbf.LOAD, a)
         state, ts = env.step_batch(state, a, gen)
         m = running.float()
         obs.append(ts.obs * m[:, None, None])
@@ -132,13 +134,89 @@ def test_reference_env_agrees_with_the_port_on_random_play():
         dones.append(ts.done.float() * m)
         filled.append(m)
         running = running & ~ts.done
-    ref_env = spec.config("idqn_rnn_lbf")["reference"]["env"]
-    bad, faults, first = ref_lbf.check_episodes(
-        ref_env, torch.stack(obs, 1).numpy(), torch.stack(acts, 1).numpy(), torch.stack(rews, 1).numpy(),
-        np.concatenate([np.zeros((K, 1), np.float32), torch.stack(dones, 1).numpy()], 1),
-        torch.stack(filled, 1).numpy())
+    return {"obs": torch.stack(obs, 1).numpy(), "actions": torch.stack(acts, 1).numpy(),
+            "rewards": torch.stack(rews, 1).numpy(),
+            "dones": np.concatenate([np.zeros((K, 1), np.float32), torch.stack(dones, 1).numpy()], 1),
+            "filled": torch.stack(filled, 1).numpy()}
+
+
+LBF_ENV = spec.config("idqn_rnn_lbf")["reference"]["env"]
+
+
+def test_reference_env_agrees_with_the_port_on_random_play():
+    """The port's LBF, stepped with random actions, against the rules."""
+    x = _random_play(200, 25, 5)
+    bad, faults, first = ref_lbf.check_episodes(LBF_ENV, x["obs"], x["actions"], x["rewards"], x["dones"],
+                                                x["filled"])
     assert (bad, faults) == (0, 0), first
-    assert float(torch.stack(rews).sum()) > 0  # some food was collected
+    assert float(x["rewards"].sum()) > 0  # some food was collected
+
+
+def test_bulk_step_check_agrees_with_the_port_on_random_play():
+    """Every transition of a batch of the port's episodes, in bulk, against
+    the rules: episodes that end early (all food collected), rewards shared
+    by loaders, moves that collide."""
+    x = _random_play(400, 25, 6, load_share=0.4)
+    assert ref_lbf.check_steps(LBF_ENV, **x) == (0, None)
+    assert ref_lbf.check_episodes(LBF_ENV, **x)[:2] == (0, 0)
+    assert (x["filled"].sum(1) < 25).sum() >= 3 and float(x["rewards"].sum()) > 0
+
+
+def _first_live(x, *, ended):
+    """An episode that ended before the last step (or ran to it) and one of
+    its live steps."""
+    lengths = x["filled"].sum(1)
+    k = int(np.nonzero((lengths < 25) if ended else (lengths == 25))[0][0])
+    return k, int(lengths[k]) - 1
+
+
+def _fault(x, fault):
+    k, t = _first_live(x, ended=fault in ("done late", "padded action"))
+    if fault == "observation":
+        x["obs"][k, t + 1, 1, -1] += 1.0  # agent 1 sees player 2's level one higher
+    elif fault == "reward":
+        x["rewards"][k, t, 0] += 1e-3
+    elif fault == "done early":
+        x["dones"][k, t] = 1.0
+    elif fault == "done late":
+        x["dones"][k, t + 1] = 0.0
+    elif fault == "filled":
+        x["filled"][k, t] = 0.0
+    elif fault == "padded action":
+        x["actions"][k, t + 1, 0] = 3
+    elif fault == "action out of range":
+        x["actions"][k, 0, 1] = 6
+    elif fault == "first observation":
+        x["obs"][k, 0, 1, 0] += 1.0  # agent 1 sees the first food one row lower
+    elif fault == "state unchanged":
+        x["obs"][k, 1:] = x["obs"][k, :1] * x["filled"][k][:, None, None]
+
+
+@pytest.mark.parametrize("fault", ["observation", "reward", "done early", "done late", "filled", "padded action",
+                                   "action out of range", "first observation", "state unchanged"])
+def test_bulk_step_check_finds_what_the_replay_finds(fault):
+    """One entry of one env made wrong: the bulk check and the replay of
+    the episode both count it."""
+    x = _random_play(400, 25, 6, load_share=0.4)
+    _fault(x, fault)
+    bad, first = ref_lbf.check_steps(LBF_ENV, **x)
+    assert bad > 0 and first
+    assert ref_lbf.check_episodes(LBF_ENV, **x)[0] > 0
+
+
+def test_bulk_reset_faults_count_as_the_episode_does():
+    """Reset faults of first observations, in bulk and one at a time."""
+    rows = [
+        [2, 2, 1, 5, 5, 2, -1, -1, 0, 0, 0, 1, 7, 7, 2],  # sound
+        [2, 2, 1, 5, 5, 2, -1, -1, 0, 3, 3, 1, 3, 3, 2],  # players share a cell
+        [0, 2, 1, 2, 3, 3, 3, 3, 1, 0, 0, 4, 7, 7, 2],  # food on the border, too high, foods touch, level 4
+        [2, 2, 1, 6, 6, 1, -1, -1, 0, 2, 2, 1, 7, 8, 0],  # food on a player, player off the grid at level 0
+    ]
+    obs0 = np.asarray(rows, np.float32)
+    want = [len(ref_lbf.Episode(8, 8, 2, 3, 8, 25, 50, o[None]).reset_faults()) for o in obs0]
+    players, foods, active = ref_lbf._decode(torch.as_tensor(obs0), 3, 2)
+    assert ref_lbf._reset_faults(LBF_ENV, players, foods, active).tolist() == want
+    assert want[0] == 0 and min(want[1:]) > 0
 
 
 def test_smaclite_reference_agrees_with_the_port_on_random_play():

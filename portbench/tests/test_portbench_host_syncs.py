@@ -37,4 +37,9 @@ def test_the_metric_is_declared_for_both_cells():
     metric = spec.metric("host_syncs_per_iter")
     assert (entry["unit"], entry["layer"], entry["moves"], entry["source"]) == (
         metric.UNIT, metric.LAYER, metric.MOVES, metric.SOURCE)
-    assert entry["workloads"] == [w["name"] for w in spec.benchmark()["workloads"]]
+    # the DQN family's cells alone: on the actor-critic path the program
+    # counts the rollout's seed read (`sync/rollout_seed`) but not the
+    # update's read of the longest episode (`t_max.cpu()` in `algos/ac.py`),
+    # so the metric would read 1 there where the host waits twice
+    assert entry["workloads"] == [w["name"] for w in spec.benchmark()["workloads"]
+                                  if spec.config(w["config"])["family"] == "dqn"]

@@ -9,6 +9,7 @@ matches the module."""
 import pytest
 
 from portbench import counts, spec
+from portbench.families import dqn
 from codebase_tpu_torch.utils import profiling
 
 PEAKS = counts.PEAKS[counts.H100_SXM]
@@ -22,6 +23,12 @@ TRACE = {"iters": 3, "by_name": {
     "(anonymous namespace)::gru_fwd_kernel(float const*, float*, int)": (1.0, 800.0),
     "sm80_xmma_gemm_f32f32_f32f32_f32_nn_n_tilesize64x64x8_stage3_warpsize1x2x1": (3.0, 7000.0),
 }}
+
+
+def dqn_ctx(trace, peaks):
+    """A DQN cell's context: the program's `dqn/iterations` counter as it
+    stands."""
+    return {"trace": trace, "peaks": peaks, "iterations": dqn.Train.iterations(0)}
 
 
 @pytest.fixture(autouse=True)
@@ -44,26 +51,25 @@ def test_least_time_over_the_kernels_device_time_by_hand():
     assert ops > 4 * 102_400 * (1660 + 192) / 3.35e12 and byt > 3 * 2 * 2 * 212_992 * 6 * 128 / 495e12
     least_per_iter = (2 * ops + 4 * byt) / 2
     device = (900.0 + 100.0) / 1e6  # the grouped_mm kernels; not grouped_dw, gru or cuBLAS
-    assert metric.read({"trace": TRACE, "peaks": PEAKS}) == pytest.approx(100 * least_per_iter / device, rel=1e-12)
+    assert metric.read(dqn_ctx(TRACE, PEAKS)) == pytest.approx(100 * least_per_iter / device, rel=1e-12)
     assert metric.least_seconds(1, 102_400, 1660, 192, PEAKS) == pytest.approx(ops)
     assert metric.least_seconds(2, 212_992, 6, 128, PEAKS) == pytest.approx(byt)
 
 
 def test_nothing_to_read_is_none(monkeypatch):
     metric = spec.metric("linear_mm_roofline")
-    ctx = {"trace": TRACE, "peaks": PEAKS}
-    assert metric.read(ctx) is None  # no iteration counted
+    assert metric.read(dqn_ctx(TRACE, PEAKS)) is None  # no iteration counted
     profiling.count("dqn/iterations", 1)
     profiling.count(("linear/fwd", "cublas", (2, 212_992, 128, 384)))
     profiling.count(("linear/dw", "kernel", (2, 212_992, 128, 384)))
-    assert metric.read(ctx) is None  # no kernel-routed product (the parent's program counts none)
+    assert metric.read(dqn_ctx(TRACE, PEAKS)) is None  # no kernel-routed product (the parent's program counts none)
     profiling.count(("linear/dx", "kernel", (2, 212_992, 384, 128)))
-    assert metric.read(ctx) > 0
-    assert metric.read({"trace": None, "peaks": PEAKS}) is None  # untraced
-    assert metric.read({"trace": TRACE, "peaks": None}) is None  # a card without peaks
-    assert metric.read({"trace": dict(TRACE, by_name={"gru_fwd_kernel": (1.0, 5.0)}), "peaks": PEAKS}) is None
+    assert metric.read(dqn_ctx(TRACE, PEAKS)) > 0
+    assert metric.read(dqn_ctx(None, PEAKS)) is None  # untraced
+    assert metric.read(dqn_ctx(TRACE, None)) is None  # a card without peaks
+    assert metric.read(dqn_ctx(dict(TRACE, by_name={"gru_fwd_kernel": (1.0, 5.0)}), PEAKS)) is None
     monkeypatch.delattr(profiling, "counters")  # a program without the registry
-    assert metric.read(ctx) is None
+    assert metric.read(dqn_ctx(TRACE, PEAKS)) is None
 
 
 def test_the_metric_is_declared_as_the_module_says():

@@ -41,6 +41,5 @@ def test_qmix_card_control_fails():
     config = spec.config(workload["config"])
     cell = run.Cell(workload, config, 2**33 + 32, "cuda")
     cell.free()
-    correct, checks = check.verdict(check.judge(cell.taps, cell.w0, config["reference"], cell.device,
-                                                "control"), config["limits"])
+    correct, checks = check.verdict(cell.judge("control"), config["limits"])
     assert not correct, checks

@@ -7,7 +7,7 @@ import shutil
 
 import pytest
 
-from portbench import run, spec
+from portbench import families, run, spec
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -46,11 +46,11 @@ def test_every_cell_loads(cell):
     w = spec.workload(cell)
     entry = next(x for x in BENCH["workloads"] if x["name"] == cell)
     assert w["config"] == entry["config"] and w["chips"] == entry["chips"] and w["why"] == entry["why"]
-    assert {"parallel_envs", "batch_size", "updates_per_collect", "buffer_size"} <= set(w["traffic"])
     c = spec.config(w["config"])
+    family = families.load(c["family"])
+    assert set(family.TRAFFIC) <= set(w["traffic"])
     assert c["reduced"] == next(x for x in BENCH["configs"] if x["name"] == w["config"])["reduced"]
-    assert set(c["limits"]) == {"env_mismatch", "reset_faults", "q_gap", "loss_gap", "grad_gap", "change_gap",
-                                "target_moved", "target_schedule", "target_copy_gap"}
+    assert set(c["limits"]) == set(family.LIMITS)
 
 
 @pytest.mark.parametrize("config", sorted(p.stem for p in (spec.ROOT / "configs").glob("*.json")))
@@ -59,19 +59,34 @@ def test_config_states_the_composed_preset(config):
     configuration file are what the port's config composes."""
     from codebase_tpu_torch.config import load_config
 
-    from portbench.tests.tiny import TINY
+    from portbench.tests.tiny import tiny_traffic
 
     c = spec.config(config)
-    cfg = load_config(run.compose({"traffic": TINY}, c, 0, "cpu"))
+    cfg = load_config(run.compose({"traffic": tiny_traffic(config)}, c, 0, "cpu"))
     a = cfg.algorithm
-    m = c["model"]
-    assert list(a.model.layers) == m["layers"] and bool(a.model.use_rnn) == m["use_rnn"]
-    assert a.model.parameter_sharing == m["parameter_sharing"] and a.double_q == m["double_q"]
-    assert a.optimizer == m["optimizer"] and a.target_update_interval_or_tau == m["target_update_interval_or_tau"]
-    ref = c["reference"]
-    assert (a.lr, a.gamma, a.grad_clip) == (m["lr"], m["gamma"], m["grad_clip"]) == (
-        ref["lr"], ref["gamma"], ref["grad_clip"])
+    m, ref = c["model"], c["reference"]
     assert int(cfg.env.time_limit) == c["time_limit"] and cfg.env.name == c["env"]
+    assert a.optimizer == m["optimizer"] and a.target_update_interval_or_tau == m["target_update_interval_or_tau"]
+    assert (a.lr, a.gamma) == (m["lr"], m["gamma"]) == (ref["lr"], ref["gamma"])
+    if c["family"] == "dqn":
+        assert list(a.model.layers) == m["layers"] and bool(a.model.use_rnn) == m["use_rnn"]
+        assert a.model.parameter_sharing == m["parameter_sharing"] and a.double_q == m["double_q"]
+        assert a.grad_clip == m["grad_clip"] == ref["grad_clip"]
+        return
+    assert c["family"] == "ac"
+    for net in ("actor", "critic"):
+        for key, value in m[net].items():
+            assert a.model[net][key] == value, (net, key)
+    assert a.model.name == m["name"] and (a.model.name == "ppo") == ref["ppo"]
+    assert bool(a.model.critic.centralised) == ref["centralised_critic"]
+    for key in ("grad_clip", "n_steps", "entropy_coef", "value_loss_coef", "use_proper_termination",
+                "standardise_returns", "num_epochs", "ppo_clip"):
+        assert a.get(key) == m[key], key
+    for key in ("n_steps", "entropy_coef", "value_loss_coef", "num_epochs", "ppo_clip"):
+        assert m[key] == ref[key], key
+    # what the reference follows: no clip, no return or reward standardisation
+    assert not a.grad_clip and not a.standardise_returns and not cfg.env.get("standardise_rewards", False)
+    assert not a.model.actor.parameter_sharing and not a.model.critic.parameter_sharing
 
 
 @pytest.mark.parametrize("trace", [0, 1])

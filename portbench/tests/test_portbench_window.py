@@ -8,6 +8,7 @@ import torch
 from torch.autograd import DeviceType
 
 from portbench import run, spec, trace
+from portbench.families import dqn
 
 
 class FakeCell:
@@ -49,7 +50,7 @@ def test_trace_summary():
         _event("k1", 10, 20, cuda), _event("k2", 15, 25, cuda), _event("Memset (Device)", 50, 52, cuda),
         _event("dqn/updates", 60, 100, cuda, True), _event("gru_fwd_kernel<1>", 70, 90, cuda),
     ]
-    s = trace.summarise(events, 2)
+    s = trace.summarise(events, 2, (*dqn.RANGES.values(), "env/step"))
     assert s["kernels_per_iter"] == 1.5 and s["ops_per_iter"] == 2.0
     assert s["busy_us"] == 15 + 2 + 20
     assert s["range_us_per_iter"]["dqn/rollout"] == (10 + 10 + 2) / 2

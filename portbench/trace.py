@@ -1,13 +1,15 @@
 """The device trace of a short traced stretch, read in memory.
 
-`summarise(events, iters)` reduces a `torch.profiler` event list to what the
+`summarise(events, iters, ranges)` reduces a `torch.profiler` event list to what the
 per-layer metrics read: the device operations (kernels, copies, sets) with
-their spans, the device-side spans of the program's named ranges (the
-`record_function` ranges `dqn/rollout`, `dqn/replay_add`, `dqn/updates` and
-`env/step` inside the rollout), the device time inside each range (an
-operation belongs to the range whose device-side span holds its start),
-the busy time (the union of the operations' spans), and the idle gaps
-labelled by what the host was in at the time. No trace file is written.
+their spans, the device-side spans of the program's named ranges that the
+cell's family names (`families/<family>.py` `RANGES`: the DQN family's
+`record_function` ranges `dqn/rollout`, `dqn/replay_add`, `dqn/updates`,
+the actor-critic family's `ac/rollout`, `ac/update`; and `env/step` inside
+the rollout), the device time inside each range (an operation belongs to
+the range whose device-side span holds its start), the busy time (the
+union of the operations' spans), and the idle gaps labelled by what the
+host was in at the time. No trace file is written.
 """
 
 from __future__ import annotations
@@ -16,15 +18,14 @@ import bisect
 
 from torch.autograd import DeviceType
 
-RANGES = ("dqn/rollout", "dqn/replay_add", "dqn/updates", "env/step")
-
-
 def _is_copy(name: str) -> bool:
     return name.startswith(("Memcpy", "Memset"))
 
 
-def summarise(events, iters: int) -> dict:
-    ops, spans, host = [], {r: [] for r in RANGES}, []
+def summarise(events, iters: int, ranges) -> dict:
+    """`ranges`: the names of the program's ranges to read."""
+    ranges = tuple(ranges)
+    ops, spans, host = [], {r: [] for r in ranges}, []
     for e in events:
         start, end = e.time_range.start, e.time_range.end
         if e.device_type == DeviceType.CPU:
@@ -35,7 +36,7 @@ def summarise(events, iters: int) -> dict:
         elif not getattr(e, "is_user_annotation", False):
             ops.append((start, end, e.name))
     ops.sort()
-    range_us = dict.fromkeys(RANGES, 0.0)
+    range_us = dict.fromkeys(ranges, 0.0)
     for name, ss in spans.items():
         ss.sort()
         starts = [s for s, _ in ss]
@@ -68,11 +69,11 @@ def summarise(events, iters: int) -> dict:
         "busy_us": busy_us,
         "range_us_per_iter": {k: v / iters for k, v in range_us.items()},
         "by_name": {k: (c / iters, us / iters) for k, (c, us) in by_name.items()},
-        "idle_gaps": _label_gaps(gaps, host),
+        "idle_gaps": _label_gaps(gaps, host, ranges),
     }
 
 
-def _label_gaps(gaps, host):
+def _label_gaps(gaps, host, ranges):
     """Idle seconds by what the host was in at each gap's midpoint: the
     program's named ranges it was inside and the innermost host operation
     ("python" where none was running), summed by label, largest first."""
@@ -84,9 +85,9 @@ def _label_gaps(gaps, host):
             active.append(host[i])
             i += 1
         active = [h for h in active if h[1] > mid]
-        ranges = [n for _, _, n in active if n in RANGES]
-        inner = [(e - s, n) for s, e, n in active if n not in RANGES]
+        inside = [n for _, _, n in active if n in ranges]
+        inner = [(e - s, n) for s, e, n in active if n not in ranges]
         op = min(inner)[1] if inner else "python"
-        label = ">".join(ranges + [op])
+        label = ">".join(inside + [op])
         totals[label] = totals.get(label, 0.0) + length
     return sorted(((k, v / 1e6) for k, v in totals.items()), key=lambda kv: -kv[1])
